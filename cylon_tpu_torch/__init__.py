@@ -3,15 +3,18 @@
 The port of ``cylon_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA GPU.
 Columns live in device memory as torch tensors; a distributed table keeps
 P row shards, and every collective goes through the context's
-communicator.  The hot-path kernel (the shuffle's partition hash) is a
+communicator.  The hot-path kernel (the hash shuffle's partition id) is a
 CUDA kernel built from ``csrc/`` on first use; every other operator is
 plain torch.  The package imports neither JAX nor ``cylon_tpu``.
 
 Layer map:
 
-    compute.py        local join / hash partition
-    parallel/         DTable, the all_to_all shuffle, dist_join (HASH)
-    ops/              hash (plain + CUDA), compaction, gathers, join kernels
+    compute.py        local join, set ops, sort, hash partition
+    parallel/         DTable, the all_to_all shuffle, dist_join (SORT and
+                      HASH), dist_sort / dist_sort_multi / dist_head,
+                      dist_union / dist_intersect / dist_subtract
+    ops/              hash (plain + CUDA), compaction, gathers, join, sort
+                      and set-op kernels
     context.py        CylonContext: device, world, communicator
 """
 

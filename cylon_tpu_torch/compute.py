@@ -1,15 +1,16 @@
-"""Local (single-device) table operations: join and hash partition.
+"""Local (single-device) table operations: join, set ops, sort and hash
+partition.
 
-Mirror of the join and hash-partition part of ``cylon_tpu/compute.py``
-(reference: cpp/src/cylon/table_api.cpp JoinTables → join/join.cpp,
-HashPartition :461-528).  Data-dependent output sizes are handled by
+Mirror of that part of ``cylon_tpu/compute.py`` (reference:
+cpp/src/cylon/table_api.cpp JoinTables → join/join.cpp, set ops
+:530-902, Sort :404-459, HashPartition :461-528).  Data-dependent output sizes are handled by
 count-then-materialize with size-class capacity bucketing
 (ops/compact.next_bucket).
 """
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -18,9 +19,11 @@ from .dtypes import is_dictionary_encoded
 from .ops import compact as ops_compact
 from .ops import gather as ops_gather
 from .ops import join as ops_join
+from .ops import setops as ops_setops
+from .ops import sort as ops_sort
 from .ops.hash_cuda import partition_ids_fused
 from .status import Code, CylonError, Status
-from .table import Column, Table, unify_tables
+from .table import Column, Table, unify_dictionaries, unify_tables
 
 
 def _gather_columns(tb: Table, indices: torch.Tensor, fill_null: bool,
@@ -38,6 +41,20 @@ def _slice_columns(cols: List[Column], count: int) -> List[Column]:
     return [replace(c, data=c.data[:count],
                     validity=None if c.validity is None else c.validity[:count])
             for c in cols]
+
+
+def _concat_columns(a: Column, b: Column, name: Optional[str] = None) -> Column:
+    ca, cb = unify_dictionaries(a, b)
+    data = torch.cat([ca.data, cb.data])
+    if ca.validity is None and cb.validity is None:
+        validity = None
+    else:
+        ones = lambda c: torch.ones(c.length, dtype=torch.bool,  # noqa: E731
+                                    device=c.data.device)
+        validity = torch.cat([ca.validity if ca.validity is not None else ones(ca),
+                              cb.validity if cb.validity is not None else ones(cb)])
+    return Column(name or ca.name, ca.dtype, data, validity,
+                  dictionary=ca.dictionary, arrow_type=ca.arrow_type)
 
 
 def _join_key_ranks(left: Table, right: Table,
@@ -115,3 +132,75 @@ def hash_partition(t: Table, hash_columns: Sequence[Union[int, str]],
     pid = partition_ids_fused(tuple(c.data for c in kcs),
                               tuple(c.validity for c in kcs), no_of_partitions)
     return _split_by_pids(t, pid, no_of_partitions)
+
+
+# ---------------------------------------------------------------------------
+# set ops (reference: table_api.cpp:530-902)
+# ---------------------------------------------------------------------------
+
+def _set_op(a: Table, b: Table, op: str) -> Table:
+    a.verify_same_schema(b)
+    n_a, n_b = a.num_rows, b.num_rows
+    if n_a + n_b == 0:
+        return a
+    if n_a == 0:
+        if op == ops_setops.UNION:
+            return unique(b).rename(a.column_names)
+        return a  # intersect/subtract of empty A is empty
+    if n_b == 0 and op != ops_setops.UNION:
+        if op == ops_setops.INTERSECT:
+            return Table(a.ctx, _slice_columns(list(a.columns), 0))
+        return unique(a)  # subtract: distinct rows of A
+
+    concat = [_concat_columns(ca, cb)
+              for ca, cb in zip(a.columns, b.columns)]
+    idx, count = ops_setops.set_op_indices(
+        tuple(c.data for c in concat), tuple(c.validity for c in concat),
+        n_a, op)
+    out = _gather_columns(Table(a.ctx, concat), idx, fill_null=False)
+    return Table(a.ctx, _slice_columns(out, int(count)))
+
+
+def union(a: Table, b: Table) -> Table:
+    return _set_op(a, b, ops_setops.UNION)
+
+
+def intersect(a: Table, b: Table) -> Table:
+    return _set_op(a, b, ops_setops.INTERSECT)
+
+
+def subtract(a: Table, b: Table) -> Table:
+    return _set_op(a, b, ops_setops.SUBTRACT)
+
+
+def unique(t: Table) -> Table:
+    """Distinct rows of one table (union with an empty right side)."""
+    if t.num_rows == 0:
+        return t
+    idx, count = ops_setops.set_op_indices(
+        tuple(c.data for c in t.columns), tuple(c.validity for c in t.columns),
+        t.num_rows, ops_setops.UNION)
+    out = _gather_columns(t, idx, fill_null=False)
+    return Table(t.ctx, _slice_columns(out, int(count)))
+
+
+# ---------------------------------------------------------------------------
+# sort (reference: table_api.cpp:404-459)
+# ---------------------------------------------------------------------------
+
+def sort(t: Table, sort_column: Union[int, str], ascending: bool = True) -> Table:
+    """Order by one column, nulls last.  (Applies its indices — the
+    reference's local Sort forgets to, table_api.cpp:446.)"""
+    col = t.column(sort_column)
+    order = ops_sort.sort_indices(col.data, col.validity, ascending)
+    return Table(t.ctx, _gather_columns(t, order, fill_null=False))
+
+
+def sort_multi(t: Table, sort_columns: Sequence[Union[int, str]],
+               ascending=True) -> Table:
+    """Stable multi-key local sort; ``ascending`` is one bool or a
+    per-column sequence (ORDER BY mixed ASC/DESC), nulls last per key."""
+    cols = [t.column(c) for c in sort_columns]
+    order = ops_sort.lexsort_indices([c.data for c in cols],
+                                     [c.validity for c in cols], ascending)
+    return Table(t.ctx, _gather_columns(t, order, fill_null=False))

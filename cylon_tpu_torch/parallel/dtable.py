@@ -155,6 +155,26 @@ class DTable:
         """Gather all shards to one local Table (drops padding)."""
         return self._export([int(c) for c in self.counts_host()])
 
+    def head(self, n: int) -> Table:
+        """First ``n`` global rows (shard-major order) as a local Table.
+
+        One read of the counts, then a gather of just the rows taken (the
+        JAX package's counts-based export; its fused path for small ``n``
+        saves a TPU round trip and returns the same rows)."""
+        n_eff = min(int(n), self.nparts * self.cap)
+        takes, remaining = [], max(n_eff, 0)
+        for c in self.counts_host():
+            t = min(int(c), remaining)
+            takes.append(t)
+            remaining -= t
+        return self._export(takes)
+
+    def partition(self, i: int) -> Table:
+        """Shard *i*'s rows as a local Table (a rank's-eye view)."""
+        cnts = self.counts_host()
+        return self._export([int(cnts[j]) if j == i else 0
+                             for j in range(self.nparts)])
+
     def rename(self, names: Sequence[str]) -> "DTable":
         out = DTable(self.ctx, [replace(c, name=n)
                                 for c, n in zip(self.columns, names)],

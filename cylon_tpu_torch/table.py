@@ -283,6 +283,26 @@ class Table:
     def to_pandas(self):
         return self.to_arrow().to_pandas()
 
+    # -- schema --------------------------------------------------------------
+
+    def verify_same_schema(self, other: "Table") -> None:
+        """Column-count + per-column logical type equality.
+
+        reference: table_api.cpp:566 (VerifyTableSchema)
+        """
+        if self.num_columns != other.num_columns:
+            raise CylonError(Status(Code.Invalid,
+                f"column count mismatch {self.num_columns} vs {other.num_columns}"))
+        for a, b in zip(self.columns, other.columns):
+            if a.dtype.type != b.dtype.type:
+                raise CylonError(Status(Code.TypeError,
+                    f"type mismatch {a.name}:{a.dtype.type.name} vs "
+                    f"{b.name}:{b.dtype.type.name}"))
+
+    def rename(self, names: Sequence[str]) -> "Table":
+        return Table(self.ctx, [replace(c, name=n)
+                                for c, n in zip(self.columns, names)])
+
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.dtype.type.name}" for c in self.columns)
         return f"Table[{self.num_rows} x {self.num_columns}]({cols})"

@@ -1,6 +1,6 @@
 """The PyTorch port on the card: the CUDA partition-hash kernel against its
-plain version, and the distributed join on CUDA tensors against the same
-join on the CPU.  Every test here needs a CUDA device (``gpu`` marker) and
+plain version, and the distributed join (HASH and SORT), sort and set ops
+on CUDA tensors against the same calls on the CPU.  Every test here needs a CUDA device (``gpu`` marker) and
 skips itself without one.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
@@ -13,7 +13,8 @@ import torch
 import cylon_tpu_torch as pt
 from cylon_tpu_torch.ops import hash as plain_hash
 from cylon_tpu_torch.ops import hash_cuda
-from cylon_tpu_torch.parallel import DTable, dist_join
+from cylon_tpu_torch.parallel import (DTable, dist_intersect, dist_join,
+                                      dist_sort, dist_subtract, dist_union)
 
 from test_torch_common import port_rows
 
@@ -85,6 +86,75 @@ def test_dist_join_on_card_matches_cpu(card, how):
         rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_r))
         before = hash_cuda.launches
         outs.append(dist_join(lt, rt, cfg))
+        assert hash_cuda.launches - before == (2 if device == "cuda" else 0)
+    cpu, gpu = outs
+    assert gpu.cap == cpu.cap
+    assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)
+
+
+def _sides(rng):
+    data_l = {"k": rng.integers(0, 500, 3000).astype(np.int64),
+              "v": rng.random(3000).astype(np.float32)}
+    data_r = {"k": rng.integers(0, 500, 2000).astype(np.int64),
+              "w": rng.integers(-9, 9, 2000).astype(np.int32)}
+    return data_l, data_r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full_outer"])
+def test_dist_join_sort_on_card_matches_cpu(card, how):
+    """SORT (range partitioning, no kernel launch) at world 4: the same
+    rows on the same shards, in order, on the card as on the CPU."""
+    data_l, data_r = _sides(np.random.default_rng(42))
+    cfg = pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm.SORT, 0, 0)
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        lt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_l))
+        rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_r))
+        before = hash_cuda.launches
+        outs.append(dist_join(lt, rt, cfg))
+        assert hash_cuda.launches == before
+    cpu, gpu = outs
+    assert gpu.cap == cpu.cap
+    assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ascending", [True, False])
+def test_dist_sort_on_card_matches_cpu(card, ascending):
+    rng = np.random.default_rng(43)
+    k = rng.standard_normal(5000)
+    k[rng.random(5000) < 0.3] = np.nan
+    data = {"k": k, "v": np.arange(5000, dtype=np.int32)}
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        t = DTable.from_table(ctx, pt.Table.from_columns(ctx, data))
+        outs.append(dist_sort(t, "k", ascending))
+    cpu, gpu = outs
+    assert gpu.cap == cpu.cap
+    assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", [dist_union, dist_intersect, dist_subtract])
+def test_dist_set_op_on_card_matches_cpu(card, op):
+    """World 4: the kernel partitions every column of both tables (two
+    launches), and the result equals the CPU's shard for shard."""
+    rng = np.random.default_rng(44)
+    a = {"k": rng.integers(0, 50, 3000).astype(np.int64),
+         "f": rng.integers(0, 4, 3000).astype(np.float32)}
+    b = {"k": np.concatenate([a["k"][:1000], rng.integers(0, 80, 1500)]),
+         "f": np.concatenate([a["f"][:1000],
+                              rng.integers(0, 4, 1500).astype(np.float32)])}
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        ta = DTable.from_table(ctx, pt.Table.from_columns(ctx, a))
+        tb = DTable.from_table(ctx, pt.Table.from_columns(ctx, b))
+        before = hash_cuda.launches
+        outs.append(op(ta, tb))
         assert hash_cuda.launches - before == (2 if device == "cuda" else 0)
     cpu, gpu = outs
     assert gpu.cap == cpu.cap

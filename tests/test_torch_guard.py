@@ -29,7 +29,8 @@ def test_import_loads_no_jax_or_reference_package():
         "import json, sys\n"
         "before = set(sys.modules)\n"
         "import cylon_tpu_torch, cylon_tpu_torch.compute, "
-        "cylon_tpu_torch.parallel, cylon_tpu_torch.ops.hash_cuda\n"
+        "cylon_tpu_torch.parallel, cylon_tpu_torch.ops.hash_cuda, "
+        "cylon_tpu_torch.ops.sort, cylon_tpu_torch.ops.setops\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
