@@ -11,13 +11,21 @@ DTable → dist_join → to_table) at world 1 and world 4 on the card, with
 it then runs the SORT join (the default ``JoinConfig``) at world 4,
 ``dist_sort`` / ``dist_sort_multi`` / ``dist_head``, and the distributed
 union / intersect / subtract, each against an oracle that does not use
-the engine.  Every check that fails raises, so the script exits non-zero;
-without a CUDA device it exits non-zero before doing anything.  The last
-line is ``{"ok": true, "device": {...}}``; the line before it lists each
-kernel with its launches on the main path, its time, its plain version's
-time and its bound.  ``--profile`` adds torch.profiler tables of device
-time by kernel for the world-4 HASH and SORT joins, one ``dist_sort`` and
-one ``dist_union``.
+the engine.  Then, on a table in the shape of TPC-H ``lineitem`` (as many
+rows, ``orderkey`` uniform in [0, n/4), 10% null prices), it runs
+``dist_groupby`` by ``orderkey`` three ways (pre-aggregated with the
+shuffle combine, the raw-row shuffle, the dense-key path), the Q1 shape
+(``dist_with_column`` + a six-group ``dist_groupby`` with ``where``, the
+broadcast combine) and the Q6 shape (``dist_aggregate`` with ``where``,
+``dist_select`` compacting and deferred, then ``dist_groupby``), each
+against a numpy oracle on the host.  Every check that fails raises, so
+the script exits non-zero; without a CUDA device it exits non-zero before
+doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
+line before it lists each kernel with its launches on the main path (and
+on the groupby paths), its time, its plain version's time and its bound.
+``--profile`` adds torch.profiler tables of device time by kernel for the
+world-4 HASH and SORT joins, one ``dist_sort``, one ``dist_union``, the
+default ``orderkey`` groupby and the Q1 shape.
 """
 from __future__ import annotations
 
@@ -611,6 +619,309 @@ def phase_set_ops(ldata, seed: int, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# phases: groupby / select / aggregate on a TPC-H lineitem-shaped table
+# ---------------------------------------------------------------------------
+
+SHIP_DAYS = 2526          # l_shipdate spans 1992-01-02 .. 1998-12-01
+Q1_CUTOFF = SHIP_DAYS - 90  # Q1: shipdate <= 1998-12-01 - 90 days
+Q6_FROM, Q6_TO = 731, 1096  # Q6: shipdate in [1994-01-01, 1995-01-01)
+HC_AGGS = [("quantity", "sum"), ("price", "sum"), ("price", "mean"),
+           ("price", "count"), ("discount", "min"), ("shipdate", "max")]
+Q1_AGGS = [("quantity", "sum"), ("price", "sum"), ("disc_price", "sum"),
+           ("quantity", "mean"), ("discount", "mean"), ("quantity", "count")]
+
+
+def make_lineitem(rng, n: int):
+    """``lineitem``'s shape (TPC-H §1.4, §4.2.3): about 4 lines per
+    order, int32 flag/status codes, quantity in [1, 50], discount in
+    {0.00, …, 0.10}, a day-number ship date; 10% of prices null (0 under
+    the null, as ingest stores it).  Returns (numpy columns, price null
+    mask)."""
+    data = {
+        "orderkey": rng.integers(0, n // 4, n, dtype=np.int64),
+        "returnflag": rng.integers(0, 3, n, dtype=np.int32),
+        "linestatus": rng.integers(0, 2, n, dtype=np.int32),
+        "quantity": rng.integers(1, 51, n, dtype=np.int32),
+        "price": rng.uniform(900.0, 105000.0, n),
+        "discount": rng.integers(0, 11, n) / 100.0,
+        "shipdate": rng.integers(0, SHIP_DAYS, n, dtype=np.int32),
+    }
+    null = rng.random(n) < 0.1
+    data["price"][null] = 0.0
+    return data, null
+
+
+def lineitem_dtable(data, null):
+    from cylon_tpu_torch import CylonContext, Table
+    from cylon_tpu_torch.parallel import DTable
+
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    t = Table.from_columns(ctx, data)
+    t.column("price").validity = torch.from_numpy(~null).to(ctx.device)
+    return DTable.from_table(ctx, t)
+
+
+def rel_close(a: np.ndarray, b: np.ndarray) -> bool:
+    return bool(np.all(np.abs(a - b) <= REL_TOL * np.maximum(
+        np.maximum(np.abs(a), np.abs(b)), 1.0)))
+
+
+def engine_result(out, keys):
+    """A groupby's result on the host, its rows sorted by the keys:
+    {column: numpy data}, plus {column: numpy validity} of nullable ones."""
+    local = out.to_table()
+    order = torch.arange(local.num_rows, device=DEVICE)
+    for k in reversed(keys):
+        col = local.column(k).data[order]
+        order = order[torch.sort(col, stable=True).indices]
+    data = {c.name: c.data[order].cpu().numpy() for c in local.columns}
+    valid = {c.name: c.validity[order].cpu().numpy() for c in local.columns
+             if c.validity is not None}
+    return data, valid
+
+
+def host_orderkey_groups(d, null):
+    """The orderkey groupby in numpy: one argsort of (orderkey, input
+    shard), then reduceat.  Also the partial groups each world-4 input
+    shard holds (the distinct keys of its contiguous block), which decide
+    the combine."""
+    n = len(d["orderkey"])
+    base, rem = divmod(n, WORLD)
+    offs = np.cumsum([0] + [base + (1 if i < rem else 0) for i in range(WORLD)])
+    shard = np.repeat(np.arange(WORLD), np.diff(offs))
+    order = np.argsort(d["orderkey"] * WORLD + shard)
+    ks = d["orderkey"][order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    sh = shard[order]
+    new_pair = np.r_[True, (ks[1:] != ks[:-1]) | (sh[1:] != sh[:-1])]
+    partial = np.bincount(sh[new_pair], minlength=WORLD)
+    valid = ~null[order]
+    cnt = np.add.reduceat(valid.astype(np.int64), starts)
+    sp = np.add.reduceat(np.where(valid, d["price"][order], 0.0), starts)
+    return {"orderkey": ks[starts],
+            "sum_quantity": np.add.reduceat(
+                d["quantity"][order].astype(np.int64), starts),
+            "sum_price": sp, "count_price": cnt,
+            "mean_price": sp / np.maximum(cnt, 1), "mean_valid": cnt > 0,
+            "min_discount": np.minimum.reduceat(d["discount"][order], starts),
+            "max_shipdate": np.maximum.reduceat(d["shipdate"][order], starts),
+            "partial_groups": partial}
+
+
+def check_orderkey_groups(label: str, got, valid, want) -> None:
+    check(len(got["orderkey"]) == len(want["orderkey"]),
+          f"{label}: {len(got['orderkey'])} groups == oracle's "
+          f"{len(want['orderkey'])}")
+    for c in ("orderkey", "sum_quantity", "count_price", "min_discount",
+              "max_shipdate"):
+        check(np.array_equal(got[c], want[c]), f"{label}: {c} exact")
+    check(rel_close(got["sum_price"], want["sum_price"]),
+          f"{label}: sum_price within {REL_TOL} relative")
+    check(np.array_equal(valid["mean_price"], want["mean_valid"]),
+          f"{label}: mean_price nulls")
+    m = want["mean_valid"]
+    check(rel_close(got["mean_price"][m], want["mean_price"][m]),
+          f"{label}: mean_price within {REL_TOL} relative")
+
+
+def check_group_placement(label: str, out, rule: str) -> None:
+    """Every group sits on the shard its key routes to: the plain hash
+    partition id after a hash shuffle (``rule="hash"``), ``key mod P`` on
+    the dense path (``"mod"``), shard 0 after the broadcast combine."""
+    from cylon_tpu_torch.ops import hash as plain_hash
+
+    counts = out.counts_host()
+    keys = out.column("orderkey").data.view(WORLD, out.cap)
+    for s in range(WORLD):
+        k = keys[s, :int(counts[s])]
+        if rule == "mod":
+            pid = k % WORLD
+        elif rule == "hash":
+            pid = plain_hash.partition_ids(plain_hash.row_hash((k,), (None,)),
+                                           WORLD)
+        else:
+            pid = torch.zeros_like(k)
+        check(bool((pid == s).all()), f"{label}: shard {s} holds only its keys")
+
+
+def phase_groupby_orderkey(dt, data, null, profile: bool):
+    """GROUP BY orderkey (about 4.2M groups) three ways: pre-aggregate +
+    shuffle combine (the default), the raw-row shuffle, the dense path."""
+    from cylon_tpu_torch.config import broadcast_join_threshold
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.ops.compact import next_bucket
+    from cylon_tpu_torch.parallel import dist_groupby
+
+    n = len(data["orderkey"])
+    t0 = time.perf_counter()
+    want = host_orderkey_groups(data, null)
+    partial = want.pop("partial_groups")
+    # the combine's rule: an all_gather when the partial table's capacity
+    # bound (P × the bucketed largest shard) is within the threshold
+    bound = WORLD * next_bucket(int(partial.max()), minimum=8)
+    combine = "broadcast" if bound <= broadcast_join_threshold() else "shuffle"
+    say("groupby orderkey oracle", groups=len(want["orderkey"]),
+        partial_groups=list(map(int, partial)), combine=combine,
+        host_seconds=f"{time.perf_counter() - t0:.3f}")
+    variants = (("default", {}, "hash" if combine == "shuffle" else "shard0"),
+                ("pre_aggregate=False", {"pre_aggregate": False}, "hash"),
+                ("dense_key_range", {"dense_key_range": (0, n // 4 - 1)},
+                 "mod" if combine == "shuffle" else "shard0"))
+    launches, times, results = {}, {}, []
+    for label, kw, rule in variants:
+        torch.cuda.reset_peak_memory_stats()
+        hash_cuda.launches = 0
+        out, secs = wall(lambda: dist_groupby(dt, ["orderkey"], HC_AGGS, **kw))
+        launches[label] = hash_cuda.launches
+        times[label] = secs
+        got, valid = engine_result(out, ["orderkey"])
+        name = f"dist_groupby orderkey {label} world={WORLD}"
+        say(name, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
+            groups=len(got["orderkey"]), kernel_launches=launches[label],
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            shard_groups=list(map(int, out.counts_host())), cap=out.cap)
+        check_orderkey_groups(name, got, valid, want)
+        check_group_placement(name, out, rule)
+        results.append(got)
+    check(launches["default"] == (1 if combine == "shuffle" else 0),
+          f"default ({combine} combine): {launches['default']} launches")
+    check(launches["pre_aggregate=False"] == 1, "raw shuffle: 1 launch")
+    check(launches["dense_key_range"] == 0, "dense path: no launch")
+    for got in results[1:]:
+        for c in results[0]:
+            same = (rel_close(got[c], results[0][c])
+                    if got[c].dtype.kind == "f" else
+                    np.array_equal(got[c], results[0][c]))
+            check(same, f"the three orderkey variants agree on {c}")
+    if profile:
+        profile_call(f"dist_groupby orderkey default world={WORLD}",
+                     lambda: dist_groupby(dt, ["orderkey"], HC_AGGS))
+    return launches, times
+
+
+def phase_q1(dt, data, null, profile: bool):
+    """The TPC-H Q1 shape: a derived column, then six groups under a
+    ``where`` — the broadcast combine, no kernel launch."""
+    from cylon_tpu_torch import Type
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import dist_groupby, dist_with_column
+
+    n = len(data["orderkey"])
+    where = lambda env: env["shipdate"] <= Q1_CUTOFF  # noqa: E731
+
+    def q1():
+        d = dist_with_column(dt, "disc_price",
+                             lambda env: env["price"] * (1 - env["discount"]),
+                             Type.DOUBLE, validity_from=["price"])
+        return dist_groupby(d, ["returnflag", "linestatus"], Q1_AGGS,
+                            where=where)
+
+    torch.cuda.reset_peak_memory_stats()
+    hash_cuda.launches = 0
+    out, secs = wall(q1)
+    launches = hash_cuda.launches
+    got, valid = engine_result(out, ["returnflag", "linestatus"])
+    label = f"dist_groupby Q1 shape world={WORLD}"
+    say(label, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
+        groups=len(got["returnflag"]), kernel_launches=launches,
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        shard_groups=list(map(int, out.counts_host())))
+    check(launches == 0, f"{label}: broadcast combine, no launch")
+    check(list(out.counts_host()) == [6] + [0] * (WORLD - 1),
+          f"{label}: the 6 groups on shard 0")
+    on0 = out.partition(0)
+    keys = list(zip(on0.column("returnflag").data.tolist(),
+                    on0.column("linestatus").data.tolist()))
+    check(keys == [(f, s) for f in range(3) for s in range(2)],
+          f"{label}: shard 0 in key order")
+    m = data["shipdate"] <= Q1_CUTOFF
+    mv = m & ~null
+    gid = data["returnflag"] * 2 + data["linestatus"]
+    bc = lambda mask, w=None: np.bincount(gid[mask], minlength=6,  # noqa: E731
+                                          weights=None if w is None else w[mask])
+    disc_price = data["price"] * (1 - data["discount"])
+    cnt = bc(m)
+    want = {"sum_quantity": bc(m, data["quantity"]).astype(np.int64),
+            "count_quantity": cnt,
+            "sum_price": bc(mv, data["price"]),
+            "sum_disc_price": bc(mv, disc_price),
+            "mean_quantity": bc(m, data["quantity"]) / cnt,
+            "mean_discount": bc(m, data["discount"]) / cnt}
+    for c in ("sum_quantity", "count_quantity"):
+        check(np.array_equal(got[c], want[c]), f"{label}: {c} exact")
+    for c in ("sum_price", "sum_disc_price", "mean_quantity", "mean_discount"):
+        check(rel_close(got[c], want[c]),
+              f"{label}: {c} within {REL_TOL} relative")
+    if profile:
+        profile_call(f"dist_groupby Q1 shape world={WORLD}", q1)
+    return launches, secs
+
+
+def phase_q6(dt, data, null):
+    """The TPC-H Q6 shape: a scalar ``dist_aggregate`` under a ``where``,
+    then ``dist_select`` compacting and deferred, each into a
+    ``dist_groupby``; survivor counts and revenue against numpy."""
+    from cylon_tpu_torch import Type
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import (dist_aggregate, dist_groupby,
+                                          dist_select, dist_with_column)
+
+    n = len(data["orderkey"])
+
+    def q6(env):
+        return ((env["shipdate"] >= Q6_FROM) & (env["shipdate"] < Q6_TO)
+                & (env["discount"] >= 0.05) & (env["discount"] <= 0.07)
+                & (env["quantity"] < 24))
+
+    m = ((data["shipdate"] >= Q6_FROM) & (data["shipdate"] < Q6_TO)
+         & (data["discount"] >= 0.05) & (data["discount"] <= 0.07)
+         & (data["quantity"] < 24))
+    rev = data["price"] * data["discount"]
+    mv = m & ~null
+    want_rev = float(rev[mv].sum())
+    want_ls = np.bincount(data["linestatus"][mv], weights=rev[mv], minlength=2)
+    want_cnt = np.bincount(data["linestatus"][m], minlength=2)
+    torch.cuda.reset_peak_memory_stats()
+    hash_cuda.launches = 0
+    dtr = dist_with_column(dt, "rev",
+                           lambda env: env["price"] * env["discount"],
+                           Type.DOUBLE, validity_from=["price"])
+    agg, secs = wall(lambda: dist_aggregate(
+        dtr, [("rev", "sum"), ("quantity", "count")], where=q6))
+    got_rev = float(agg.column("sum_rev").data[0])
+    got_cnt = int(agg.column("count_quantity").data[0])
+    label = f"dist_aggregate Q6 shape world={WORLD}"
+    say(label, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
+        survivors=got_cnt, oracle_survivors=int(m.sum()), revenue=got_rev,
+        oracle_revenue=want_rev)
+    check(got_cnt == int(m.sum()), f"{label}: survivors == oracle")
+    check(rel_close(np.array([got_rev]), np.array([want_rev])),
+          f"{label}: revenue within {REL_TOL} relative")
+    times = {"aggregate": secs}
+    for compact in (True, False):
+        def run():
+            sel = dist_select(dtr, q6, compact=compact)
+            return dist_groupby(sel, ["linestatus"], [("rev", "sum"),
+                                                      ("quantity", "count")])
+        out, secs = wall(run)
+        got, _ = engine_result(out, ["linestatus"])
+        name = f"dist_select(compact={compact}) + dist_groupby Q6 world={WORLD}"
+        times[f"select compact={compact}"] = secs
+        say(name, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
+            groups=len(got["linestatus"]),
+            survivors=int(got["count_quantity"].sum()))
+        check(np.array_equal(got["count_quantity"], want_cnt),
+              f"{name}: survivors per linestatus == oracle")
+        check(rel_close(got["sum_rev"], want_ls),
+              f"{name}: revenue per linestatus within {REL_TOL} relative")
+    launches = hash_cuda.launches
+    say(f"Q6 shape world={WORLD}", kernel_launches=launches,
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    check(launches == 0, "Q6 shape: no partition-kernel launch")
+    return launches, times
+
+
+# ---------------------------------------------------------------------------
 # phase 6: compute.hash_partition
 # ---------------------------------------------------------------------------
 
@@ -666,6 +977,23 @@ def main() -> int:
     phase_dist_sort(ldata, args.seed, args.profile)
     launches_setop, _ = phase_set_ops(ldata, args.seed, args.profile)
 
+    li, li_null = make_lineitem(np.random.default_rng(args.seed + 4), args.rows)
+    # one small run of each groupby path first, so the timed runs below do
+    # not pay the first use of each CUDA library kernel
+    wli, wnull = make_lineitem(np.random.default_rng(args.seed + 5), 1 << 16)
+    wdt = lineitem_dtable(wli, wnull)
+    from cylon_tpu_torch.parallel import dist_groupby
+    for kw in ({}, {"pre_aggregate": False},
+               {"dense_key_range": (0, (1 << 14) - 1)}):
+        dist_groupby(wdt, ["orderkey"], HC_AGGS, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    dt, secs = wall(lambda: lineitem_dtable(li, li_null))
+    say(f"lineitem ingest world={WORLD}", rows=args.rows, seconds=f"{secs:.6f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    launches_gb, _ = phase_groupby_orderkey(dt, li, li_null, args.profile)
+    launches_q1, _ = phase_q1(dt, li, li_null, args.profile)
+    launches_q6, _ = phase_q6(dt, li, li_null)
+
     # the kernel at the main path's shape: the world-4 partition of one side
     # ([P*cap] rows of one int32 key, no validity, 4 parts)
     cap = next_bucket(-(-args.rows // WORLD), minimum=8)
@@ -673,11 +1001,32 @@ def main() -> int:
     k_ms = cuda_ms(lambda: hash_cuda.partition_ids_fused((k,), (None,), 4), 20)
     p_ms = cuda_ms(lambda: plain_hash.partition_ids(
         plain_hash.row_hash((k,), (None,)), 4), 3, warmup=1)
+    # and at the raw-shuffle groupby's shape: the int64 orderkey over
+    # [P*cap] rows (the shuffle combine hashes the same column of the
+    # smaller partial table)
+    ok = dt.column("orderkey").data
+    gb_ms = cuda_ms(lambda: hash_cuda.partition_ids_fused((ok,), (None,), 4), 20)
+    gb_plain = plain_hash.partition_ids(plain_hash.row_hash((ok,), (None,)), 4)
+    check(torch.equal(hash_cuda.partition_ids_fused((ok,), (None,), 4), gb_plain),
+          "kernel == plain at the groupby shape")
+    gb_plain_ms = cuda_ms(lambda: plain_hash.partition_ids(
+        plain_hash.row_hash((ok,), (None,)), 4), 3, warmup=1)
+    gb_bound = hash_bound_ms((ok,), (None,), ok.shape[0])
+    say("kernel at the groupby shape", rows=ok.shape[0], key="int64",
+        ms=f"{gb_ms:.4f}", plain_ms=f"{gb_plain_ms:.3f}",
+        bound_ms=f"{gb_bound:.4f}", share_of_bound=f"{gb_bound / gb_ms:.3f}")
     kernels = [{
         "name": "partition_hash", "route": "cuda",
         "source": "cylon_tpu_torch/csrc/partition_hash.cu",
         "replaces": "cylon_tpu/ops/hash_pallas.py:64",
         "launches": launches, "launches_setop": launches_setop["union"],
+        "launches_groupby": {
+            "orderkey_default": launches_gb["default"],
+            "orderkey_raw_shuffle": launches_gb["pre_aggregate=False"],
+            "orderkey_dense": launches_gb["dense_key_range"],
+            "q1": launches_q1, "q6": launches_q6},
+        "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
+                          "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": hash_bound_ms((k,), (None,), k.shape[0]),

@@ -9,12 +9,19 @@ plain torch.  The package imports neither JAX nor ``cylon_tpu``.
 
 Layer map:
 
-    compute.py        local join, set ops, sort, hash partition
-    parallel/         DTable, the all_to_all shuffle, dist_join (SORT and
-                      HASH), dist_sort / dist_sort_multi / dist_head,
-                      dist_union / dist_intersect / dist_subtract
-    ops/              hash (plain + CUDA), compaction, gathers, join, sort
-                      and set-op kernels
+    compute.py        local join, set ops, sort, select, hash and
+                      round-robin partition, merge, groupby
+    parallel/         DTable (with the deferred-select mask), the
+                      all_to_all shuffle, dist_join (SORT and HASH),
+                      dist_sort / dist_sort_multi / dist_head,
+                      dist_union / dist_intersect / dist_subtract,
+                      dist_select / dist_project / dist_with_column,
+                      dist_groupby (pre-aggregation, broadcast and shuffle
+                      combine, dense keys) / dist_aggregate;
+                      broadcast.py: replicate_table
+    ops/              hash (plain + CUDA), compaction, gathers, join, sort,
+                      set-op and groupby kernels
+    config.py         JoinConfig, the broadcast threshold, memory budget
     context.py        CylonContext: device, world, communicator
 """
 

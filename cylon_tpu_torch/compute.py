@@ -1,23 +1,25 @@
-"""Local (single-device) table operations: join, set ops, sort and hash
-partition.
+"""Local (single-device) table operations: join, set ops, sort, select,
+partitioning, merge and groupby-aggregate.
 
-Mirror of that part of ``cylon_tpu/compute.py`` (reference:
-cpp/src/cylon/table_api.cpp JoinTables → join/join.cpp, set ops
-:530-902, Sort :404-459, HashPartition :461-528).  Data-dependent output sizes are handled by
+Mirror of ``cylon_tpu/compute.py`` (reference: cpp/src/cylon/table_api.cpp
+JoinTables → join/join.cpp, set ops :530-902, Sort :404-459,
+HashPartition :461-528, Merge :404-423, Select :977-1005; the groupby is
+new in the JAX package).  Data-dependent output sizes are handled by
 count-then-materialize with size-class capacity bucketing
 (ops/compact.next_bucket).
 """
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .config import JoinAlgorithm, JoinConfig
-from .dtypes import is_dictionary_encoded
+from .dtypes import DataType, Type, is_dictionary_encoded
 from .ops import compact as ops_compact
 from .ops import gather as ops_gather
+from .ops import groupby as ops_groupby
 from .ops import join as ops_join
 from .ops import setops as ops_setops
 from .ops import sort as ops_sort
@@ -122,6 +124,22 @@ def _split_by_pids(t: Table, pid: torch.Tensor, n: int) -> List[Table]:
     return outs
 
 
+def select(t: Table,
+           predicate: Callable[[Dict[str, torch.Tensor]], torch.Tensor]
+           ) -> Table:
+    """Row filter: ``predicate`` maps {name: data tensor} → bool mask.
+    The local select reads raw data (no null veto; the distributed
+    ``dist_select`` applies SQL null semantics), as in the JAX package."""
+    env = {c.name: c.data for c in t.columns}
+    mask = predicate(env)
+    if tuple(mask.shape) != (t.num_rows,):
+        raise CylonError(Status(Code.Invalid,
+            f"predicate mask shape {tuple(mask.shape)} != ({t.num_rows},)"))
+    idx, count = ops_compact.mask_to_indices(mask, t.num_rows)
+    out = _gather_columns(t, idx, fill_null=False)
+    return Table(t.ctx, _slice_columns(out, int(count)))
+
+
 def hash_partition(t: Table, hash_columns: Sequence[Union[int, str]],
                    no_of_partitions: int) -> List[Table]:
     """Split a local table into ``n`` tables by murmur3 row hash of
@@ -132,6 +150,28 @@ def hash_partition(t: Table, hash_columns: Sequence[Union[int, str]],
     pid = partition_ids_fused(tuple(c.data for c in kcs),
                               tuple(c.validity for c in kcs), no_of_partitions)
     return _split_by_pids(t, pid, no_of_partitions)
+
+
+def round_robin_partition(t: Table, no_of_partitions: int) -> List[Table]:
+    """Split a local table into ``n`` similar-sized tables, row i →
+    partition i mod n (reference Java surface: Table.java:166)."""
+    pid = torch.arange(t.num_rows, dtype=torch.int32,
+                       device=t.ctx.device) % no_of_partitions
+    return _split_by_pids(t, pid, no_of_partitions)
+
+
+def merge(tables: Sequence[Table]) -> Table:
+    """Concatenate tables with identical schemas (reference Merge,
+    table_api.cpp:404-423)."""
+    if not tables:
+        raise CylonError(Status(Code.Invalid, "merge of zero tables"))
+    head = tables[0]
+    for other in tables[1:]:
+        head.verify_same_schema(other)
+    cols = list(head.columns)
+    for other in tables[1:]:
+        cols = [_concat_columns(ca, cb) for ca, cb in zip(cols, other.columns)]
+    return Table(head.ctx, cols)
 
 
 # ---------------------------------------------------------------------------
@@ -204,3 +244,57 @@ def sort_multi(t: Table, sort_columns: Sequence[Union[int, str]],
     order = ops_sort.lexsort_indices([c.data for c in cols],
                                      [c.validity for c in cols], ascending)
     return Table(t.ctx, _gather_columns(t, order, fill_null=False))
+
+
+# ---------------------------------------------------------------------------
+# groupby-aggregate (BASELINE.json config 3; absent in reference v0)
+# ---------------------------------------------------------------------------
+
+def groupby(t: Table, key_columns: Sequence[Union[int, str]],
+            aggregations: Sequence[Tuple[Union[int, str], str]]) -> Table:
+    """Group by key columns and aggregate: ``aggregations = [(col, op),
+    ...]`` with op ∈ {sum, count, mean, min, max}.  Output columns: the key
+    columns, then ``{op}_{col}`` per aggregation (pandas naming).  Groups
+    come out in key order, the null-key group last."""
+    if t.num_rows == 0:
+        # the JAX package's empty branch: aggregation columns keep the
+        # INPUT column's type here (not ``_agg_output_type``)
+        kcols = [t.column(c) for c in key_columns]
+        acols = []
+        for c, op in aggregations:
+            base = t.column(c)
+            acols.append(Column(f"{op}_{base.name}", base.dtype,
+                                base.data[:0]))
+        return Table(t.ctx, [replace(k, data=k.data[:0], validity=None)
+                             for k in kcols] + acols)
+    kcols = [t.column(c) for c in key_columns]
+    vcols = [t.column(c) for c, _ in aggregations]
+    aggs = tuple(op for _, op in aggregations)
+    for op in aggs:
+        if op not in ops_groupby.AGG_OPS:
+            raise CylonError(Status(Code.Invalid,
+                                    f"unknown aggregation {op!r}"))
+    key_idx, outs, out_valids, count = ops_groupby.groupby_aggregate(
+        tuple(c.data for c in kcols), tuple(c.validity for c in kcols),
+        tuple(c.data for c in vcols), tuple(c.validity for c in vcols), aggs)
+    total = int(count)
+    out_cols = _slice_columns(
+        _gather_columns(Table(t.ctx, kcols), key_idx, fill_null=False), total)
+    for (cref, op), arr, validity in zip(aggregations, outs, out_valids):
+        base = t.column(cref)
+        out_cols.append(Column(
+            f"{op}_{base.name}", DataType(_agg_output_type(base.dtype.type, op)),
+            arr[:total], None if validity is None else validity[:total]))
+    return Table(t.ctx, out_cols)
+
+
+def _agg_output_type(in_type: Type, op: str) -> Type:
+    """Logical type of an aggregation's output column."""
+    if op == "count":
+        return Type.INT64
+    if op == "mean":
+        return Type.DOUBLE
+    if op == "sum" and in_type not in (Type.FLOAT, Type.DOUBLE,
+                                       Type.HALF_FLOAT):
+        return Type.INT64
+    return in_type

@@ -36,6 +36,7 @@ import torch
 
 from ..dtypes import extreme_value
 from .compact import compact_indices, scatter_drop
+from .gather import signed_view
 
 INNER, LEFT, RIGHT, FULL_OUTER = "inner", "left", "right", "full_outer"
 
@@ -117,13 +118,16 @@ def _concat_key_parts(l_cols, l_valids, r_cols, r_valids, l_count, r_count):
     return pad_l, pad_r, key_ops
 
 
-def sorted_key_structure(key_operands, n: int):
+def sorted_key_structure(key_operands, n: int, carry=()):
     """ONE lexicographic sort of ``key_operands`` (most significant first)
     with the row index as the final key.
 
-    Returns ``(sorted_key_operands, idxS, is_first)``: the operands in sorted
-    order, the original row per sorted position (int32), and the first
-    position of each run of equal keys (adjacent compare).
+    Returns ``(sorted_key_operands, idxS, is_first, carried)``: the
+    operands in sorted order, the original row per sorted position
+    (int32), the first position of each run of equal keys (adjacent
+    compare), and the ``carry`` arrays permuted into sorted order (the
+    JAX package rides them through its ``lax.sort``; here they are
+    gathered by the sort's permutation).
     """
     perm = lexsort(key_operands)
     sorted_ops = [k[perm] for k in key_operands]
@@ -132,7 +136,8 @@ def sorted_key_structure(key_operands, n: int):
                                            device=perm.device)])
     for ks in sorted_ops:
         is_first = is_first | torch.cat([one, ks[1:] != ks[:-1]])
-    return sorted_ops, perm.to(torch.int32), is_first
+    carried = tuple(signed_view(c)[perm].view(c.dtype) for c in carry)
+    return sorted_ops, perm.to(torch.int32), is_first, carried
 
 
 def dense_ranks(l_cols, l_valids, r_cols, r_valids, l_count=None, r_count=None):
@@ -151,7 +156,7 @@ def dense_ranks(l_cols, l_valids, r_cols, r_valids, l_count=None, r_count=None):
     l_count, r_count = _count(l_count, dev), _count(r_count, dev)
     pad_l, pad_r, key_ops = _concat_key_parts(
         l_cols, l_valids, r_cols, r_valids, l_count, r_count)
-    _, idxS, is_first = sorted_key_structure(key_ops, n)
+    _, idxS, is_first, _ = sorted_key_structure(key_ops, n)
     group_id = (torch.cumsum(is_first, 0) - 1).to(torch.int32)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
     rank[idxS.long()] = group_id
@@ -366,7 +371,7 @@ def sort_join_plan(l_cols, l_valids, r_cols, r_valids, how: str = INNER,
     l_count, r_count = _count(l_count, dev), _count(r_count, dev)
     _, _, key_ops = _concat_key_parts(
         l_cols, l_valids, r_cols, r_valids, l_count, r_count)
-    sortedK, idxS, is_first = sorted_key_structure(key_ops, n)
+    sortedK, idxS, is_first, _ = sorted_key_structure(key_ops, n)
     valid = ~sortedK[0]
     left_s = (idxS < n_l) & valid
     right_s = (idxS >= n_l) & valid

@@ -50,15 +50,41 @@ def _blocks(x: torch.Tensor, sizes: np.ndarray, offs: np.ndarray,
 
 
 class DTable:
-    """Partitioned table: padded per-shard blocks + valid counts."""
+    """Partitioned table: padded per-shard blocks + valid counts.
+
+    ``pending_mask`` (set only by ``dist_select(compact=False)``) is a
+    deferred row filter: a [P*cap] bool mask, already AND'ed with the
+    valid-row mask, not yet compacted; ``pending_cnts`` holds its [P]
+    survivor counts.  Consumers that fold a row mask into their own work
+    (groupby / aggregate ``where``, further selects) read it; every other
+    operator first calls ``_collapse_pending()``, which compacts in place,
+    so no result depends on a consumer knowing about the mask."""
 
     def __init__(self, ctx: CylonContext, columns: List[DColumn], cap: int,
-                 counts: torch.Tensor):
+                 counts: torch.Tensor,
+                 pending_mask: Optional[torch.Tensor] = None,
+                 pending_cnts: Optional[torch.Tensor] = None):
         self.ctx = ctx
         self.columns = columns
         self.cap = int(cap)
         self.counts = counts               # [P] int32
+        self.pending_mask = pending_mask   # [P*cap] bool or None
+        self.pending_cnts = pending_cnts   # [P] survivor counts or None
         self._counts_host: Optional[np.ndarray] = None
+
+    def _collapse_pending(self) -> None:
+        """Materialize a deferred select IN PLACE (the handle keeps
+        working for callers that hold it)."""
+        if self.pending_mask is None:
+            return
+        from . import dist_ops  # runtime import: dist_ops imports this module
+        mask, cnts = self.pending_mask, self.pending_cnts
+        self.pending_mask = self.pending_cnts = None
+        out = dist_ops._compact_survivors(self, mask, cnts)
+        self.columns = out.columns
+        self.cap = out.cap
+        self.counts = out.counts
+        self._counts_host = None
 
     # -- shape ---------------------------------------------------------------
 
@@ -76,6 +102,7 @@ class DTable:
 
     def counts_host(self) -> np.ndarray:
         """Per-shard valid row counts on the host (one read, then cached)."""
+        self._collapse_pending()
         if self._counts_host is None:
             self._counts_host = self.counts.cpu().numpy()
         return self._counts_host
@@ -138,6 +165,7 @@ class DTable:
 
     def _export(self, takes: Sequence[int]) -> Table:
         """Gather ``takes[i]`` leading rows of each shard as a local Table."""
+        self._collapse_pending()
         dev = self.ctx.device
         idx = torch.cat([i * self.cap + torch.arange(t, device=dev)
                          for i, t in enumerate(takes)]) if sum(takes) else \
@@ -161,6 +189,7 @@ class DTable:
         One read of the counts, then a gather of just the rows taken (the
         JAX package's counts-based export; its fused path for small ``n``
         saves a TPU round trip and returns the same rows)."""
+        self._collapse_pending()
         n_eff = min(int(n), self.nparts * self.cap)
         takes, remaining = [], max(n_eff, 0)
         for c in self.counts_host():
@@ -178,7 +207,8 @@ class DTable:
     def rename(self, names: Sequence[str]) -> "DTable":
         out = DTable(self.ctx, [replace(c, name=n)
                                 for c, n in zip(self.columns, names)],
-                     self.cap, self.counts)
+                     self.cap, self.counts, self.pending_mask,
+                     self.pending_cnts)
         out._counts_host = self._counts_host  # same rows, same counts
         return out
 

@@ -1,6 +1,7 @@
 """Shared helpers for the PyTorch-port parity tests (a plain module, not a
-conftest): carry a JAX ``Table`` over to the port through numpy, and read
-either package's tables as comparable rows.
+conftest): the ``jax_trace_shim`` fixture, carry a JAX ``Table`` over to
+the port through numpy, and read either package's tables as comparable
+rows.
 
 Rows are tuples of Python values: ``None`` for a null, the decoded string
 for a dictionary column, and ``"NaN"`` for a float NaN (so equal rows
@@ -10,9 +11,38 @@ list per shard.  ``ordered=False`` sorts each list, for multiset compares.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 import cylon_tpu_torch as pt
+
+
+@pytest.fixture
+def jax_trace_shim(monkeypatch):
+    """Lets the JAX package's distributed path run on this JAX version:
+    it reads ``jax.core.trace_state_clean``, which JAX keeps under
+    ``jax._src.core`` only, so the attribute is set for one test and
+    restored after.  Also clears the JAX package's optimistic size hints
+    (shuffle blocks, join, groupby and select capacities), its select
+    kernel cache and its broadcast replica cache, so its capacities come
+    from this call's counts (as the port's always do) rather than from an
+    earlier call of the same shape.  JAX is imported here, not at module
+    level: the card-only tests import this module on a machine without
+    JAX."""
+    import jax
+    from jax._src import core as jcore
+
+    from cylon_tpu.parallel import broadcast, dist_ops, shuffle
+    if not hasattr(jax.core, "trace_state_clean"):
+        monkeypatch.setattr(jax.core, "trace_state_clean",
+                            jcore.trace_state_clean, raising=False)
+    shuffle._block_hints.clear()
+    dist_ops._capacity_hints.clear()
+    dist_ops._group_cap_hints.clear()
+    dist_ops._select_cap_hints.clear()
+    dist_ops._select_cache.clear()
+    broadcast.clear_replica_cache()
+    yield
 
 
 def port_table_from_jax(table, device="cpu"):
@@ -86,3 +116,38 @@ def port_rows(t, ordered: bool = False):
 def schema(t):
     """(name, logical type number) per column, comparable across packages."""
     return [(c.name, int(c.dtype.type)) for c in t.columns]
+
+
+def float_rtols(t, f64: float = 1e-12, f32: float = 1e-6):
+    """Per-column relative tolerance of a table's values: ``f64`` for a
+    float64 column, ``f32`` for a float32 one, exact (0) otherwise."""
+    out = []
+    for c in t.columns:
+        dt = c.data.dtype
+        out.append(f64 if dt in (torch.float64, np.float64) else
+                   f32 if dt in (torch.float32, np.float32) else 0.0)
+    return out
+
+
+def _cell_close(a, b, rtol: float) -> bool:
+    if a == b:
+        return True
+    if rtol and isinstance(a, float) and isinstance(b, float):
+        return abs(a - b) <= rtol * max(abs(a), abs(b))
+    return False
+
+
+def assert_rows_close(got, want, rtols) -> None:
+    """Rows (a list of tuples, or one list per shard) equal in order, each
+    float cell within its column's relative tolerance; keys, counts,
+    integers, nulls and NaN exactly."""
+    if got and isinstance(got[0], list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert_rows_close(g, w, rtols)
+        return
+    assert len(got) == len(want), (len(got), len(want))
+    for i, (rg, rw) in enumerate(zip(got, want)):
+        assert len(rg) == len(rw)
+        for j, (a, b) in enumerate(zip(rg, rw)):
+            assert _cell_close(a, b, rtols[j]), (i, j, rg, rw)

@@ -6,7 +6,8 @@ are equal; under SORT that placement follows from the sampled splitters.
 
 The JAX distributed path reads ``jax.core.trace_state_clean``, which this
 JAX version keeps under ``jax._src.core`` only; the ``jax_trace_shim``
-fixture sets the attribute for one test and restores it after.  Broadcast
+fixture (``test_torch_common.py``) sets the attribute for one test and
+restores it after.  Broadcast
 joins are pinned off on the JAX side (``broadcast_threshold=0``): the port
 always shuffles."""
 import dataclasses
@@ -26,27 +27,10 @@ from cylon_tpu_torch.parallel import DTable as TDTable
 from cylon_tpu_torch.parallel import dist_join as tdist_join
 from cylon_tpu_torch.parallel import shuffle_table as tshuffle_table
 
-from test_torch_common import jax_rows, port_rows, schema
+from test_torch_common import jax_rows, jax_trace_shim, port_rows, schema  # noqa: F401
 
 HOWS = ["inner", "left", "right", "full_outer"]
 ALGS = ["hash", "sort"]
-
-
-@pytest.fixture
-def jax_trace_shim(monkeypatch):
-    """Also clears the JAX package's optimistic size hints, so its
-    capacities come from this call's counts (as the port's always do)
-    rather than from an earlier call of the same shape."""
-    import jax
-    from jax._src import core as jcore
-
-    from cylon_tpu.parallel import dist_ops, shuffle
-    if not hasattr(jax.core, "trace_state_clean"):
-        monkeypatch.setattr(jax.core, "trace_state_clean",
-                            jcore.trace_state_clean, raising=False)
-    shuffle._block_hints.clear()
-    dist_ops._capacity_hints.clear()
-    yield
 
 
 def _jctx(dctx, world):

@@ -20,8 +20,8 @@ from cylon_tpu_torch.parallel import dist_sort as tdist_sort
 from cylon_tpu_torch.parallel import dist_sort_multi as tdist_sort_multi
 from cylon_tpu_torch.parallel.dist_ops import _sample_splitters as t_splitters
 
-from test_torch_common import jax_rows, port_rows, schema
-from test_torch_dist_join import _both_dtables, _same, jax_trace_shim  # noqa: F401
+from test_torch_common import jax_rows, jax_trace_shim, port_rows, schema  # noqa: F401
+from test_torch_dist_join import _both_dtables, _same
 
 
 def _table(rng, n, kind):

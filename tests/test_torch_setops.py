@@ -26,8 +26,8 @@ from cylon_tpu_torch.parallel import dist_intersect as tdist_intersect
 from cylon_tpu_torch.parallel import dist_subtract as tdist_subtract
 from cylon_tpu_torch.parallel import dist_union as tdist_union
 
-from test_torch_common import jax_rows, port_rows, schema
-from test_torch_dist_join import _both_dtables, _same, jax_trace_shim  # noqa: F401
+from test_torch_common import jax_rows, jax_trace_shim, port_rows, schema  # noqa: F401
+from test_torch_dist_join import _both_dtables, _same
 
 OPS = ["union", "intersect", "subtract"]
 
