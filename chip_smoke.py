@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA engine (cylon_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--profile]
+                          [--tpch-sf SF] [--tpch-check-sf SF]
 
 Run from the root of a checkout: it builds the partition-hash CUDA kernel
 from the checkout's sources, holds it against its plain PyTorch version,
@@ -18,14 +19,22 @@ shuffle combine, the raw-row shuffle, the dense-key path), the Q1 shape
 (``dist_with_column`` + a six-group ``dist_groupby`` with ``where``, the
 broadcast combine) and the Q6 shape (``dist_aggregate`` with ``where``,
 ``dist_select`` compacting and deferred, then ``dist_groupby``), each
-against a numpy oracle on the host.  Every check that fails raises, so
-the script exits non-zero; without a CUDA device it exits non-zero before
-doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
+against a numpy oracle on the host.  Last, TPC-H: the eight tables are
+generated on the card at ``--tpch-sf`` (default 10) and world 4 (the
+first and last 65,536 rows of each held against the numpy mirror), all
+22 queries run through ``tpch.QUERIES`` (one line each: seconds, result
+rows, peak memory, partition-kernel launches, join decisions; then the
+geometric mean), Q1, Q3, Q4, Q6, Q14, Q18 and Q22 are recomputed in
+numpy from host copies of the tables, and every query's result at
+``--tpch-check-sf`` (default 1) is the same at world 1 and world 4.
+Every check that fails raises, so the script exits non-zero; without a
+CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
-on the groupby paths), its time, its plain version's time and its bound.
-``--profile`` adds torch.profiler tables of device time by kernel for the
-world-4 HASH and SORT joins, one ``dist_sort``, one ``dist_union``, the
-default ``orderkey`` groupby and the Q1 shape.
+on the groupby and TPC-H paths), its time, its plain version's time and
+its bound.  ``--profile`` adds torch.profiler tables of device time by
+kernel (and by input shape) for the world-4 HASH and SORT joins, one
+``dist_sort``, one ``dist_union``, the default ``orderkey`` groupby, the
+Q1 shape and the two slowest TPC-H queries.
 """
 from __future__ import annotations
 
@@ -358,15 +367,19 @@ def phase_sort_join(ldata, rdata, want, profile: bool):
 
 
 def profile_call(label: str, fn) -> None:
-    """Print a torch.profiler table of ``fn()``'s device time by kernel."""
+    """Print torch.profiler tables of ``fn()``'s device time by kernel,
+    and of the eight costliest operators by input shape."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     say(f"profile {label}")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25),
           flush=True)
+    print(prof.key_averages(group_by_input_shape=True).table(
+        sort_by="self_cuda_time_total", row_limit=8), flush=True)
 
 
 def profile_join(world: int, ldata, rdata, alg: str):
@@ -922,6 +935,339 @@ def phase_q6(dt, data, null):
 
 
 # ---------------------------------------------------------------------------
+# phases: TPC-H (generate on the card, the 22 queries, numpy oracles, and
+# world 1 against world 4)
+# ---------------------------------------------------------------------------
+
+TPCH_WINDOW = 65_536  # rows checked against the host mirror at each end
+
+
+def tpch_generate(sf: float, world: int, seed: int):
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.tpch import generate_device
+
+    ctx = CylonContext(device=DEVICE, world=world)
+    tables, secs = wall(lambda: generate_device(ctx, sf, seed=seed))
+    return ctx, tables, secs
+
+
+def host_columns(dt, names):
+    """Columns of a DTable on the host (one device → host copy each)."""
+    from cylon_tpu_torch.parallel import dist_project
+
+    t = dist_project(dt, names).to_table()
+    return {c.name: c.data.cpu().numpy() for c in t.columns}
+
+
+def phase_tpch_generate(sf: float, seed: int):
+    """The eight tables at ``sf`` on the card at world 4; the first and
+    last 65,536 rows of each equal ``generate_mirror``'s, bit for bit."""
+    from cylon_tpu_torch.tpch import generate_mirror
+
+    torch.cuda.reset_peak_memory_stats()
+    ctx, tables, secs = tpch_generate(sf, WORLD, seed)
+    rows = {n: dt.num_rows for n, dt in tables.items()}
+    nbytes = sum(c.data.numel() * c.data.element_size()
+                 for dt in tables.values() for c in dt.columns)
+    say(f"tpch generate sf={sf} world={WORLD}", seconds=f"{secs:.6f}",
+        rows=rows, gib=f"{nbytes / 2**30:.2f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    t0 = time.perf_counter()
+    for name, dt in tables.items():
+        n = rows[name]
+        local = dt.to_table()
+        for lo in sorted({0, max(n - TPCH_WINDOW, 0)}):
+            hi = min(lo + TPCH_WINDOW, n)
+            want, _ = generate_mirror(sf, seed=seed, tables=[name],
+                                      rows=(lo, hi))
+            for c in local.columns:
+                got = c.data[lo:hi].cpu().numpy()
+                w = want[name][c.name]
+                check(got.dtype == w.dtype and np.array_equal(
+                    got.view(np.int32) if got.dtype == np.float32 else got,
+                    w.view(np.int32) if w.dtype == np.float32 else w),
+                    f"tpch {name}.{c.name} rows [{lo}, {hi}) == mirror")
+        del local
+    say("tpch generate vs mirror", rows_per_end=TPCH_WINDOW,
+        exact="yes", host_seconds=f"{time.perf_counter() - t0:.3f}")
+    return ctx, tables, secs
+
+
+def run_query(q: str, ctx, tables):
+    """One query through its entry point: (result, seconds, peak GiB,
+    kernel launches, join decisions)."""
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import dist_ops
+    from cylon_tpu_torch.tpch import QUERIES
+
+    torch.cuda.reset_peak_memory_stats()
+    dist_ops.decisions.clear()
+    hash_cuda.launches = 0
+    out, secs = wall(lambda: QUERIES[q](ctx, tables))
+    return (out, secs, torch.cuda.max_memory_allocated() / 2**30,
+            hash_cuda.launches, dict(dist_ops.decisions))
+
+
+def phase_tpch_queries(ctx, tables, sf: float, profile: bool):
+    """All 22 queries at world 4, one line each, then the geometric
+    mean; ``--profile`` adds device-time tables of the two slowest."""
+    from cylon_tpu_torch.tpch import QUERIES
+
+    results, times, launches = {}, {}, {}
+    for q in QUERIES:
+        out, secs, peak, n_launch, taken = run_query(q, ctx, tables)
+        results[q], times[q], launches[q] = out, secs, n_launch
+        say(f"tpch {q} sf={sf} world={WORLD}", seconds=f"{secs:.6f}",
+            rows=out.num_rows, peak_gib=f"{peak:.2f}",
+            kernel_launches=n_launch,
+            decisions=",".join(f"{k}:{v}" for k, v in sorted(taken.items()))
+            or "none")
+        if sf >= 1:  # below SF 1 Q11's HAVING fraction can select none
+            check(out.num_rows > 0, f"tpch {q}: a non-empty result")
+    geo = float(np.exp(np.mean(np.log(list(times.values())))))
+    say(f"tpch sf={sf} world={WORLD}", queries=len(times),
+        total_seconds=f"{sum(times.values()):.6f}",
+        geomean_seconds=f"{geo:.6f}",
+        kernel_launches=sum(launches.values()))
+    if profile:
+        for q in sorted(times, key=times.get)[-2:]:
+            profile_call(f"tpch {q} sf={sf} world={WORLD}",
+                         lambda: QUERIES[q](ctx, tables))
+    return results, times, launches
+
+
+def _cols(t):
+    """A result Table's columns on the host, strings decoded."""
+    out = {}
+    for c in t.columns:
+        v = c.data.cpu().numpy()
+        out[c.name] = (np.asarray(c.dictionary, dtype=object)[v]
+                       if c.dictionary is not None else v)
+    return out
+
+
+def _close(a, b, rtol: float) -> bool:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return a.shape == b.shape and bool(np.all(
+        np.abs(a - b) <= rtol * np.maximum(np.abs(b), 1e-300)))
+
+
+F32_RTOL = 1e-6  # a float32 result (its float64 sum rounded once)
+# float64 means of float32 columns: at world > 1 their per-shard partial
+# sums are float32 (a float32 column's sum keeps its type), so they carry
+# float32 precision
+F32_MEANS = {"mean_l_quantity", "mean_l_extendedprice", "mean_l_discount"}
+
+
+def _rtol(name: str, x: np.ndarray) -> float:
+    return F32_RTOL if x.dtype == np.float32 or name in F32_MEANS \
+        else REL_TOL
+
+
+def phase_tpch_oracles(tables, results, sf: float):
+    """Q1, Q3, Q4, Q6, Q14, Q18 and Q22 recomputed in numpy from host
+    copies of the generated tables; the dense keys make every FK join an
+    array index.  Float32 products are formed as the engine forms them and
+    summed in float64: floats within ``_rtol`` relative, keys and counts
+    exact."""
+    from cylon_tpu_torch.tpch.datagen import PRIORITIES, date_to_days
+    from cylon_tpu_torch.tpch.datagen_device import SEGMENTS, TYPE_POOL
+
+    f32 = np.float32
+    t0 = time.perf_counter()
+    li = host_columns(tables["lineitem"], [
+        "l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+        "l_discount", "l_tax", "l_returnflag", "l_linestatus", "l_shipdate",
+        "l_commitdate", "l_receiptdate"])
+    od = host_columns(tables["orders"], [
+        "o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+        "o_shippriority", "o_totalprice"])
+    cu = host_columns(tables["customer"], ["c_custkey", "c_mktsegment",
+                                           "c_acctbal", "c_phone_cc"])
+    pa_ = host_columns(tables["part"], ["p_partkey", "p_type"])
+    n_ord, n_cust = len(od["o_orderkey"]), len(cu["c_custkey"])
+    check(np.array_equal(od["o_orderkey"], np.arange(1, n_ord + 1)) and
+          np.array_equal(cu["c_custkey"], np.arange(1, n_cust + 1)) and
+          np.array_equal(pa_["p_partkey"],
+                         np.arange(1, len(pa_["p_partkey"]) + 1)),
+          "tpch oracles: primary keys are 1..N in row order")
+    ext, disc = li["l_extendedprice"], li["l_discount"]
+    rev = ext * (f32(1.0) - disc)                    # the engine's float32
+    copy_s = time.perf_counter() - t0
+
+    # Q1
+    g = _cols(results["q1"])
+    m = li["l_shipdate"] <= date_to_days("1998-12-01") - 90
+    gid = li["l_returnflag"][m] * 2 + li["l_linestatus"][m]
+    bc = lambda w=None: np.bincount(gid, weights=w, minlength=6)  # noqa: E731
+    cnt = bc()
+    want = {"sum_l_quantity": bc(li["l_quantity"][m]),
+            "sum_l_extendedprice": bc(ext[m]),
+            "sum_disc_price": bc(rev[m]),
+            "sum_charge": bc(rev[m] * (f32(1.0) + li["l_tax"][m])),
+            "count_l_orderkey": cnt}
+    want["mean_l_quantity"] = want["sum_l_quantity"] / cnt
+    want["mean_l_extendedprice"] = want["sum_l_extendedprice"] / cnt
+    want["mean_l_discount"] = bc(disc[m]) / cnt
+    flags, status = ["A", "N", "R"], ["F", "O"]
+    order = [flags.index(a) * 2 + status.index(b)
+             for a, b in zip(g["l_returnflag"], g["l_linestatus"])]
+    check(order == [i for i in range(6) if cnt[i]], "q1: the groups, in order")
+    for c, w in want.items():
+        ok = np.array_equal(g[c], w[order]) if c.startswith("count") else \
+            _close(g[c], w[order], _rtol(c, g[c]))
+        check(ok, f"q1: {c} == numpy")
+
+    # Q3 (BUILDING, 1995-03-15, top 10 by revenue)
+    day = date_to_days("1995-03-15")
+    cust_ok = np.zeros(n_cust + 1, bool)
+    cust_ok[cu["c_custkey"][cu["c_mktsegment"]
+                            == SEGMENTS.index("BUILDING")]] = True
+    order_ok = np.zeros(n_ord + 1, bool)
+    order_ok[1:] = (od["o_orderdate"] < day) & cust_ok[od["o_custkey"]]
+    m = (li["l_shipdate"] > day) & order_ok[li["l_orderkey"]]
+    vol = np.bincount(li["l_orderkey"][m], weights=rev[m],
+                      minlength=n_ord + 1)
+    g = _cols(results["q3"])
+    keys = g["l_orderkey"]
+    check(len(keys) == min(10, int((vol > 0).sum())), "q3: 10 rows")
+    top = np.argsort(-vol, kind="stable")[:len(keys)]
+    check(set(keys.tolist()) == set(top.tolist()), "q3: the top orders")
+    check(_close(g["sum_volume"], vol[keys], REL_TOL), "q3: revenue")
+    check(bool(np.all(np.diff(g["sum_volume"]) <= 0)), "q3: revenue order")
+    check(np.array_equal(g["o_orderdate"], od["o_orderdate"][keys - 1]) and
+          np.array_equal(g["o_shippriority"], od["o_shippriority"][keys - 1]),
+          "q3: order date and ship priority")
+
+    # Q4 (1993-07-01 + 3 months)
+    d0 = date_to_days("1993-07-01")
+    late = np.zeros(n_ord + 1, bool)
+    late[li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]] = True
+    m = (od["o_orderdate"] >= d0) & (od["o_orderdate"] < d0 + 92) & late[1:]
+    want = np.bincount(od["o_orderpriority"][m], minlength=5)
+    g = _cols(results["q4"])
+    check(list(g["o_orderpriority"]) == [p for i, p in enumerate(PRIORITIES)
+                                         if want[i]] and
+          np.array_equal(g["order_count"], want[want > 0]), "q4: counts")
+
+    # Q6 (1994, discount 0.06 ± 0.01, quantity < 24)
+    d0 = date_to_days("1994-01-01")
+    m = ((li["l_shipdate"] >= d0) & (li["l_shipdate"] < d0 + 365)
+         & (disc >= f32(0.049)) & (disc <= f32(0.071))
+         & (li["l_quantity"] < f32(24.0)))
+    check(_close(_cols(results["q6"])["sum_rev"],
+                 [(ext[m] * disc[m]).astype(np.float64).sum()], REL_TOL),
+          "q6: revenue")
+
+    # Q14 (1995-09)
+    d0, d1 = date_to_days("1995-09-01"), date_to_days("1995-10-01")
+    promo = np.array([t.startswith("PROMO") for t in TYPE_POOL])
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+    is_p = promo[pa_["p_type"][li["l_partkey"][m] - 1]]
+    val = 100.0 * rev[m][is_p].astype(np.float64).sum() / \
+        rev[m].astype(np.float64).sum()
+    check(_close(_cols(results["q14"])["promo_revenue"], [val], F32_RTOL),
+          "q14: promo revenue")
+
+    # Q18 (quantity > 300, top 100 by price desc, date asc)
+    qty = np.bincount(li["l_orderkey"], weights=li["l_quantity"],
+                      minlength=n_ord + 1)
+    big = np.flatnonzero(qty > 300.0)
+    g = _cols(results["q18"])
+    rows = sorted(zip(-od["o_totalprice"][big - 1].astype(np.float64),
+                      od["o_orderdate"][big - 1], big))[:100]
+    want_keys = np.array([r[2] for r in rows], np.int64)
+    check(len(g["o_orderkey"]) == len(want_keys) and set(
+        g["o_orderkey"].tolist()) == set(want_keys.tolist()),
+        "q18: the orders")
+    ok = g["o_orderkey"]
+    check(np.array_equal(g["c_custkey"], od["o_custkey"][ok - 1]) and
+          np.array_equal(g["sum_l_quantity"], qty[ok].astype(np.float32)) and
+          np.array_equal(g["o_totalprice"], od["o_totalprice"][ok - 1]),
+          "q18: customer, quantity and price")
+
+    # Q22 (country codes, balance above the cohort's positive mean, no
+    # orders); a balance within 0.05 of the mean may go either way: the
+    # engine's mean is a float32 sum over ~10^5 balances per shard
+    codes = np.array([13, 31, 23, 29, 30, 18, 17])
+    cohort = np.isin(cu["c_phone_cc"], codes)
+    bal = cu["c_acctbal"]
+    pos = cohort & (bal > f32(0.0))
+    avg = bal[pos].astype(np.float64).sum() / pos.sum()
+    has = np.zeros(n_cust + 1, bool)
+    has[od["o_custkey"]] = True
+    base = cohort & ~has[1:]
+    sure = base & (bal.astype(np.float64) > avg + 0.05)
+    edge = base & (np.abs(bal.astype(np.float64) - avg) <= 0.05)
+    g = _cols(results["q22"])
+    for cc, n, s in zip(g["cntrycode"], g["numcust"], g["totacctbal"]):
+        lo = int((sure & (cu["c_phone_cc"] == cc)).sum())
+        hi = lo + int((edge & (cu["c_phone_cc"] == cc)).sum())
+        check(lo <= n <= hi, f"q22: customers of code {cc}")
+        if n == lo:
+            check(_close([s], [bal[sure & (cu["c_phone_cc"] == cc)]
+                               .astype(np.float64).sum()], F32_RTOL),
+                  f"q22: balance of code {cc}")
+    check(set(g["cntrycode"].tolist()) ==
+          set(np.unique(cu["c_phone_cc"][sure]).tolist()), "q22: codes")
+    say(f"tpch oracles sf={sf}", queries="q1,q3,q4,q6,q14,q18,q22",
+        agree="yes", copy_seconds=f"{copy_s:.3f}",
+        host_seconds=f"{time.perf_counter() - t0:.3f}",
+        q22_edge_customers=int(edge.sum()))
+
+
+def same_result(q: str, a, b) -> str:
+    """World-1 result ``a`` against world-4 result ``b``: the same columns
+    and rows; keys and integers exact, floats within ``_rtol``.  Rows compare in order; if only the order differs,
+    the rows (identified by their non-float columns) must match and the
+    answer says so."""
+    ca, cb = _cols(a), _cols(b)
+    check(list(ca) == list(cb) and a.num_rows == b.num_rows,
+          f"{q}: world 1 and world 4 give the same columns and row count")
+
+    def equal(pa_, pb_):
+        for c in ca:
+            x, y = ca[c][pa_], cb[c][pb_]
+            if x.dtype.kind == "f":
+                if not _close(x, y, _rtol(c, x)):
+                    return False
+            elif not np.array_equal(x, y):
+                return False
+        return True
+
+    n = a.num_rows
+    if equal(np.arange(n), np.arange(n)):
+        return "ordered"
+    keys = [c for c in ca if ca[c].dtype.kind != "f"]
+    ka = sorted(range(n), key=lambda i: tuple(str(ca[c][i]) for c in keys))
+    kb = sorted(range(n), key=lambda i: tuple(str(cb[c][i]) for c in keys))
+    check(equal(np.array(ka), np.array(kb)),
+          f"{q}: world 1 and world 4 give the same rows")
+    return "same rows, order differs among float ties"
+
+
+def phase_tpch_worlds(sf: float, seed: int):
+    """Every query at ``sf`` on world 1 and on world 4 of its own tables:
+    the results agree."""
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.tpch import QUERIES
+
+    broadcast.clear_replica_cache()
+    runs = {}
+    for world in (1, WORLD):
+        ctx, tables, _ = tpch_generate(sf, world, seed)
+        runs[world] = {q: QUERIES[q](ctx, tables) for q in QUERIES}
+        del tables
+        broadcast.clear_replica_cache()
+    verdicts = {q: same_result(q, runs[1][q], runs[WORLD][q])
+                for q in QUERIES}
+    say(f"tpch sf={sf} world 1 == world {WORLD}", queries=len(verdicts),
+        ordered=sum(v == "ordered" for v in verdicts.values()),
+        **{q: v for q, v in verdicts.items() if v != "ordered"})
+
+
+# ---------------------------------------------------------------------------
 # phase 6: compute.hash_partition
 # ---------------------------------------------------------------------------
 
@@ -946,6 +1292,8 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=16_777_216)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--tpch-sf", type=float, default=10.0)
+    ap.add_argument("--tpch-check-sf", type=float, default=1.0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -993,6 +1341,26 @@ def main() -> int:
     launches_gb, _ = phase_groupby_orderkey(dt, li, li_null, args.profile)
     launches_q1, _ = phase_q1(dt, li, li_null, args.profile)
     launches_q6, _ = phase_q6(dt, li, li_null)
+    del wdt
+
+    # TPC-H: one run of every query at a small scale first (the first use
+    # of each CUDA library kernel), then the timed run at --tpch-sf
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.tpch import QUERIES
+    wctx, wtables, _ = tpch_generate(0.05, WORLD, args.seed)
+    for q in QUERIES:
+        QUERIES[q](wctx, wtables)
+    del wtables
+    broadcast.clear_replica_cache()
+    tctx, tables, _ = phase_tpch_generate(args.tpch_sf, args.seed)
+    results, _, launches_tpch = phase_tpch_queries(tctx, tables,
+                                                   args.tpch_sf, args.profile)
+    phase_tpch_oracles(tables, results, args.tpch_sf)
+    check(sum(launches_tpch.values()) > 0,
+          "tpch: the partition kernel ran in at least one query")
+    del tables, results
+    broadcast.clear_replica_cache()
+    phase_tpch_worlds(args.tpch_check_sf, args.seed)
 
     # the kernel at the main path's shape: the world-4 partition of one side
     # ([P*cap] rows of one int32 key, no validity, 4 parts)
@@ -1025,6 +1393,7 @@ def main() -> int:
             "orderkey_raw_shuffle": launches_gb["pre_aggregate=False"],
             "orderkey_dense": launches_gb["dense_key_range"],
             "q1": launches_q1, "q6": launches_q6},
+        "launches_tpch": launches_tpch,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
         "max_abs_err": max_err,

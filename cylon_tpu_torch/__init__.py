@@ -12,13 +12,17 @@ Layer map:
     compute.py        local join, set ops, sort, select, hash and
                       round-robin partition, merge, groupby
     parallel/         DTable (with the deferred-select mask), the
-                      all_to_all shuffle, dist_join (SORT and HASH),
+                      all_to_all shuffle, dist_join (SORT and HASH; the
+                      broadcast join and the dense FK join),
+                      dist_semi_join / dist_anti_join,
                       dist_sort / dist_sort_multi / dist_head,
                       dist_union / dist_intersect / dist_subtract,
                       dist_select / dist_project / dist_with_column,
                       dist_groupby (pre-aggregation, broadcast and shuffle
                       combine, dense keys) / dist_aggregate;
-                      broadcast.py: replicate_table
+                      broadcast.py: replicate_table + replica cache
+    tpch/             the TPC-H generator (on the device, with a numpy
+                      mirror) and all 22 queries
     ops/              hash (plain + CUDA), compaction, gathers, join, sort,
                       set-op and groupby kernels
     config.py         JoinConfig, the broadcast threshold, memory budget

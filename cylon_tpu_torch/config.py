@@ -17,7 +17,7 @@ from .status import Code, CylonError, Status
 
 # Global row-count threshold below which a small table is replicated to
 # every shard (one all_gather) instead of hash-shuffled: the groupby's
-# combine step reads it, and the broadcast joins will.  The replica costs
+# combine step and the broadcast joins read it.  The replica costs
 # P × rows per column, so the knob bounds per-shard memory.
 DEFAULT_BROADCAST_JOIN_THRESHOLD = 1 << 17
 
@@ -106,15 +106,19 @@ class JoinConfig:
       HASH  murmur3 hash-partition shuffle — no ordering promise.
 
     Both run the same sort-plan local kernel (ops/join.py).  A key spec is
-    a column index/name, or a tuple of them for composite keys.  The JAX
-    package's ``broadcast_threshold`` has no counterpart yet: every
-    distributed join shuffles both sides.
+    a column index/name, or a tuple of them for composite keys.
+    ``broadcast_threshold`` is the per-call broadcast-join override: None
+    reads the process-wide ``broadcast_join_threshold()``, 0 never
+    broadcasts this join, any other int is the small-side row threshold.
+    Only the distributed strategy changes (replicate the small side or
+    shuffle both); the result rows are the same either way.
     """
 
     join_type: JoinType = JoinType.INNER
     algorithm: JoinAlgorithm = JoinAlgorithm.SORT
     left_column_idx: object = 0
     right_column_idx: object = 0
+    broadcast_threshold: Optional[int] = None
 
     @staticmethod
     def InnerJoin(left_column_idx: int = 0, right_column_idx: int = 0,

@@ -165,6 +165,39 @@ def dense_ranks(l_cols, l_valids, r_cols, r_valids, l_count=None, r_count=None):
     return l_rank, r_rank
 
 
+def semi_mask(l_cols, l_valids, r_cols, r_valids, l_count=None,
+              r_count=None) -> torch.Tensor:
+    """Per-left-row presence bits: ``mask[i]`` ⇔ left row *i* is valid and
+    its composite key occurs among the valid right rows.
+
+    The semi/anti-join primitive (EXISTS / NOT EXISTS without
+    multiplicity): one merged sort of both sides' keys, a per-segment
+    right-row count by the ``seg_span`` scans of ``sort_join_plan``, and
+    one scatter back to left row space.  Key semantics are the join
+    kernels' (null == null, composite keys, padded blocks)."""
+    n_l, n_r = l_cols[0].shape[0], r_cols[0].shape[0]
+    dev = l_cols[0].device
+    if n_l == 0 or n_r == 0:
+        return torch.zeros(n_l, dtype=torch.bool, device=dev)
+    n = n_l + n_r
+    l_count, r_count = _count(l_count, dev), _count(r_count, dev)
+    _, _, key_ops = _concat_key_parts(
+        l_cols, l_valids, r_cols, r_valids, l_count, r_count)
+    sortedK, idxS, is_first, _ = sorted_key_structure(key_ops, n)
+    valid = ~sortedK[0]  # the pad flag is the most significant operand
+    left_s = (idxS < n_l) & valid
+    right_s = (idxS >= n_l) & valid
+    last = torch.cat([is_first[1:], torch.ones(1, dtype=torch.bool,
+                                               device=dev)])
+    m32 = right_s.to(torch.int32)
+    cm = torch.cumsum(m32, 0, dtype=torch.int32)
+    end = _rev_cummin(torch.where(last, cm, _I32_MAX))
+    excl = _cummax(torch.where(is_first, cm - m32, 0))
+    has_r = (end - excl) > 0
+    return scatter_drop(n_l, torch.where(left_s, idxS, n_l), has_r,
+                        fill=False)
+
+
 # ---------------------------------------------------------------------------
 # rank kernel: join_count / join_indices
 # ---------------------------------------------------------------------------

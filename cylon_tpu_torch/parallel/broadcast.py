@@ -16,13 +16,19 @@ the rows:
 ``rows_if_small`` is the planner predicate: an upper bound on the rows
 when it is at most the threshold and the replica fits the memory budget,
 read from ingest-cached counts or else the capacity bound ``P * cap``,
-never from the device.  The JAX package's replica cache (keyed by the
-small side's array identity) belongs to the broadcast joins and is not
-ported yet.
+never from the device.
+
+The **replica cache** keys a replicated block by the identity of the
+small side's tensors (plus names, dictionaries, layout and mode): a
+dimension table joined several times per query (nation, region and
+supplier in TPC-H Q5/Q7/Q9) is gathered once.  An entry pins its source
+columns, so the identities stay unique while it is cached; the cache is
+FIFO-bounded.  The groupby's one-shot combine passes ``cache=False``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -74,15 +80,54 @@ def rows_if_small(dt: DTable, threshold: Optional[int]) -> Optional[int]:
     return rows
 
 
-def replicate_table(dt: DTable, mode: str = ALL) -> DTable:
+def small_side_reason(dt: DTable, rows: int) -> str:
+    """Which evidence proved a side small (a ``rows_if_small`` hit)."""
+    if dt._counts_host is not None and dt.pending_mask is None:
+        return f"{rows} rows <= threshold (ingest-cached counts)"
+    return f"capacity bound {dt.nparts}x{dt.cap} = {rows} <= threshold"
+
+
+_replica_cache: dict = {}
+_replica_lock = threading.Lock()
+_REPLICA_CACHE_MAX = 64
+
+gathers = 0  # replica gathers run (cache misses), for tests
+
+
+def clear_replica_cache() -> None:
+    """Drop every cached replica (frees the pinned source columns)."""
+    with _replica_lock:
+        _replica_cache.clear()
+
+
+def _cache_key(dt: DTable, mode: str) -> Tuple:
+    # names and dictionary identity belong in the key: a rename or a
+    # dictionary swap shares the device tensors and must not hit a
+    # replica built under the old metadata
+    return (id(dt.ctx), mode, dt.cap,
+            tuple((c.name, id(c.data), id(c.validity), id(c.dictionary))
+                  for c in dt.columns))
+
+
+def replicate_table(dt: DTable, mode: str = ALL, cache: bool = True
+                    ) -> DTable:
     """Gather ``dt``'s rows into a replicated DTable: every shard's block
     holds all rows, in shard order.  ``dt`` must carry no pending mask
     (callers collapse first).  Schema, dictionaries and column order are
-    kept, so the result drops into any per-shard kernel."""
+    kept, so the result drops into any per-shard kernel.  ``cache=False``
+    for one-shot intermediates (caching them would pin dead tensors)."""
+    global gathers
     if dt.pending_mask is not None:
         raise ValueError("replicate_table: collapse the pending mask first")
     if mode not in (ALL, HEAD):
         raise ValueError(f"replicate_table: unknown mode {mode!r}")
+    key = _cache_key(dt, mode) if cache else None
+    if cache:
+        with _replica_lock:
+            hit = _replica_cache.get(key)
+        if hit is not None:
+            return hit[2]
+    gathers += 1
     comm = dt.ctx.comm
     P, cap = dt.nparts, dt.cap
     ch = dt._counts_host
@@ -110,4 +155,11 @@ def replicate_table(dt: DTable, mode: str = ALL) -> DTable:
                                         device=total.device)])
     else:
         counts = total.reshape(1).repeat(P)
-    return DTable(dt.ctx, cols, outcap, counts)
+    rep = DTable(dt.ctx, cols, outcap, counts)
+    if cache:
+        with _replica_lock:
+            while len(_replica_cache) >= _REPLICA_CACHE_MAX:
+                _replica_cache.pop(next(iter(_replica_cache)))
+            # pin the context and the source columns: their ids are the key
+            _replica_cache[key] = (dt.ctx, dt.columns, rep)
+    return rep

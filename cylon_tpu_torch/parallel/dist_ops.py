@@ -16,6 +16,13 @@ DoDistributedSetOperation, :214-297 Shuffle, :977-1005 Select,
               groupby (ops/groupby.py) per shard on its padded block,
               count-masked.
 
+Before shuffling, a join replicates a side provably under the broadcast
+threshold (``broadcast.replicate_table``, replica-cached) and probes it
+with the other side in place; ``dense_key_range`` takes the FK → PK join
+through a key→row map (one scatter, one gather), replicated or routed by
+key residue.  The semi / anti joins probe presence: one merged sort per
+shard after a hash shuffle, or presence bits over a dense key range.
+
 Row filters (``dist_select``, and ``where`` on the groupby and the scalar
 aggregate) evaluate a predicate over the flat ``[P*cap]`` columns with
 SQL null semantics; ``dist_select(compact=False)`` defers the compaction
@@ -30,14 +37,17 @@ pooled through the communicator's ``all_gather`` and never reach the host.
 """
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import replace
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..compute import _agg_output_type
 from ..config import JoinAlgorithm, JoinConfig
-from ..dtypes import DataType, device_dtype, extreme_value, is_dictionary_encoded
+from ..dtypes import (DataType, Type, device_dtype, extreme_value,
+                      is_dictionary_encoded)
 from ..ops import compact as ops_compact
 from ..ops import gather as ops_gather
 from ..ops import groupby as ops_groupby
@@ -58,6 +68,14 @@ from .shuffle import shuffle_leaves
 HASH_LOCAL_KERNEL = "sort"
 
 _SAMPLES_PER_SHARD = 64  # sample-sort oversampling factor
+
+# Strategy taken by each distributed join / semi-join call since the last
+# ``decisions.clear()``: "join.broadcast", "join.shuffle", "join.local",
+# "join.fk-dense" (+ "+broadcast" / "+shuffle" at world > 1),
+# "semi.broadcast", "semi.shuffle", "semi.local", each with ".dense" or
+# ".sort" for the semi-join's probe (the JAX package counts the same
+# choices with its trace counters).
+decisions: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +169,17 @@ def _shuffle_by_pids(dt: DTable, pid: torch.Tensor) -> DTable:
                     c.dictionary, c.arrow_type)
             for i, c in enumerate(dt.columns)]
     return DTable(dt.ctx, cols, outcap, newcounts)
+
+
+def _shuffle_masked(dt: DTable, pid: torch.Tensor) -> DTable:
+    """Shuffle with any deferred-select mask folded into the routing:
+    masked-out rows go to the dropped partition and never cross the wire
+    (the same pushdown ``dist_groupby``'s ``where`` rides)."""
+    if dt.pending_mask is not None:
+        pid = torch.where(dt.pending_mask, pid,
+                          dt.ctx.get_world_size()).to(torch.int32)
+        dt = _cleared(dt)
+    return _shuffle_by_pids(dt, pid)
 
 
 def shuffle_table(dt: DTable, key_columns: Sequence[Union[int, str]]
@@ -287,16 +316,249 @@ def _join_copartitioned(lsh: DTable, rsh: DTable, li_keys: Sequence[int],
     return DTable(ctx, cols, capacity, torch.stack(counts))
 
 
-def dist_join(left: DTable, right: DTable, config: JoinConfig) -> DTable:
+def _dense_base(k: torch.Tensor, lo: int) -> torch.Tensor:
+    """``key − lo`` as int32, exactly as the JAX package computes it: the
+    subtraction wraps in the key's dtype, then narrows to int32 (an
+    in-range key always yields a base that int32 holds; an int64 key past
+    2^31 wraps instead of aliasing through a lossy cast first)."""
+    d = (k.view(torch.int64) if k.dtype == torch.uint64
+         else k.to(torch.int64)) - lo
+    if k.element_size() < 4:
+        d = d.to(k.dtype)  # wrap in the narrow type, then widen
+    return d.to(torch.int32)
+
+
+def _shard_ids(P: int, cap: int, device) -> torch.Tensor:
+    """[P*cap] shard index of every flat row."""
+    return torch.arange(P, device=device).repeat_interleave(cap)
+
+
+def _valid_rows(dt: DTable, key: DColumn, mask=None):
+    """(valid rows, non-null valid rows) of ``dt``'s flat blocks: the
+    counts' prefix AND'ed with ``mask`` (a folded deferred select)."""
+    rows = _row_mask(dt)
+    if mask is not None:
+        rows = rows & mask
+    return rows, rows if key.validity is None else rows & key.validity
+
+
+def _fk_probe(left: DTable, right: DTable, lkc: DColumn, rkc: DColumn,
+              lo: int, hi: int, stride: int, lmask=None):
+    """Dense-unique-key join probe, all shards at once: ONE scatter of the
+    right rows into a key→row map over [lo, hi] per shard, ONE gather of
+    the probe keys.  Returns (matched [P*cap_l], right row within its
+    shard or −1, per-shard [matched, right out of range, right duplicate,
+    right null] counts on the host).  The three violation counts do not
+    depend on which of several duplicate writes wins the scatter: a
+    duplicate is a valid right key whose slot holds another row."""
+    P = left.nparts
+    dev = lkc.data.device
+    R = -(-(hi - lo + 1) // stride)
+    cap_l, cap_r = left.cap, right.cap
+    lvalid, l_nonnull = _valid_rows(left, lkc, lmask)
+    rvalid, r_nonnull = _valid_rows(right, rkc)
+    r_in = (rkc.data >= lo) & (rkc.data <= hi)
+    l_in = (lkc.data >= lo) & (lkc.data <= hi)
+    r_base = _dense_base(rkc.data, lo)
+    l_base = _dense_base(lkc.data, lo)
+    if stride > 1:
+        r_base = torch.div(r_base, stride, rounding_mode="floor")
+        l_base = torch.div(l_base, stride, rounding_mode="floor")
+    r_ok = r_nonnull & r_in
+    r_shard = _shard_ids(P, cap_r, dev)
+    slot = torch.where(r_ok, r_shard * R + r_base.long(), P * R)
+    rows = torch.arange(cap_r, dtype=torch.int32, device=dev).repeat(P)
+    amap = ops_compact.scatter_drop(P * R, slot, rows, fill=-1)
+    occupied = (amap >= 0).view(P, R).sum(1)
+    l_slot = (_shard_ids(P, cap_l, dev) * R
+              + torch.clamp(l_base, 0, R - 1).long())
+    m = amap[l_slot]
+    matched = l_nonnull & l_in & (m >= 0)
+    ri = torch.where(matched, m, -1)
+    stats = torch.stack([
+        matched.view(P, cap_l).sum(1),
+        (r_nonnull & ~r_in).view(P, cap_r).sum(1),
+        r_ok.view(P, cap_r).sum(1) - occupied,
+        (rvalid & ~r_nonnull).view(P, cap_r).sum(1)], 1)
+    per_shard = left.ctx.comm.all_gather(stats.to(torch.int64)).cpu().numpy()
+    return matched, ri, per_shard
+
+
+def _fk_violations(per_shard: np.ndarray) -> None:
+    oob, dups, rnull = (int(per_shard[:, 1].sum()),
+                        int(per_shard[:, 2].sum()),
+                        int(per_shard[:, 3].sum()))
+    if oob or dups or rnull:
+        raise CylonError(Status(Code.Invalid,
+            "dist_join dense_key_range contract violated on the right "
+            f"side: {oob} keys out of range, {dups} duplicate keys, "
+            f"{rnull} null keys (the hint promises unique non-null keys "
+            "within the range)"))
+
+
+def _fk_rgather(right: DTable, ri: torch.Tensor, cap_out: int,
+                fill: bool):
+    """Right-side output columns at per-output right rows ``ri`` (index
+    within the row's shard; −1 ⇒ null when ``fill``)."""
+    P = right.nparts
+    flat = _shard_ids(P, cap_out, ri.device) * right.cap + \
+        torch.clamp(ri.long(), 0, right.cap - 1)
+    if fill:
+        flat = torch.where(ri >= 0, flat, -1)
+    return ops_gather.take_many([(c.data, c.validity) for c in right.columns],
+                                flat, fill_null=fill)
+
+
+def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
+                 dense_key_range) -> Optional[DTable]:
+    """The dense-unique-right-key join if eligible, else None (the general
+    path handles every shape).  The hint is advisory for dispatch, but its
+    contract (unique, non-null, in-range right keys) is enforced."""
+    how = config.join_type.value
+    li_keys = _join_keys(left, config.left_column_idx)
+    ri_keys = _join_keys(right, config.right_column_idx)
+    if how not in ("inner", "left") or len(li_keys) != 1 \
+            or len(ri_keys) != 1:
+        return None
+    lkc = left.columns[li_keys[0]]
+    rkc = right.columns[ri_keys[0]]
+    if (lkc.dtype.type != rkc.dtype.type or not _is_integer(lkc.data.dtype)
+            or is_dictionary_encoded(lkc.dtype.type)):
+        return None
+    lo, hi = int(dense_key_range[0]), int(dense_key_range[1])
+    world = left.ctx.get_world_size()
+    if hi < lo:
+        return None
+    # a small build side is replicated instead of co-partitioned: the
+    # probe side never moves, and every shard builds the full map
+    # (stride 1), so the slot budget is checked against the replica
+    r_rows = (broadcast.rows_if_small(right, config.broadcast_threshold)
+              if world > 1 else None)
+    stride = 1 if (world == 1 or r_rows is not None) else world
+    R = -(-(hi - lo + 1) // stride)
+    bcap_bound = (ops_compact.next_bucket(max(r_rows, 1), minimum=8)
+                  if r_rows is not None else right.cap)
+    if R > 4 * max(left.cap, bcap_bound):
+        return None
+    # a deferred select on the build side changes which keys exist:
+    # compact it.  The probe side's mask fuses: INNER folds it into
+    # ``matched``, LEFT passes it through to the zero-copy output
+    right._collapse_pending()
+    if world > 1:
+        if r_rows is not None:
+            decisions["join.fk-dense+broadcast"] += 1
+            right = broadcast.replicate_table(right)
+        else:
+            decisions["join.fk-dense+shuffle"] += 1
+            left = _shuffle_masked(left, _mod_pids(left, li_keys[0], lo,
+                                                   world))
+            right = _shuffle_by_pids(right, _mod_pids(right, ri_keys[0], lo,
+                                                      world))
+            lkc = left.columns[li_keys[0]]
+        rkc = right.columns[ri_keys[0]]
+    else:
+        decisions["join.fk-dense"] += 1
+    lmask = left.pending_mask if how == "inner" else None
+    matched, ri, per_shard = _fk_probe(left, right, lkc, rkc, lo, hi, stride,
+                                       lmask)
+    _fk_violations(per_shard)
+    ctx = left.ctx
+    if how == "left":
+        # the probe side stays in place: every valid left row emits once
+        routs = _fk_rgather(right, ri, left.cap, fill=True)
+        cols = [DColumn("lt-" + c.name, c.dtype, c.data, c.validity,
+                        c.dictionary, c.arrow_type) for c in left.columns]
+        cols += [DColumn("rt-" + c.name, c.dtype, d, v, c.dictionary,
+                         c.arrow_type)
+                 for c, (d, v) in zip(right.columns, routs)]
+        # a deferred select on the probe side stays deferred: the mask
+        # still describes the output's rows
+        return DTable(ctx, cols, left.cap, left.counts, left.pending_mask,
+                      left.pending_cnts)
+    # INNER: compact the matched probe rows with the right row riding as
+    # one more column, then gather the right side at the compacted rows
+    aug_cols = [DColumn("lt-" + c.name, c.dtype, c.data, c.validity,
+                        c.dictionary, c.arrow_type) for c in left.columns]
+    aug_cols.append(DColumn("__fk_ri", DataType(Type.INT32),
+                            ri.to(torch.int32), None))
+    aug = DTable(ctx, aug_cols, left.cap, left.counts)
+    out = _compact_survivors(aug, matched, per_shard[:, 0])
+    routs = _fk_rgather(right, out.columns[-1].data, out.cap, fill=False)
+    cols = list(out.columns[:-1])
+    cols += [DColumn("rt-" + c.name, c.dtype, d, v, c.dictionary,
+                     c.arrow_type)
+             for c, (d, v) in zip(right.columns, routs)]
+    return DTable(ctx, cols, out.cap, out.counts)
+
+
+def _try_broadcast_join(left: DTable, right: DTable, config: JoinConfig
+                        ) -> Optional[DTable]:
+    """The replicated-small-side join if eligible, else None.
+
+    A side qualifies when ``broadcast.rows_if_small`` proves it under the
+    threshold (``config.broadcast_threshold``, else the process-wide
+    knob) and its unmatched rows need no emission: INNER may replicate
+    either side (the smaller bound wins, the right on a tie), LEFT only
+    the right; RIGHT and FULL_OUTER shuffle (a replicated side's
+    unmatched rows would be emitted once per shard).  The small side is
+    all_gathered once (replica-cached) and the local kernel runs per
+    shard against the unmoved large side, so the output keeps the large
+    side's shard layout and SORT's global key order does not apply."""
+    how = config.join_type.value
+    if how not in ("inner", "left"):
+        return None
+    if left.ctx.get_world_size() == 1:
+        return None  # co-partitioning is already a no-op
+    thr = config.broadcast_threshold
+    r_rows = broadcast.rows_if_small(right, thr)
+    l_rows = broadcast.rows_if_small(left, thr) if how == "inner" else None
+    if r_rows is None and l_rows is None:
+        return None
+    take_right = r_rows is not None and (l_rows is None or r_rows <= l_rows)
+    left, right, li_keys, ri_keys = _join_setup(left, right, config)
+    decisions["join.broadcast"] += 1
+    if take_right:
+        return _join_copartitioned(left, broadcast.replicate_table(right),
+                                   li_keys, ri_keys, how, "sort")
+    return _join_copartitioned(broadcast.replicate_table(left), right,
+                               li_keys, ri_keys, how, "sort")
+
+
+def dist_join(left: DTable, right: DTable, config: JoinConfig,
+              dense_key_range=None) -> DTable:
     """Distributed equi-join: co-partition both sides on the key (by hash
     for ``JoinAlgorithm.HASH``, by sampled key ranges for SORT, the
     default), then a masked local join per shard.  Output columns are
     ``lt-…`` / ``rt-…`` like the local join (reference
     join_utils.cpp:23-95).  Under SORT shard *i*'s keys all precede shard
     *i+1*'s.
+
+    Before shuffling, a BROADCAST join is considered
+    (``_try_broadcast_join``): a side provably under the broadcast
+    threshold is replicated and neither side moves.
+
+    ``dense_key_range=(lo, hi)``: the caller's promise that the RIGHT
+    side's single integer key is unique, non-null and within [lo, hi]
+    (the FK → PK shape).  Eligible INNER / LEFT joins then build a
+    key→row map with one scatter and probe it with one gather: no sort,
+    no pair expansion.  LEFT keeps the probe side in place (zero-copy).
+    The build side is replicated when small, else both sides are routed
+    by ``(key − lo) mod P``.  A duplicate, null or out-of-range right key
+    raises.  Neither the broadcast nor the dense path keeps SORT's global
+    key order.  The order of attempts is the JAX package's: FK, then
+    broadcast, then the shuffle.
     """
+    if dense_key_range is not None:
+        out = _try_fk_join(left, right, config, dense_key_range)
+        if out is not None:
+            return out
+    out = _try_broadcast_join(left, right, config)
+    if out is not None:
+        return out
     left, right, li_keys, ri_keys, alg, splitters = _join_prologue(
         left, right, config)
+    decisions["join.shuffle" if left.ctx.get_world_size() > 1
+              else "join.local"] += 1
     lsh = _copartition(left, li_keys, alg, splitters)
     rsh = _copartition(right, ri_keys, alg, splitters)
     return _join_copartitioned(lsh, rsh, li_keys, ri_keys,
@@ -649,8 +911,10 @@ def _compact_survivors(dt: DTable, mask: torch.Tensor,
                        cnts: torch.Tensor) -> DTable:
     """Shared tail of the row filters: compact the rows ``mask`` keeps
     into a block bucketed to the largest per-shard survivor count
-    (``cnts``, read by the host)."""
-    per_shard = cnts.cpu().numpy()
+    (``cnts``: a device tensor the host reads, or host counts already
+    read)."""
+    per_shard = (cnts if isinstance(cnts, np.ndarray)
+                 else cnts.cpu().numpy())
     outcap = ops_compact.next_bucket(max(int(per_shard.max(initial=0)), 1),
                                      minimum=8)
     cap = dt.cap
@@ -717,6 +981,184 @@ def dist_with_column(dt: DTable, name: str, fn, out_type,
                                        validity)]
     return DTable(dt.ctx, cols, dt.cap, dt.counts, dt.pending_mask,
                   dt.pending_cnts)
+
+
+# ---------------------------------------------------------------------------
+# semi / anti joins (SQL EXISTS / NOT EXISTS; the reference spells them as
+# join + dedup, table_api.cpp has no such operator)
+# ---------------------------------------------------------------------------
+
+def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
+                     rkc: DColumn, lo: int, hi: int, anti: bool,
+                     stride: int):
+    """Dense-key semi/anti probe over all shards at once: presence bits
+    over [lo, hi] per shard (ONE scatter of the right keys, writing only
+    True) and ONE gather probe of the left keys; no sort.  Deferred-select
+    masks fold into each side's valid rows.  Null == null as in the sort
+    kernel: a null left key matches iff its shard's right side has a null
+    key.  Returns (keep mask, per-shard [survivors, out-of-range keys of
+    either side] on the host)."""
+    P = left.nparts
+    dev = lkc.data.device
+    R = -(-(hi - lo + 1) // stride)
+    cap_l, cap_r = left.cap, right.cap
+    lvalid, l_nonnull = _valid_rows(left, lkc, left.pending_mask)
+    rvalid, r_nonnull = _valid_rows(right, rkc, right.pending_mask)
+    r_in = (rkc.data >= lo) & (rkc.data <= hi)
+    l_in = (lkc.data >= lo) & (lkc.data <= hi)
+    overflow = ((r_nonnull & ~r_in).view(P, cap_r).sum(1)
+                + (l_nonnull & ~l_in).view(P, cap_l).sum(1))
+    r_base = _dense_base(rkc.data, lo)
+    l_base = _dense_base(lkc.data, lo)
+    if stride > 1:
+        r_base = torch.div(r_base, stride, rounding_mode="floor")
+        l_base = torch.div(l_base, stride, rounding_mode="floor")
+    slot = torch.where(r_nonnull & r_in,
+                       _shard_ids(P, cap_r, dev) * R + r_base.long(), P * R)
+    present = torch.zeros(P * R + 1, dtype=torch.bool, device=dev)
+    present[slot] = True  # duplicates all write True: no race to lose
+    l_shard = _shard_ids(P, cap_l, dev)
+    hit = l_nonnull & l_in & present[
+        l_shard * R + torch.clamp(l_base, 0, R - 1).long()]
+    if lkc.validity is not None or rkc.validity is not None:
+        r_null = (rvalid & ~r_nonnull).view(P, cap_r).any(1)       # [P]
+        hit = hit | ((lvalid & ~l_nonnull) & r_null[l_shard])
+    keep = (lvalid & ~hit) if anti else hit
+    stats = torch.stack([keep.view(P, cap_l).sum(1), overflow], 1)
+    return keep, left.ctx.comm.all_gather(stats).cpu().numpy()
+
+
+def _semi_mask_sorted(left: DTable, right: DTable, li_keys, ri_keys,
+                      anti: bool):
+    """Keep-mask of the sort-path semi/anti probe (``ops.join.semi_mask``
+    per shard) and the per-shard survivor counts on the host."""
+    P = left.nparts
+    lcap, rcap = left.cap, right.cap
+    keeps = []
+    for s in range(P):
+        lc = left.counts[s]
+        present = ops_join.semi_mask(
+            tuple(_shard(left.columns[i].data, s, lcap) for i in li_keys),
+            tuple(_shard(left.columns[i].validity, s, lcap) for i in li_keys),
+            tuple(_shard(right.columns[i].data, s, rcap) for i in ri_keys),
+            tuple(_shard(right.columns[i].validity, s, rcap)
+                  for i in ri_keys),
+            l_count=lc, r_count=right.counts[s])
+        if anti:
+            present = (torch.arange(lcap, device=lc.device) < lc) & ~present
+        keeps.append(present)  # semi_mask is False on padding rows
+    keep = torch.cat(keeps)
+    return keep, _shard_counts(left, keep).cpu().numpy()
+
+
+def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
+                       anti: bool, dense_key_range=None,
+                       broadcast_threshold=None) -> DTable:
+    li_keys = _join_keys(left, left_on)
+    ri_keys = _join_keys(right, right_on)
+    if len(li_keys) != len(ri_keys):
+        raise CylonError(Status(Code.Invalid,
+            f"join key arity mismatch: {len(li_keys)} vs {len(ri_keys)}"))
+    for li, ri in zip(li_keys, ri_keys):
+        if left.columns[li].dtype.type != right.columns[ri].dtype.type:
+            raise CylonError(Status(Code.TypeError,
+                "semi-join key type mismatch "
+                f"{left.columns[li].dtype.type.name} vs "
+                f"{right.columns[ri].dtype.type.name}"))
+    left, right = _unify_dtable_dicts(left, right, li_keys, ri_keys)
+    # the probe reads only the right side's KEY columns: drop the rest
+    # before any exchange
+    right = dist_project(right, ri_keys)
+    ri_keys = list(range(len(ri_keys)))
+    world = left.ctx.get_world_size()
+    # a small build side replicates its keys to every shard and the probe
+    # runs against the unmoved left block (semi/anti emit left rows only,
+    # so a replicated right is always sound)
+    r_rows = (broadcast.rows_if_small(right, broadcast_threshold)
+              if world > 1 else None)
+    use_bcast = r_rows is not None
+    if use_bcast:
+        right._collapse_pending()
+        right = broadcast.replicate_table(right)
+    # presence bits cost R / stride bytes per shard: gate against the
+    # larger side's capacity
+    kc0 = left.columns[li_keys[0]]
+    stride = 1 if (world == 1 or use_bcast) else world
+    width = (int(dense_key_range[1]) - int(dense_key_range[0]) + 1
+             if dense_key_range is not None else 0)
+    use_dense = (dense_key_range is not None and len(li_keys) == 1
+                 and _is_integer(kc0.data.dtype)
+                 and not is_dictionary_encoded(kc0.dtype.type)
+                 and 0 < width
+                 and -(-width // stride) <= 4 * max(left.cap, right.cap))
+    route = ("broadcast" if use_bcast else
+             "shuffle" if world > 1 else "local")
+    decisions[f"semi.{route}.{'dense' if use_dense else 'sort'}"] += 1
+    if world > 1 and not use_bcast:
+        # deferred-select masks fold into the routing (masked rows go to
+        # the dropped partition)
+        if use_dense:
+            lo0 = int(dense_key_range[0])
+            left = _shuffle_masked(left, _mod_pids(left, li_keys[0], lo0,
+                                                   world))
+            right = _shuffle_masked(right, _mod_pids(right, ri_keys[0], lo0,
+                                                     world))
+        else:
+            left = _shuffle_masked(left, _hash_pids(left, li_keys))
+            right = _shuffle_masked(right, _hash_pids(right, ri_keys))
+    if use_dense:
+        lo, hi = int(dense_key_range[0]), int(dense_key_range[1])
+        mask, per_shard = _semi_mask_dense(
+            left, right, left.columns[li_keys[0]],
+            right.columns[ri_keys[0]], lo, hi, anti, stride)
+        bad = int(per_shard[:, 1].sum())
+        if bad > 0:
+            raise CylonError(Status(Code.Invalid,
+                f"semi-join dense_key_range ({lo}, {hi}) violated: {bad} "
+                "keys outside it"))
+        return _compact_survivors(left, mask, per_shard[:, 0])
+    # the sort-path probe has no mask operand: compact a deferred select
+    # first (world > 1 already folded it into the routing)
+    left._collapse_pending()
+    right._collapse_pending()
+    mask, per_shard = _semi_mask_sorted(left, right, li_keys, ri_keys, anti)
+    return _compact_survivors(left, mask, per_shard)
+
+
+def dist_semi_join(left: DTable, right: DTable, left_on, right_on,
+                   dense_key_range=None, broadcast_threshold=None) -> DTable:
+    """Distributed LEFT SEMI join: the rows of ``left`` whose key has at
+    least one match in ``right``, each emitted ONCE whatever the match
+    multiplicity (SQL EXISTS / IN).  Output schema = left's schema.
+
+    Co-partition both sides on the key hash, then the one-sort presence
+    kernel (``ops.join.semi_mask``) and survivor compaction per shard.
+    Null keys follow the join kernels (null == null).
+
+    ``dense_key_range=(lo, hi)``: a single-integer-key hint switching the
+    probe to presence bits over the range (one scatter + one gather
+    instead of the merged sort), routed by ``(key − lo) mod P``; a key of
+    either side outside the range raises.
+
+    ``broadcast_threshold``: per-call override of the small-side row
+    threshold (None → the process-wide knob, 0 → never broadcast); below
+    it the right side's keys replicate to every shard and the left side
+    does not move."""
+    return _dist_semi_or_anti(left, right, left_on, right_on, anti=False,
+                              dense_key_range=dense_key_range,
+                              broadcast_threshold=broadcast_threshold)
+
+
+def dist_anti_join(left: DTable, right: DTable, left_on, right_on,
+                   dense_key_range=None, broadcast_threshold=None) -> DTable:
+    """Distributed LEFT ANTI join: the rows of ``left`` whose key has NO
+    match in ``right`` (SQL NOT EXISTS).  The complement of
+    ``dist_semi_join`` over the valid left rows: a null left key equals a
+    null right key, so with any null right key present the null-keyed left
+    rows are dropped."""
+    return _dist_semi_or_anti(left, right, left_on, right_on, anti=True,
+                              dense_key_range=dense_key_range,
+                              broadcast_threshold=broadcast_threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -856,7 +1298,7 @@ def _mod_pids(dt: DTable, key_id: int, lo: int, nparts: int) -> torch.Tensor:
     shrinks by P.  Nulls and keys below ``lo`` go to shard 0 (an
     out-of-range key fails in phase 1), padding rows to P."""
     kc = dt.columns[key_id]
-    base = kc.data.to(torch.int64) - lo
+    base = _dense_base(kc.data, lo)
     pid = torch.where(base >= 0, base % nparts, 0)
     if kc.validity is not None:
         pid = torch.where(kc.validity, pid, 0)
@@ -1059,7 +1501,8 @@ def _dist_groupby_preagg(dt: DTable, key_ids: List[int], aggregations,
     if broadcast.rows_if_small(part, None) is not None:
         # few partial groups: one all_gather in place of the shuffle;
         # shard 0 owns every partial row (HEAD) and combines them alone
-        part_rep = broadcast.replicate_table(part, mode=broadcast.HEAD)
+        part_rep = broadcast.replicate_table(part, mode=broadcast.HEAD,
+                                             cache=False)
         comb = dist_groupby(part_rep, list(range(K)), comb_aggs,
                             dense_key_range=dense_key_range,
                             pre_aggregate=False, _local_only=True)

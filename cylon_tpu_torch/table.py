@@ -303,6 +303,10 @@ class Table:
         return Table(self.ctx, [replace(c, name=n)
                                 for c, n in zip(self.columns, names)])
 
+    def rename_column(self, old: str, new: str) -> "Table":
+        return self.rename([new if c.name == old else c.name
+                            for c in self.columns])
+
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.dtype.type.name}" for c in self.columns)
         return f"Table[{self.num_rows} x {self.num_columns}]({cols})"

@@ -8,9 +8,9 @@ The JAX distributed path reads ``jax.core.trace_state_clean``, which this
 JAX version keeps under ``jax._src.core`` only; the ``jax_trace_shim``
 fixture (``test_torch_common.py``) sets the attribute for one test and
 restores it after.  Broadcast
-joins are pinned off on the JAX side (``broadcast_threshold=0``): the port
-always shuffles."""
-import dataclasses
+joins are pinned off in both packages (``broadcast_threshold=0``): these
+tests hold the shuffle path; ``test_torch_broadcast_join.py`` holds the
+broadcast and dense FK paths."""
 
 import numpy as np
 import pyarrow as pa
@@ -75,10 +75,12 @@ def test_shuffle_table_matches_jax(ctx, dctx, jax_trace_shim, keys):
 
 
 def _configs(how, alg, lkey=0, rkey=0):
-    """The same join for both packages; broadcast pinned off in JAX."""
+    """The same join for both packages; broadcast pinned off in both (the
+    broadcast path has tests of its own)."""
     return (ct.JoinConfig(ct.JoinType(how), ct.JoinAlgorithm(alg), lkey, rkey,
                           broadcast_threshold=0),
-            pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm(alg), lkey, rkey))
+            pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm(alg), lkey, rkey,
+                          broadcast_threshold=0))
 
 
 def _join_both(jl, jr, tl, tr, how, alg, lkey=0, rkey=0):
@@ -209,11 +211,10 @@ def test_dist_join_uint64_key_matches_jax(ctx, dctx, jax_trace_shim, alg):
 def test_dist_join_sort_algorithm_is_refused(ctx, dctx, jax_trace_shim):
     """SORT, the default algorithm, is no longer refused: a plain
     ``JoinConfig.InnerJoin(0, 0)`` runs and equals the JAX package's
-    default-config join."""
+    default-config join (both replicate the 150-row side)."""
     lt, rt = _pair(np.random.default_rng(36), 180, 150)
     jl, tl = _both_dtables(ctx, dctx, 8, lt)
     jr, tr = _both_dtables(ctx, dctx, 8, rt)
     assert pt.JoinConfig.InnerJoin(0, 0).algorithm == pt.JoinAlgorithm.SORT
-    want = jdist_join(jl, jr, dataclasses.replace(
-        ct.JoinConfig.InnerJoin(0, 0), broadcast_threshold=0))
+    want = jdist_join(jl, jr, ct.JoinConfig.InnerJoin(0, 0))
     _same(tdist_join(tl, tr, pt.JoinConfig.InnerJoin(0, 0)), want)

@@ -1,7 +1,8 @@
 """The PyTorch port on the card: the CUDA partition-hash kernel against its
-plain version, and the distributed join (HASH and SORT), sort, set ops,
-groupby (every path), select and scalar aggregate on CUDA tensors against
-the same calls on the CPU.  Every test here needs a CUDA device (``gpu`` marker) and
+plain version, and the distributed join (HASH and SORT, broadcast and
+dense FK), semi / anti joins, sort, set ops, groupby (every path), select,
+scalar aggregate and the TPC-H generator on CUDA tensors against the same
+calls on the CPU.  Every test here needs a CUDA device (``gpu`` marker) and
 skips itself without one.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
@@ -16,9 +17,13 @@ from cylon_tpu_torch.ops import hash as plain_hash
 from cylon_tpu_torch.ops import hash_cuda
 from cylon_tpu_torch import compute
 from cylon_tpu_torch import config as tconfig
-from cylon_tpu_torch.parallel import (DTable, dist_aggregate, dist_groupby,
+from cylon_tpu_torch.ops import join as tjoin
+from cylon_tpu_torch.parallel import (DTable, dist_aggregate,
+                                      dist_anti_join, dist_groupby,
                                       dist_intersect, dist_join, dist_select,
-                                      dist_sort, dist_subtract, dist_union)
+                                      dist_semi_join, dist_sort,
+                                      dist_subtract, dist_union)
+from cylon_tpu_torch.tpch import datagen_device
 
 from test_torch_common import assert_rows_close, float_rtols, port_rows
 
@@ -82,7 +87,9 @@ def test_dist_join_on_card_matches_cpu(card, how):
               "v": rng.random(3000).astype(np.float32)}
     data_r = {"k": rng.integers(0, 500, 2000).astype(np.int64),
               "w": rng.integers(-9, 9, 2000).astype(np.int32)}
-    cfg = pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm.HASH, 0, 0)
+    # broadcast pinned off: the 2,000-row side would be replicated
+    cfg = pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm.HASH, 0, 0,
+                        broadcast_threshold=0)
     outs = []
     for device in ("cpu", "cuda"):
         ctx = pt.CylonContext(device=device, world=4)
@@ -265,3 +272,114 @@ def test_dist_select_and_aggregate_on_card_matches_cpu(card):
     assert gsel.cap == csel.cap
     assert port_rows(gsel, ordered=True) == port_rows(csel, ordered=True)
     assert_rows_close(port_rows(gagg), port_rows(cagg), [1e-12, 0.0, 0.0])
+
+
+@pytest.mark.gpu
+def test_semi_mask_on_card_matches_cpu(card):
+    """The sorted presence kernel on padded blocks with nulls and
+    composite keys: the same bits on the card."""
+    rng = np.random.default_rng(48)
+    n_l, n_r = 50_001, 30_007
+    lk = (torch.from_numpy(rng.integers(0, 9_000, n_l)),
+          torch.from_numpy(rng.integers(0, 3, n_l).astype(np.int32)))
+    rk = (torch.from_numpy(rng.integers(0, 9_000, n_r)),
+          torch.from_numpy(rng.integers(0, 3, n_r).astype(np.int32)))
+    lv = (torch.from_numpy(rng.random(n_l) < 0.95), None)
+    rv = (torch.from_numpy(rng.random(n_r) < 0.95), None)
+    on = lambda xs: tuple(None if x is None else x.to(card) for x in xs)  # noqa: E731
+    kw = {"l_count": 45_000, "r_count": 29_000}
+    cpu = tjoin.semi_mask(lk, lv, rk, rv, **kw)
+    gpu = tjoin.semi_mask(on(lk), on(lv), on(rk), on(rv), **kw)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def _semi_sides(rng, n_l=40_000, n_r=9_000):
+    k = rng.integers(0, 20_000, n_l)
+    data_l = {"k": k, "v": rng.random(n_l)}
+    data_r = {"k": rng.integers(0, 20_000, n_r)}
+    return data_l, data_r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [None, (0, 19_999)])
+@pytest.mark.parametrize("op", [dist_semi_join, dist_anti_join])
+def test_semi_anti_on_card_matches_cpu(card, dense, op):
+    """World 4, shuffled (the kernel partitions the sorted path; the dense
+    path routes by key residue): the same rows on the same shards."""
+    data_l, data_r = _semi_sides(np.random.default_rng(49))
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        lt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_l))
+        rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_r))
+        before = hash_cuda.launches
+        outs.append(op(lt, rt, "k", "k", dense_key_range=dense,
+                       broadcast_threshold=0))
+        want = 2 if device == "cuda" and dense is None else 0
+        assert hash_cuda.launches - before == want
+    cpu, gpu = outs
+    assert list(gpu.counts_host()) == list(cpu.counts_host())
+    assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("thr", [10_000_000, 0])
+@pytest.mark.parametrize("how", ["inner", "left"])
+def test_fk_join_on_card_is_deterministic_and_matches_cpu(card, thr, how):
+    """The dense FK join (broadcast build side, or modulo routing): two
+    runs on the card give identical bits, equal to the CPU's result."""
+    rng = np.random.default_rng(50)
+    n_r = 50_000
+    data_r = {"pk": rng.permutation(n_r).astype(np.int32) + 1,
+              "b": rng.random(n_r)}
+    data_l = {"fk": rng.integers(1, n_r + 100, 200_000).astype(np.int32),
+              "a": rng.random(200_000).astype(np.float32)}
+    cfg = pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm.SORT, "fk", "pk",
+                        broadcast_threshold=thr)
+    outs = []
+    for device in ("cpu", "cuda", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        lt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_l))
+        rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_r))
+        outs.append(dist_join(lt, rt, cfg, dense_key_range=(1, n_r)))
+    cpu, gpu1, gpu2 = outs
+    for a, b in zip(gpu1.columns, gpu2.columns):
+        assert torch.equal(a.data, b.data)
+        assert (a.validity is None) == (b.validity is None)
+        if a.validity is not None:
+            assert torch.equal(a.validity, b.validity)
+    assert port_rows(gpu1, ordered=True) == port_rows(cpu, ordered=True)
+
+
+@pytest.mark.gpu
+def test_fk_join_duplicate_build_key_raises_on_card(card):
+    """Which of two duplicate writes wins the map's scatter is unspecified
+    on the card; the violation count does not depend on it."""
+    data_r = {"pk": np.array([1, 2, 3, 3, 5], np.int32), "b": np.ones(5)}
+    data_l = {"fk": np.arange(1, 6, dtype=np.int32)}
+    ctx = pt.CylonContext(device="cuda", world=4)
+    lt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_l))
+    rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, data_r))
+    cfg = pt.JoinConfig.InnerJoin("fk", "pk")
+    with pytest.raises(pt.CylonError, match="duplicate"):
+        dist_join(lt, rt, cfg, dense_key_range=(1, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [1, 4])
+def test_tpch_generate_device_on_card_equals_mirror(card, world):
+    """SF 0.01 generated on the card: bit for bit the numpy mirror (floats
+    compared as bits)."""
+    ctx = pt.CylonContext(device="cuda", world=world)
+    dev = datagen_device.generate_device(ctx, 0.01, seed=3)
+    mirror, dicts = datagen_device.generate_mirror(0.01, seed=3)
+    for name, dt in dev.items():
+        tb = dt.to_table()
+        for c in tb.columns:
+            got = c.data.cpu().numpy()
+            want = mirror[name][c.name]
+            assert got.dtype == want.dtype, (name, c.name)
+            if got.dtype == np.float32:
+                got, want = got.view(np.int32), want.view(np.int32)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{name}.{c.name}")
