@@ -26,15 +26,27 @@ first and last 65,536 rows of each held against the numpy mirror), all
 rows, peak memory, partition-kernel launches, join decisions; then the
 geometric mean), Q1, Q3, Q4, Q6, Q14, Q18 and Q22 are recomputed in
 numpy from host copies of the tables, and every query's result at
-``--tpch-check-sf`` (default 1) is the same at world 1 and world 4.
-Every check that fails raises, so the script exits non-zero; without a
+``--tpch-check-sf`` (default 1) is the same at world 1 and world 4.  On
+the same SF-10 tables it then drives the operators the planner lowers to:
+``dist_groupby_fused`` in its three modes (psum over Q1's keys against
+numpy, pre-aggregate and shuffle by ``l_orderkey`` against
+``dist_groupby``), ``dist_groupby_sketch`` by ``l_suppkey`` (every group
+within the sketches' error bounds of numpy's exact answers), the
+aggregation state of a base and a delta merged and finalized (= the whole
+table's groupbys), Q9 with ``streaming_chunks=4`` against the one-shot
+Q9, and a Q5-shaped ``dist_multiway_join`` against the binary
+``dist_join`` cascade; ``dist_join_streaming`` against ``dist_join`` on
+the join cell; and at ``--tpch-check-sf`` the captured sketch lanes
+against a numpy recomputation, bit for bit.  Every export of those
+phases goes through one ``HostPipeline``.  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby and TPC-H paths), its time, its plain version's time and
 its bound.  ``--profile`` adds torch.profiler tables of device time by
 kernel (and by input shape) for the world-4 HASH and SORT joins, one
 ``dist_sort``, one ``dist_union``, the default ``orderkey`` groupby, the
-Q1 shape and the two slowest TPC-H queries.
+Q1 shape, the two slowest TPC-H queries, the psum and pre-aggregate
+fused groupbys, the sketch groupby and Q9 streaming against one-shot.
 """
 from __future__ import annotations
 
@@ -1268,6 +1280,544 @@ def phase_tpch_worlds(sf: float, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phases: the operators the planner lowers to — the fused and sketch
+# groupbys, the aggregation-state capture, the streaming and multiway
+# joins — with every export through one HostPipeline
+# ---------------------------------------------------------------------------
+
+F32_TOL = 1e-6  # a float32 column's sum, rounded to float32 at other points
+
+
+class Exports:
+    """Every export of the planner-operator phases goes through ONE
+    ``HostPipeline(workers=1)``; each task records its submission number
+    when it runs, so FIFO order can be checked at the end."""
+
+    def __init__(self):
+        from cylon_tpu_torch.parallel import HostPipeline
+
+        self.pipe = HostPipeline(workers=1, depth=4)
+        self.ran = []
+        self.n = 0
+
+    def submit(self, fn):
+        i = self.n
+        self.n += 1
+
+        def run():
+            out = fn()
+            self.ran.append(i)
+            return out
+        return self.pipe.submit(run)
+
+    def finish(self):
+        """FIFO order, and a raised error reaching ``wait()``."""
+        self.pipe.drain()
+        check(self.ran == list(range(self.n)),
+              f"host pipeline ran {self.n} exports in submission order")
+
+        def boom():
+            raise ValueError("export failed on purpose")
+        task = self.submit(boom)
+        try:
+            task.wait(60)
+        except ValueError as e:
+            err = str(e)
+        else:
+            err = None
+        check(err == "export failed on purpose",
+              "host pipeline: a raised error reaches wait()")
+        self.pipe.close()
+        say("host pipeline", exports=self.n - 1, fifo="yes",
+            error_delivered="yes")
+
+
+def measured(fn):
+    """(result, seconds, peak GiB, partition-kernel launches) of ``fn()``."""
+    from cylon_tpu_torch.ops import hash_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    hash_cuda.launches = 0
+    out, secs = wall(fn)
+    return (out, secs, torch.cuda.max_memory_allocated() / 2**30,
+            hash_cuda.launches)
+
+
+def check_groups(label, got, want, exact, f64=(), f32=()) -> None:
+    """Two host-side groupby results (``engine_result`` form): the same
+    groups; ``exact`` columns equal, ``f64`` within REL_TOL relative,
+    ``f32`` within F32_TOL."""
+    check(len(got[exact[0]]) == len(want[exact[0]]),
+          f"{label}: {len(got[exact[0]])} groups == {len(want[exact[0]])}")
+    for c in exact:
+        check(np.array_equal(got[c], want[c]), f"{label}: {c} exact")
+    for c in f64:
+        check(rel_close(got[c], want[c]),
+              f"{label}: {c} within {REL_TOL} relative")
+    for c in f32:
+        a, b = got[c].astype(np.float64), want[c].astype(np.float64)
+        check(bool(np.all(np.abs(a - b) <= F32_TOL * np.maximum(
+            np.maximum(np.abs(a), np.abs(b)), 1.0))),
+              f"{label}: {c} within {F32_TOL} relative")
+
+
+def _disc_price(env):
+    return env["l_extendedprice"].double() * (1.0 - env["l_discount"].double())
+
+
+def phase_fused_groupby(tables, sf: float, exports, profile: bool):
+    """``dist_groupby_fused`` at SF 10, world 4: ``psum`` over Q1's
+    dictionary keys under Q1's shipdate filter (against numpy and the
+    eager groupby), then ``pre-aggregate`` and ``shuffle`` by
+    ``l_orderkey`` (against the eager groupby)."""
+    from cylon_tpu_torch import Type
+    from cylon_tpu_torch.parallel import (dist_groupby, dist_groupby_fused,
+                                          dist_ops, dist_project,
+                                          dist_with_column)
+    from cylon_tpu_torch.tpch.datagen import date_to_days
+
+    li = dist_with_column(dist_project(tables["lineitem"], [
+        "l_orderkey", "l_returnflag", "l_linestatus", "l_quantity",
+        "l_extendedprice", "l_discount", "l_shipdate"]), "disc_price",
+        _disc_price, Type.DOUBLE)
+    n = li.num_rows
+    launches = {}
+    cutoff = date_to_days("1998-12-01") - 90
+    where = lambda env: env["l_shipdate"] <= cutoff  # noqa: E731
+    keys = ["l_returnflag", "l_linestatus"]
+    aggs = [("disc_price", "sum"), ("disc_price", "mean"),
+            ("l_quantity", "sum"), ("l_quantity", "count")]
+    dist_ops.decisions.clear()
+    out, secs, peak, nl = measured(lambda: dist_groupby_fused(
+        li, keys, aggs, where=where, mode="psum"))
+    label = f"dist_groupby_fused psum Q1 keys sf={sf} world={WORLD}"
+    check(dict(dist_ops.decisions) == {"groupby.psum": 1},
+          f"{label}: ran the psum mode ({dict(dist_ops.decisions)})")
+    launches["psum"] = nl
+    check(nl == 0, f"{label}: no partition-kernel launch")
+    eager, esecs = wall(lambda: dist_groupby(li, keys, aggs, where=where))
+    t_got = exports.submit(lambda: engine_result(out, keys))
+    t_eager = exports.submit(lambda: engine_result(eager, keys))
+    h = host_columns(tables["lineitem"], ["l_returnflag", "l_linestatus",
+                                          "l_quantity", "l_extendedprice",
+                                          "l_discount", "l_shipdate"])
+    m = h["l_shipdate"] <= cutoff
+    gid = (h["l_returnflag"].astype(np.int64) * 2 + h["l_linestatus"])[m]
+    dp = (h["l_extendedprice"].astype(np.float64)
+          * (1.0 - h["l_discount"].astype(np.float64)))[m]
+    cnt = np.bincount(gid, minlength=6)
+    sdp = np.bincount(gid, weights=dp, minlength=6)
+    sq = np.bincount(gid, weights=h["l_quantity"][m].astype(np.float64),
+                     minlength=6)
+    present = cnt > 0
+    want = {"l_returnflag": (np.arange(6) // 2)[present],
+            "l_linestatus": (np.arange(6) % 2)[present],
+            "sum_disc_price": sdp[present],
+            "mean_disc_price": (sdp / np.maximum(cnt, 1))[present],
+            "sum_l_quantity": sq[present], "count_l_quantity": cnt[present]}
+    got, _ = t_got.wait()
+    ewant, _ = t_eager.wait()
+    exact = keys + ["count_l_quantity"]
+    f64 = ["sum_disc_price", "mean_disc_price"]
+    check_groups(f"{label} vs numpy", got, want, exact, f64, ["sum_l_quantity"])
+    check_groups(f"{label} vs eager", got, ewant, exact, f64,
+                 ["sum_l_quantity"])
+    say(label, rows=n, seconds=f"{secs:.6f}", eager_seconds=f"{esecs:.6f}",
+        groups=len(got["l_returnflag"]), peak_gib=f"{peak:.2f}",
+        kernel_launches=nl, shard_groups=list(map(int, out.counts_host())))
+    del h, gid, dp, m
+    if profile:
+        profile_call(f"dist_groupby_fused psum Q1 keys sf={sf}",
+                     lambda: dist_groupby_fused(li, keys, aggs, where=where,
+                                                mode="psum"))
+    # pre-aggregate and shuffle by l_orderkey (about 15M groups)
+    keys = ["l_orderkey"]
+    aggs = [("disc_price", "sum"), ("disc_price", "mean"),
+            ("l_quantity", "count"), ("l_discount", "min"),
+            ("l_shipdate", "max")]
+    eager, esecs, epeak, enl = measured(lambda: dist_groupby(li, keys, aggs))
+    ewant, _ = exports.submit(lambda: engine_result(eager, keys)).wait()
+    del eager
+    say(f"dist_groupby l_orderkey (eager) sf={sf} world={WORLD}", rows=n,
+        seconds=f"{esecs:.6f}", groups=len(ewant["l_orderkey"]),
+        peak_gib=f"{epeak:.2f}", kernel_launches=enl)
+    exact = ["l_orderkey", "count_l_quantity", "min_l_discount",
+             "max_l_shipdate"]
+    for mode in ("pre-aggregate", "shuffle"):
+        dist_ops.decisions.clear()
+        out, secs, peak, nl = measured(lambda: dist_groupby_fused(
+            li, keys, aggs, mode=mode))
+        label = f"dist_groupby_fused {mode} l_orderkey sf={sf} world={WORLD}"
+        check(dict(dist_ops.decisions) == {f"groupby.{mode}": 1},
+              f"{label}: ran the {mode} mode")
+        launches[mode] = nl
+        check(nl == 1, f"{label}: one partition-kernel launch (got {nl})")
+        got, _ = exports.submit(lambda: engine_result(out, keys)).wait()
+        check_groups(f"{label} vs eager", got, ewant, exact,
+                     ["sum_disc_price", "mean_disc_price"])
+        say(label, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
+            groups=len(got["l_orderkey"]), peak_gib=f"{peak:.2f}",
+            kernel_launches=nl)
+        del out, got
+    if profile:
+        profile_call(f"dist_groupby_fused pre-aggregate l_orderkey sf={sf}",
+                     lambda: dist_groupby_fused(li, keys, aggs))
+    return launches
+
+
+SKETCH_AGGS = [("l_partkey", "approx_distinct"),
+               ("l_extendedprice", "approx_quantile:0.5"),
+               ("l_extendedprice", "approx_quantile:0.95")]
+
+
+def phase_sketch(tables, sf: float, exports, profile: bool):
+    """``dist_groupby_sketch`` by ``l_suppkey`` at SF 10 (100,000 groups):
+    every distinct estimate within HLL_ERROR_BOUND of numpy's exact count,
+    every quantile within QUANTILE_RANK_ERROR_BOUND in rank of numpy's
+    sorted values.  The partial blocks are sized by the per-shard group
+    count, not by the input capacity."""
+    from cylon_tpu_torch.ops import sketch as ops_sketch
+    from cylon_tpu_torch.parallel import dist_groupby_sketch, dist_ops
+
+    li = tables["lineitem"]
+    n = li.num_rows
+    out, secs, peak, nl = measured(lambda: dist_groupby_sketch(
+        li, ["l_suppkey"], SKETCH_AGGS))
+    label = f"dist_groupby_sketch l_suppkey sf={sf} world={WORLD}"
+    check(nl == 1, f"{label}: one partition-kernel launch (got {nl})")
+    t_got = exports.submit(lambda: engine_result(out, ["l_suppkey"]))
+    part = dist_ops._sketch_partial_table(
+        li, [li.column_index("l_suppkey")],
+        [li.column_index(c) for c, _ in SKETCH_AGGS],
+        ("distinct", "quantile", "quantile"), None, 0, li.cap)
+    part_cap = part.cap
+    del part
+    t0 = time.perf_counter()
+    h = host_columns(li, ["l_suppkey", "l_partkey", "l_extendedprice"])
+    sk = h["l_suppkey"].astype(np.int64)
+    uniq = np.unique((sk << 22) | h["l_partkey"].astype(np.int64))
+    exact = np.bincount(uniq >> 22)
+    groups = np.flatnonzero(exact)
+    comb = np.sort((sk << 32) | h["l_extendedprice"].view(np.uint32)
+                   .astype(np.int64))
+    starts = np.searchsorted(comb, groups << 32)
+    sizes = np.bincount(sk)[groups]
+    got, _ = t_got.wait()
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(got["l_suppkey"], groups),
+          f"{label}: the {len(groups)} suppliers of numpy")
+    est = got["approx_distinct_l_partkey"].astype(np.float64)
+    rel = np.abs(est - exact[groups]) / exact[groups]
+    check(float(rel.max()) <= ops_sketch.HLL_ERROR_BOUND,
+          f"{label}: every distinct estimate within "
+          f"{ops_sketch.HLL_ERROR_BOUND:.4f} (max {rel.max():.4f})")
+    rank_err = {}
+    for q in (0.5, 0.95):
+        e = got[f"p{int(round(q * 100))}_l_extendedprice"]
+        pos = np.searchsorted(comb, (groups << 32)
+                              | e.view(np.uint32).astype(np.int64)) - starts
+        err = np.abs(pos / sizes - q)
+        rank_err[q] = err
+        check(float(err.max()) <= ops_sketch.QUANTILE_RANK_ERROR_BOUND,
+              f"{label}: p{int(q * 100)} within rank "
+              f"{ops_sketch.QUANTILE_RANK_ERROR_BOUND:.4f} "
+              f"(max {err.max():.4f})")
+    say(label, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
+        groups=len(groups), peak_gib=f"{peak:.2f}", kernel_launches=nl,
+        input_cap=li.cap, partial_cap=part_cap,
+        hll_rel_err_max=f"{rel.max():.6f}", hll_rel_err_mean=f"{rel.mean():.6f}",
+        p50_rank_err_max=f"{rank_err[0.5].max():.6f}",
+        p50_rank_err_mean=f"{rank_err[0.5].mean():.6f}",
+        p95_rank_err_max=f"{rank_err[0.95].max():.6f}",
+        p95_rank_err_mean=f"{rank_err[0.95].mean():.6f}",
+        host_seconds=f"{host_s:.3f}")
+    if profile:
+        profile_call(f"dist_groupby_sketch l_suppkey sf={sf}",
+                     lambda: dist_groupby_sketch(li, ["l_suppkey"],
+                                                 SKETCH_AGGS))
+    return nl
+
+
+def _mix32_np(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def phase_sketch_lanes(sf: float, seed: int):
+    """At SF ``--tpch-check-sf``, world 4: the captured sketch state of the
+    ``l_suppkey`` sketch groupby (HLL registers of ``l_partkey``, bottom-k
+    values and priorities of ``l_extendedprice``) equals a numpy
+    recomputation from host copies of the shards, bit for bit.  The
+    registers do not depend on placement; a row's priority seeds from its
+    global id ``shard·cap + row``, and ties order by it."""
+    from cylon_tpu_torch.ops import sketch as ops_sketch
+    from cylon_tpu_torch.ops.gather import signed_view
+    from cylon_tpu_torch.parallel import dist_groupby_sketch
+    from cylon_tpu_torch.parallel.dist_ops import collect_agg_state
+
+    _, tables, _ = tpch_generate(sf, WORLD, seed)
+    li = tables["lineitem"]
+    aggs = SKETCH_AGGS[:2]
+    with collect_agg_state() as sink:
+        dist_groupby_sketch(li, ["l_suppkey"], aggs)
+    check(len(sink) == 1 and sink[0].kind == "sketch",
+          "sketch lanes: one sketch state captured")
+    st = sink[0].state
+    cnt = st.counts_host()
+    rows = torch.cat([torch.arange(int(c), device=DEVICE) + s * st.cap
+                      for s, c in enumerate(cnt)])
+    eng = {c.name: signed_view(c.data)[rows].cpu().numpy()
+           for c in st.columns}
+    order = np.argsort(eng["l_suppkey"], kind="stable")
+    eng = {k: v[order] for k, v in eng.items()}
+    t0 = time.perf_counter()
+    P, cap = li.nparts, li.cap
+    counts = li.counts_host()
+    blk = {c: li.column(c).data.view(P, cap).cpu().numpy()
+           for c in ("l_suppkey", "l_partkey", "l_extendedprice")}
+    sel = np.concatenate([np.arange(int(c)) + s * cap
+                          for s, c in enumerate(counts)])
+    sk = np.concatenate([blk["l_suppkey"][s, :int(c)]
+                         for s, c in enumerate(counts)]).astype(np.int64)
+    pk = np.concatenate([blk["l_partkey"][s, :int(c)]
+                         for s, c in enumerate(counts)]).astype(np.uint64)
+    price = np.concatenate([blk["l_extendedprice"][s, :int(c)]
+                            for s, c in enumerate(counts)])
+    gidx = sel.astype(np.uint32)           # shard·cap + row
+    groups, gid = np.unique(sk, return_inverse=True)
+    G, M, K = len(groups), ops_sketch.HLL_M, ops_sketch.QUANTILE_K
+    # HLL registers of l_partkey
+    h = _mix32_np((pk ^ (pk >> np.uint64(32))).astype(np.uint32))
+    w = (h >> np.uint32(ops_sketch.HLL_P)).astype(np.float64)
+    bitlen = np.where(w > 0, np.frexp(w)[1], 0)
+    rank = np.clip(32 - bitlen - ops_sketch.HLL_P + 1, 1,
+                   32 - ops_sketch.HLL_P + 1).astype(np.int32)
+    regs = np.zeros((G, M), np.int32)
+    np.maximum.at(regs, (gid, (h & np.uint32(M - 1)).astype(np.int64)), rank)
+    # bottom-k of l_extendedprice: the K smallest (priority, global id)
+    bits = price.view(np.uint32)
+    prio = np.minimum(_mix32_np(bits ^ _mix32_np(gidx)),
+                      np.uint32(ops_sketch.PRIO_MAX - 1))
+    o = np.lexsort((gidx, prio, gid))
+    g_o = gid[o]
+    first = np.r_[0, np.flatnonzero(g_o[1:] != g_o[:-1]) + 1]
+    r = np.arange(len(o)) - np.repeat(first, np.diff(np.r_[first, len(o)]))
+    keep = r < K
+    vals = np.zeros((G, K), np.float32)
+    prios = np.full((G, K), ops_sketch.PRIO_MAX, np.uint32)
+    vals[g_o[keep], r[keep]] = price[o][keep]
+    prios[g_o[keep], r[keep]] = prio[o][keep]
+    host_s = time.perf_counter() - t0
+    label = f"sketch state lanes sf={sf} world={WORLD}"
+    check(np.array_equal(eng["l_suppkey"], groups), f"{label}: the groups")
+    check(np.array_equal(eng["__hll0"], regs), f"{label}: HLL registers "
+          "bit for bit")
+    check(np.array_equal(eng["__bkv1"].view(np.int32), vals.view(np.int32)),
+          f"{label}: sample values bit for bit")
+    check(np.array_equal(eng["__bkp1"], prios.view(np.int32)),
+          f"{label}: sample priorities bit for bit")
+    say(label, rows=len(sk), groups=G, registers=G * M, sample_slots=G * K,
+        exact="yes", host_seconds=f"{host_s:.3f}")
+    del tables
+
+
+def phase_agg_state(tables, sf: float, exports):
+    """Split lineitem by ``l_orderkey`` into a base (80% of the orders)
+    and a delta; capture the plain state of a ``l_suppkey`` groupby and
+    the sketch state of ``approx_distinct(l_partkey)`` on each, merge and
+    finalize: equal to the groupbys over the whole table (plain: exact
+    ints, floats within REL_TOL; sketch: the same estimates)."""
+    from cylon_tpu_torch.parallel import (dist_groupby, dist_groupby_sketch,
+                                          dist_project, dist_select)
+    from cylon_tpu_torch.parallel.dist_ops import (collect_agg_state,
+                                                   finalize_agg_state,
+                                                   merge_agg_state)
+
+    li = dist_project(tables["lineitem"], ["l_orderkey", "l_suppkey",
+                                           "l_quantity", "l_partkey"])
+    cut = int(0.8 * tables["orders"].num_rows)
+    plain = [("l_quantity", "sum"), ("l_quantity", "count"),
+             ("l_quantity", "mean")]
+    sketch = [("l_partkey", "approx_distinct")]
+
+    def capture(pred):
+        part = dist_select(li, pred)
+        with collect_agg_state() as sink:
+            dist_groupby(part, ["l_suppkey"], plain)
+            dist_groupby_sketch(part, ["l_suppkey"], sketch)
+        check([st.kind for st in sink] == ["plain", "sketch"],
+              "agg state: one plain and one sketch state captured")
+        return sink, int(part.num_rows)
+
+    def run():
+        (b, nb), (d, nd) = (capture(lambda env: env["l_orderkey"] <= cut),
+                            capture(lambda env: env["l_orderkey"] > cut))
+        return ([finalize_agg_state(merge_agg_state(b[i], d[i]))
+                 for i in range(2)], nb, nd)
+
+    ((fin_plain, fin_sketch), nb, nd), secs, peak, nl = measured(run)
+    t_p = exports.submit(lambda: engine_result(fin_plain, ["l_suppkey"]))
+    t_s = exports.submit(lambda: engine_result(fin_sketch, ["l_suppkey"]))
+    whole_p = dist_groupby(li, ["l_suppkey"], plain)
+    whole_s = dist_groupby_sketch(li, ["l_suppkey"], sketch)
+    w_p = exports.submit(lambda: engine_result(whole_p, ["l_suppkey"]))
+    w_s = exports.submit(lambda: engine_result(whole_s, ["l_suppkey"]))
+    label = f"agg state merge(base, delta) sf={sf} world={WORLD}"
+    check_groups(f"{label} plain", t_p.wait()[0], w_p.wait()[0],
+                 ["l_suppkey", "count_l_quantity"],
+                 ["sum_l_quantity", "mean_l_quantity"])
+    check_groups(f"{label} sketch", t_s.wait()[0], w_s.wait()[0],
+                 ["l_suppkey", "approx_distinct_l_partkey"])
+    say(label, base_rows=nb, delta_rows=nd,
+        seconds=f"{secs:.6f}", peak_gib=f"{peak:.2f}", kernel_launches=nl)
+    return nl
+
+
+def phase_streaming_join(ldata, rdata, want, exports):
+    """``dist_join_streaming`` (chunks 4) against the one-shot ``dist_join``
+    at world 4 on the join cell, INNER and LEFT, HASH and SORT: the same
+    rows and payload checksums (INNER: the oracle's too)."""
+    from cylon_tpu_torch import CylonContext, JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import DTable, dist_join, dist_join_streaming
+
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    lt = DTable.from_table(ctx, to_table(ctx, ldata, None))
+    rt = DTable.from_table(ctx, to_table(ctx, rdata, None))
+    launches = {}
+    for alg in ("hash", "sort"):
+        for how in ("inner", "left"):
+            cfg = JoinConfig(JoinType(how), JoinAlgorithm(alg), 0, 0)
+            one, s1, p1, l1 = measured(lambda: dist_join(lt, rt, cfg))
+            lo = exports.submit(one.to_table)
+            st, s2, p2, l2 = measured(lambda: dist_join_streaming(
+                lt, rt, cfg, chunks=4))
+            ls = exports.submit(st.to_table)
+            label = f"dist_join_streaming {alg.upper()} {how} world={WORLD}"
+            local_one, local_st = lo.wait(), ls.wait()
+            check(local_st.num_rows == local_one.num_rows,
+                  f"{label}: rows == one-shot")
+            a, b = checksums(local_st), checksums(local_one)
+            for k in a:
+                check(a[k] == b[k] if k.startswith("bits") else close(a[k], b[k]),
+                      f"{label}: {k} == one-shot")
+            if how == "inner":
+                check_join(label, local_st, want)
+            launches[f"{alg}_{how}"] = l2
+            say(label, rows_out=local_st.num_rows, chunks=4,
+                seconds=f"{s2:.6f}", oneshot_seconds=f"{s1:.6f}",
+                peak_gib=f"{p2:.2f}", oneshot_peak_gib=f"{p1:.2f}",
+                kernel_launches=l2, oneshot_kernel_launches=l1)
+            del one, st, local_one, local_st
+    check(launches["hash_inner"] == 5 and launches["sort_inner"] == 0,
+          f"streaming: HASH 1 + 4 chunk launches, SORT none ({launches})")
+    return launches
+
+
+def phase_q9_streaming(ctx, tables, sf: float, profile: bool):
+    """Q9 with ``streaming_chunks=4`` equals the one-shot Q9: rows in
+    order, ``sum_profit`` within REL_TOL."""
+    from cylon_tpu_torch.tpch import QUERIES
+
+    one, s1, p1, l1 = measured(lambda: QUERIES["q9"](ctx, tables))
+    st, s2, p2, l2 = measured(lambda: QUERIES["q9"](ctx, tables,
+                                                    streaming_chunks=4))
+    a, b = _cols(st), _cols(one)
+    label = f"tpch q9 streaming_chunks=4 sf={sf} world={WORLD}"
+    check(list(a) == list(b) and st.num_rows == one.num_rows,
+          f"{label}: the one-shot columns and rows")
+    for c in a:
+        if c == "sum_profit":
+            check(rel_close(a[c], b[c]), f"{label}: {c} within {REL_TOL}")
+        else:
+            check(np.array_equal(a[c], b[c]), f"{label}: {c} in order")
+    say(label, rows=st.num_rows, seconds=f"{s2:.6f}",
+        oneshot_seconds=f"{s1:.6f}", peak_gib=f"{p2:.2f}",
+        oneshot_peak_gib=f"{p1:.2f}", kernel_launches=l2,
+        oneshot_kernel_launches=l1)
+    if profile:
+        profile_call(f"tpch q9 streaming_chunks=4 sf={sf}",
+                     lambda: QUERIES["q9"](ctx, tables, streaming_chunks=4))
+        profile_call(f"tpch q9 one-shot sf={sf}",
+                     lambda: QUERIES["q9"](ctx, tables))
+    return l2
+
+
+def column_sum(x: torch.Tensor) -> int:
+    """An exact, order-free checksum: Σ of the values of an integer
+    column, of the 32-bit patterns of a float32 one."""
+    if x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    return int(x.long().sum())
+
+
+def _strip(names):
+    return [n[3:] if n.startswith(("lt-", "rt-")) else n for n in names]
+
+
+def phase_multiway(tables, sf: float, exports):
+    """The Q5-shaped star through ``dist_multiway_join``: lineitem against
+    orders (dense FK), supplier (broadcast) and part (dense FK), against
+    the binary ``dist_join`` cascade with the same edges: the same rows and
+    checksums."""
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import (dist_join, dist_multiway_join,
+                                          dist_ops, dist_project)
+
+    fact = dist_project(tables["lineitem"], ["l_orderkey", "l_partkey",
+                                             "l_suppkey", "l_extendedprice"])
+    dims = [dist_project(tables["orders"], ["o_orderkey", "o_orderdate"]),
+            dist_project(tables["supplier"], ["s_suppkey", "s_nationkey"]),
+            dist_project(tables["part"], ["p_partkey", "p_size"])]
+    specs = [("l_orderkey", "o_orderkey", (1, tables["orders"].num_rows)),
+             ("l_suppkey", "s_suppkey", None),
+             ("l_partkey", "p_partkey", (1, tables["part"].num_rows))]
+    names, edges = list(fact.column_names), []
+    for j, (dim, (fk, pk, dkr)) in enumerate(zip(dims, specs)):
+        out = ["lt-" + n for n in names] + ["rt-" + n for n in dim.column_names]
+        ren = () if j == len(specs) - 1 else tuple(zip(out, _strip(out)))
+        names = _strip(out)
+        edges.append(("inner", "sort", (fk,), (pk,), dkr, None, ren))
+
+    def cascade():
+        cur = fact
+        for dim, (how, alg, fon, don, dkr, _, ren) in zip(dims, edges):
+            cfg = JoinConfig(JoinType(how), JoinAlgorithm(alg), fon[0], don[0])
+            cur = dist_join(cur, dim, cfg, dkr)
+            if ren:
+                cur = cur.rename([dict(ren).get(n, n) for n in cur.column_names])
+        return cur
+
+    dist_ops.decisions.clear()
+    mw, s1, p1, l1 = measured(lambda: dist_multiway_join(fact, dims, edges))
+    taken_mw = dict(dist_ops.decisions)
+    t_mw = exports.submit(mw.to_table)
+    dist_ops.decisions.clear()
+    cc, s2, p2, l2 = measured(cascade)
+    taken_cc = dict(dist_ops.decisions)
+    t_cc = exports.submit(cc.to_table)
+    a, b = t_mw.wait(), t_cc.wait()
+    label = f"dist_multiway_join Q5 star sf={sf} world={WORLD}"
+    check(a.num_rows == b.num_rows == fact.num_rows,
+          f"{label}: {a.num_rows} rows == cascade's {b.num_rows}")
+    for c in ("lt-l_extendedprice", "lt-l_orderkey", "lt-o_orderdate",
+              "lt-s_nationkey", "rt-p_size"):
+        check(column_sum(a.column(c).data) == column_sum(b.column(c).data),
+              f"{label}: checksum of {c} == cascade's")
+    fmt = lambda d: ",".join(f"{k}:{v}" for k, v in sorted(d.items()))  # noqa: E731
+    say(label, rows=a.num_rows, seconds=f"{s1:.6f}",
+        cascade_seconds=f"{s2:.6f}", peak_gib=f"{p1:.2f}",
+        cascade_peak_gib=f"{p2:.2f}", kernel_launches=l1,
+        cascade_kernel_launches=l2, decisions=fmt(taken_mw),
+        cascade_decisions=fmt(taken_cc))
+    return l1
+
+
+# ---------------------------------------------------------------------------
 # phase 6: compute.hash_partition
 # ---------------------------------------------------------------------------
 
@@ -1324,6 +1874,8 @@ def main() -> int:
     phase_hash_partition(ldata)
     phase_dist_sort(ldata, args.seed, args.profile)
     launches_setop, _ = phase_set_ops(ldata, args.seed, args.profile)
+    exports = Exports()
+    launches_stream = phase_streaming_join(ldata, rdata, want, exports)
 
     li, li_null = make_lineitem(np.random.default_rng(args.seed + 4), args.rows)
     # one small run of each groupby path first, so the timed runs below do
@@ -1350,6 +1902,15 @@ def main() -> int:
     wctx, wtables, _ = tpch_generate(0.05, WORLD, args.seed)
     for q in QUERIES:
         QUERIES[q](wctx, wtables)
+    # and the planner-operator phases, checks included, on the same small
+    # tables
+    wexports = Exports()
+    phase_fused_groupby(wtables, 0.05, wexports, False)
+    phase_sketch(wtables, 0.05, wexports, False)
+    phase_agg_state(wtables, 0.05, wexports)
+    phase_q9_streaming(wctx, wtables, 0.05, False)
+    phase_multiway(wtables, 0.05, wexports)
+    wexports.finish()
     del wtables
     broadcast.clear_replica_cache()
     tctx, tables, _ = phase_tpch_generate(args.tpch_sf, args.seed)
@@ -1358,9 +1919,23 @@ def main() -> int:
     phase_tpch_oracles(tables, results, args.tpch_sf)
     check(sum(launches_tpch.values()) > 0,
           "tpch: the partition kernel ran in at least one query")
-    del tables, results
+    del results
+    launches_fused = phase_fused_groupby(tables, args.tpch_sf, exports,
+                                         args.profile)
+    launches_sketch = phase_sketch(tables, args.tpch_sf, exports, args.profile)
+    launches_state = phase_agg_state(tables, args.tpch_sf, exports)
+    launches_stream["q9"] = phase_q9_streaming(tctx, tables, args.tpch_sf,
+                                               args.profile)
+    launches_multiway = phase_multiway(tables, args.tpch_sf, exports)
+    del tables
     broadcast.clear_replica_cache()
     phase_tpch_worlds(args.tpch_check_sf, args.seed)
+    phase_sketch_lanes(args.tpch_check_sf, args.seed)
+    exports.finish()
+    check(launches_fused["pre-aggregate"] > 0 and launches_fused["shuffle"] > 0
+          and launches_sketch > 0,
+          "the partition kernel ran on the fused partial exchange, the "
+          "fused shuffle and the sketch combine")
 
     # the kernel at the main path's shape: the world-4 partition of one side
     # ([P*cap] rows of one int32 key, no validity, 4 parts)
@@ -1394,6 +1969,10 @@ def main() -> int:
             "orderkey_dense": launches_gb["dense_key_range"],
             "q1": launches_q1, "q6": launches_q6},
         "launches_tpch": launches_tpch,
+        "launches_fused": launches_fused, "launches_sketch": launches_sketch,
+        "launches_agg_state": launches_state,
+        "launches_streaming": launches_stream,
+        "launches_multiway": launches_multiway,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
         "max_abs_err": max_err,

@@ -47,6 +47,14 @@ class LocalCommunicator:
                 f"all_gather wants [{self.world}, ...], got {tuple(x.shape)}"))
         return x
 
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[rank, ...]`` one block per rank → their sum over the ranks,
+        visible to every rank (``psum``); shape ``x.shape[1:]``."""
+        if x.dim() == 0 or x.shape[0] != self.world:
+            raise CylonError(Status(Code.Invalid,
+                f"all_reduce wants [{self.world}, ...], got {tuple(x.shape)}"))
+        return x.sum(0)
+
     def barrier(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

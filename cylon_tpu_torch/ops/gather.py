@@ -74,7 +74,7 @@ def take_many(leaves, indices: torch.Tensor, fill_null: bool = False):
     if not leaves:
         return []
     n = leaves[0][0].shape[0]
-    if n == 0 or len(leaves) == 1 or any(d.dim() != 1 for d, _ in leaves):
+    if n == 0 or len(leaves) == 1:
         return [take(d, v, indices, fill_null=fill_null) for d, v in leaves]
     safe = indices.clamp(0, n - 1)
     valid = indices >= 0 if fill_null else None
@@ -110,15 +110,23 @@ def take_many(leaves, indices: torch.Tensor, fill_null: bool = False):
 
 
 def pack_columns(cols):
-    """Group same-length 1-D columns by byte-width class, reinterpret each
-    as the class's signed integer type, and stack ``[n, C]``.
+    """Group same-length columns by byte-width class, reinterpret each as
+    the class's signed integer type, and stack ``[n, C]``.
 
-    bool → uint8; 8-byte columns stack per dtype as they are.  Returns
-    ``[(matrix, positions, dtypes)]`` per class, invertible by
-    ``unpack_columns``.
+    bool → uint8; 8-byte columns stack per dtype as they are.  A column
+    with trailing dimensions (``[n, M]`` sketch state) is a class of its
+    own: its signed view flattened to ``[n, M]``, its dtype entry the pair
+    ``(dtype, trailing shape)``.  Returns ``[(matrix, positions, dtypes)]``
+    per class, invertible by ``unpack_columns``.
     """
     by_width = {}
+    trailing = []
     for pos, d in enumerate(cols):
+        if d.dim() > 1:
+            flat = (d.to(torch.uint8) if d.dtype == torch.bool
+                    else signed_view(d)).reshape(d.shape[0], -1)
+            trailing.append((flat, [pos], [(d.dtype, tuple(d.shape[1:]))]))
+            continue
         if d.dtype == torch.bool:
             key, cast = "b", d.to(torch.uint8)
         elif d.element_size() == 8:
@@ -129,12 +137,18 @@ def pack_columns(cols):
         by_width.setdefault(key, []).append((pos, cast, d.dtype))
     return [(torch.stack([c for _, c, _ in items], dim=1),
              [p for p, _, _ in items], [dt for _, _, dt in items])
-            for items in by_width.values()]
+            for items in by_width.values()] + trailing
 
 
 def unpack_columns(wide: torch.Tensor, dtypes):
     """Columns of a packed matrix back to their original dtypes (the last
-    axis indexes columns; leading axes pass through)."""
+    axis indexes columns; leading axes pass through).  A trailing-dimension
+    class (one ``(dtype, shape)`` entry) is the whole matrix, reshaped."""
+    if len(dtypes) == 1 and isinstance(dtypes[0], tuple):
+        dt, tail = dtypes[0]
+        col = wide.reshape(tuple(wide.shape[:-1]) + tail)
+        return [col.to(torch.bool) if dt == torch.bool
+                else col.contiguous().view(dt)]
     out = []
     for j, dt in enumerate(dtypes):
         col = wide[..., j]

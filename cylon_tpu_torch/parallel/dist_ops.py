@@ -37,7 +37,9 @@ pooled through the communicator's ``all_gather`` and never reach the host.
 """
 from __future__ import annotations
 
+import threading
 from collections import Counter
+from contextlib import contextmanager
 from dataclasses import replace
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -45,7 +47,8 @@ import numpy as np
 import torch
 
 from ..compute import _agg_output_type
-from ..config import JoinAlgorithm, JoinConfig
+from ..config import (JoinAlgorithm, JoinConfig, JoinType,
+                      broadcast_join_threshold)
 from ..dtypes import (DataType, Type, device_dtype, extreme_value,
                       is_dictionary_encoded)
 from ..ops import compact as ops_compact
@@ -53,6 +56,7 @@ from ..ops import gather as ops_gather
 from ..ops import groupby as ops_groupby
 from ..ops import join as ops_join
 from ..ops import setops as ops_setops
+from ..ops import sketch as ops_sketch
 from ..ops import sort as ops_sort
 from ..ops.hash_cuda import partition_ids_fused
 from ..status import Code, CylonError, Status
@@ -73,8 +77,12 @@ _SAMPLES_PER_SHARD = 64  # sample-sort oversampling factor
 # ``decisions.clear()``: "join.broadcast", "join.shuffle", "join.local",
 # "join.fk-dense" (+ "+broadcast" / "+shuffle" at world > 1),
 # "semi.broadcast", "semi.shuffle", "semi.local", each with ".dense" or
-# ".sort" for the semi-join's probe (the JAX package counts the same
-# choices with its trace counters).
+# ".sort" for the semi-join's probe; per probe of ``dist_multiway_join``
+# "multiway.broadcast", "multiway.broadcast-fact", "multiway.shuffle" or
+# "multiway.local"; per ``dist_groupby_fused`` call the mode it ran,
+# "groupby.psum", "groupby.pre-aggregate", "groupby.shuffle" or
+# "groupby.local" (the JAX package counts the same choices with its trace
+# counters and plan annotations).
 decisions: Counter = Counter()
 
 
@@ -563,6 +571,103 @@ def dist_join(left: DTable, right: DTable, config: JoinConfig,
     rsh = _copartition(right, ri_keys, alg, splitters)
     return _join_copartitioned(lsh, rsh, li_keys, ri_keys,
                                config.join_type.value, alg)
+
+
+# ---------------------------------------------------------------------------
+# multiway (star) join: probe the fact side against every dimension
+# ---------------------------------------------------------------------------
+
+def _multiway_edges(edges) -> list:
+    """Normalize and validate the per-dimension edge specs.  Each edge is
+    ``(how, alg, fact_on, dim_on, dense_key_range, broadcast_threshold,
+    rename)``: the join kind ("inner" / "left": the fact must be the
+    preserved side), the algorithm, the key names on the running
+    intermediate and on the dimension, the optional dense-FK hint, the
+    optional per-edge threshold, and the ``(old, new)`` column renames
+    applied to the probe's output."""
+    out = []
+    for e in edges:
+        how, alg, fact_on, dim_on, dkr, thr, ren = e
+        if how not in ("inner", "left"):
+            raise CylonError(Status(Code.Invalid,
+                f"dist_multiway_join: edge kind {how!r} unsupported — "
+                "the fact side must be preserved (INNER, or LEFT with "
+                "the fact on the left)"))
+        if len(tuple(fact_on)) != len(tuple(dim_on)):
+            raise CylonError(Status(Code.Invalid,
+                "dist_multiway_join: edge key arity mismatch "
+                f"{tuple(fact_on)} vs {tuple(dim_on)}"))
+        out.append((how, alg, tuple(fact_on), tuple(dim_on),
+                    None if dkr is None else (int(dkr[0]), int(dkr[1])),
+                    thr, tuple((o, n) for o, n in ren)))
+    return out
+
+
+def _multiway_threshold(current: DTable, explicit, world: int) -> int:
+    """Per-probe broadcast threshold: the edge's (or the process-wide)
+    threshold raised to the re-exchange crossover ``I / (P − 1)``.
+    Replicating a dimension of R rows moves R·(P−1) rows; co-partitioning
+    moves the running intermediate (about I rows) again, so replication
+    pays while R < I / (P − 1).  ``I`` comes from ingest-cached counts
+    when the intermediate carries them, else the ``P·cap`` bound (no
+    device read).  ``rows_if_small``'s memory budget keeps the last word.
+    An explicit 0 (or a disabled knob) never broadcasts."""
+    base = broadcast_join_threshold() if explicit is None else int(explicit)
+    if base <= 0 or world <= 1:
+        return base
+    ch = current._counts_host
+    if ch is not None and current.pending_mask is None:
+        bound = int(np.asarray(ch).sum())
+    else:
+        bound = current.nparts * current.cap
+    return max(base, bound // max(world - 1, 1))
+
+
+def _multiway_rename(dt: DTable, ren) -> DTable:
+    if not ren:
+        return dt
+    m = dict(ren)
+    return dt.rename([m.get(n, n) for n in dt.column_names])
+
+
+def dist_multiway_join(fact: DTable, dims: Sequence[DTable],
+                       edges: Sequence) -> DTable:
+    """Star join: probe ``fact`` against every dimension in turn
+    (partition-once / probe-N), each probe a ``dist_join`` under the
+    edge's effective broadcast threshold (``_multiway_threshold``), so a
+    dimension under the re-exchange crossover is replicated and the
+    running intermediate does not move.  Edges: see ``_multiway_edges``.
+    Each probe's label ("broadcast", "broadcast-fact", "shuffle", or
+    "local" at world 1) is counted in ``decisions`` as
+    ``multiway.<label>``."""
+    edges = _multiway_edges(edges)
+    if not edges or len(edges) != len(dims):
+        raise CylonError(Status(Code.Invalid,
+            f"dist_multiway_join: {len(dims)} dimension table(s) for "
+            f"{len(edges)} edge spec(s)"))
+    world = fact.ctx.get_world_size()
+    current = fact
+    for dim, (how, alg, fact_on, dim_on, dkr, thr, ren) in zip(dims, edges):
+        eff = _multiway_threshold(current, thr, world)
+        if world > 1:
+            # advisory label in the probe's strategy order; the probe
+            # itself re-checks
+            if broadcast.rows_if_small(dim, eff) is not None:
+                label = "broadcast"
+            elif how == "inner" and dkr is None \
+                    and broadcast.rows_if_small(current, eff) is not None:
+                label = "broadcast-fact"
+            else:
+                label = "shuffle"
+        else:
+            label = "local"
+        decisions[f"multiway.{label}"] += 1
+        cfg = JoinConfig(JoinType(how), JoinAlgorithm(alg),
+                         fact_on[0] if len(fact_on) == 1 else fact_on,
+                         dim_on[0] if len(dim_on) == 1 else dim_on,
+                         broadcast_threshold=eff)
+        current = _multiway_rename(dist_join(current, dim, cfg, dkr), ren)
+    return current
 
 
 # ---------------------------------------------------------------------------
@@ -1463,25 +1568,24 @@ def _decompose_aggs(dt: DTable, aggregations):
     return partial, plan
 
 
-def _recompose_partials(dt: DTable, aggregations, plan, comb: DTable,
-                        K: int) -> DTable:
+def _recompose_partials(base_meta, plan, comb: DTable, K: int) -> DTable:
     """Final columns from the combined partials: mean = Σsum / Σcount,
     everything else forwards its combined partial (partial j is column
-    K + j of ``comb``)."""
+    K + j of ``comb``).  ``base_meta``: per output ``(base column name,
+    base DataType, op)`` (``_base_meta``)."""
     cols = list(comb.columns[:K])
-    for (cref, op), spec in zip(aggregations, plan):
-        base = dt.columns[dt.column_index(cref)]
-        t_out = DataType(_agg_output_type(base.dtype.type, op))
-        name = f"{op}_{base.name}"
+    for (name, dtype, op), spec in zip(base_meta, plan):
+        t_out = DataType(_agg_output_type(dtype.type, op))
         if op == "mean":
             s, c = comb.columns[K + spec[1]], comb.columns[K + spec[2]]
             data = (s.data.to(torch.float64)
                     / torch.clamp(c.data, min=1).to(torch.float64))
-            cols.append(DColumn(name, t_out, data, c.data > 0))
+            cols.append(DColumn(f"{op}_{name}", t_out, data, c.data > 0))
         else:
             src = comb.columns[K + spec[1]]
-            cols.append(DColumn(name, t_out, src.data, src.validity))
-    return DTable(dt.ctx, cols, comb.cap, comb.counts)
+            cols.append(DColumn(f"{op}_{name}", t_out, src.data,
+                                src.validity))
+    return DTable(comb.ctx, cols, comb.cap, comb.counts)
 
 
 def _dist_groupby_preagg(dt: DTable, key_ids: List[int], aggregations,
@@ -1510,4 +1614,611 @@ def _dist_groupby_preagg(dt: DTable, key_ids: List[int], aggregations,
         comb = dist_groupby(part, list(range(K)), comb_aggs,
                             dense_key_range=dense_key_range,
                             pre_aggregate=False)
-    return _recompose_partials(dt, aggregations, plan, comb, K)
+    _note_plain_state(dt, aggregations, partial, plan, comb, K,
+                      dense_key_range)
+    return _recompose_partials(_base_meta(dt, aggregations), plan, comb, K)
+
+
+# ---------------------------------------------------------------------------
+# aggregation-state capture and merge: every mergeable aggregation tail
+# holds a combined partial-group table (plain partials) or a merged
+# sketch-state table right before recomposition.  Under
+# ``collect_agg_state()`` that state is handed to a thread-local sink at
+# no extra device cost, so a materialized view can later fold an appended
+# delta's state into it and re-finalize without reading the base table.
+# ---------------------------------------------------------------------------
+
+_matview_tls = threading.local()
+
+
+class AggState:
+    """One captured mergeable aggregation state.
+
+    ``kind``       "plain" (sum / count / min / max partials; mean =
+                   Σsum / Σcount) or "sketch" (HLL / bottom-k lanes).
+    ``state``      the partial DTable: ``K`` key columns, then the partial
+                   or sketch-lane columns, by position (the
+                   ``_recompose_partials`` contract).
+    ``base_meta``  per aggregation ``(base column name, base DataType,
+                   op)``: what finalizing needs from the base table.
+    """
+
+    __slots__ = ("kind", "state", "K", "partial", "plan", "base_meta",
+                 "dense_key_range", "kinds", "qs")
+
+    def __init__(self, kind: str, state: DTable, K: int, *, partial=None,
+                 plan=None, base_meta=None, dense_key_range=None,
+                 kinds=None, qs=None) -> None:
+        self.kind = kind
+        self.state = state
+        self.K = K
+        self.partial = partial
+        self.plan = plan
+        self.base_meta = base_meta
+        self.dense_key_range = dense_key_range
+        self.kinds = kinds
+        self.qs = qs
+
+
+@contextmanager
+def collect_agg_state():
+    """Collect every mergeable aggregation state produced on THIS thread
+    while the context is open (yields the sink list).  Nestable: the
+    inner collector wins and restores the outer one on exit."""
+    prev = getattr(_matview_tls, "sink", None)
+    sink: List[AggState] = []
+    _matview_tls.sink = sink
+    try:
+        yield sink
+    finally:
+        _matview_tls.sink = prev
+
+
+def _base_meta(dt: DTable, aggregations):
+    return [(c.name, c.dtype, op) for c, op in
+            ((dt.columns[dt.column_index(cref)], op)
+             for cref, op in aggregations)]
+
+
+def _note_plain_state(dt: DTable, aggregations, partial, plan, comb: DTable,
+                      K: int, dense_key_range) -> None:
+    sink = getattr(_matview_tls, "sink", None)
+    if sink is None:
+        return
+    sink.append(AggState("plain", comb, K, partial=list(partial),
+                         plan=list(plan),
+                         base_meta=_base_meta(dt, aggregations),
+                         dense_key_range=dense_key_range))
+
+
+def _note_sketch_state(dt: DTable, aggregations, sh: DTable, K: int, kinds,
+                       qs) -> None:
+    sink = getattr(_matview_tls, "sink", None)
+    if sink is None:
+        return
+    # the shuffled partial table co-locates each group's rows: one local
+    # merge gives the one-row-per-group state
+    sink.append(AggState("sketch", _sketch_merge_local(sh, K, kinds, qs), K,
+                         base_meta=_base_meta(dt, aggregations),
+                         kinds=tuple(kinds), qs=tuple(qs)))
+
+
+def _shuffle_by_keys(dt: DTable, K: int) -> DTable:
+    """Hash-shuffle a partial table on its first ``K`` (key) columns."""
+    if dt.ctx.get_world_size() == 1:
+        return dt  # one shard: every group is already home
+    return _shuffle_by_pids(dt, _hash_pids(dt, list(range(K))))
+
+
+def merge_agg_state(a: AggState, b: AggState) -> AggState:
+    """Merge two captured states of the SAME aggregation (base ∪ delta):
+    key dictionaries are unified first (an append may grow a dictionary),
+    then plain partials re-combine through the combining groupby and
+    sketch lanes through the sketch merge."""
+    from .streaming import _concat_compact
+    K = a.K
+    sa, sb = _unify_dtable_dicts(a.state, b.state, list(range(K)),
+                                 list(range(K)))
+    cc = _concat_compact([sa, sb])
+    if a.kind == "sketch":
+        merged = _sketch_merge_local(_shuffle_by_keys(cc, K), K, a.kinds,
+                                     a.qs)
+        return AggState("sketch", merged, K, base_meta=a.base_meta,
+                        kinds=a.kinds, qs=a.qs)
+    comb_aggs = [(K + j, _COMBINE_OP[op])
+                 for j, (_, op) in enumerate(a.partial)]
+    merged = dist_groupby(cc, list(range(K)), comb_aggs,
+                          dense_key_range=a.dense_key_range,
+                          pre_aggregate=False)
+    return AggState("plain", merged, K, partial=a.partial, plan=a.plan,
+                    base_meta=a.base_meta,
+                    dense_key_range=a.dense_key_range)
+
+
+def finalize_agg_state(st: AggState) -> DTable:
+    """The result table of a (merged) captured state: local arithmetic
+    for plain partials, a shuffle and the finalizing sketch combine for
+    sketches.  Names and types come from ``base_meta``."""
+    comb, K = st.state, st.K
+    if st.kind == "plain":
+        return _recompose_partials(st.base_meta, st.plan, comb, K)
+    sh = _shuffle_by_keys(comb, K)
+    keys_out, outs, counts = _sketch_combine(sh, K, st.kinds, st.qs, True)
+    return _sketch_result(sh, sh.columns[:K], keys_out, st.base_meta, outs,
+                          st.kinds, counts)
+
+
+# ---------------------------------------------------------------------------
+# the planner-lowered fused groupby: psum / partial exchange / shuffle
+# ---------------------------------------------------------------------------
+
+def _combine_leaf_spec(part: DTable, K: int, partial_ops) -> Tuple:
+    """Leaf-layout combiner spec of a partial-group table: the wire leaf
+    positions (data, then validity if any, per column, in
+    ``_shuffle_by_pids`` order) of the key slots and of the value slots
+    with their combine ops.  The JAX package's chunked and hierarchical
+    exchanges fold rounds by key with it; the port's single-shot exchange
+    carries it as data only (the JAX single-shot path ignores it too)."""
+    idx = 0
+    key_slots, val_slots = [], []
+    for i, c in enumerate(part.columns):
+        d = idx
+        idx += 1
+        v = None
+        if c.validity is not None:
+            v = idx
+            idx += 1
+        if i < K:
+            key_slots.append((d, v))
+        else:
+            val_slots.append((d, v, _COMBINE_OP[partial_ops[i - K]]))
+    return (tuple(key_slots), tuple(val_slots))
+
+
+# dense slot spaces up to this size combine as ONE all-reduce: the psum
+# moves R slot-rows per rank whatever their occupancy, so a sparse domain
+# must stay small to beat the partial exchange
+_PSUM_SLOT_CAP = 4096
+
+
+def _psum_combine(dt: DTable, key_ids, partial, lanes, domains, pmask,
+                  out_cap: int):
+    """The fused groupby over a dense composite key space: every shard
+    scatter-adds its partial lanes into ``[R+1]`` slots (R real + 1
+    dropped), ONE ``all_reduce`` combines the shards, and the present
+    slots decode into an output block every shard holds identically
+    (shard 0 owns the rows).  ``domains``: ``(size, nullable)`` per key,
+    ``size`` counting the null code ``size − 1``.  ``lanes``: "count",
+    "isum" or "fsum" per partial, after the implicit lane 0 of rows per
+    group.  Returns (key leaves, value lanes, counts [P])."""
+    P, cap = dt.nparts, dt.cap
+    dev = dt.counts.device
+    R = 1
+    for size, _ in domains:
+        R *= size
+    row_valid = pmask if pmask is not None else _row_mask(dt)
+    slot = torch.zeros(P * cap, dtype=torch.int64, device=dev)
+    for i, (size, nullable) in zip(key_ids, domains):
+        c = dt.columns[i]
+        code = c.data.to(torch.int64)
+        if nullable:
+            code = torch.where(c.validity, code, size - 1)
+        slot = slot * size + code
+    slot = torch.where(row_valid, slot, R)
+    # every row of a slot would add into the same few addresses, and the
+    # card serializes atomics on one address: each slot gets B copies
+    # (row mod B), summed back after the scatter
+    B = max(1, min(1024, (1 << 22) // (P * (R + 1))))
+    flat = ((_shard_ids(P, cap, dev) * (R + 1) + slot) * B
+            + torch.arange(P * cap, device=dev) % B)
+    ilanes = [row_valid.to(torch.int64)]
+    flanes = []
+    where_lane = []   # per partial: (is_float, lane index)
+    for (ci, _), kind in zip(partial, lanes):
+        c = dt.columns[ci]
+        vmask = row_valid if c.validity is None else (row_valid & c.validity)
+        if kind == "count":
+            where_lane.append((False, len(ilanes)))
+            ilanes.append(vmask.to(torch.int64))
+        elif kind == "isum":
+            where_lane.append((False, len(ilanes)))
+            ilanes.append(torch.where(vmask, c.data.to(torch.int64), 0))
+        else:
+            where_lane.append((True, len(flanes)))
+            flanes.append(torch.where(vmask, c.data.to(torch.float64), 0.0))
+
+    def combined(lanes_, dtype):
+        pack = torch.zeros((P * (R + 1) * B, len(lanes_)), dtype=dtype,
+                           device=dev)
+        pack.index_add_(0, flat, torch.stack(lanes_, 1))
+        return dt.ctx.comm.all_reduce(
+            pack.view(P, R + 1, B, len(lanes_)).sum(2))[:R]
+
+    itot = combined(ilanes, torch.int64)
+    ftot = combined(flanes, torch.float64) if flanes else None
+    present = itot[:, 0] > 0
+    starts = ops_compact.compact_indices(present, out_cap, fill=-1)
+    ngroups = torch.sum(present).to(torch.int32)
+    safe = torch.clamp(starts, 0, R - 1).to(torch.int64)
+    keys_out = []
+    rem = safe
+    for i, (size, nullable) in reversed(list(zip(key_ids, domains))):
+        code = rem % size
+        rem = rem // size
+        valid = None
+        if nullable:
+            valid = code != size - 1
+            code = torch.where(valid, code, 0)
+        keys_out.append((code.to(dt.columns[i].data.dtype).repeat(P),
+                         None if valid is None else valid.repeat(P)))
+    keys_out.reverse()
+    vals_out = [(ftot if is_f else itot)[:, j][safe].repeat(P)
+                for is_f, j in where_lane]
+    counts = torch.zeros(P, dtype=torch.int32, device=dev)
+    counts[0] = ngroups
+    return keys_out, vals_out, counts
+
+
+def _fused_psum_groupby(dt: DTable, key_ids: List[int], aggregations,
+                        where) -> Optional[DTable]:
+    """The combine-in-the-collective arm of ``dist_groupby_fused`` if the
+    table qualifies at execution time, else None: world > 1, every key
+    dictionary-encoded with integer codes (structurally in range, so no
+    host read), the composite domain within ``_PSUM_SLOT_CAP``, and every
+    aggregation sum / count / mean (min and max have no sum all-reduce)."""
+    if dt.ctx.get_world_size() <= 1:
+        return None
+    domains = []
+    for i in key_ids:
+        c = dt.columns[i]
+        if (c.dictionary is None or len(c.dictionary) == 0
+                or not _is_integer(c.data.dtype)):
+            return None
+        nullable = c.validity is not None
+        domains.append((len(c.dictionary) + int(nullable), nullable))
+    R = 1
+    for size, _ in domains:
+        R *= size
+    if not 0 < R + 1 <= _PSUM_SLOT_CAP:
+        return None
+    if any(op not in ("sum", "count", "mean") for _, op in aggregations):
+        return None
+    partial, plan = _decompose_aggs(dt, aggregations)
+    lanes = ["count" if op == "count" else
+             "fsum" if dt.columns[ci].data.dtype.is_floating_point else
+             "isum" for ci, op in partial]
+    out_cap = ops_compact.next_bucket(R, minimum=8)
+    keys_out, vals_out, counts = _psum_combine(
+        dt, key_ids, partial, lanes, domains, _effective_mask(dt, where),
+        out_cap)
+    cols = []
+    for i, (kd, kv) in zip(key_ids, keys_out):
+        c = dt.columns[i]
+        cols.append(DColumn(c.name, c.dtype, kd, kv, c.dictionary,
+                            c.arrow_type))
+    # the lanes ARE the combined partials: a partial-table view lets the
+    # shared recompose apply (float sums back in the column's dtype)
+    for (ci, op), lane in zip(partial, vals_out):
+        base = dt.columns[ci]
+        if op == "sum" and base.data.dtype.is_floating_point:
+            lane = lane.to(base.data.dtype)
+        cols.append(DColumn(f"{op}_{base.name}",
+                            DataType(_agg_output_type(base.dtype.type, op)),
+                            lane, None))
+    comb = DTable(dt.ctx, cols, out_cap, counts)
+    _note_plain_state(dt, aggregations, partial, plan, comb, len(key_ids),
+                      None)
+    return _recompose_partials(_base_meta(dt, aggregations), plan, comb,
+                               len(key_ids))
+
+
+def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
+                       aggregations: Sequence[Tuple[Union[int, str], str]],
+                       where=None, dense_key_range=None,
+                       emit_empty: bool = False,
+                       mode: str = "pre-aggregate") -> DTable:
+    """The planner-lowered aggregation: per-shard partials → exchange of
+    the partial-group table → combining aggregation, with the strategy
+    decided at plan time; the same results as ``dist_groupby``.
+
+      * ``"psum"``: dictionary keys with a small domain and only
+        sum / count / mean: the combine runs inside ONE ``all_reduce``
+        over the dense slot space (no count read, no sort).  Re-checked
+        here; a table that does not qualify (or ``emit_empty``) takes
+        ``"pre-aggregate"``.
+      * ``"pre-aggregate"``: local partials, then a hash shuffle of the
+        partial table (each partial row moves once) and the combine.
+      * ``"shuffle"``: near-unique keys, so raw rows move once and
+        aggregate in place (``pre_aggregate=False``).
+
+    The mode that ran is counted in ``decisions`` ("groupby.<mode>", or
+    "groupby.local" at world 1)."""
+    if mode not in ("psum", "pre-aggregate", "shuffle"):
+        raise CylonError(Status(Code.Invalid,
+            f"dist_groupby_fused: unknown mode {mode!r}"))
+    key_ids = _resolve_ids(dt, key_columns)
+    world = dt.ctx.get_world_size()
+    for _, op in aggregations:
+        if op not in ops_groupby.AGG_OPS:
+            raise CylonError(Status(Code.Invalid,
+                                    f"unknown aggregation {op!r}"))
+    if mode == "psum" and not emit_empty:
+        out = _fused_psum_groupby(dt, key_ids, aggregations, where)
+        if out is not None:
+            decisions["groupby.psum"] += 1
+            return out
+        mode = "pre-aggregate"
+    if world <= 1 or mode == "shuffle":
+        decisions["groupby.local" if world <= 1 else "groupby.shuffle"] += 1
+        return dist_groupby(dt, key_ids, list(aggregations), where=where,
+                            dense_key_range=dense_key_range,
+                            pre_aggregate=False, emit_empty=emit_empty)
+    decisions["groupby.pre-aggregate"] += 1
+    K = len(key_ids)
+    partial, plan = _decompose_aggs(dt, aggregations)
+    part = dist_groupby(dt, key_ids, partial, where=where,
+                        dense_key_range=dense_key_range, pre_aggregate=False,
+                        _local_only=True, emit_empty=emit_empty)
+    comb_aggs = [(K + j, _COMBINE_OP[op]) for j, (_, op) in enumerate(partial)]
+    sh = _shuffle_by_keys(part, K)
+    comb = dist_groupby(sh, list(range(K)), comb_aggs,
+                        dense_key_range=dense_key_range, pre_aggregate=False,
+                        _local_only=True)
+    _note_plain_state(dt, aggregations, partial, plan, comb, K,
+                      dense_key_range)
+    return _recompose_partials(_base_meta(dt, aggregations), plan, comb, K)
+
+
+# ---------------------------------------------------------------------------
+# sketch-based approximate groupby: per-group mergeable sketches ARE the
+# partials, so the combine exchange moves constant bytes per group
+# ---------------------------------------------------------------------------
+
+def _parse_sketch_op(op: str) -> Tuple[str, Optional[float]]:
+    """``approx_distinct`` | ``approx_quantile[:<q>]`` (q defaults to
+    0.5) → ``(kind, q)``; anything else raises."""
+    if op == "approx_distinct":
+        return "distinct", None
+    if op == "approx_quantile" or op.startswith("approx_quantile:"):
+        q = 0.5
+        if ":" in op:
+            try:
+                q = float(op.split(":", 1)[1])
+            except ValueError:
+                raise CylonError(Status(Code.Invalid,
+                    f"bad quantile in sketch op {op!r}")) from None
+        if not 0.0 <= q <= 1.0:
+            raise CylonError(Status(Code.Invalid,
+                f"quantile must be in [0, 1], got {q} ({op!r})"))
+        return "quantile", q
+    raise CylonError(Status(Code.Invalid,
+        f"unknown sketch aggregation {op!r} (expected approx_distinct "
+        "or approx_quantile:<q>)"))
+
+
+def sketch_output_name(col_name: str, op: str) -> str:
+    kind, q = _parse_sketch_op(op)
+    if kind == "distinct":
+        return f"approx_distinct_{col_name}"
+    return f"p{int(round(q * 100))}_{col_name}"
+
+
+def _group_keys(kl, idxS, keep_first, out_cap: int, cap: int):
+    """The key rows of the first ``out_cap`` groups of a sorted shard
+    (−1 past the last group), and the group count."""
+    starts = ops_compact.compact_indices(keep_first, out_cap, fill=-1)
+    key_idx = torch.where(starts >= 0,
+                          idxS[torch.clamp(starts, 0, cap - 1).long()], -1)
+    return (ops_gather.take_many(kl, key_idx, fill_null=False),
+            torch.sum(keep_first).to(torch.int32))
+
+
+def _sketch_state_table(ctx, key_meta_cols, keys_out, sk_outs, kinds,
+                        cap: int, counts) -> DTable:
+    """A sketch partial-state DTable: the keys, then per aggregation
+    ``__hll{j}`` ([rows, M] int32) or ``__bkv{j}`` / ``__bkp{j}`` ([rows,
+    K] float32 values / uint32 priorities)."""
+    cols = [DColumn(meta.name, meta.dtype, kd, kv, meta.dictionary,
+                    meta.arrow_type)
+            for meta, (kd, kv) in zip(key_meta_cols, keys_out)]
+    for j, (leaves, kind) in enumerate(zip(sk_outs, kinds)):
+        if kind == "distinct":
+            cols.append(DColumn(f"__hll{j}", DataType(Type.INT32),
+                                leaves[0]))
+        else:
+            cols.append(DColumn(f"__bkv{j}", DataType(Type.FLOAT),
+                                leaves[0]))
+            cols.append(DColumn(f"__bkp{j}", DataType(Type.UINT32),
+                                leaves[1]))
+    return DTable(ctx, cols, cap, counts)
+
+
+def _sketch_state_groups(part: DTable, K: int, kinds) -> List[List[int]]:
+    """Column indices of each aggregation's sketch lanes in the
+    ``_sketch_state_table`` layout."""
+    groups, ci = [], K
+    for kind in kinds:
+        width = 1 if kind == "distinct" else 2
+        groups.append(list(range(ci, ci + width)))
+        ci += width
+    return groups
+
+
+class _ShardBlocks:
+    """Per-shard output leaves written into ``[P·cap, …]`` blocks as each
+    shard finishes, so a shard's outputs are freed before the next shard
+    runs (``[groups, 256]`` sketch lanes are too large to hold twice).
+    ``put(s, groups)`` takes one tuple of leaves (or None) per output;
+    ``blocks`` is the same structure over all shards."""
+
+    def __init__(self, nparts: int, cap: int):
+        self.nparts, self.cap = nparts, cap
+        self.blocks = None
+
+    def put(self, s: int, groups) -> None:
+        if self.blocks is None:
+            self.blocks = [tuple(
+                None if lf is None else
+                torch.empty((self.nparts * self.cap,) + tuple(lf.shape[1:]),
+                            dtype=lf.dtype, device=lf.device) for lf in g)
+                for g in groups]
+        lo = s * self.cap
+        for bg, g in zip(self.blocks, groups):
+            for b, lf in zip(bg, g):
+                if b is not None:
+                    b[lo:lo + self.cap] = lf
+
+
+def _sketch_partial_table(dt: DTable, key_ids, val_ids, kinds, where,
+                          off: int, total_cap: int) -> DTable:
+    """Each shard's sketch partials as a DTable (phase A, no exchange):
+    sort-group the rows and build one fixed-size sketch per (group,
+    aggregation).  A row's global id, which seeds its sample priority, is
+    ``shard·total_cap + off + row``.  The partial blocks are sized by the
+    largest per-shard GROUP count (one host read), not by the input
+    capacity: ``[groups, 256]`` lanes, where the input capacity would need
+    ``[rows, 256]``."""
+    P, cap = dt.nparts, dt.cap
+    dev = dt.counts.device
+    pmask = _effective_mask(dt, where)
+    nv = len(val_ids)
+    has_v = [dt.columns[i].validity is not None for i in val_ids]
+    phase1 = []
+    for s in range(P):
+        kl = _leaf_pairs(dt, key_ids, s)
+        vl = _leaf_pairs(dt, val_ids, s)
+        gidx = (s * total_cap + off
+                + torch.arange(cap, dtype=torch.int64, device=dev)) \
+            & 0xFFFFFFFF
+        carry = tuple(d for d, _ in vl) + tuple(v for _, v in vl
+                                                if v is not None) + (gidx,)
+        phase1.append((kl, ops_groupby.group_structure(
+            tuple(d for d, _ in kl), tuple(v for _, v in kl),
+            _shard_rows(dt, pmask, s), carry)))
+    ngs = dt.ctx.comm.all_gather(torch.stack(
+        [ops_groupby.num_groups_of(st) for _, st in phase1]))
+    out_cap = ops_compact.next_bucket(
+        max(int(ngs.cpu().numpy().max(initial=0)), 1), minimum=8)
+    keys, sks, counts = _ShardBlocks(P, out_cap), _ShardBlocks(P, out_cap), []
+    for s in range(P):
+        kl, (idxS, is_first, rvS, carried) = phase1[s]
+        phase1[s] = None  # this shard's sorted rows are not needed after
+        vals_s = carried[:nv]
+        it = iter(carried[nv:-1])
+        valids_s = [next(it) if hv else None for hv in has_v]
+        gidx_s = carried[-1]
+        slot, keep_first = ops_sketch.sorted_slots(is_first, rvS, out_cap)
+        ko, ng = _group_keys(kl, idxS, keep_first, out_cap, cap)
+        outs = []
+        for col_s, valid_s, kind in zip(vals_s, valids_s, kinds):
+            vmask = rvS if valid_s is None else (rvS & valid_s)
+            bits = ops_sketch.value_bits32(col_s)
+            if kind == "distinct":
+                outs.append((ops_sketch.hll_build(slot, out_cap, bits,
+                                                  vmask),))
+            else:
+                outs.append(ops_sketch.bottomk_build(slot, out_cap, col_s,
+                                                     bits, gidx_s, vmask))
+        keys.put(s, ko)
+        sks.put(s, outs)
+        counts.append(ng)
+    return _sketch_state_table(dt.ctx, [dt.columns[i] for i in key_ids],
+                               keys.blocks, sks.blocks, kinds, out_cap,
+                               torch.stack(counts))
+
+
+def _sketch_combine(part: DTable, K: int, kinds, qs, finalize: bool):
+    """Phase B per shard: re-group the partial rows by key and MERGE each
+    group's sketches (register max / bottom-k of the union) into a block
+    of ``part.cap`` groups.  With ``finalize`` the merged sketches become
+    result lanes (HLL estimate int32 with no validity; sample quantile
+    float32 with a non-empty mask); without it, the merged state in the
+    partial-table layout.  Returns (key leaves, lane tuples, counts)."""
+    P, cap = part.nparts, part.cap
+    dev = part.counts.device
+    kl_all = list(range(K))
+    groups = _sketch_state_groups(part, K, kinds)
+    keys, outs_all, counts = _ShardBlocks(P, cap), _ShardBlocks(P, cap), []
+    for s in range(P):
+        kl = _leaf_pairs(part, kl_all, s)
+        row_valid = torch.arange(cap, device=dev) < part.counts[s]
+        idxS, is_first, rvS, _ = ops_groupby.group_structure(
+            tuple(d for d, _ in kl), tuple(v for _, v in kl), row_valid)
+        rows = idxS.long()
+        slot, keep_first = ops_sketch.sorted_slots(is_first, rvS, cap)
+        ko, ng = _group_keys(kl, idxS, keep_first, cap, cap)
+        outs = []
+        for kind, q, cols in zip(kinds, qs, groups):
+            lanes = [ops_gather.signed_view(_shard(part.columns[c].data, s,
+                                                   cap))[rows]
+                     .view(part.columns[c].data.dtype) for c in cols]
+            if kind == "distinct":
+                regs = ops_sketch.hll_merge_rows(slot, cap, lanes[0], rvS)
+                outs.append((ops_sketch.hll_estimate(regs), None)
+                            if finalize else (regs,))
+            else:
+                mv, mp = ops_sketch.bottomk_merge_rows(slot, cap, lanes[0],
+                                                       lanes[1], rvS)
+                outs.append(ops_sketch.bottomk_quantile(mv, mp, q)
+                            if finalize else (mv, mp))
+        keys.put(s, ko)
+        outs_all.put(s, outs)
+        counts.append(ng)
+    return keys.blocks, outs_all.blocks, torch.stack(counts)
+
+
+def _sketch_merge_local(part: DTable, K: int, kinds, qs) -> DTable:
+    """Merge same-group rows of a partial-state table in place (no
+    exchange)."""
+    keys_out, outs, counts = _sketch_combine(part, K, kinds, qs, False)
+    return _sketch_state_table(part.ctx, part.columns[:K], keys_out, outs,
+                               kinds, part.cap, counts)
+
+
+def _sketch_result(sh: DTable, key_meta_cols, keys_out, base_meta, outs,
+                   kinds, counts) -> DTable:
+    """The finalized sketch groupby's table: the keys, then
+    ``approx_distinct_{col}`` (int64) or ``p{q·100}_{col}`` (float32,
+    null for a group whose values are all null) per aggregation."""
+    cols = [DColumn(meta.name, meta.dtype, kd, kv, meta.dictionary,
+                    meta.arrow_type)
+            for meta, (kd, kv) in zip(key_meta_cols, keys_out)]
+    for (name, _, op), (est, valid), kind in zip(base_meta, outs, kinds):
+        out_name = sketch_output_name(name, op)
+        if kind == "distinct":
+            cols.append(DColumn(out_name, DataType(Type.INT64),
+                                est.to(torch.int64), None))
+        else:
+            cols.append(DColumn(out_name, DataType(Type.FLOAT), est, valid))
+    return DTable(sh.ctx, cols, sh.cap, counts)
+
+
+def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
+                        aggregations: Sequence[Tuple[Union[int, str], str]],
+                        where=None) -> DTable:
+    """Sketch-based approximate groupby: per group, ``approx_distinct``
+    estimates a column's distinct count from HLL registers and
+    ``approx_quantile:<q>`` its q-quantile from a bottom-k uniform sample
+    (within ``ops/sketch.py``'s ``HLL_ERROR_BOUND`` /
+    ``QUANTILE_RANK_ERROR_BOUND``).  The sketches are the partials: each
+    shard builds one per (group, aggregation), a hash shuffle of the
+    partial table co-locates each group's sketches, and the combine merges
+    and finalizes them.
+
+    Output columns: the keys, then ``approx_distinct_{col}`` (int64) /
+    ``p{q·100}_{col}`` (float32, null for all-null groups) in aggregation
+    order.  ``where`` follows ``dist_select``'s predicate protocol."""
+    key_ids = _resolve_ids(dt, key_columns)
+    K = len(key_ids)
+    val_ids = [dt.column_index(c) for c, _ in aggregations]
+    parsed = [_parse_sketch_op(op) for _, op in aggregations]
+    kinds = tuple(kind for kind, _ in parsed)
+    qs = tuple(-1.0 if q is None else q for _, q in parsed)
+    part = _sketch_partial_table(dt, key_ids, val_ids, kinds, where, 0,
+                                 dt.cap)
+    sh = _shuffle_by_keys(part, K)
+    del part  # the shuffled copy replaces it before the merge's transients
+    keys_out, outs, counts = _sketch_combine(sh, K, kinds, qs, True)
+    _note_sketch_state(dt, aggregations, sh, K, kinds, qs)
+    return _sketch_result(sh, [dt.columns[i] for i in key_ids], keys_out,
+                          _base_meta(dt, aggregations), outs, kinds, counts)

@@ -98,7 +98,8 @@ def _exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
 def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor]
                    ) -> Tuple[List[torch.Tensor], torch.Tensor, int]:
     """Repartition rows of flat ``[P*cap]`` ``leaves`` by target ids ``pid``
-    (int32 ``[P*cap]``; padding rows carry P and are dropped).
+    (int32 ``[P*cap]``; padding rows carry P and are dropped).  A leaf with
+    trailing dimensions (``[P*cap, M]`` sketch state) moves by row.
 
     Returns ``(new_leaves [P*outcap], counts [P], outcap)``.
     """

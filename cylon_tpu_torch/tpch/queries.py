@@ -13,7 +13,7 @@ Deviations from the spec text, as in the JAX package: identity columns
 functionally dependent on the group key (c_name, c_address, … in Q10)
 are omitted, free-text columns are dictionary-encoded phrases, and dates
 are int32 day offsets (``datagen.date_to_days``).  ``q9(streaming_chunks
-> 0)`` raises: the streaming join is not ported yet.
+> 0)`` takes the streaming join for its lineitem ⋈ partsupp step.
 """
 from __future__ import annotations
 
@@ -28,10 +28,9 @@ from ..compute import sort_multi
 from ..config import JoinAlgorithm, JoinConfig, JoinType
 from ..dtypes import DataType, Type
 from ..parallel import (DTable, dist_aggregate, dist_anti_join, dist_groupby,
-                        dist_head, dist_join, dist_project, dist_select,
-                        dist_semi_join, dist_sort, dist_sort_multi,
-                        dist_with_column)
-from ..status import Code, CylonError, Status
+                        dist_head, dist_join, dist_join_streaming,
+                        dist_project, dist_select, dist_semi_join, dist_sort,
+                        dist_sort_multi, dist_with_column)
 from ..table import Column, Table
 from .datagen import YEAR_BOUNDS, date_to_days
 
@@ -628,10 +627,6 @@ def q8(ctx, t: Tables, nation: str = "BRAZIL", region: str = "AMERICA",
 
 def q9(ctx, t: Tables, color: str = "green",
        streaming_chunks: int = 0) -> Table:
-    if streaming_chunks > 0:
-        raise CylonError(Status(Code.NotImplemented,
-            "q9(streaming_chunks > 0) needs the streaming join "
-            "(parallel/streaming.py), which is not ported yet"))
     codes = _dict_codes_where(t["part"], "p_name", lambda s: color in s)
     part = dist_project(dist_select(dist_project(t["part"],
                                                  ["p_partkey", "p_name"]),
@@ -646,9 +641,17 @@ def q9(ctx, t: Tables, color: str = "green",
                         dense_key_range=(1, t["part"].num_rows))
     ps = dist_project(t["partsupp"],
                       ["ps_partkey", "ps_suppkey", "ps_supplycost"])
-    lps = _strip_prefixes(dist_join(
-        lp, ps, _cfg(("l_partkey", "l_suppkey"),
-                     ("ps_partkey", "ps_suppkey"))))
+    # the one lineitem-scale composite-key join the dense FK path cannot
+    # take.  ``streaming_chunks > 0`` stages the probe side through
+    # dist_join_streaming: partsupp co-partitions once and stays
+    # resident, lineitem goes through in slices, so only one slice's
+    # exchange buffers are live at a time
+    cfg9 = _cfg(("l_partkey", "l_suppkey"), ("ps_partkey", "ps_suppkey"))
+    if streaming_chunks > 0:
+        lps = _strip_prefixes(dist_join_streaming(lp, ps, cfg9,
+                                                  chunks=streaming_chunks))
+    else:
+        lps = _strip_prefixes(dist_join(lp, ps, cfg9))
     sn = _strip_prefixes(dist_join(
         dist_project(t["supplier"], ["s_suppkey", "s_nationkey"]),
         dist_project(t["nation"], ["n_nationkey", "n_name"]),

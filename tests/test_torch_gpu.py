@@ -383,3 +383,181 @@ def test_tpch_generate_device_on_card_equals_mirror(card, world):
                 got, want = got.view(np.int32), want.view(np.int32)
             np.testing.assert_array_equal(got, want,
                                           err_msg=f"{name}.{c.name}")
+
+
+# -- all_reduce, sketches, fused / sketch groupby, streaming ----------------
+
+@pytest.mark.gpu
+def test_all_reduce_on_card(card):
+    comm = pt.CylonContext(device="cuda", world=4).comm
+    x = torch.arange(4 * 5 * 3, dtype=torch.int64, device=card).view(4, 5, 3)
+    got = comm.all_reduce(x)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), x.cpu().sum(0))
+
+
+def _sketch_inputs(rng, n, out_cap):
+    slot = np.sort(rng.integers(0, out_cap, n))
+    slot[-1000:] = out_cap
+    vals = (rng.standard_normal(n) * 100).astype(np.float32)
+    vals[:3] = [np.nan, -0.0, np.inf]
+    return {"slot": torch.from_numpy(slot),
+            "bits": torch.from_numpy(rng.integers(0, 2**32, n)),
+            "ints": torch.from_numpy(rng.integers(-2**62, 2**62, n)),
+            "gidx": torch.from_numpy(np.arange(n, dtype=np.int64) + 12345),
+            "vmask": torch.from_numpy(rng.random(n) < 0.9),
+            "vals": torch.from_numpy(vals),
+            "vals64": torch.from_numpy(vals.astype(np.float64) / 3)}
+
+
+def _sketch_pipeline(x, out_cap):
+    """Every ops/sketch.py function on one set of inputs."""
+    from cylon_tpu_torch.ops import sketch as sk
+    out = {"mix": sk.mix32(x["bits"]), "rank": sk._hll_rank(x["bits"])}
+    for dt in (torch.int8, torch.int32, torch.int64):
+        out[f"bits_{dt}"] = sk.value_bits32(x["ints"].to(dt))
+    # floats are made on the host: a conversion on the card may rewrite
+    # a NaN's payload
+    out["bits_f32"] = sk.value_bits32(x["vals"])
+    out["bits_f64"] = sk.value_bits32(x["vals64"])
+    regs = sk.hll_build(x["slot"], out_cap, x["bits"], x["vmask"])
+    half = torch.arange(out_cap, device=regs.device) // 2
+    merged = sk.hll_merge_rows(half, out_cap // 2 + 1, regs,
+                               torch.ones(out_cap, dtype=torch.bool,
+                                          device=regs.device))
+    v, p = sk.bottomk_build(x["slot"], out_cap, x["vals"], x["bits"],
+                            x["gidx"], x["vmask"])
+    mv, mp = sk.bottomk_merge_rows(half, out_cap // 2 + 1, v, p,
+                                   torch.ones(out_cap, dtype=torch.bool,
+                                              device=v.device))
+    q, nonempty = sk.bottomk_quantile(mv, mp, 0.9)
+    out.update(regs=regs, merged=merged, est=sk.hll_estimate(merged),
+               v=v.view(torch.int32), p=p.view(torch.int32),
+               mv=mv.view(torch.int32), mp=mp.view(torch.int32),
+               q=q.view(torch.int32), nonempty=nonempty)
+    return out
+
+
+@pytest.mark.gpu
+def test_sketch_ops_on_card_match_cpu_bit_for_bit(card):
+    """1M rows through every ops/sketch.py function: the card's registers,
+    lanes, estimates and quantiles equal the CPU's bit for bit."""
+    out_cap = 1000
+    x = _sketch_inputs(np.random.default_rng(47), 1 << 20, out_cap)
+    cpu = _sketch_pipeline(x, out_cap)
+    gpu = _sketch_pipeline({k: v.to(card) for k, v in x.items()}, out_cap)
+    for k in cpu:
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+def _psum_data(rng, n):
+    return {"s": np.array([f"s{v}" for v in rng.integers(0, 6, n)],
+                          dtype=object),
+            "t": np.array([f"t{v}" for v in rng.integers(0, 4, n)],
+                          dtype=object),
+            "v": rng.normal(size=n) * 1e3,
+            "w": rng.integers(-9, 9, n).astype(np.int32),
+            "f": rng.random(n).astype(np.float32)}
+
+
+@pytest.mark.gpu
+def test_psum_fused_groupby_on_card_is_stable(card):
+    """Two runs of the psum mode on the card: the same keys and counts,
+    sums within 1e-12 (the float64 scatter-add uses atomics), the CPU's
+    answer within 1e-12, and no partition-kernel launch."""
+    from cylon_tpu_torch.parallel import dist_groupby_fused, dist_ops
+    data = _psum_data(np.random.default_rng(48), 1 << 20)
+    aggs = [("v", "sum"), ("v", "mean"), ("w", "sum"), ("w", "count"),
+            ("f", "sum")]
+    outs = []
+    for device in ("cpu", "cuda", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        t = DTable.from_table(ctx, pt.Table.from_columns(ctx, data))
+        dist_ops.decisions.clear()
+        before = hash_cuda.launches
+        outs.append(dist_groupby_fused(t, ["s", "t"], aggs, mode="psum"))
+        assert hash_cuda.launches == before
+        assert dict(dist_ops.decisions) == {"groupby.psum": 1}
+    cpu, a, b = outs
+    for other in (b, cpu):
+        assert list(a.counts_host()) == list(other.counts_host())
+        assert_rows_close(port_rows(a, ordered=True),
+                          port_rows(other, ordered=True),
+                          float_rtols(a, f32=1e-6))
+
+
+@pytest.mark.gpu
+def test_trailing_dim_leaf_through_shuffle_on_card(card):
+    """An [n, 256] int32 leaf and an [n, 256] uint32 leaf ride the exchange
+    by row, on the card as on the CPU."""
+    from cylon_tpu_torch.parallel.shuffle import shuffle_leaves
+    rng = np.random.default_rng(49)
+    n = 4 * 4096
+    pid = torch.from_numpy(rng.integers(0, 5, n).astype(np.int32))  # 4: drop
+    m = torch.from_numpy(rng.integers(0, 26, (n, 256)).astype(np.int32))
+    u = torch.from_numpy(rng.integers(0, 2**32, (n, 256))).to(torch.uint32)
+    k = torch.arange(n, dtype=torch.int64)
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        leaves, counts, cap = shuffle_leaves(
+            ctx, pid.to(device), [k.to(device), m.to(device), u.to(device)])
+        outs.append(([lf.cpu() for lf in leaves], counts.cpu(), cap))
+    (lc, cc, capc), (lg, cg, capg) = outs
+    assert capc == capg and torch.equal(cc, cg)
+    for a, b in zip(lc, lg):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.uint32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.uint32 else b)
+    rows = torch.cat([torch.arange(c) + s * capc
+                      for s, c in enumerate(cc.tolist())])
+    assert torch.equal(lg[1][rows], m[lg[0][rows]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [1, 4])
+def test_dist_groupby_sketch_on_card_matches_cpu(card, world):
+    """Keys, estimates and quantiles of the sketch groupby: the card's
+    equal the CPU's exactly, with one kernel launch per shuffle."""
+    from cylon_tpu_torch.parallel import dist_groupby_sketch
+    rng = np.random.default_rng(50)
+    n = 1 << 18
+    data = {"g": rng.integers(0, 500, n), "ids": rng.integers(0, 5000, n),
+            "x": rng.standard_normal(n)}
+    aggs = [("ids", "approx_distinct"), ("x", "approx_quantile:0.5"),
+            ("x", "approx_quantile:0.95")]
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=world)
+        t = DTable.from_table(ctx, pt.Table.from_columns(ctx, data))
+        before = hash_cuda.launches
+        outs.append(dist_groupby_sketch(t, ["g"], aggs))
+        assert hash_cuda.launches - before == \
+            (1 if device == "cuda" and world > 1 else 0)
+    cpu, gpu = outs
+    assert gpu.cap == cpu.cap
+    assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "left"])
+@pytest.mark.parametrize("alg", ["hash", "sort"])
+def test_dist_join_streaming_on_card_matches_cpu(card, how, alg):
+    from cylon_tpu_torch.parallel import dist_join_streaming
+    rng = np.random.default_rng(51)
+    sides = [{"k": rng.integers(0, 50_000, n).astype(np.int64),
+              "v": rng.random(n).astype(np.float32)}
+             for n in (200_000, 60_000)]
+    cfg = pt.JoinConfig(pt.JoinType(how), pt.JoinAlgorithm(alg), "k", "k",
+                        broadcast_threshold=0)
+    outs = []
+    for device in ("cpu", "cuda"):
+        ctx = pt.CylonContext(device=device, world=4)
+        l, r = (DTable.from_table(ctx, pt.Table.from_columns(ctx, s))
+                for s in sides)
+        outs.append(dist_join_streaming(l, r, cfg, chunks=4))
+    cpu, gpu = outs
+    assert gpu.cap == cpu.cap
+    assert list(gpu.counts_host()) == list(cpu.counts_host())
+    assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)

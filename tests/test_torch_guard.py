@@ -32,6 +32,7 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.parallel, cylon_tpu_torch.ops.hash_cuda, "
         "cylon_tpu_torch.ops.sort, cylon_tpu_torch.ops.setops, "
         "cylon_tpu_torch.ops.groupby, cylon_tpu_torch.parallel.broadcast, "
+        "cylon_tpu_torch.ops.sketch, cylon_tpu_torch.parallel.streaming, "
         "cylon_tpu_torch.tpch\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,5 +1,6 @@
-"""TPC-H Q9-Q15 on the port against the JAX package's, at world 1 and 8,
-on ``generate(0.002, seed=7)`` (``tpch_torch_parity`` holds the rules)."""
+"""TPC-H Q9-Q15, and Q9 with ``streaming_chunks=3``, on the port against
+the JAX package's, at world 1 and 8, on ``generate(0.002, seed=7)``
+(``tpch_torch_parity`` holds the rules)."""
 import numpy as np
 import pytest
 import torch
@@ -7,9 +8,10 @@ import torch
 from cylon_tpu_torch.tpch import queries as tqueries
 from cylon_tpu_torch.tpch.datagen import days_to_year
 
+from test_torch_common import port_rows
 from tpch_torch_parity import check_query, queries_param, run_both
 
-NAMES = ("q9", "q10", "q11", "q12", "q13", "q14", "q15")
+NAMES = ("q9", "q9_streaming", "q10", "q11", "q12", "q13", "q14", "q15")
 
 
 @pytest.fixture(scope="module")
@@ -41,9 +43,15 @@ def test_q9_amount_is_separately_rounded():
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-def test_q9_streaming_is_not_ported():
-    with pytest.raises(tqueries.CylonError, match="streaming"):
-        tqueries.q9(None, {}, streaming_chunks=4)
+def test_q9_streaming_is_not_ported(results):
+    """The streaming branch once raised NotImplemented; it now runs the
+    streaming join and returns the one-shot query's rows, in order, at
+    both worlds."""
+    for world in (1, 8):
+        one, _, _ = results[("q9", world)]
+        streamed, _, _ = results[("q9_streaming", world)]
+        assert port_rows(streamed, ordered=True) == port_rows(one,
+                                                              ordered=True)
 
 
 def test_year_column_matches_days_to_year():

@@ -37,9 +37,12 @@ THRESHOLD = 256
 WORLDS = (1, 8)
 # the parameters test_tpch.py runs the JAX queries with at this scale
 KWARGS = {"q18": {"quantity": 120.0}, "q11": {"fraction_per_sf": 0.000002}}
+# variants: a test name → (query, extra keyword arguments); Q9's
+# streaming branch stages lineitem through dist_join_streaming in 3 slices
+VARIANTS = {"q9_streaming": ("q9", {"streaming_chunks": 3})}
 # columns whose values are float32 arithmetic stored as float64 (see the
 # module docstring): compared at float32 precision
-F32_COMPUTED = {"q9": {"sum_profit"}}
+F32_COMPUTED = {"q9": {"sum_profit"}, "q9_streaming": {"sum_profit"}}
 NONEMPTY = ("q11", "q22")  # test_tpch.py asserts these cohorts exist
 
 
@@ -64,7 +67,7 @@ def _clear_jax_state():
 
 def run_both(names):
     """``{(query, world): (port Table, JAX Table, port decisions)}`` for
-    the queries ``names``; JAX runs under the trace shim of
+    the queries ``names`` (a query or a ``VARIANTS`` name); JAX runs under the trace shim of
     ``test_torch_common.jax_trace_shim`` for the length of the call."""
     import jax
     from jax._src import core as jcore
@@ -98,9 +101,11 @@ def run_both(names):
                                             pt.Table.from_pandas(tctx, df))
                       for n, df in data.items()}
                 for q in names:
-                    want = jqueries.QUERIES[q](jctx, jt, **kwargs.get(q, {}))
+                    base, extra = VARIANTS.get(q, (q, {}))
+                    kw = dict(kwargs.get(base, {}), **extra)
+                    want = jqueries.QUERIES[base](jctx, jt, **kw)
                     tdist_ops.decisions.clear()
-                    got = tqueries.QUERIES[q](tctx, tt, **kwargs.get(q, {}))
+                    got = tqueries.QUERIES[base](tctx, tt, **kw)
                     out[(q, world)] = (got, want,
                                        dict(tdist_ops.decisions))
         finally:
