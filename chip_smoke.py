@@ -26,12 +26,18 @@ first and last 65,536 rows of each held against the numpy mirror), all
 rows, peak memory, partition-kernel launches, join decisions; then the
 geometric mean), Q1, Q3, Q4, Q6, Q14, Q18 and Q22 are recomputed in
 numpy from host copies of the tables, and every query's result at
-``--tpch-check-sf`` (default 1) is the same at world 1 and world 4.  On
+``--tpch-check-sf`` (default 1) is the same at world 1 and world 4.
+Right after the eager pass the 22 queries run through the logical
+planner (``ctx.optimize``) twice, a plan-cache miss then a hit for every
+query, each result equal to the eager one in order (one line each:
+seconds, peak, launches, cache hits and misses, rule fires, planned row
+bytes, wire bytes planned and eager; then a summary).  On
 the same SF-10 tables it then drives the operators the planner lowers to:
 ``dist_groupby_fused`` in its three modes (psum over Q1's keys against
 numpy, pre-aggregate and shuffle by ``l_orderkey`` against
-``dist_groupby``), ``dist_groupby_sketch`` by ``l_suppkey`` (every group
-within the sketches' error bounds of numpy's exact answers), the
+``dist_groupby``), ``dist_groupby_sketch`` by ``l_suppkey`` (every
+supplier present, one in 8 within the sketches' error bounds of numpy's
+exact answers), the
 aggregation state of a base and a delta merged and finalized (= the whole
 table's groupbys), Q9 with ``streaming_chunks=4`` against the one-shot
 Q9, and a Q5-shaped ``dist_multiway_join`` against the binary
@@ -66,7 +72,11 @@ DEVICE = "cuda"             # every table and context of the run
 WORLD = 4                   # shards of the distributed phases
 
 
+T0 = time.perf_counter()  # ``at=`` on every line: seconds into the run
+
+
 def say(phase: str, **kv) -> None:
+    kv["at"] = f"{time.perf_counter() - T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -1005,19 +1015,33 @@ def phase_tpch_generate(sf: float, seed: int):
     return ctx, tables, secs
 
 
-def run_query(q: str, ctx, tables):
-    """One query through its entry point: (result, seconds, peak GiB,
-    kernel launches, join decisions)."""
+def run_query(q: str, ctx, tables, planned: bool = False):
+    """One query through its entry point (``ctx.optimize`` when
+    ``planned``), from an empty replica cache: (result, seconds, peak GiB,
+    kernel launches, join decisions, trace counters)."""
+    from cylon_tpu_torch import trace
     from cylon_tpu_torch.ops import hash_cuda
-    from cylon_tpu_torch.parallel import dist_ops
+    from cylon_tpu_torch.parallel import broadcast, dist_ops
     from cylon_tpu_torch.tpch import QUERIES
 
+    def op(t):
+        return QUERIES[q](ctx, t)
+
+    broadcast.clear_replica_cache()
     torch.cuda.reset_peak_memory_stats()
     dist_ops.decisions.clear()
+    trace.reset()
     hash_cuda.launches = 0
-    out, secs = wall(lambda: QUERIES[q](ctx, tables))
+    out, secs = wall(lambda: ctx.optimize(op, tables) if planned
+                     else op(tables))
     return (out, secs, torch.cuda.max_memory_allocated() / 2**30,
-            hash_cuda.launches, dict(dist_ops.decisions))
+            hash_cuda.launches, dict(dist_ops.decisions), trace.counters())
+
+
+def wire_bytes(counters) -> int:
+    """Bytes the exchanges moved between shards."""
+    return (counters.get("shuffle.bytes_sent", 0)
+            + counters.get("broadcast.bytes_sent", 0))
 
 
 def phase_tpch_queries(ctx, tables, sf: float, profile: bool):
@@ -1025,13 +1049,14 @@ def phase_tpch_queries(ctx, tables, sf: float, profile: bool):
     mean; ``--profile`` adds device-time tables of the two slowest."""
     from cylon_tpu_torch.tpch import QUERIES
 
-    results, times, launches = {}, {}, {}
+    results, times, launches, wire = {}, {}, {}, {}
     for q in QUERIES:
-        out, secs, peak, n_launch, taken = run_query(q, ctx, tables)
+        out, secs, peak, n_launch, taken, cnt = run_query(q, ctx, tables)
         results[q], times[q], launches[q] = out, secs, n_launch
+        wire[q] = wire_bytes(cnt)
         say(f"tpch {q} sf={sf} world={WORLD}", seconds=f"{secs:.6f}",
             rows=out.num_rows, peak_gib=f"{peak:.2f}",
-            kernel_launches=n_launch,
+            kernel_launches=n_launch, wire_bytes=wire[q],
             decisions=",".join(f"{k}:{v}" for k, v in sorted(taken.items()))
             or "none")
         if sf >= 1:  # below SF 1 Q11's HAVING fraction can select none
@@ -1045,7 +1070,77 @@ def phase_tpch_queries(ctx, tables, sf: float, profile: bool):
         for q in sorted(times, key=times.get)[-2:]:
             profile_call(f"tpch {q} sf={sf} world={WORLD}",
                          lambda: QUERIES[q](ctx, tables))
-    return results, times, launches
+    return results, times, launches, wire
+
+
+def same_ordered(label: str, a, b) -> None:
+    """Result ``a`` against result ``b``: the same columns, types, rows and
+    order; keys and integers exact, floats within ``_rtol``."""
+    check([(c.name, c.data.dtype) for c in a.columns]
+          == [(c.name, c.data.dtype) for c in b.columns]
+          and a.num_rows == b.num_rows,
+          f"{label}: the same columns, types and row count")
+    ca, cb = _cols(a), _cols(b)
+    for c in ca:
+        x, y = ca[c], cb[c]
+        ok = (_close(x, y, _rtol(c, x)) if x.dtype.kind == "f"
+              else np.array_equal(x, y))
+        check(ok, f"{label}: column {c} equal, in order")
+
+
+def phase_tpch_planner(ctx, tables, sf: float, eager, eager_times,
+                       eager_wire):
+    """All 22 queries through ``ctx.optimize`` twice: the first pass
+    misses the plan cache, the second hits it for every query; each
+    planned result equals the eager one of this run.  One line per query,
+    then a summary."""
+    from cylon_tpu_torch import plan
+    from cylon_tpu_torch.tpch import QUERIES
+
+    plan.clear_plan_cache()
+    runs = {}
+    for p in ("miss", "hit"):
+        runs[p] = {q: run_query(q, ctx, tables, planned=True)
+                   for q in QUERIES}
+    launches, fewer = {}, []
+    for q in QUERIES:
+        miss, hit = runs["miss"][q], runs["hit"][q]
+        cm, ch = miss[5], hit[5]
+        check(cm.get("plan.cache_miss", 0) >= 1,
+              f"tpch planner {q}: the first pass plans")
+        check(ch.get("plan.cache_miss", 0) == 0
+              and ch.get("plan.cache_hit", 0) >= 1,
+              f"tpch planner {q}: the second pass hits the plan cache")
+        same_ordered(f"tpch planner {q} (miss) == eager", miss[0], eager[q])
+        same_ordered(f"tpch planner {q} (hit) == eager", hit[0], eager[q])
+        launches[q] = hit[3]
+        wb = wire_bytes(ch)
+        if wb < eager_wire[q]:
+            fewer.append(q)
+        say(f"tpch planner {q} sf={sf} world={WORLD}",
+            miss_seconds=f"{miss[1]:.6f}", hit_seconds=f"{hit[1]:.6f}",
+            eager_seconds=f"{eager_times[q]:.6f}",
+            peak_gib=f"{hit[2]:.2f}", kernel_launches=hit[3],
+            cache_hit=ch.get("plan.cache_hit", 0),
+            cache_miss=cm.get("plan.cache_miss", 0),
+            rule_fires=ch.get("optimizer.rule_fires", 0),
+            row_bytes_pre=ch.get("optimizer.row_bytes_pre", 0),
+            row_bytes_post=ch.get("optimizer.row_bytes_post", 0),
+            plan_build_us=cm.get("compile.plan_build_us", 0),
+            wire_bytes=wb, eager_wire_bytes=eager_wire[q],
+            decisions=",".join(f"{k}:{v}" for k, v in sorted(hit[4].items()))
+            or "none")
+    geo = {p: float(np.exp(np.mean(np.log([runs[p][q][1] for q in QUERIES]))))
+           for p in runs}
+    say(f"tpch planner sf={sf} world={WORLD}", queries=len(QUERIES),
+        fewer_wire_bytes=len(fewer), which=",".join(fewer) or "none",
+        total_miss_seconds=f"{sum(r[1] for r in runs['miss'].values()):.6f}",
+        total_hit_seconds=f"{sum(r[1] for r in runs['hit'].values()):.6f}",
+        total_eager_seconds=f"{sum(eager_times.values()):.6f}",
+        geomean_miss_seconds=f"{geo['miss']:.6f}",
+        geomean_hit_seconds=f"{geo['hit']:.6f}",
+        kernel_launches=sum(launches.values()))
+    return launches
 
 
 def _cols(t):
@@ -1470,8 +1565,12 @@ SKETCH_AGGS = [("l_partkey", "approx_distinct"),
                ("l_extendedprice", "approx_quantile:0.95")]
 
 
+SKETCH_CHECK_STRIDE = 8  # suppliers with key % 8 == 0 get exact checks
+
+
 def phase_sketch(tables, sf: float, exports, profile: bool):
     """``dist_groupby_sketch`` by ``l_suppkey`` at SF 10 (100,000 groups):
+    every supplier present; for one supplier in ``SKETCH_CHECK_STRIDE``
     every distinct estimate within HLL_ERROR_BOUND of numpy's exact count,
     every quantile within QUANTILE_RANK_ERROR_BOUND in rank of numpy's
     sorted values.  The partial blocks are sized by the per-shard group
@@ -1494,18 +1593,26 @@ def phase_sketch(tables, sf: float, exports, profile: bool):
     del part
     t0 = time.perf_counter()
     h = host_columns(li, ["l_suppkey", "l_partkey", "l_extendedprice"])
-    sk = h["l_suppkey"].astype(np.int64)
-    uniq = np.unique((sk << 22) | h["l_partkey"].astype(np.int64))
+    all_groups = np.flatnonzero(np.bincount(h["l_suppkey"]))
+    # the exact answers (two sorts of the rows) for one supplier in
+    # SKETCH_CHECK_STRIDE: the host's sorts over all 60M rows took 20 s
+    rows = h["l_suppkey"] % SKETCH_CHECK_STRIDE == 0
+    sk = h["l_suppkey"][rows].astype(np.int64)
+    uniq = np.unique((sk << 22) | h["l_partkey"][rows].astype(np.int64))
     exact = np.bincount(uniq >> 22)
     groups = np.flatnonzero(exact)
-    comb = np.sort((sk << 32) | h["l_extendedprice"].view(np.uint32)
+    comb = np.sort((sk << 32) | h["l_extendedprice"][rows].view(np.uint32)
                    .astype(np.int64))
     starts = np.searchsorted(comb, groups << 32)
     sizes = np.bincount(sk)[groups]
     got, _ = t_got.wait()
     host_s = time.perf_counter() - t0
-    check(np.array_equal(got["l_suppkey"], groups),
-          f"{label}: the {len(groups)} suppliers of numpy")
+    check(np.array_equal(got["l_suppkey"], all_groups),
+          f"{label}: the {len(all_groups)} suppliers of numpy")
+    checked = got["l_suppkey"] % SKETCH_CHECK_STRIDE == 0
+    check(np.array_equal(got["l_suppkey"][checked], groups),
+          f"{label}: the checked suppliers")
+    got = {k: v[checked] for k, v in got.items()}
     est = got["approx_distinct_l_partkey"].astype(np.float64)
     rel = np.abs(est - exact[groups]) / exact[groups]
     check(float(rel.max()) <= ops_sketch.HLL_ERROR_BOUND,
@@ -1523,7 +1630,8 @@ def phase_sketch(tables, sf: float, exports, profile: bool):
               f"{ops_sketch.QUANTILE_RANK_ERROR_BOUND:.4f} "
               f"(max {err.max():.4f})")
     say(label, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
-        groups=len(groups), peak_gib=f"{peak:.2f}", kernel_launches=nl,
+        groups=len(all_groups), checked_groups=len(groups),
+        peak_gib=f"{peak:.2f}", kernel_launches=nl,
         input_cap=li.cap, partial_cap=part_cap,
         hll_rel_err_max=f"{rel.max():.6f}", hll_rel_err_mean=f"{rel.mean():.6f}",
         p50_rank_err_max=f"{rank_err[0.5].max():.6f}",
@@ -1899,9 +2007,13 @@ def main() -> int:
     # of each CUDA library kernel), then the timed run at --tpch-sf
     from cylon_tpu_torch.parallel import broadcast
     from cylon_tpu_torch.tpch import QUERIES
+    from cylon_tpu_torch import plan, trace
+    trace.enable_counters()
     wctx, wtables, _ = tpch_generate(0.05, WORLD, args.seed)
     for q in QUERIES:
         QUERIES[q](wctx, wtables)
+        wctx.optimize(lambda t, q=q: QUERIES[q](wctx, t), wtables)
+    plan.clear_plan_cache()
     # and the planner-operator phases, checks included, on the same small
     # tables
     wexports = Exports()
@@ -1914,8 +2026,12 @@ def main() -> int:
     del wtables
     broadcast.clear_replica_cache()
     tctx, tables, _ = phase_tpch_generate(args.tpch_sf, args.seed)
-    results, _, launches_tpch = phase_tpch_queries(tctx, tables,
-                                                   args.tpch_sf, args.profile)
+    results, times, launches_tpch, wire = phase_tpch_queries(
+        tctx, tables, args.tpch_sf, args.profile)
+    launches_planner = phase_tpch_planner(tctx, tables, args.tpch_sf,
+                                          results, times, wire)
+    check(sum(launches_planner.values()) > 0,
+          "tpch planner: the partition kernel ran on the planned path")
     phase_tpch_oracles(tables, results, args.tpch_sf)
     check(sum(launches_tpch.values()) > 0,
           "tpch: the partition kernel ran in at least one query")
@@ -1969,6 +2085,7 @@ def main() -> int:
             "orderkey_dense": launches_gb["dense_key_range"],
             "q1": launches_q1, "q6": launches_q6},
         "launches_tpch": launches_tpch,
+        "launches_tpch_planner": launches_planner,
         "launches_fused": launches_fused, "launches_sketch": launches_sketch,
         "launches_agg_state": launches_state,
         "launches_streaming": launches_stream,

@@ -21,12 +21,18 @@ Layer map:
                       dist_groupby (pre-aggregation, broadcast and shuffle
                       combine, dense keys) / dist_aggregate;
                       broadcast.py: replicate_table + replica cache
+    plan/             the logical planner behind ``ctx.optimize``: lazy
+                      capture (ir), rewrite rules, lowering + plan cache
+                      (executor)
+    analysis/         plan_check: the capture hook on every dist op
+    trace.py          named counters (exchange bytes, planner activity)
     tpch/             the TPC-H generator (on the device, with a numpy
                       mirror) and all 22 queries
     ops/              hash (plain + CUDA), compaction, gathers, join, sort,
                       set-op and groupby kernels
-    config.py         JoinConfig, the broadcast threshold, memory budget
-    context.py        CylonContext: device, world, communicator
+    config.py         JoinConfig, the broadcast threshold, memory budget,
+                      the optimizer switch, the plan-cache capacity
+    context.py        CylonContext: device, world, communicator, optimize
 """
 
 from .config import JoinAlgorithm, JoinConfig, JoinType

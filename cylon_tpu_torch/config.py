@@ -1,8 +1,9 @@
 """Join configuration and the process-wide knobs the planner reads.
 
 The PyTorch port's copy of the join part of ``cylon_tpu/config.py``
-(reference: join/join_config.hpp:29-89), the broadcast row threshold and
-the device memory budget.
+(reference: join/join_config.hpp:29-89), the broadcast row threshold,
+the device memory budget, the optimizer switch and the plan-cache
+capacity.
 """
 from __future__ import annotations
 
@@ -48,37 +49,137 @@ def set_broadcast_join_threshold(n: Optional[int]) -> Optional[int]:
     return prev if prev > 0 else None
 
 
-# The per-device byte ceiling a replica is priced against: an explicit
-# set_device_memory_budget(bytes), else DEFAULT_MEMORY_BUDGET_FRACTION of
-# the device's memory (the card's total memory; physical RAM for the CPU).
+# The per-device byte ceiling a replica is priced against, resolved as
+#   1. an explicit set_device_memory_budget(bytes),
+#   2. the CYLON_MEMORY_BUDGET env var (bytes),
+#   3. DEFAULT_MEMORY_BUDGET_FRACTION of the device's memory (the card's
+#      total memory; physical RAM for the CPU).
 DEFAULT_MEMORY_BUDGET_FRACTION = 0.5
 
 _device_memory_budget: Optional[int] = None
 
 
+def _validate_budget(n, what: str) -> int:
+    if isinstance(n, bool) or not isinstance(n, int):
+        raise CylonError(Status(Code.Invalid,
+            f"{what} must be a positive int byte count, "
+            f"got {type(n).__name__} {n!r}"))
+    if n <= 0:
+        raise CylonError(Status(Code.Invalid,
+            f"{what} must be positive, got {n} (pass None to restore "
+            "auto-detection)"))
+    return n
+
+
 def set_device_memory_budget(n: Optional[int]) -> Optional[int]:
     """Set the per-device memory budget in bytes; returns the previous
-    explicit setting.  None restores the default fraction."""
+    explicit setting.  None restores env / default resolution."""
     global _device_memory_budget
-    if n is not None and (isinstance(n, bool) or not isinstance(n, int)
-                          or n <= 0):
-        raise CylonError(Status(Code.Invalid,
-            f"device memory budget must be a positive int byte count, "
-            f"got {n!r}"))
+    if n is not None:
+        n = _validate_budget(n, "device memory budget")
     prev = _device_memory_budget
     _device_memory_budget = n
     return prev
 
 
 def device_memory_budget(device: torch.device) -> int:
-    """The effective memory budget in bytes for ``device``."""
+    """The effective memory budget in bytes for ``device`` (explicit knob,
+    else ``CYLON_MEMORY_BUDGET``, else the default fraction)."""
     if _device_memory_budget is not None:
         return _device_memory_budget
+    env = os.environ.get("CYLON_MEMORY_BUDGET", "")
+    if env:
+        # any set value must be valid: "0" raises like the setter does
+        try:
+            return _validate_budget(int(env), "CYLON_MEMORY_BUDGET")
+        except ValueError:
+            raise CylonError(Status(Code.Invalid,
+                f"CYLON_MEMORY_BUDGET must be an int byte count, "
+                f"got {env!r}")) from None
     if device.type == "cuda":
         limit = torch.cuda.get_device_properties(device).total_memory
     else:
         limit = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
     return max(int(limit * DEFAULT_MEMORY_BUDGET_FRACTION), 1 << 20)
+
+
+def explicit_memory_budget() -> Optional[int]:
+    """The explicitly set budget (None when env / default resolved)."""
+    return _device_memory_budget
+
+
+# The LRU entry cap of the planner's compiled-plan cache
+# (plan/executor.py): explicit set_plan_cache_capacity() >
+# CYLON_PLAN_CACHE_CAP env > DEFAULT_PLAN_CACHE_CAPACITY.  Evictions bump
+# the ``plan.cache_evictions`` counter.
+DEFAULT_PLAN_CACHE_CAPACITY = 128
+
+_plan_cache_capacity: Optional[int] = None
+
+
+def plan_cache_capacity() -> int:
+    """The effective compiled-plan cache entry cap."""
+    if _plan_cache_capacity is not None:
+        return _plan_cache_capacity
+    env = os.environ.get("CYLON_PLAN_CACHE_CAP", "")
+    if env:
+        try:
+            n = int(env)
+        except ValueError:
+            raise CylonError(Status(Code.Invalid,
+                f"CYLON_PLAN_CACHE_CAP must be an int entry count, "
+                f"got {env!r}")) from None
+        if n <= 0:
+            raise CylonError(Status(Code.Invalid,
+                f"CYLON_PLAN_CACHE_CAP must be positive, got {n}"))
+        return n
+    return DEFAULT_PLAN_CACHE_CAPACITY
+
+
+def set_plan_cache_capacity(n: Optional[int]) -> Optional[int]:
+    """Set the compiled-plan cache capacity; returns the previous explicit
+    setting.  None restores env / default resolution; zero, negative,
+    float and bool values raise (a stored 0 would evict every plan)."""
+    global _plan_cache_capacity
+    if n is not None:
+        if isinstance(n, bool) or not isinstance(n, int):
+            raise CylonError(Status(Code.Invalid,
+                "plan cache capacity must be a positive int entry count "
+                f"or None to restore defaults, got {type(n).__name__} "
+                f"{n!r}"))
+        if n <= 0:
+            raise CylonError(Status(Code.Invalid,
+                f"plan cache capacity must be positive, got {n} (pass "
+                "None to restore env/default resolution)"))
+    prev = _plan_cache_capacity
+    _plan_cache_capacity = n
+    return prev
+
+
+# Whether ``ctx.optimize`` captures, rewrites and caches plans or runs
+# them eagerly: explicit set_optimizer_enabled() > CYLON_OPTIMIZER env
+# (any value but "0" / empty enables; default on).
+_optimizer_enabled: Optional[bool] = None
+
+
+def optimizer_enabled() -> bool:
+    """Whether the logical-plan optimizer is active."""
+    if _optimizer_enabled is not None:
+        return _optimizer_enabled
+    return os.environ.get("CYLON_OPTIMIZER", "1") not in ("", "0")
+
+
+def set_optimizer_enabled(on: Optional[bool]) -> Optional[bool]:
+    """Set the optimizer switch (None restores env resolution); returns
+    the previous explicit setting."""
+    global _optimizer_enabled
+    if on is not None and not isinstance(on, bool):
+        raise CylonError(Status(Code.Invalid,
+            "optimizer switch must be True, False or None (env-resolved), "
+            f"got {type(on).__name__} {on!r}"))
+    prev = _optimizer_enabled
+    _optimizer_enabled = on
+    return prev
 
 
 class JoinType(enum.Enum):

@@ -106,6 +106,16 @@ class CylonContext:
         """Block the host until the device has drained queued work."""
         self._comm.barrier()
 
+    def optimize(self, op, tables=None):
+        """Run ``op(tables)`` (or ``op()`` when ``tables`` is None) through
+        the logical query planner: the plan is captured lazily, rewritten
+        and executed via the compiled-plan cache, so a repeated query
+        skips the rewrite.  Returns the query's concrete result.
+        ``CYLON_OPTIMIZER=0`` (or ``config.set_optimizer_enabled(False)``)
+        makes this a plain eager call."""
+        from . import plan
+        return plan.optimize(self, op, tables)
+
     @property
     def device(self) -> torch.device:
         return self._device

@@ -32,18 +32,21 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
+from ..analysis import plan_check
 from ..config import broadcast_join_threshold, device_memory_budget
 from ..ops import compact as ops_compact
 from ..ops.gather import signed_view
 from .dtable import DColumn, DTable
+from .shuffle import row_bytes
 
 ALL = "all"
 HEAD = "head"
 
 
-def _row_bytes(leaves) -> int:
-    """Payload width of one row across the leaves (validity = 1 byte)."""
-    return sum(lf.element_size() for lf in leaves)
+def _leaves(dt: DTable):
+    return [lf for c in dt.columns for lf in (c.data, c.validity)
+            if lf is not None]
 
 
 def price_replicate(nparts: int, cap: int, outcap: int, rbytes: int) -> int:
@@ -70,9 +73,7 @@ def rows_if_small(dt: DTable, threshold: Optional[int]) -> Optional[int]:
         rows = bound if bound <= threshold else None
     if rows is None:
         return None
-    rbytes = max(_row_bytes([lf for c in dt.columns
-                             for lf in (c.data, c.validity)
-                             if lf is not None]), 1)
+    rbytes = max(row_bytes(_leaves(dt)), 1)
     outcap = ops_compact.next_bucket(max(rows, 1), minimum=8)
     if price_replicate(dt.nparts, dt.cap, outcap, rbytes) \
             > device_memory_budget(dt.ctx.device):
@@ -109,13 +110,21 @@ def _cache_key(dt: DTable, mode: str) -> Tuple:
                   for c in dt.columns))
 
 
-def replicate_table(dt: DTable, mode: str = ALL, cache: bool = True
-                    ) -> DTable:
+@plan_check.instrument
+def replicate_table(dt: DTable, mode: str = ALL,
+                    span_name: str = "join.broadcast_gather",
+                    cache: bool = True) -> DTable:
     """Gather ``dt``'s rows into a replicated DTable: every shard's block
     holds all rows, in shard order.  ``dt`` must carry no pending mask
     (callers collapse first).  Schema, dictionaries and column order are
     kept, so the result drops into any per-shard kernel.  ``cache=False``
-    for one-shot intermediates (caching them would pin dead tensors)."""
+    for one-shot intermediates (caching them would pin dead tensors).
+
+    A gather (not a cache hit) counts ``span_name`` once and its wire
+    volume, rows × (P − 1) × row width, as ``broadcast.rows_sent`` /
+    ``broadcast.bytes_sent``; the groupby's combine gather
+    (``span_name="groupby.broadcast_gather"``) also adds the bytes to
+    ``groupby.bytes_moved``."""
     global gathers
     if dt.pending_mask is not None:
         raise ValueError("replicate_table: collapse the pending mask first")
@@ -133,6 +142,13 @@ def replicate_table(dt: DTable, mode: str = ALL, cache: bool = True
     ch = dt._counts_host
     total_bound = int(ch.sum()) if ch is not None else P * cap
     outcap = ops_compact.next_bucket(max(total_bound, 1), minimum=8)
+    moved = total_bound * max(P - 1, 0)
+    moved_bytes = moved * row_bytes(_leaves(dt))
+    trace.count(span_name)
+    trace.count("broadcast.rows_sent", moved)
+    trace.count("broadcast.bytes_sent", moved_bytes)
+    if span_name == "groupby.broadcast_gather":
+        trace.count("groupby.bytes_moved", moved_bytes)
     gcnts = comm.all_gather(dt.counts)                                # [P]
     valid = (torch.arange(cap, device=gcnts.device)[None, :]
              < gcnts[:, None]).reshape(-1)

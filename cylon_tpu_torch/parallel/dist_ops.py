@@ -46,6 +46,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
+from ..analysis import plan_check
 from ..compute import _agg_output_type
 from ..config import (JoinAlgorithm, JoinConfig, JoinType,
                       broadcast_join_threshold)
@@ -151,8 +153,10 @@ def _unify_dtable_dicts(a: DTable, b: DTable,
 # shuffle_table (reference: Shuffle, table_api.cpp:214-297)
 # ---------------------------------------------------------------------------
 
-def _shuffle_by_pids(dt: DTable, pid: torch.Tensor) -> DTable:
-    """Exchange rows to their target shards; rebuild the DTable."""
+def _shuffle_by_pids(dt: DTable, pid: torch.Tensor, owner: str = ""
+                     ) -> DTable:
+    """Exchange rows to their target shards; rebuild the DTable.
+    ``owner="groupby"`` also counts the bytes as ``groupby.bytes_moved``."""
     if dt.pending_mask is not None:
         # ``pid`` was computed against THESE blocks: a deferred select must
         # have been folded into it (see ``_cleared``) or collapsed first
@@ -169,7 +173,8 @@ def _shuffle_by_pids(dt: DTable, pid: torch.Tensor) -> DTable:
         if c.validity is not None:
             leaves.append(c.validity)
             slots.append((i, True))
-    new_leaves, newcounts, outcap = shuffle_leaves(dt.ctx, pid, leaves)
+    new_leaves, newcounts, outcap = shuffle_leaves(dt.ctx, pid, leaves,
+                                                   owner)
     data, validity = {}, {}
     for leaf, (i, is_v) in zip(new_leaves, slots):
         (validity if is_v else data)[i] = leaf
@@ -190,6 +195,7 @@ def _shuffle_masked(dt: DTable, pid: torch.Tensor) -> DTable:
     return _shuffle_by_pids(dt, pid)
 
 
+@plan_check.instrument
 def shuffle_table(dt: DTable, key_columns: Sequence[Union[int, str]]
                   ) -> DTable:
     """Hash-repartition rows so equal keys co-locate on one shard."""
@@ -455,6 +461,7 @@ def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
     if world > 1:
         if r_rows is not None:
             decisions["join.fk-dense+broadcast"] += 1
+            trace.count("join.broadcast")
             right = broadcast.replicate_table(right)
         else:
             decisions["join.fk-dense+shuffle"] += 1
@@ -525,6 +532,7 @@ def _try_broadcast_join(left: DTable, right: DTable, config: JoinConfig
     take_right = r_rows is not None and (l_rows is None or r_rows <= l_rows)
     left, right, li_keys, ri_keys = _join_setup(left, right, config)
     decisions["join.broadcast"] += 1
+    trace.count("join.broadcast")
     if take_right:
         return _join_copartitioned(left, broadcast.replicate_table(right),
                                    li_keys, ri_keys, how, "sort")
@@ -532,6 +540,7 @@ def _try_broadcast_join(left: DTable, right: DTable, config: JoinConfig
                                li_keys, ri_keys, how, "sort")
 
 
+@plan_check.instrument
 def dist_join(left: DTable, right: DTable, config: JoinConfig,
               dense_key_range=None) -> DTable:
     """Distributed equi-join: co-partition both sides on the key (by hash
@@ -630,6 +639,7 @@ def _multiway_rename(dt: DTable, ren) -> DTable:
     return dt.rename([m.get(n, n) for n in dt.column_names])
 
 
+@plan_check.instrument
 def dist_multiway_join(fact: DTable, dims: Sequence[DTable],
                        edges: Sequence) -> DTable:
     """Star join: probe ``fact`` against every dimension in turn
@@ -645,6 +655,7 @@ def dist_multiway_join(fact: DTable, dims: Sequence[DTable],
         raise CylonError(Status(Code.Invalid,
             f"dist_multiway_join: {len(dims)} dimension table(s) for "
             f"{len(edges)} edge spec(s)"))
+    trace.count("join.multiway")
     world = fact.ctx.get_world_size()
     current = fact
     for dim, (how, alg, fact_on, dim_on, dkr, thr, ren) in zip(dims, edges):
@@ -730,14 +741,17 @@ def _dist_set_op(a: DTable, b: DTable, op: str) -> DTable:
     return DTable(a.ctx, cols, capacity, torch.stack(counts))
 
 
+@plan_check.instrument
 def dist_union(a: DTable, b: DTable) -> DTable:
     return _dist_set_op(a, b, ops_setops.UNION)
 
 
+@plan_check.instrument
 def dist_intersect(a: DTable, b: DTable) -> DTable:
     return _dist_set_op(a, b, ops_setops.INTERSECT)
 
 
+@plan_check.instrument
 def dist_subtract(a: DTable, b: DTable) -> DTable:
     return _dist_set_op(a, b, ops_setops.SUBTRACT)
 
@@ -884,6 +898,7 @@ def _range_shuffle(dt: DTable, key_i: int, ascending: bool) -> DTable:
     return _shuffle_by_pids(dt, _range_pids(dt, key_i, splitters, ascending))
 
 
+@plan_check.instrument
 def dist_sort_multi(dt: DTable, sort_columns: Sequence[Union[int, str]],
                     ascending=True) -> DTable:
     """Distributed multi-key ORDER BY: range-partition on the PRIMARY
@@ -897,6 +912,7 @@ def dist_sort_multi(dt: DTable, sort_columns: Sequence[Union[int, str]],
     return _sort_shards(_range_shuffle(dt, key_ids[0], asc[0]), key_ids, asc)
 
 
+@plan_check.instrument
 def dist_sort(dt: DTable, sort_column: Union[int, str],
               ascending: bool = True) -> DTable:
     """Distributed sample-sort: sample splitters → range-partition shuffle →
@@ -910,6 +926,7 @@ def dist_sort(dt: DTable, sort_column: Union[int, str],
                         [bool(ascending)])
 
 
+@plan_check.instrument
 def dist_head(dt: DTable, n: int) -> Table:
     """First ``n`` global rows (shard-major order) as a local Table — the
     small-result gather after a dist_sort (ORDER BY … LIMIT n)."""
@@ -1036,6 +1053,7 @@ def _compact_survivors(dt: DTable, mask: torch.Tensor,
     return DTable(dt.ctx, cols, outcap, torch.stack(counts))
 
 
+@plan_check.instrument
 def dist_select(dt: DTable, predicate, params=(), compact: bool = True
                 ) -> DTable:
     """Distributed row filter: ``predicate(env, *params)`` maps {column
@@ -1059,6 +1077,7 @@ def dist_select(dt: DTable, predicate, params=(), compact: bool = True
     return _compact_survivors(dt, mask, cnts)
 
 
+@plan_check.instrument
 def dist_project(dt: DTable, columns: Sequence[Union[int, str]]) -> DTable:
     """Column subset, zero-copy (reference table_api.cpp:1007-1029).  A
     deferred-select mask rides along."""
@@ -1069,6 +1088,7 @@ def dist_project(dt: DTable, columns: Sequence[Union[int, str]]) -> DTable:
     return out
 
 
+@plan_check.instrument
 def dist_with_column(dt: DTable, name: str, fn, out_type,
                      validity_from: Sequence[str] = ()) -> DTable:
     """Append a derived column ``name = fn({col name: data tensor})``,
@@ -1183,6 +1203,7 @@ def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
               if world > 1 else None)
     use_bcast = r_rows is not None
     if use_bcast:
+        trace.count("join.broadcast")
         right._collapse_pending()
         right = broadcast.replicate_table(right)
     # presence bits cost R / stride bytes per shard: gate against the
@@ -1230,6 +1251,7 @@ def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
     return _compact_survivors(left, mask, per_shard)
 
 
+@plan_check.instrument
 def dist_semi_join(left: DTable, right: DTable, left_on, right_on,
                    dense_key_range=None, broadcast_threshold=None) -> DTable:
     """Distributed LEFT SEMI join: the rows of ``left`` whose key has at
@@ -1254,6 +1276,7 @@ def dist_semi_join(left: DTable, right: DTable, left_on, right_on,
                               broadcast_threshold=broadcast_threshold)
 
 
+@plan_check.instrument
 def dist_anti_join(left: DTable, right: DTable, left_on, right_on,
                    dense_key_range=None, broadcast_threshold=None) -> DTable:
     """Distributed LEFT ANTI join: the rows of ``left`` whose key has NO
@@ -1275,6 +1298,7 @@ def _is_integer(dtype: torch.dtype) -> bool:
         and dtype != torch.bool
 
 
+@plan_check.instrument
 def dist_aggregate(dt: DTable,
                    aggregations: Sequence[Tuple[Union[int, str], str]],
                    where=None) -> Table:
@@ -1454,6 +1478,7 @@ def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
                            out_cap)
 
 
+@plan_check.instrument
 def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
                  aggregations: Sequence[Tuple[Union[int, str], str]],
                  where=None, dense_key_range=None, pre_aggregate=None,
@@ -1530,7 +1555,7 @@ def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
             # filter pushdown: failing rows never enter the exchange
             pid = torch.where(pmask, pid, world)
             pmask = None
-        sh = _shuffle_by_pids(_cleared(dt), pid)
+        sh = _shuffle_by_pids(_cleared(dt), pid, owner="groupby")
     if dense is not None:
         return _groupby_dense(dt, sh, key_ids[0], uniq_ids, slot_map, aggs,
                               aggregations, dense, pmask, emit_empty)
@@ -1605,8 +1630,9 @@ def _dist_groupby_preagg(dt: DTable, key_ids: List[int], aggregations,
     if broadcast.rows_if_small(part, None) is not None:
         # few partial groups: one all_gather in place of the shuffle;
         # shard 0 owns every partial row (HEAD) and combines them alone
-        part_rep = broadcast.replicate_table(part, mode=broadcast.HEAD,
-                                             cache=False)
+        part_rep = broadcast.replicate_table(
+            part, mode=broadcast.HEAD, span_name="groupby.broadcast_gather",
+            cache=False)
         comb = dist_groupby(part_rep, list(range(K)), comb_aggs,
                             dense_key_range=dense_key_range,
                             pre_aggregate=False, _local_only=True)
@@ -1707,7 +1733,8 @@ def _shuffle_by_keys(dt: DTable, K: int) -> DTable:
     """Hash-shuffle a partial table on its first ``K`` (key) columns."""
     if dt.ctx.get_world_size() == 1:
         return dt  # one shard: every group is already home
-    return _shuffle_by_pids(dt, _hash_pids(dt, list(range(K))))
+    return _shuffle_by_pids(dt, _hash_pids(dt, list(range(K))),
+                            owner="groupby")
 
 
 def merge_agg_state(a: AggState, b: AggState) -> AggState:
@@ -1887,6 +1914,15 @@ def _fused_psum_groupby(dt: DTable, key_ids: List[int], aggregations,
     lanes = ["count" if op == "count" else
              "fsum" if dt.columns[ci].data.dtype.is_floating_point else
              "isum" for ci, op in partial]
+    # wire accounting, as the JAX package prices it: the all_reduce
+    # combines [R+1, lanes] packs (8-byte lanes plus the rows-per-group
+    # lane) replicated to the other P − 1 shards
+    trace.count("groupby.psum_combine")
+    moved = (R + 1) * (dt.ctx.get_world_size() - 1)
+    moved_bytes = moved * 8 * (1 + len(lanes))
+    trace.count("broadcast.rows_sent", moved)
+    trace.count("broadcast.bytes_sent", moved_bytes)
+    trace.count("groupby.bytes_moved", moved_bytes)
     out_cap = ops_compact.next_bucket(R, minimum=8)
     keys_out, vals_out, counts = _psum_combine(
         dt, key_ids, partial, lanes, domains, _effective_mask(dt, where),
@@ -1912,11 +1948,12 @@ def _fused_psum_groupby(dt: DTable, key_ids: List[int], aggregations,
                                len(key_ids))
 
 
+@plan_check.instrument
 def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
                        aggregations: Sequence[Tuple[Union[int, str], str]],
                        where=None, dense_key_range=None,
                        emit_empty: bool = False,
-                       mode: str = "pre-aggregate") -> DTable:
+                       mode: str = "pre-aggregate", reason=None) -> DTable:
     """The planner-lowered aggregation: per-shard partials → exchange of
     the partial-group table → combining aggregation, with the strategy
     decided at plan time; the same results as ``dist_groupby``.
@@ -1932,10 +1969,13 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
         aggregate in place (``pre_aggregate=False``).
 
     The mode that ran is counted in ``decisions`` ("groupby.<mode>", or
-    "groupby.local" at world 1)."""
+    "groupby.local" at world 1).  ``reason`` is the planner's note on why
+    it chose ``mode`` (the JAX package shows it in its plan report; here
+    it is carried for the signature only)."""
     if mode not in ("psum", "pre-aggregate", "shuffle"):
         raise CylonError(Status(Code.Invalid,
             f"dist_groupby_fused: unknown mode {mode!r}"))
+    trace.count("groupby.pushdown")
     key_ids = _resolve_ids(dt, key_columns)
     world = dt.ctx.get_world_size()
     for _, op in aggregations:
@@ -2193,6 +2233,7 @@ def _sketch_result(sh: DTable, key_meta_cols, keys_out, base_meta, outs,
     return DTable(sh.ctx, cols, sh.cap, counts)
 
 
+@plan_check.instrument
 def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
                         aggregations: Sequence[Tuple[Union[int, str], str]],
                         where=None) -> DTable:

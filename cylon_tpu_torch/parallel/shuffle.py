@@ -21,11 +21,13 @@ package's.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops import gather as ops_gather
 from ..ops.compact import next_bucket
 
@@ -95,16 +97,35 @@ def _exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     return newcount, outs
 
 
-def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor]
+def row_bytes(leaves: Sequence[torch.Tensor]) -> int:
+    """Payload width of one row across the leaves: element size times the
+    trailing elements per row (a validity lane is 1 byte)."""
+    return sum(lf.element_size() * math.prod(lf.shape[1:]) for lf in leaves)
+
+
+def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
+                   owner: str = ""
                    ) -> Tuple[List[torch.Tensor], torch.Tensor, int]:
     """Repartition rows of flat ``[P*cap]`` ``leaves`` by target ids ``pid``
     (int32 ``[P*cap]``; padding rows carry P and are dropped).  A leaf with
     trailing dimensions (``[P*cap, M]`` sketch state) moves by row.
 
+    Counts the rows that leave their shard (the count matrix's
+    off-diagonal) as ``shuffle.rows_sent`` and times the row width as
+    ``shuffle.bytes_sent``; ``owner="groupby"`` also adds the bytes to
+    ``groupby.bytes_moved``.
+
     Returns ``(new_leaves [P*outcap], counts [P], outcap)``.
     """
     comm = ctx.comm
     counts = _counts(comm, pid).cpu().numpy()  # the one host read
+    trace.count("shuffle.exchanges")
+    moved = int(counts.sum() - np.trace(counts))
+    moved_bytes = moved * max(row_bytes(leaves), 1)
+    trace.count("shuffle.rows_sent", moved)
+    trace.count("shuffle.bytes_sent", moved_bytes)
+    if owner == "groupby":
+        trace.count("groupby.bytes_moved", moved_bytes)
     block, outcap, _ = exchange_sizes(counts)
     newcounts, outs = _exchange(comm, pid, leaves, block, outcap)
     return outs, newcounts, outcap

@@ -34,6 +34,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from ..analysis import plan_check
 from ..config import JoinConfig
 from ..ops import compact as ops_compact
 from ..ops import gather as ops_gather
@@ -104,6 +105,7 @@ def _concat_compact(parts: List[DTable]) -> DTable:
     return DTable(head.ctx, cols, outcap, torch.stack(counts))
 
 
+@plan_check.instrument
 def dist_join_streaming(left: DTable, right: DTable, config: JoinConfig,
                         chunks: int = 4) -> DTable:
     """Chunked distributed join of ``left`` against a resident ``right``.

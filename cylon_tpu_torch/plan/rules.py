@@ -1,0 +1,740 @@
+"""Rule-based logical-plan optimizer: the rewrite half of the planner.
+
+The port of ``cylon_tpu/plan/rules.py``.  It operates purely on the
+:mod:`plan.ir` DAG; no device code runs here.  ``optimize(builder,
+root)`` applies the rules below and returns the rewritten root plus the
+run's rule-fire records; the executor caches the whole outcome keyed by
+plan structure, so repeated queries never re-enter this module.
+
+Rules, in application order:
+
+  filter pushdown       a ``dist_select`` sinks below row-preserving
+                        exchanges (sort / multi-sort / shuffle), below
+                        ``rename`` (the predicate's env is re-mapped to
+                        the pre-rename names), below a semi / anti join,
+                        and below a join to the side ALL its reads come
+                        from, so failing rows never enter the exchange.
+                        A side a join could null-fill is never pushed
+                        into (the filter would stop seeing the nulls it
+                        must veto).  Applied to a fixed point.
+  multiway join fusion  chains of INNER/LEFT equi-joins sharing a fact
+                        side (directly or through single-consumer
+                        renames) collapse into one ``dist_multiway_join``
+                        node: the fact is partitioned (or replicated
+                        around) once and every dimension probes the
+                        running intermediate in place (partition-once /
+                        probe-N, arXiv:1905.13376).  Broadcast-vs-shuffle
+                        per dimension is re-priced at every execution.
+  groupby pushdown      every multi-shard ``dist_groupby`` lowers to the
+                        fused aggregation exchange ``dist_groupby_fused``
+                        (partials below the exchange, arXiv:2010.14596),
+                        with the psum / pre-aggregate / shuffle choice
+                        made here from ``ir.known_rows`` and schema stats
+                        (dictionary domains, dense key ranges) and
+                        recorded with its reason.  A single-consumer
+                        ``shuffle_table`` below the groupby is absorbed,
+                        and a single-consumer parameterless
+                        ``dist_select`` folds into the aggregation's row
+                        mask.
+  join strategy         broadcast-vs-shuffle decided once at plan time
+                        from ingest-cached row counts (``ir.known_rows``,
+                        the evidence ``broadcast.rows_if_small`` reads per
+                        call): a provably small eligible side plans a
+                        broadcast (advisory: the runtime memory-budget
+                        veto keeps the last word); all eligible sides
+                        provably over the threshold plan a shuffle, and
+                        the lowering zeroes the per-call threshold.
+  projection pruning    every exchange / compaction consumer gets its
+                        inputs narrowed to the columns the rest of the
+                        plan references (opaque predicates use the
+                        captured ``reads`` sets; an unknown reader reads
+                        everything).  The inserted ``dist_project`` is
+                        zero-copy; the exchanges then carry fewer leaves.
+  common subplans       structurally identical subplans (same op, same
+                        statics, same inputs, same runtime payload
+                        identities) collapse to one node.
+
+The reference's ``morsel scans`` rule (out-of-core streaming of a scan
+priced over the memory budget) needs the spill tier, which is not
+ported; it is left out of the rule list.
+
+Every fire is recorded on the rewritten node's ``opt_notes``; the
+executor attaches them to the lowered operator's recorded node.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from ..config import broadcast_join_threshold
+from . import ir
+from .ir import EXCHANGE_OPS, Node
+
+__all__ = ["optimize", "exchange_row_bytes"]
+
+_MAX_PUSHDOWN_PASSES = 10
+
+# sides of each join type that may be null-filled in the output — a
+# filter must not be pushed into one (it would run before the nulls it
+# has to veto exist)
+_NULLED_SIDES = {"inner": (), "left": ("right",), "right": ("left",),
+                 "full_outer": ("left", "right")}
+
+
+def exchange_row_bytes(root: Node) -> int:
+    """Total exchanged row width across the plan: Σ over exchange ops of
+    the per-row byte width of each input — the structural quantity
+    projection pruning exists to shrink (exact wire bytes additionally
+    depend on data-dependent row counts; this is the plan-time proxy
+    counted as ``optimizer.row_bytes_pre`` / ``_post``)."""
+    total = 0
+    for n in ir.topo(root):
+        if n.op in EXCHANGE_OPS:
+            for i in n.inputs:
+                total += ir.row_width(i.schema)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# rewrite plumbing: functional DAG mapping with sharing preserved
+# ---------------------------------------------------------------------------
+
+def _clone(node: Node, inputs: Sequence[Node]) -> Node:
+    """``node`` over new inputs, schema re-inferred — the one constructor
+    every rule uses, so a rewritten DAG cannot drift from what capture
+    (and therefore lowering) produces."""
+    if all(a is b for a, b in zip(inputs, node.inputs)) \
+            and len(inputs) == len(node.inputs):
+        return node
+    schema = (node.schema if node.op == "scan"
+              else ir.infer_schema(node.op, [i.schema for i in inputs],
+                                   node.static))
+    return Node(node.op, list(inputs), dict(node.static), node.runtime,
+                schema, node.name, list(node.opt_notes), node.origin_idx)
+
+
+def _remap(root: Node, fn) -> Node:
+    """Bottom-up map over the DAG: ``fn(node_with_new_inputs)`` returns
+    the replacement.  Shared nodes rewrite once (memo by id)."""
+    memo: Dict[int, Node] = {}
+
+    def walk(n: Node) -> Node:
+        hit = memo.get(id(n))
+        if hit is not None:
+            return hit
+        out = fn(_clone(n, [walk(i) for i in n.inputs]))
+        memo[id(n)] = out
+        return out
+
+    return walk(root)
+
+
+class _Fires:
+    """Rule-fire accumulator: one record per fire, mirrored onto the
+    owning node's ``opt_notes`` (the executor's annotation source)."""
+
+    def __init__(self) -> None:
+        self.records: List[str] = []
+
+    def fire(self, node: Node, rule: str, detail: str) -> None:
+        note = f"{rule}: {detail}"
+        node.opt_notes.append(note)
+        self.records.append(f"{node.op} <- {note}")
+
+
+# ---------------------------------------------------------------------------
+# filter pushdown
+# ---------------------------------------------------------------------------
+
+def _select_over(sel: Node, new_input: Node, static=None) -> Node:
+    static = dict(sel.static if static is None else static)
+    return Node("dist_select", [new_input], static, sel.runtime,
+                new_input.schema, None, list(sel.opt_notes),
+                sel.origin_idx)
+
+
+def _mapped_static(sel: Node, mapping: Dict[str, str]) -> Dict:
+    """Select statics with the predicate's env re-mapped through
+    ``mapping`` (outer name → inner name), composed with any existing
+    map and with ``reads`` translated."""
+    static = dict(sel.static)
+    prev = dict(static.get("env_map", ()))
+    comp = {}
+    for outer, inner in prev.items():
+        comp[outer] = mapping.get(inner, inner)
+    for outer, inner in mapping.items():
+        comp.setdefault(outer, inner)
+    static["env_map"] = tuple(sorted((o, i) for o, i in comp.items()
+                                     if o != i))
+    reads = static.get("reads")
+    if reads is not None:
+        static["reads"] = tuple(mapping.get(r, r) for r in reads)
+    return static
+
+
+def _push_select_once(sel: Node, fires: _Fires) -> Optional[Node]:
+    """One pushdown step for ``sel`` (a dist_select) or None."""
+    child = sel.inputs[0]
+    # row-preserving exchanges: select-then-exchange moves fewer rows
+    if child.op in ("dist_sort", "dist_sort_multi", "shuffle_table"):
+        pushed = _select_over(sel, child.inputs[0])
+        fires.fire(pushed, "filter-pushdown",
+                   f"select sunk below {child.op}")
+        return _clone(child, [pushed])
+    if child.op == "rename":
+        inv = {new: old for old, new in child.static["mapping"]}
+        pushed = _select_over(sel, child.inputs[0],
+                              _mapped_static(sel, inv))
+        fires.fire(pushed, "filter-pushdown", "select sunk below rename")
+        return _clone(child, [pushed])
+    if child.op in ("dist_join", "dist_join_streaming"):
+        reads = sel.static.get("reads")
+        if reads is None or not reads:
+            return None  # unknown reader: pushing could change semantics
+        side = None
+        if all(r.startswith("lt-") for r in reads):
+            side = "left"
+        elif all(r.startswith("rt-") for r in reads):
+            side = "right"
+        if side is None or side in _NULLED_SIDES[child.static["how"]]:
+            return None
+        pre = "lt-" if side == "left" else "rt-"
+        mapping = {r: r[len(pre):] for r in reads}
+        idx = 0 if side == "left" else 1
+        pushed = _select_over(sel, child.inputs[idx],
+                              _mapped_static(sel, mapping))
+        fires.fire(pushed, "filter-pushdown",
+                   f"select sunk below {child.static['how']} join "
+                   f"({side} side)")
+        new_ins = list(child.inputs)
+        new_ins[idx] = pushed
+        return _clone(child, new_ins)
+    if child.op in ("dist_semi_join", "dist_anti_join"):
+        # semi/anti emit a subset of left rows with left's schema — a
+        # select over the output commutes with the probe unconditionally
+        pushed = _select_over(sel, child.inputs[0])
+        fires.fire(pushed, "filter-pushdown",
+                   f"select sunk below {child.op}")
+        return _clone(child, [pushed, child.inputs[1]])
+    return None
+
+
+def _filter_pushdown(root: Node, fires: _Fires) -> Node:
+    for _ in range(_MAX_PUSHDOWN_PASSES):
+        before = len(fires.records)
+
+        def step(n: Node) -> Node:
+            if n.op != "dist_select":
+                return n
+            return _push_select_once(n, fires) or n
+
+        root = _remap(root, step)
+        if len(fires.records) == before:
+            break
+    return root
+
+
+# ---------------------------------------------------------------------------
+# join strategy (broadcast-vs-shuffle hoisted to plan time)
+# ---------------------------------------------------------------------------
+
+def _threshold(static: Dict) -> int:
+    thr = static.get("broadcast_threshold")
+    if thr is None:
+        thr = broadcast_join_threshold()
+    return int(thr)
+
+
+def _join_strategy(root: Node, fires: _Fires, world: int) -> Node:
+    def step(n: Node) -> Node:
+        if n.op not in ("dist_join", "dist_semi_join", "dist_anti_join"):
+            return n
+        if "planned" in n.static or world <= 1:
+            return n
+        thr = _threshold(n.static)
+        if n.op == "dist_join":
+            how = n.static["how"]
+            if how not in ("inner", "left"):
+                return n
+            sides = [("right", n.inputs[1])]
+            if how == "inner":
+                sides.append(("left", n.inputs[0]))
+        else:
+            sides = [("right", n.inputs[1])]  # build side; always sound
+        if thr <= 0:
+            return n  # broadcast disabled: nothing to decide
+        known = [(side, ir.known_rows(t)) for side, t in sides]
+        small = [(s, r) for s, r in known if r is not None and r <= thr]
+        out = _clone(n, n.inputs)
+        if out is n:  # force a copy so static edits stay local
+            out = Node(n.op, list(n.inputs), dict(n.static), n.runtime,
+                       n.schema, n.name, list(n.opt_notes), n.origin_idx)
+        if small:
+            side, rows = min(small, key=lambda sr: sr[1])
+            out.static["planned"] = ("broadcast", side, rows)
+            # the broadcast arm stays ADVISORY: the runtime re-check
+            # reads the same ingest-cached counts sync-free (no cost to
+            # keep), and PR 4's memory-budget veto must retain the last
+            # word — a plan-time decision cannot see execution-time
+            # budget pressure.  Only the shuffle arm is enforced by
+            # lowering (threshold zeroed: nothing left to re-decide).
+            fires.fire(out, "join-strategy",
+                       f"broadcast {side} side expected from ingest "
+                       f"counts ({rows} rows <= threshold {thr}; "
+                       "subject to the runtime memory-budget veto)")
+            return out
+        if all(r is not None and r > thr for _, r in known):
+            out.static["planned"] = ("shuffle", "all sides over threshold")
+            fires.fire(out, "join-strategy",
+                       "shuffle planned: every eligible side provably "
+                       f"over threshold {thr} (per-call re-check skipped)")
+            return out
+        return n  # undecidable at plan time: the runtime planner decides
+
+    return _remap(root, step)
+
+
+# ---------------------------------------------------------------------------
+# multiway (star) join fusion
+# ---------------------------------------------------------------------------
+
+def _compose_renames(maps: List[Dict[str, str]]) -> Dict[str, str]:
+    """Compose a stack of rename mappings, DEEPEST (applied first)
+    last in ``maps`` — returns one old→new mapping equivalent to
+    applying them in order."""
+    comp: Dict[str, str] = {}
+    for m in reversed(maps):  # deepest first
+        new: Dict[str, str] = {}
+        produced = set()
+        for k, v in comp.items():
+            new[k] = m.get(v, v)
+            produced.add(v)
+        for k, v in m.items():
+            if k in produced or k in comp:
+                continue  # k was produced/renamed away by a deeper map
+            new[k] = v
+        comp = {k: v for k, v in new.items() if k != v}
+    return comp
+
+
+def _multiway_fusion(root: Node, fires: _Fires) -> Node:
+    """Collapse chains of fact-preserving equi-joins into one
+    ``dist_multiway_join`` node — the partition-once/probe-N rewrite.
+
+    A chain is a ``dist_join`` whose LEFT (fact) input — through
+    single-consumer ``rename`` nodes, which the fused node absorbs as
+    per-edge output renames — is itself a single-consumer INNER/LEFT
+    ``dist_join``, repeated to any depth.  The rule refuses:
+
+      * RIGHT/FULL edges (the fact side must be the preserved side);
+      * joins or renames with a second consumer — folding them in would
+        re-execute the shared intermediate (the q2 correlated-MIN
+        shape, where the chain output also feeds a groupby, stops the
+        chain exactly there);
+      * single joins (nothing to fuse).
+
+    Per-dimension broadcast-vs-shuffle is NOT decided here: the fused
+    operator re-prices every dimension against the live memory budget
+    at each execution (dist_ops._multiway_threshold +
+    broadcast.rows_if_small), so a cached plan stays budget-correct."""
+    parents: Dict[int, int] = {}
+    for n in ir.topo(root):
+        for c in n.inputs:
+            parents[id(c)] = parents.get(id(c), 0) + 1
+
+    memo: Dict[int, Node] = {}
+
+    def walk(n: Node) -> Node:
+        hit = memo.get(id(n))
+        if hit is not None:
+            return hit
+        out = try_fuse(n)
+        if out is None:
+            out = _clone(n, [walk(i) for i in n.inputs])
+        memo[id(n)] = out
+        return out
+
+    def try_fuse(top: Node) -> Optional[Node]:
+        if top.op != "dist_join" or top.static["how"] not in ("inner",
+                                                              "left"):
+            return None
+        # collect the chain inward: (join, rename applied to its output)
+        chain: List[Tuple[Node, Dict[str, str]]] = [(top, {})]
+        cur = top
+        while True:
+            base = cur.inputs[0]
+            maps: List[Dict[str, str]] = []
+            while base.op == "rename" and parents.get(id(base), 0) == 1:
+                maps.append(dict(base.static["mapping"]))
+                base = base.inputs[0]
+            if (base.op != "dist_join"
+                    or base.static["how"] not in ("inner", "left")
+                    or parents.get(id(base), 0) != 1):
+                break
+            chain.append((base, _compose_renames(maps)))
+            cur = base
+        if len(chain) < 2:
+            return None
+        chain.reverse()  # innermost join first
+        fact = walk(chain[0][0].inputs[0])
+        dims: List[Node] = []
+        edges = []
+        for j, ren in chain:
+            dims.append(walk(j.inputs[1]))
+            s = j.static
+            edges.append((s["how"], s["alg"], tuple(s["left_on"]),
+                          tuple(s["right_on"]), s.get("dense_key_range"),
+                          s.get("broadcast_threshold"),
+                          tuple(sorted(ren.items()))))
+        static = {"edges": tuple(edges)}
+        node = Node("dist_multiway_join", [fact] + dims, static, {},
+                    ir.infer_schema("dist_multiway_join",
+                                    [fact.schema] + [d.schema
+                                                     for d in dims],
+                                    static), None, [], None)
+        fires.fire(node, "multiway-join",
+                   f"fused {len(chain)} binary joins into one "
+                   f"partition-once/probe-{len(dims)} pass "
+                   "(per-dimension replica pricing at execution)")
+        return node
+
+    return walk(root)
+
+
+# ---------------------------------------------------------------------------
+# groupby pushdown (the fused aggregation exchange)
+# ---------------------------------------------------------------------------
+
+def _groupby_strategy(child: Node, s: Dict) -> Tuple[str, str]:
+    """Plan-time strategy for a fused groupby over ``child`` — the
+    decision dist_groupby's runtime ``near_unique`` heuristic guessed
+    from per-shard capacity, made here from sync-free plan evidence
+    (``ir.known_rows`` ingest counts + schema stats) and recorded with
+    its reason.  Returns ``(mode, reason)``."""
+    keys = s["keys"]
+    schema = child.schema
+    agg_ops = [op for _, op in s["aggs"]]
+    emit_empty = bool(s.get("emit_empty", False))
+    sizes = []
+    psum_ok = not emit_empty
+    for k in keys:
+        c = ir._col(schema, k)
+        if c.dictionary is None or len(c.dictionary) == 0:
+            psum_ok = False
+            sizes = []
+            break
+        sizes.append(len(c.dictionary) + (1 if c.nullable else 0))
+    R = 1
+    for z in sizes:
+        R *= z
+    if psum_ok and sizes \
+            and all(op in ("sum", "count", "mean") for op in agg_ops):
+        from ..parallel.dist_ops import _PSUM_SLOT_CAP
+        if R + 1 <= _PSUM_SLOT_CAP:
+            return "psum", (f"{len(keys)} dictionary key(s) span a "
+                            f"{R}-slot dense domain with "
+                            "sum/count/mean aggs: the combine runs "
+                            "inside one all-reduce")
+    if s.get("pre_aggregate") is False:
+        return "shuffle", "explicit pre_aggregate=False"
+    if s.get("pre_aggregate") is True:
+        return "pre-aggregate", "explicit pre_aggregate=True"
+    rows = ir.known_rows(child)
+    groups = evidence = None
+    dkr = s.get("dense_key_range")
+    if dkr is not None and len(keys) == 1:
+        groups = int(dkr[1]) - int(dkr[0]) + 1
+        evidence = "dense key range"
+    elif sizes and len(sizes) == len(keys):
+        groups = R
+        evidence = "dictionary domain"
+    if groups is not None and rows is not None and groups > rows \
+            and not emit_empty:
+        return "shuffle", (f"near-unique keys: {evidence} {groups} > "
+                           f"{rows} ingest rows — the partial pass "
+                           "cannot shrink the exchange")
+    if groups is not None and rows is not None:
+        return "pre-aggregate", (f"{evidence} bounds groups at {groups} "
+                                 f"vs {rows} ingest rows: partials "
+                                 "shrink the exchange")
+    return "pre-aggregate", ("no plan-time group bound: partials can "
+                             "only shrink the exchange (at most one "
+                             "row per group per shard)")
+
+
+def _groupby_pushdown(root: Node, fires: _Fires, world: int) -> Node:
+    """Lower ``dist_groupby`` nodes to the fused aggregation exchange.
+    Also absorbs, beneath each groupby: single-consumer ``shuffle_table`` nodes (the exchange
+    is redundant — a groupby's result does not depend on its input
+    partitioning, and the fused operator re-partitions the PARTIALS on
+    the group keys) and a single-consumer parameterless ``dist_select``
+    (its predicate becomes the aggregation's pushed-down row mask — no
+    standalone compaction materializes the filtered table).  world <= 1
+    plans stay on the eager operator: there is no exchange to push
+    below."""
+    if world <= 1:
+        return root
+    parents: Dict[int, int] = {}
+    for n in ir.topo(root):
+        for c in n.inputs:
+            parents[id(c)] = parents.get(id(c), 0) + 1
+
+    memo: Dict[int, Node] = {}
+
+    def walk(n: Node) -> Node:
+        hit = memo.get(id(n))
+        if hit is not None:
+            return hit
+        out = try_fuse(n)
+        if out is None:
+            out = _clone(n, [walk(i) for i in n.inputs])
+        memo[id(n)] = out
+        return out
+
+    def try_fuse(n: Node) -> Optional[Node]:
+        if n.op != "dist_groupby":
+            return None
+        s = n.static
+        child = n.inputs[0]
+        absorbed: List[str] = []
+        while (child.op == "shuffle_table"
+               and parents.get(id(child), 0) == 1):
+            absorbed.append("absorbed the shuffle below (partials "
+                            "re-partition on the group keys)")
+            child = child.inputs[0]
+        where_id = s.get("where_id")
+        where_reads = s.get("where_reads")
+        env_map: Tuple = ()
+        runtime = {"where": n.runtime.get("where")}
+        if (where_id is None and child.op == "dist_select"
+                and parents.get(id(child), 0) == 1
+                and not child.runtime.get("params", ())):
+            where_id = child.static["pred_id"]
+            where_reads = child.static.get("reads")
+            env_map = tuple(child.static.get("env_map", ()))
+            runtime = {"where": child.runtime["predicate"]}
+            child = child.inputs[0]
+            absorbed.append("select folded into the aggregation row "
+                            "mask (no standalone compaction)")
+        mode, reason = _groupby_strategy(child, s)
+        static = {
+            "keys": tuple(s["keys"]), "aggs": tuple(s["aggs"]),
+            "where_id": where_id, "where_reads": where_reads,
+            "env_map": env_map,
+            "dense_key_range": s.get("dense_key_range"),
+            "emit_empty": bool(s.get("emit_empty", False)),
+            "mode": mode, "reason": reason,
+        }
+        new_child = walk(child)
+        node = Node("dist_groupby_fused", [new_child], static, runtime,
+                    ir.infer_schema("dist_groupby_fused",
+                                    [new_child.schema], static),
+                    None, [], None)
+        detail = f"{mode} decided at plan time ({reason})"
+        if absorbed:
+            detail += "; " + "; ".join(absorbed)
+        fires.fire(node, "groupby-pushdown", detail)
+        return node
+
+    return walk(root)
+
+
+# ---------------------------------------------------------------------------
+# projection pruning
+# ---------------------------------------------------------------------------
+
+def _names_of(node: Node) -> List[str]:
+    return [c.name for c in node.schema]
+
+
+def _reads_or_all(reads, schema_names: Sequence[str]) -> Set[str]:
+    return set(schema_names) if reads is None else set(reads)
+
+
+def _required_inputs(node: Node, req: Set[str]) -> List[Set[str]]:
+    """Per-input required column names, given the columns ``req`` the
+    node's own consumers need of its OUTPUT."""
+    s = node.static
+    ins = node.inputs
+    if node.op == "dist_select":
+        return [req | _reads_or_all(s.get("reads"), _names_of(ins[0]))]
+    if node.op == "dist_project":
+        return [set(s["columns"])]
+    if node.op == "rename":
+        inv = {new: old for old, new in s["mapping"]}
+        return [{inv.get(r, r) for r in req}]
+    if node.op == "dist_with_column":
+        need = {r for r in req if r != s["name"]}
+        need |= _reads_or_all(s.get("reads"), _names_of(ins[0]))
+        need |= set(s["validity_from"])
+        return [need]
+    if node.op in ("dist_join", "dist_join_streaming"):
+        left = {r[3:] for r in req if r.startswith("lt-")}
+        right = {r[3:] for r in req if r.startswith("rt-")}
+        return [left | set(s["left_on"]), right | set(s["right_on"])]
+    if node.op == "dist_multiway_join":
+        # walk the demand backward edge by edge: each probe's output is
+        # [lt-<running>, rt-<dim>] through the edge's rename, so invert
+        # the rename, split on the prefix, and carry the running-side
+        # demand (plus the edge keys, which live in the PREVIOUS
+        # stage's name space) down to the next edge
+        need = set(req)
+        dim_needs: List[Set[str]] = []
+        for how, _alg, lon, ron, _dkr, _thr, ren in reversed(s["edges"]):
+            inv = {new: old for old, new in ren}
+            jreq = {inv.get(r, r) for r in need}
+            dim_needs.append({r[3:] for r in jreq if r.startswith("rt-")}
+                             | set(ron))
+            need = {r[3:] for r in jreq if r.startswith("lt-")} | set(lon)
+        return [need] + list(reversed(dim_needs))
+    if node.op in ("dist_semi_join", "dist_anti_join"):
+        return [req | set(s["left_on"]), set(s["right_on"])]
+    if node.op in ("dist_groupby", "dist_groupby_fused",
+                   "dist_groupby_sketch"):
+        need = set(s["keys"]) | {c for c, _ in s["aggs"]}
+        if s.get("where_id") is not None:
+            need |= _reads_or_all(s.get("where_reads"), _names_of(ins[0]))
+        return [need]
+    if node.op == "dist_aggregate":
+        need = {c for c, _ in s["aggs"]}
+        if s.get("where_id") is not None:
+            need |= _reads_or_all(s.get("where_reads"), _names_of(ins[0]))
+        return [need]
+    if node.op in ("dist_sort", "dist_sort_multi", "shuffle_table"):
+        return [req | set(s["keys"])]
+    if node.op == "dist_head":
+        return [req]
+    # set ops (row identity spans every column) and anything unknown:
+    # require everything — missed pruning, never a dropped column
+    return [set(_names_of(i)) for i in ins]
+
+
+# consumers whose lowering runs an exchange or a per-column compaction
+# gather — where a narrower input is a real saving, not just tidiness
+_PRUNE_CONSUMERS = EXCHANGE_OPS | {"dist_select"}
+
+
+def _projection_pruning(root: Node, fires: _Fires) -> Node:
+    # pass 1: union required set per node, root first
+    order = ir.topo(root)           # children first
+    required: Dict[int, Set[str]] = {id(root): set(_names_of(root))}
+    for node in reversed(order):    # root → leaves
+        req = required.get(id(node))
+        if req is None:             # unreachable defensively
+            req = set(_names_of(node))
+        for child, child_req in zip(node.inputs,
+                                    _required_inputs(node, req)):
+            cur = required.setdefault(id(child), set())
+            cur |= child_req & set(_names_of(child))
+    # pass 2: rebuild bottom-up, narrowing each pruned consumer's edges
+    memo: Dict[int, Node] = {}
+
+    def walk(n: Node) -> Node:
+        hit = memo.get(id(n))
+        if hit is not None:
+            return hit
+        new_ins = []
+        edge_reqs = _required_inputs(n, required.get(id(n),
+                                                     set(_names_of(n))))
+        for child, edge_req in zip(n.inputs, edge_reqs):
+            c = walk(child)
+            names = _names_of(c)
+            keep = [x for x in names if x in edge_req]
+            if (n.op in _PRUNE_CONSUMERS and 0 < len(keep) < len(names)
+                    and c.op != "dist_project"):
+                proj = Node("dist_project", [c], {"columns": tuple(keep)},
+                            {}, ir.infer_schema("dist_project", [c.schema],
+                                                {"columns": tuple(keep)}))
+                fires.fire(proj, "projection-pruning",
+                           f"{len(names)} -> {len(keep)} cols into "
+                           f"{n.op}")
+                c = proj
+            new_ins.append(c)
+        out = _clone(n, new_ins)
+        memo[id(n)] = out
+        return out
+
+    return walk(root)
+
+
+def _project_cleanup(root: Node) -> Node:
+    """project(project(x)) → project(x); identity projects drop."""
+    def step(n: Node) -> Node:
+        if n.op != "dist_project":
+            return n
+        child = n.inputs[0]
+        if child.op == "dist_project":
+            merged = Node("dist_project", [child.inputs[0]],
+                          {"columns": n.static["columns"]}, {}, n.schema,
+                          None, list(child.opt_notes) + list(n.opt_notes),
+                          n.origin_idx if n.origin_idx is not None
+                          else child.origin_idx)
+            return merged
+        if list(n.static["columns"]) == _names_of(child):
+            return child
+        return n
+
+    return _remap(root, step)
+
+
+# ---------------------------------------------------------------------------
+# common-subplan elimination
+# ---------------------------------------------------------------------------
+
+def _static_sig(node: Node) -> Tuple:
+    items = []
+    for k in sorted(node.static):
+        v = node.static[k]
+        if k == "schema":
+            v = ir.sig_of_schema(v)
+        items.append((k, v))
+    return tuple(items)
+
+
+def _runtime_ids(node: Node) -> Tuple:
+    return tuple(sorted((k, id(v)) for k, v in node.runtime.items()))
+
+
+def _cse(root: Node, fires: _Fires) -> Node:
+    seen: Dict[Tuple, Node] = {}
+    merges: Dict[int, int] = {}
+
+    def step(n: Node) -> Node:
+        key = (n.op, _static_sig(n), tuple(id(i) for i in n.inputs),
+               _runtime_ids(n))
+        canon = seen.get(key)
+        if canon is None:
+            seen[key] = n
+            return n
+        merges[id(canon)] = merges.get(id(canon), 0) + 1
+        return canon
+
+    out = _remap(root, step)
+    for node in ir.topo(out):
+        k = merges.get(id(node))
+        if k:
+            fires.fire(node, "common-subplan",
+                       f"merged {k} duplicate {node.op} subplan(s) — "
+                       "executes once")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+def optimize(builder, root: Node) -> Tuple[Node, List[str], int, int]:
+    """Apply the rule list to the DAG under ``root``.  Returns
+    ``(new_root, fire_records, pre_bytes, post_bytes)`` where the byte
+    figures are :func:`exchange_row_bytes` before/after rewriting."""
+    fires = _Fires()
+    pre = exchange_row_bytes(root)
+    world = builder.ctx.get_world_size()
+    root = _filter_pushdown(root, fires)
+    root = _multiway_fusion(root, fires)
+    root = _groupby_pushdown(root, fires, world)
+    root = _join_strategy(root, fires, world)
+    root = _projection_pruning(root, fires)
+    root = _project_cleanup(root)
+    # (the reference's _morsel_scans goes here: it needs the spill tier)
+    root = _cse(root, fires)
+    return root, fires.records, pre, exchange_row_bytes(root)

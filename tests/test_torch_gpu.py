@@ -2,7 +2,8 @@
 plain version, and the distributed join (HASH and SORT, broadcast and
 dense FK), semi / anti joins, sort, set ops, groupby (every path), select,
 scalar aggregate and the TPC-H generator on CUDA tensors against the same
-calls on the CPU.  Every test here needs a CUDA device (``gpu`` marker) and
+calls on the CPU, and every TPC-H query through the planner against its
+eager run on the card.  Every test here needs a CUDA device (``gpu`` marker) and
 skips itself without one.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
@@ -23,7 +24,10 @@ from cylon_tpu_torch.parallel import (DTable, dist_aggregate,
                                       dist_intersect, dist_join, dist_select,
                                       dist_semi_join, dist_sort,
                                       dist_subtract, dist_union)
+from cylon_tpu_torch import plan as tplan
+from cylon_tpu_torch import trace
 from cylon_tpu_torch.tpch import datagen_device
+from cylon_tpu_torch.tpch import queries as tpch_queries
 
 from test_torch_common import assert_rows_close, float_rtols, port_rows
 
@@ -561,3 +565,49 @@ def test_dist_join_streaming_on_card_matches_cpu(card, how, alg):
     assert gpu.cap == cpu.cap
     assert list(gpu.counts_host()) == list(cpu.counts_host())
     assert port_rows(gpu, ordered=True) == port_rows(cpu, ordered=True)
+
+
+# -- the planner ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_tpch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ctx = pt.CylonContext(device="cuda", world=4)
+    return ctx, datagen_device.generate_device(ctx, 0.01, seed=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", sorted(tpch_queries.QUERIES))
+def test_planned_tpch_on_card_matches_eager(card_tpch, q):
+    """A query through ``ctx.optimize`` on the card: the eager rows in
+    order (floats within 1e-9 / 1e-6), then a second run that hits the
+    plan cache for every materialization and returns the same rows."""
+    from tpch_torch_parity import PLANNED_F32
+    ctx, tables = card_tpch
+    op = lambda t: tpch_queries.QUERIES[q](ctx, t)  # noqa: E731
+    tplan.clear_plan_cache()
+    trace.enable_counters()
+    try:
+        trace.reset()
+        eager = op(tables)
+        got = ctx.optimize(op, tables)
+        first = trace.counters()
+        trace.reset()
+        again = ctx.optimize(op, tables)
+        second = trace.counters()
+    finally:
+        trace.disable_counters()
+        trace.reset()
+        tplan.clear_plan_cache()
+    assert got.column(0).data.device.type == "cuda"
+    rtols = float_rtols(got, f64=1e-9)
+    for j, c in enumerate(got.columns):
+        if c.name in PLANNED_F32.get(q, ()):
+            rtols[j] = 1e-6
+    rows = port_rows(got, ordered=True)
+    assert_rows_close(rows, port_rows(eager, ordered=True), rtols)
+    assert_rows_close(port_rows(again, ordered=True), rows, rtols)
+    assert first.get("plan.cache_miss", 0) >= 1
+    assert second.get("plan.cache_miss", 0) == 0
+    assert second.get("plan.cache_hit", 0) >= 1

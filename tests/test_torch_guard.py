@@ -33,7 +33,8 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.ops.sort, cylon_tpu_torch.ops.setops, "
         "cylon_tpu_torch.ops.groupby, cylon_tpu_torch.parallel.broadcast, "
         "cylon_tpu_torch.ops.sketch, cylon_tpu_torch.parallel.streaming, "
-        "cylon_tpu_torch.tpch\n"
+        "cylon_tpu_torch.tpch, cylon_tpu_torch.plan, cylon_tpu_torch.trace, "
+        "cylon_tpu_torch.analysis.plan_check\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
