@@ -44,7 +44,17 @@ Q9, and a Q5-shaped ``dist_multiway_join`` against the binary
 ``dist_join`` cascade; ``dist_join_streaming`` against ``dist_join`` on
 the join cell; and at ``--tpch-check-sf`` the captured sketch lanes
 against a numpy recomputation, bit for bit.  Every export of those
-phases goes through one ``HostPipeline``.  Every check that fails raises, so the script exits non-zero; without a
+phases goes through one ``HostPipeline``.  The analyze phase: right
+after the world-4 HASH join, ``ctx.analyze`` of the same join (the eager
+rows and checksums, node bytes = totals = the exchange counters, the
+span breakdown beside the analyzed and eager times), then the join with
+tracing disabled and counters on (no barrier: ``trace.sync`` 0); after
+the TPC-H oracles, ``DTable.explain(..., analyze=True, optimize=True)``
+of every query on the SF-10 tables (each equal to its eager result, its
+counters in the catalogue, the ``devmem`` peak equal to
+``torch.cuda.max_memory_allocated()``; one line each), then the Chrome
+trace of the last one written under ``build/`` and parsed back, and a
+flight-recorder bundle that ``doctor`` renders.  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby and TPC-H paths), its time, its plain version's time and
@@ -1945,6 +1955,177 @@ def phase_hash_partition(ldata):
     say("hash_partition", parts=sizes, seconds=f"{secs:.6f}")
 
 
+# ---------------------------------------------------------------------------
+# the analyze phase: EXPLAIN ANALYZE of the join cell and of the 22 TPC-H
+# queries, tracing disabled on the same join, the Chrome export and the
+# flight recorder
+# ---------------------------------------------------------------------------
+
+JOIN_SPANS = ("join.partition", "join.shuffle", "shuffle.counts",
+              "shuffle.exchange", "join.count", "join.gather", "sync")
+
+
+def phase_analyze_join(ldata, rdata, want, eager_join_s: float):
+    """``ctx.analyze`` of the world-4 HASH join on the join cell's data:
+    the eager rows and checksums, a runtime on every node, node bytes =
+    totals = the exchange counters, the partition kernel launched inside
+    the run; the span breakdown beside the analyzed and eager times.
+    Then the same join with tracing disabled and counters on: no barrier
+    (``trace.sync`` 0).  Returns the kernel launches of the analyzed
+    run."""
+    from cylon_tpu_torch import CylonContext, JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import DTable, dist_join
+
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    lt = DTable.from_table(ctx, to_table(ctx, ldata, None))
+    rt = DTable.from_table(ctx, to_table(ctx, rdata, None))
+    cfg = JoinConfig(JoinType.INNER, JoinAlgorithm.HASH, 0, 0)
+    label = f"analyze dist_join inner world={WORLD}"
+    hash_cuda.launches = 0
+    rep, secs = wall(lambda: ctx.analyze(
+        lambda t: dist_join(t["l"], t["r"], cfg), {"l": lt, "r": rt}))
+    launches = hash_cuda.launches
+    phase_ms = dict(rep.totals["phase_ms"])
+    check(rep.ok, f"{label}: the run succeeded ({rep.error})")
+    check(launches > 0, f"{label}: the partition kernel ran inside it")
+    check_join(label, rep.output.to_table(), want)
+    check(all(n.runtime is not None for n in rep.nodes),
+          f"{label}: every node carries runtime")
+    c = rep.totals["counters"]
+    top = sum(n.runtime["bytes_moved"] for n in rep.nodes
+              if n.runtime["depth"] == 1)
+    check(top == rep.totals["bytes_moved"] == wire_bytes(c) > 0,
+          f"{label}: node bytes {top} = totals {rep.totals['bytes_moved']} "
+          f"= counters {wire_bytes(c)}")
+    check(c.get("trace.sync", 0) > 0, f"{label}: the spans synchronized")
+    del rep
+    say(label, nodes="dist_join", analyzed_seconds=f"{secs:.6f}",
+        eager_seconds=f"{eager_join_s:.6f}",
+        bytes_moved=top, trace_sync=c.get("trace.sync", 0),
+        host_read=c.get("host.read", 0), kernel_launches=launches,
+        **{f"span_{k.replace('.', '_')}_ms": f"{phase_ms.get(k, 0.0):.3f}"
+           for k in JOIN_SPANS})
+    # the device time of the same phases: each enabled span is a
+    # torch.profiler range, so the kernels it launched add up under it
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ctx.analyze(lambda t: dist_join(t["l"], t["r"], cfg),
+                    {"l": lt, "r": rt})
+        torch.cuda.synchronize()
+    dev = {}
+    for e in prof.key_averages():
+        if e.key in JOIN_SPANS:
+            us = getattr(e, "device_time_total", None)
+            dev[e.key] = (e.cuda_time_total if us is None else us) / 1e3
+    say(f"{label} device time by span (torch.profiler)",
+        **{f"span_{k.replace('.', '_')}_device_ms": f"{dev.get(k, 0.0):.3f}"
+           for k in JOIN_SPANS if k != "sync"})
+    # tracing disabled, counters on: the spans are one flag read each
+    trace.disable()
+    trace.reset()
+    trace.enable_counters()
+    try:
+        out, secs_off = wall(lambda: dist_join(lt, rt, cfg))
+        cnt = trace.counters()
+        spans = trace.get_span_records(all_threads=True)
+    finally:
+        trace.disable_counters()
+        trace.reset()
+    check(cnt.get("trace.sync", 0) == 0 and spans == [],
+          "tracing disabled: no span and no barrier")
+    check(wire_bytes(cnt) == top, "tracing disabled: the same wire bytes")
+    check_join("tracing disabled", out.to_table(), want)
+    say(f"dist_join inner world={WORLD} tracing=off counters=on",
+        seconds=f"{secs_off:.6f}", eager_seconds=f"{eager_join_s:.6f}",
+        trace_sync=cnt.get("trace.sync", 0), host_read=cnt.get("host.read", 0),
+        wire_bytes=wire_bytes(cnt))
+    return launches
+
+
+def phase_tpch_analyze(ctx, tables, sf: float, eager, eager_times):
+    """``DTable.explain(q, tables=..., analyze=True, optimize=True)`` of
+    the 22 queries on the generated tables: each output equals the eager
+    result in order, every counter of the run is in the catalogue, and
+    the ``devmem`` peak equals ``torch.cuda.max_memory_allocated()`` read
+    at the same point.  One line per query.  Returns the partition-kernel
+    launches per query."""
+    from cylon_tpu_torch.observe import METRICS, devmem
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.tpch import QUERIES
+
+    anchor = tables["lineitem"]
+    launches, ratios = {}, []
+    for q in QUERIES:
+        broadcast.clear_replica_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hash_cuda.launches = 0
+        rep, secs = wall(lambda: anchor.explain(
+            lambda t: QUERIES[q](ctx, t), tables=tables, analyze=True,
+            optimize=True))
+        launches[q] = hash_cuda.launches
+        mem = devmem.snapshot(ctx.device)
+        peak = torch.cuda.max_memory_allocated(ctx.device)
+        label = f"tpch analyze {q} sf={sf} world={WORLD}"
+        check(rep.ok, f"{label}: the run succeeded ({rep.error})")
+        check(mem.source == "memory_stats" and mem.peak_bytes == peak,
+              f"{label}: devmem peak {mem.peak_bytes} == "
+              f"max_memory_allocated {peak}")
+        same_ordered(f"{label} == eager", rep.output, eager[q])
+        c = rep.totals["counters"]
+        stray = sorted(set(c) - set(METRICS))
+        check(not stray, f"{label}: counters outside the catalogue {stray}")
+        check(all(n.runtime is not None for n in rep.nodes),
+              f"{label}: every node carries runtime")
+        ratios.append(secs / eager_times[q])
+        say(label, analyzed_seconds=f"{secs:.6f}",
+            eager_seconds=f"{eager_times[q]:.6f}",
+            overhead=f"{secs / eager_times[q]:.3f}", nodes=len(rep.nodes),
+            bytes_moved=rep.totals["bytes_moved"],
+            trace_sync=c.get("trace.sync", 0),
+            host_read=c.get("host.read", 0),
+            devmem_peak_gib=f"{mem.peak_bytes / 2**30:.2f}",
+            kernel_launches=launches[q],
+            plan_cache_hits=rep.totals.get("optimizer", {}).get(
+                "cache_hits", 0))
+        del rep
+    say(f"tpch analyze sf={sf} world={WORLD}", queries=len(QUERIES),
+        geomean_overhead=f"{float(np.exp(np.mean(np.log(ratios)))):.3f}",
+        kernel_launches=sum(launches.values()))
+    return launches
+
+
+def phase_trace_export():
+    """The last analyzed run's spans as a Chrome trace under ``build/``,
+    parsed back; then a flight-recorder bundle rendered by ``doctor``."""
+    import contextlib
+    import io
+    import os
+
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch.observe import doctor, flightrec
+
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_trace.json")
+    trace.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sum(1 for e in events if e.get("ph") == "X")
+    check(spans > 0, "chrome trace: the analyzed run's spans are in it")
+    bundle = flightrec.dump(os.path.join("build", "chip_smoke_flightrec.json"),
+                            reason="chip_smoke")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = doctor.main([bundle])
+    check(rc == 0, f"doctor exits 0 on the bundle (got {rc})")
+    say("trace export", path=path, events=len(events), spans=spans,
+        bundle=bundle, doctor_rc=rc,
+        doctor_lines=len(out.getvalue().splitlines()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -1976,7 +2157,10 @@ def main() -> int:
     for world, alg in ((1, "hash"), (WORLD, "hash"), (WORLD, "sort")):
         run_join(world, wl, wr, "inner", alg=alg)
     phase_inner(1, ldata, rdata, want, False)
-    launches, _ = phase_inner(WORLD, ldata, rdata, want, args.profile)
+    launches, inner_times = phase_inner(WORLD, ldata, rdata, want,
+                                        args.profile)
+    launches_analyze = phase_analyze_join(ldata, rdata, want,
+                                          inner_times["join_s"])
     phase_sort_join(ldata, rdata, want, args.profile)
     phase_outer(args.seed)
     phase_hash_partition(ldata)
@@ -2035,6 +2219,9 @@ def main() -> int:
     phase_tpch_oracles(tables, results, args.tpch_sf)
     check(sum(launches_tpch.values()) > 0,
           "tpch: the partition kernel ran in at least one query")
+    launches_analyze_tpch = phase_tpch_analyze(tctx, tables, args.tpch_sf,
+                                               results, times)
+    phase_trace_export()
     del results
     launches_fused = phase_fused_groupby(tables, args.tpch_sf, exports,
                                          args.profile)
@@ -2078,7 +2265,9 @@ def main() -> int:
         "name": "partition_hash", "route": "cuda",
         "source": "cylon_tpu_torch/csrc/partition_hash.cu",
         "replaces": "cylon_tpu/ops/hash_pallas.py:64",
-        "launches": launches, "launches_setop": launches_setop["union"],
+        "launches": launches, "launches_analyze": launches_analyze,
+        "launches_analyze_tpch": launches_analyze_tpch,
+        "launches_setop": launches_setop["union"],
         "launches_groupby": {
             "orderkey_default": launches_gb["default"],
             "orderkey_raw_shuffle": launches_gb["pre_aggregate=False"],

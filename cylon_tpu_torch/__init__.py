@@ -24,15 +24,22 @@ Layer map:
     plan/             the logical planner behind ``ctx.optimize``: lazy
                       capture (ir), rewrite rules, lowering + plan cache
                       (executor)
-    analysis/         plan_check: the capture hook on every dist op
-    trace.py          named counters (exchange bytes, planner activity)
+    analysis/         plan_check: the capture hook on every dist op and
+                      the plan nodes EXPLAIN ANALYZE annotates
+    trace.py          phase spans (off by default; on, they synchronize
+                      the card), named counters, tail sampling, export
+    logging.py        glog-style lines, ``vlog``, ``warn_once``
+    observe/          metrics catalogue + registry, histograms, ordered
+                      locks, devmem, build events, the run-stats store,
+                      the flight recorder + doctor, EXPLAIN ANALYZE
     tpch/             the TPC-H generator (on the device, with a numpy
                       mirror) and all 22 queries
     ops/              hash (plain + CUDA), compaction, gathers, join, sort,
                       set-op and groupby kernels
     config.py         JoinConfig, the broadcast threshold, memory budget,
                       the optimizer switch, the plan-cache capacity
-    context.py        CylonContext: device, world, communicator, optimize
+    context.py        CylonContext: device, world, communicator, optimize,
+                      analyze
 """
 
 from .config import JoinAlgorithm, JoinConfig, JoinType

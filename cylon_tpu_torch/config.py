@@ -2,8 +2,8 @@
 
 The PyTorch port's copy of the join part of ``cylon_tpu/config.py``
 (reference: join/join_config.hpp:29-89), the broadcast row threshold,
-the device memory budget, the optimizer switch and the plan-cache
-capacity.
+the device memory budget, the optimizer switch, the plan-cache
+capacity, and the lock-order checks of ``observe.locks``.
 """
 from __future__ import annotations
 
@@ -179,6 +179,62 @@ def set_optimizer_enabled(on: Optional[bool]) -> Optional[bool]:
             f"got {type(on).__name__} {on!r}"))
     prev = _optimizer_enabled
     _optimizer_enabled = on
+    return prev
+
+
+# Lock-order enforcement (observe.locks): explicit set_lockcheck() >
+# CYLON_LOCKCHECK env (any value but "0" / empty enables; default off).
+_lockcheck: Optional[bool] = None
+
+
+def lockcheck_enabled() -> bool:
+    """Whether a lock-order inversion raises ``LockOrderViolation``
+    (explicit knob, else ``CYLON_LOCKCHECK``)."""
+    if _lockcheck is not None:
+        return _lockcheck
+    return os.environ.get("CYLON_LOCKCHECK", "0") not in ("", "0")
+
+
+def set_lockcheck(on: Optional[bool]) -> Optional[bool]:
+    """Set lock-order enforcement (None restores env resolution); returns
+    the previous explicit setting."""
+    global _lockcheck
+    if on is not None and not isinstance(on, bool):
+        raise CylonError(Status(Code.Invalid,
+            "lockcheck switch must be True, False or None (env-resolved), "
+            f"got {type(on).__name__} {on!r}"))
+    prev = _lockcheck
+    _lockcheck = on
+    return prev
+
+
+_lock_hold_watchdog_ms: Optional[int] = None    # None -> env-resolved
+
+
+def lock_hold_watchdog_ms() -> int:
+    """Hold-time watchdog threshold in ms: an OrderedLock released after
+    being held at least this long notes a ``lock_hold`` event into the
+    flight recorder.  0 disables.  Explicit knob, else
+    ``CYLON_LOCK_HOLD_MS`` (default 1000)."""
+    if _lock_hold_watchdog_ms is not None:
+        return _lock_hold_watchdog_ms
+    try:
+        return int(os.environ.get("CYLON_LOCK_HOLD_MS", "1000"))
+    except ValueError:
+        return 1000
+
+
+def set_lock_hold_watchdog_ms(ms: Optional[int]) -> Optional[int]:
+    """Set the hold-time watchdog threshold (None restores env
+    resolution, 0 disables); returns the previous explicit setting."""
+    global _lock_hold_watchdog_ms
+    if ms is not None and (not isinstance(ms, int)
+                           or isinstance(ms, bool) or ms < 0):
+        raise CylonError(Status(Code.Invalid,
+            "lock hold watchdog must be a non-negative int of ms or "
+            f"None (env-resolved), got {type(ms).__name__} {ms!r}"))
+    prev = _lock_hold_watchdog_ms
+    _lock_hold_watchdog_ms = ms
     return prev
 
 

@@ -116,6 +116,18 @@ class CylonContext:
         from . import plan
         return plan.optimize(self, op, tables)
 
+    def analyze(self, op, tables=None):
+        """EXPLAIN ANALYZE a plan: run ``op(tables)`` (or ``op()`` when
+        ``tables`` is None) for real, once, with every distributed
+        operator instrumented; returns the runtime-annotated
+        ``PlanReport`` (``report.output`` is the result).  The
+        context-level spelling of ``DTable.explain(op, tables=...,
+        analyze=True)``."""
+        from . import observe
+        if tables is None:
+            return observe.analyze(op)
+        return observe.analyze(op, tables)
+
     @property
     def device(self) -> torch.device:
         return self._device

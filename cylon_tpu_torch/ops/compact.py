@@ -12,7 +12,16 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+
+def read_host(t: torch.Tensor) -> np.ndarray:
+    """The host's blocking read of a device count tensor (the sync-floor
+    unit): counted as ``host.read``."""
+    from .. import trace
+    trace.count("host.read")
+    return t.cpu().numpy()
 
 
 def scatter_drop(size: int, tgt: torch.Tensor, values: torch.Tensor,

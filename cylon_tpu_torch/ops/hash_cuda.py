@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -81,10 +82,20 @@ def build() -> Path:
 
 
 def load():
-    """Build (once per process) and load the kernel library."""
+    """Build (once per process) and load the kernel library.  The build
+    and load is one ``observe.compile`` build event (``compile.builds``,
+    a ``compile.build`` span, charged to an open EXPLAIN ANALYZE); a
+    library already loaded in this process is a ``compile.cache_hits``."""
     global _lib
+    from .. import trace
+    from ..observe import compile as obcompile
     with _lib_lock:
-        if _lib is None:
+        if _lib is not None:
+            trace.count("compile.cache_hits")
+        else:
+            key = (SOURCE.name, "sm_90a")
+            obcompile.note_build("hash_cuda.load", key)
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build()))
             fn = lib.cylon_partition_hash
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
@@ -94,6 +105,8 @@ def load():
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
+            obcompile.record_build("hash_cuda.load", key,
+                                   (time.perf_counter() - t0) * 1e3, t0)
     return _lib
 
 

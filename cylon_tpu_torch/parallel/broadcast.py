@@ -27,7 +27,6 @@ FIFO-bounded.  The groupby's one-shot combine passes ``cache=False``.
 """
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -35,10 +34,11 @@ import torch
 from .. import trace
 from ..analysis import plan_check
 from ..config import broadcast_join_threshold, device_memory_budget
+from ..observe.locks import OrderedLock
+from ..observe.metrics import row_bytes
 from ..ops import compact as ops_compact
 from ..ops.gather import signed_view
 from .dtable import DColumn, DTable
-from .shuffle import row_bytes
 
 ALL = "all"
 HEAD = "head"
@@ -56,10 +56,14 @@ def price_replicate(nparts: int, cap: int, outcap: int, rbytes: int) -> int:
     return int((nparts * cap + outcap) * rbytes)
 
 
-def rows_if_small(dt: DTable, threshold: Optional[int]) -> Optional[int]:
+def rows_if_small(dt: DTable, threshold: Optional[int],
+                  quiet: bool = False) -> Optional[int]:
     """Global-row upper bound if ``dt`` provably holds ≤ ``threshold`` rows
     AND its replica fits the memory budget, else None — with no device
-    read.  ``threshold`` None reads the process-wide knob; ≤ 0 disables."""
+    read.  ``threshold`` None reads the process-wide knob; ≤ 0 disables.
+    A budget veto bumps ``broadcast.budget_veto`` and annotates the
+    current plan node, unless ``quiet`` (an advisory pre-check that the
+    authoritative one inside the join repeats)."""
     if threshold is None:
         threshold = broadcast_join_threshold()
     if threshold <= 0:
@@ -75,8 +79,14 @@ def rows_if_small(dt: DTable, threshold: Optional[int]) -> Optional[int]:
         return None
     rbytes = max(row_bytes(_leaves(dt)), 1)
     outcap = ops_compact.next_bucket(max(rows, 1), minimum=8)
-    if price_replicate(dt.nparts, dt.cap, outcap, rbytes) \
-            > device_memory_budget(dt.ctx.device):
+    priced = price_replicate(dt.nparts, dt.cap, outcap, rbytes)
+    budget = device_memory_budget(dt.ctx.device)
+    if priced > budget:
+        if not quiet:
+            trace.count("broadcast.budget_veto")
+            plan_check.annotate(
+                broadcast_veto=f"replica would price {priced} B/device "
+                               f"over the {budget} B budget")
         return None
     return rows
 
@@ -89,7 +99,7 @@ def small_side_reason(dt: DTable, rows: int) -> str:
 
 
 _replica_cache: dict = {}
-_replica_lock = threading.Lock()
+_replica_lock = OrderedLock("broadcast.replica_cache")
 _REPLICA_CACHE_MAX = 64
 
 gathers = 0  # replica gathers run (cache misses), for tests
@@ -130,25 +140,46 @@ def replicate_table(dt: DTable, mode: str = ALL,
         raise ValueError("replicate_table: collapse the pending mask first")
     if mode not in (ALL, HEAD):
         raise ValueError(f"replicate_table: unknown mode {mode!r}")
+    plan_check.note("replicate_table", dt, mode=mode)
     key = _cache_key(dt, mode) if cache else None
     if cache:
         with _replica_lock:
             hit = _replica_cache.get(key)
         if hit is not None:
+            trace.count("join.broadcast_replica_hit")
+            plan_check.annotate(decision="replica-cache hit")
             return hit[2]
+    plan_check.annotate(decision="gather")
     gathers += 1
-    comm = dt.ctx.comm
     P, cap = dt.nparts, dt.cap
     ch = dt._counts_host
     total_bound = int(ch.sum()) if ch is not None else P * cap
     outcap = ops_compact.next_bucket(max(total_bound, 1), minimum=8)
     moved = total_bound * max(P - 1, 0)
     moved_bytes = moved * row_bytes(_leaves(dt))
-    trace.count(span_name)
     trace.count("broadcast.rows_sent", moved)
     trace.count("broadcast.bytes_sent", moved_bytes)
     if span_name == "groupby.broadcast_gather":
         trace.count("groupby.bytes_moved", moved_bytes)
+    with trace.span_sync(span_name) as sp:
+        trace.count(span_name)  # the counter mirrors the span name
+        rep = _gather(dt, mode, outcap)
+        sp.sync([c.data for c in rep.columns])
+    if cache:
+        with _replica_lock:
+            while len(_replica_cache) >= _REPLICA_CACHE_MAX:
+                _replica_cache.pop(next(iter(_replica_cache)))
+            # pin the context and the source columns: their ids are the key
+            _replica_cache[key] = (dt.ctx, dt.columns, rep)
+            size = len(_replica_cache)
+        trace.gauge("broadcast.replica_cache_size", size)
+    return rep
+
+
+def _gather(dt: DTable, mode: str, outcap: int) -> DTable:
+    """The replica of ``dt`` as a DTable of capacity ``outcap``."""
+    comm = dt.ctx.comm
+    P, cap = dt.nparts, dt.cap
     gcnts = comm.all_gather(dt.counts)                                # [P]
     valid = (torch.arange(cap, device=gcnts.device)[None, :]
              < gcnts[:, None]).reshape(-1)
@@ -171,11 +202,4 @@ def replicate_table(dt: DTable, mode: str = ALL,
                                         device=total.device)])
     else:
         counts = total.reshape(1).repeat(P)
-    rep = DTable(dt.ctx, cols, outcap, counts)
-    if cache:
-        with _replica_lock:
-            while len(_replica_cache) >= _REPLICA_CACHE_MAX:
-                _replica_cache.pop(next(iter(_replica_cache)))
-            # pin the context and the source columns: their ids are the key
-            _replica_cache[key] = (dt.ctx, dt.columns, rep)
-    return rep
+    return DTable(dt.ctx, cols, outcap, counts)

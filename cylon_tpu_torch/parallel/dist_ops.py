@@ -53,6 +53,7 @@ from ..config import (JoinAlgorithm, JoinConfig, JoinType,
                       broadcast_join_threshold)
 from ..dtypes import (DataType, Type, device_dtype, extreme_value,
                       is_dictionary_encoded)
+from ..observe.metrics import row_bytes
 from ..ops import compact as ops_compact
 from ..ops import gather as ops_gather
 from ..ops import groupby as ops_groupby
@@ -100,6 +101,16 @@ def _row_mask(dt: DTable) -> torch.Tensor:
 
 def _resolve_ids(dt: DTable, cols: Sequence[Union[int, str]]) -> List[int]:
     return [dt.column_index(c) for c in cols]
+
+
+def _shuffle_reason(node, default: str = "no side provably under the "
+                                         "broadcast threshold") -> str:
+    """The planner's reason for a shuffle decision: when the broadcast
+    predicate was vetoed by the memory budget (``rows_if_small``
+    annotated ``broadcast_veto`` on the node), the side WAS small."""
+    if node is not None and "broadcast_veto" in node.info:
+        return "broadcast replica vetoed by the memory budget"
+    return default
 
 
 def _cleared(dt: DTable) -> DTable:
@@ -153,10 +164,11 @@ def _unify_dtable_dicts(a: DTable, b: DTable,
 # shuffle_table (reference: Shuffle, table_api.cpp:214-297)
 # ---------------------------------------------------------------------------
 
-def _shuffle_by_pids(dt: DTable, pid: torch.Tensor, owner: str = ""
-                     ) -> DTable:
+def _shuffle_by_pids(dt: DTable, pid: torch.Tensor, owner: str = "",
+                     combine: bool = False) -> DTable:
     """Exchange rows to their target shards; rebuild the DTable.
-    ``owner="groupby"`` also counts the bytes as ``groupby.bytes_moved``."""
+    ``owner="groupby"`` also counts the bytes as ``groupby.bytes_moved``;
+    ``combine`` marks a partial-group table (``groupby.partials_rows``)."""
     if dt.pending_mask is not None:
         # ``pid`` was computed against THESE blocks: a deferred select must
         # have been folded into it (see ``_cleared``) or collapsed first
@@ -174,7 +186,13 @@ def _shuffle_by_pids(dt: DTable, pid: torch.Tensor, owner: str = ""
             leaves.append(c.validity)
             slots.append((i, True))
     new_leaves, newcounts, outcap = shuffle_leaves(dt.ctx, pid, leaves,
-                                                   owner)
+                                                   owner, combine)
+    # structural exchange metric (host-side sizes, no read): the exchanged
+    # slot capacity across shards, and the largest single exchange block
+    P = dt.ctx.get_world_size()
+    trace.count("shuffle.capacity_rows", P * outcap)
+    trace.count("shuffle.capacity_cells", P * outcap * len(leaves))
+    trace.count_max("shuffle.capacity_cells_max", P * outcap * len(leaves))
     data, validity = {}, {}
     for leaf, (i, is_v) in zip(new_leaves, slots):
         (validity if is_v else data)[i] = leaf
@@ -199,6 +217,9 @@ def _shuffle_masked(dt: DTable, pid: torch.Tensor) -> DTable:
 def shuffle_table(dt: DTable, key_columns: Sequence[Union[int, str]]
                   ) -> DTable:
     """Hash-repartition rows so equal keys co-locate on one shard."""
+    plan_check.note("shuffle_table", dt, keys=tuple(key_columns),
+                    decision="shuffle" if dt.ctx.get_world_size() > 1
+                    else "local")
     dt._collapse_pending()
     return _shuffle_by_pids(dt, _hash_pids(dt, _resolve_ids(dt, key_columns)))
 
@@ -244,8 +265,9 @@ def _join_prologue(left: DTable, right: DTable, config: JoinConfig):
         # range partitioning samples the PRIMARY key column; equal primary
         # values land on one shard, and equal composite keys share their
         # primary value, so composite keys still co-locate
-        splitters = _sample_splitters(
-            [(left, li_keys[0]), (right, ri_keys[0])], ascending=True)
+        with trace.span("join.sample"):
+            splitters = _sample_splitters(
+                [(left, li_keys[0]), (right, ri_keys[0])], ascending=True)
     return left, right, li_keys, ri_keys, alg, splitters
 
 
@@ -254,11 +276,14 @@ def _copartition(dt: DTable, key_is: Sequence[int], alg: str,
     """Route rows to their join shard (hash or range partitioning)."""
     if dt.ctx.get_world_size() == 1:
         return dt  # one shard: co-partitioning is a no-op
-    if alg == "sort":
-        pid = _range_pids(dt, key_is[0], splitters, ascending=True)
-    else:
-        pid = _hash_pids(dt, key_is)
-    return _shuffle_by_pids(dt, pid)
+    with trace.span_sync("join.partition") as sp:
+        if alg == "sort":
+            pid = _range_pids(dt, key_is[0], splitters, ascending=True)
+        else:
+            pid = _hash_pids(dt, key_is)
+        sp.sync(pid)
+    with trace.span("join.shuffle"):
+        return _shuffle_by_pids(dt, pid)
 
 
 def _shard(x, s: int, cap: int):
@@ -293,33 +318,41 @@ def _join_copartitioned(lsh: DTable, rsh: DTable, li_keys: Sequence[int],
     fill_right = how in ("left", "full_outer")
 
     plans, totals = [], []
-    for s in range(P):
-        lc, rc = lsh.counts[s], rsh.counts[s]
-        plan = ops_join.sort_join_plan(
-            tuple(_shard(lsh.columns[i].data, s, lcap) for i in li_keys),
-            tuple(_shard(lsh.columns[i].validity, s, lcap) for i in li_keys),
-            tuple(_shard(rsh.columns[i].data, s, rcap) for i in ri_keys),
-            tuple(_shard(rsh.columns[i].validity, s, rcap) for i in ri_keys),
-            how, l_count=lc, r_count=rc)
-        plans.append(plan)
-        totals.append(ops_join.plan_total(plan, how, l_count=lc, r_count=rc))
-    per_shard = ctx.comm.all_gather(torch.stack(totals)).cpu().numpy()
-    capacity = ops_compact.next_bucket(max(int(per_shard.max(initial=0)), 1),
-                                       minimum=8)
+    with trace.span("join.count"):
+        for s in range(P):
+            lc, rc = lsh.counts[s], rsh.counts[s]
+            plan = ops_join.sort_join_plan(
+                tuple(_shard(lsh.columns[i].data, s, lcap) for i in li_keys),
+                tuple(_shard(lsh.columns[i].validity, s, lcap)
+                      for i in li_keys),
+                tuple(_shard(rsh.columns[i].data, s, rcap) for i in ri_keys),
+                tuple(_shard(rsh.columns[i].validity, s, rcap)
+                      for i in ri_keys),
+                how, l_count=lc, r_count=rc)
+            plans.append(plan)
+            totals.append(ops_join.plan_total(plan, how, l_count=lc,
+                                              r_count=rc))
 
     louts, routs, counts = [], [], []
-    for s, plan in enumerate(plans):
-        lc, rc = lsh.counts[s], rsh.counts[s]
-        li, ri, cnt = ops_join.plan_indices(plan, how, capacity,
-                                            l_count=lc, r_count=rc)
-        louts.append(ops_gather.take_many(
-            [(_shard(c.data, s, lcap), _shard(c.validity, s, lcap))
-             for c in lsh.columns], li, fill_null=fill_left))
-        routs.append(ops_gather.take_many(
-            [(_shard(c.data, s, rcap), _shard(c.validity, s, rcap))
-             for c in rsh.columns], ri, fill_null=fill_right))
-        counts.append(cnt)
-    plans.clear()
+    with trace.span_sync("join.gather") as sp:
+        per_shard = ops_compact.read_host(
+            ctx.comm.all_gather(torch.stack(totals)))
+        capacity = ops_compact.next_bucket(
+            max(int(per_shard.max(initial=0)), 1), minimum=8)
+        for s, plan in enumerate(plans):
+            lc, rc = lsh.counts[s], rsh.counts[s]
+            li, ri, cnt = ops_join.plan_indices(plan, how, capacity,
+                                                l_count=lc, r_count=rc)
+            louts.append(ops_gather.take_many(
+                [(_shard(c.data, s, lcap), _shard(c.validity, s, lcap))
+                 for c in lsh.columns], li, fill_null=fill_left))
+            routs.append(ops_gather.take_many(
+                [(_shard(c.data, s, rcap), _shard(c.validity, s, rcap))
+                 for c in rsh.columns], ri, fill_null=fill_right))
+            counts.append(cnt)
+        plans.clear()
+        sp.sync((louts, routs))
+    trace.count("join.out_rows", int(per_shard.sum()))
 
     cols = [DColumn("lt-" + c.name, c.dtype, *_stacked(louts, k),
                     c.dictionary, c.arrow_type)
@@ -394,7 +427,8 @@ def _fk_probe(left: DTable, right: DTable, lkc: DColumn, rkc: DColumn,
         (r_nonnull & ~r_in).view(P, cap_r).sum(1),
         r_ok.view(P, cap_r).sum(1) - occupied,
         (rvalid & ~r_nonnull).view(P, cap_r).sum(1)], 1)
-    per_shard = left.ctx.comm.all_gather(stats.to(torch.int64)).cpu().numpy()
+    per_shard = ops_compact.read_host(
+        left.ctx.comm.all_gather(stats.to(torch.int64)))
     return matched, ri, per_shard
 
 
@@ -424,7 +458,7 @@ def _fk_rgather(right: DTable, ri: torch.Tensor, cap_out: int,
 
 
 def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
-                 dense_key_range) -> Optional[DTable]:
+                 dense_key_range, node=None) -> Optional[DTable]:
     """The dense-unique-right-key join if eligible, else None (the general
     path handles every shape).  The hint is advisory for dispatch, but its
     contract (unique, non-null, in-range right keys) is enforced."""
@@ -456,31 +490,46 @@ def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
         return None
     # a deferred select on the build side changes which keys exist:
     # compact it.  The probe side's mask fuses: INNER folds it into
-    # ``matched``, LEFT passes it through to the zero-copy output
+    # ``matched``, LEFT passes it through to the zero-copy output.  The
+    # decision's evidence is the table as the planner saw it, before
+    # the collapse
+    r_reason = (broadcast.small_side_reason(right, r_rows)
+                if r_rows is not None else None)
     right._collapse_pending()
     if world > 1:
         if r_rows is not None:
             decisions["join.fk-dense+broadcast"] += 1
             trace.count("join.broadcast")
+            plan_check.annotate(decision="fk-dense+broadcast",
+                                reason=r_reason)
             right = broadcast.replicate_table(right)
         else:
             decisions["join.fk-dense+shuffle"] += 1
-            left = _shuffle_masked(left, _mod_pids(left, li_keys[0], lo,
-                                                   world))
-            right = _shuffle_by_pids(right, _mod_pids(right, ri_keys[0], lo,
-                                                      world))
+            trace.count("join.shuffle")
+            plan_check.annotate(node, decision="fk-dense+shuffle",
+                                reason=_shuffle_reason(
+                                    node, "build side not provably "
+                                          "small; modulo co-partition"))
+            with trace.span("join.shuffle"):
+                left = _shuffle_masked(left, _mod_pids(left, li_keys[0], lo,
+                                                       world))
+                right = _shuffle_by_pids(right, _mod_pids(right, ri_keys[0],
+                                                          lo, world))
             lkc = left.columns[li_keys[0]]
         rkc = right.columns[ri_keys[0]]
     else:
         decisions["join.fk-dense"] += 1
+        plan_check.annotate(decision="fk-dense", reason="world=1")
     lmask = left.pending_mask if how == "inner" else None
-    matched, ri, per_shard = _fk_probe(left, right, lkc, rkc, lo, hi, stride,
-                                       lmask)
+    with trace.span("join.count"):
+        matched, ri, per_shard = _fk_probe(left, right, lkc, rkc, lo, hi,
+                                           stride, lmask)
     _fk_violations(per_shard)
     ctx = left.ctx
     if how == "left":
         # the probe side stays in place: every valid left row emits once
-        routs = _fk_rgather(right, ri, left.cap, fill=True)
+        with trace.span("join.gather"):
+            routs = _fk_rgather(right, ri, left.cap, fill=True)
         cols = [DColumn("lt-" + c.name, c.dtype, c.data, c.validity,
                         c.dictionary, c.arrow_type) for c in left.columns]
         cols += [DColumn("rt-" + c.name, c.dtype, d, v, c.dictionary,
@@ -497,8 +546,10 @@ def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
     aug_cols.append(DColumn("__fk_ri", DataType(Type.INT32),
                             ri.to(torch.int32), None))
     aug = DTable(ctx, aug_cols, left.cap, left.counts)
-    out = _compact_survivors(aug, matched, per_shard[:, 0])
-    routs = _fk_rgather(right, out.columns[-1].data, out.cap, fill=False)
+    out = _compact_survivors(aug, matched, per_shard[:, 0], "join.gather")
+    with trace.span("join.gather"):
+        routs = _fk_rgather(right, out.columns[-1].data, out.cap,
+                            fill=False)
     cols = list(out.columns[:-1])
     cols += [DColumn("rt-" + c.name, c.dtype, d, v, c.dictionary,
                      c.arrow_type)
@@ -530,9 +581,16 @@ def _try_broadcast_join(left: DTable, right: DTable, config: JoinConfig
     if r_rows is None and l_rows is None:
         return None
     take_right = r_rows is not None and (l_rows is None or r_rows <= l_rows)
+    # the decision's evidence is the tables as the planner saw them:
+    # _join_setup may rebuild the handles and lose their ingest counts
+    reason = (broadcast.small_side_reason(right, r_rows) if take_right
+              else broadcast.small_side_reason(left, l_rows))
     left, right, li_keys, ri_keys = _join_setup(left, right, config)
     decisions["join.broadcast"] += 1
     trace.count("join.broadcast")
+    plan_check.annotate(decision="broadcast",
+                        side="right" if take_right else "left",
+                        reason=reason)
     if take_right:
         return _join_copartitioned(left, broadcast.replicate_table(right),
                                    li_keys, ri_keys, how, "sort")
@@ -565,8 +623,12 @@ def dist_join(left: DTable, right: DTable, config: JoinConfig,
     key order.  The order of attempts is the JAX package's: FK, then
     broadcast, then the shuffle.
     """
+    node = plan_check.note("dist_join", left, right,
+                           how=config.join_type.value,
+                           alg=config.algorithm.value,
+                           dense=dense_key_range is not None or None)
     if dense_key_range is not None:
-        out = _try_fk_join(left, right, config, dense_key_range)
+        out = _try_fk_join(left, right, config, dense_key_range, node)
         if out is not None:
             return out
     out = _try_broadcast_join(left, right, config)
@@ -574,8 +636,14 @@ def dist_join(left: DTable, right: DTable, config: JoinConfig,
         return out
     left, right, li_keys, ri_keys, alg, splitters = _join_prologue(
         left, right, config)
-    decisions["join.shuffle" if left.ctx.get_world_size() > 1
-              else "join.local"] += 1
+    if left.ctx.get_world_size() > 1:
+        decisions["join.shuffle"] += 1
+        trace.count("join.shuffle")
+        plan_check.annotate(node, decision="shuffle",
+                            reason=_shuffle_reason(node))
+    else:
+        decisions["join.local"] += 1
+        plan_check.annotate(node, decision="local", reason="world=1")
     lsh = _copartition(left, li_keys, alg, splitters)
     rsh = _copartition(right, ri_keys, alg, splitters)
     return _join_copartitioned(lsh, rsh, li_keys, ri_keys,
@@ -655,29 +723,38 @@ def dist_multiway_join(fact: DTable, dims: Sequence[DTable],
         raise CylonError(Status(Code.Invalid,
             f"dist_multiway_join: {len(dims)} dimension table(s) for "
             f"{len(edges)} edge spec(s)"))
+    node = plan_check.note("dist_multiway_join", fact, *dims,
+                           probes=len(edges))
     trace.count("join.multiway")
     world = fact.ctx.get_world_size()
     current = fact
+    labels = []
     for dim, (how, alg, fact_on, dim_on, dkr, thr, ren) in zip(dims, edges):
+        trace.count("join.multiway_probes")
         eff = _multiway_threshold(current, thr, world)
         if world > 1:
-            # advisory label in the probe's strategy order; the probe
-            # itself re-checks
-            if broadcast.rows_if_small(dim, eff) is not None:
+            # advisory label in the probe's strategy order (quiet: the
+            # probe itself re-checks, veto annotation included)
+            if broadcast.rows_if_small(dim, eff, quiet=True) is not None:
                 label = "broadcast"
             elif how == "inner" and dkr is None \
-                    and broadcast.rows_if_small(current, eff) is not None:
+                    and broadcast.rows_if_small(current, eff,
+                                                quiet=True) is not None:
                 label = "broadcast-fact"
             else:
                 label = "shuffle"
+            trace.count("join.multiway_dims_shuffled" if label == "shuffle"
+                        else "join.multiway_dims_broadcast")
         else:
             label = "local"
+        labels.append(label)
         decisions[f"multiway.{label}"] += 1
         cfg = JoinConfig(JoinType(how), JoinAlgorithm(alg),
                          fact_on[0] if len(fact_on) == 1 else fact_on,
                          dim_on[0] if len(dim_on) == 1 else dim_on,
                          broadcast_threshold=eff)
         current = _multiway_rename(dist_join(current, dim, cfg, dkr), ren)
+    plan_check.annotate(node, dims="/".join(labels))
     return current
 
 
@@ -711,6 +788,9 @@ def _setop_shard(a_leaves, b_leaves, a_cnt, b_cnt, cap_a: int, cap_b: int,
 
 
 def _dist_set_op(a: DTable, b: DTable, op: str) -> DTable:
+    plan_check.note(f"dist_{op.lower()}", a, b,
+                    decision="shuffle" if a.ctx.get_world_size() > 1
+                    else "local")
     a._collapse_pending()
     b._collapse_pending()
     a.verify_same_schema(b)
@@ -719,21 +799,25 @@ def _dist_set_op(a: DTable, b: DTable, op: str) -> DTable:
     if a.ctx.get_world_size() == 1:
         ash, bsh = a, b
     else:
-        ash = _shuffle_by_pids(a, _hash_pids(a, range(a.num_columns)))
-        bsh = _shuffle_by_pids(b, _hash_pids(b, range(b.num_columns)))
+        with trace.span("setop.shuffle"):
+            ash = _shuffle_by_pids(a, _hash_pids(a, range(a.num_columns)))
+            bsh = _shuffle_by_pids(b, _hash_pids(b, range(b.num_columns)))
     has_validity = [ca.validity is not None or cb.validity is not None
                     for ca, cb in zip(ash.columns, bsh.columns)]
     P = a.ctx.get_world_size()
     outs, counts = [], []
-    for s in range(P):
-        got, cnt = _setop_shard(
-            [(_shard(c.data, s, ash.cap), _shard(c.validity, s, ash.cap))
-             for c in ash.columns],
-            [(_shard(c.data, s, bsh.cap), _shard(c.validity, s, bsh.cap))
-             for c in bsh.columns],
-            ash.counts[s], bsh.counts[s], ash.cap, bsh.cap, op, has_validity)
-        outs.append(got)
-        counts.append(cnt)
+    with trace.span_sync("setop.local") as sp:
+        for s in range(P):
+            got, cnt = _setop_shard(
+                [(_shard(c.data, s, ash.cap), _shard(c.validity, s, ash.cap))
+                 for c in ash.columns],
+                [(_shard(c.data, s, bsh.cap), _shard(c.validity, s, bsh.cap))
+                 for c in bsh.columns],
+                ash.counts[s], bsh.counts[s], ash.cap, bsh.cap, op,
+                has_validity)
+            outs.append(got)
+            counts.append(cnt)
+        sp.sync(outs)
     capacity = ash.cap + bsh.cap if op == ops_setops.UNION else ash.cap
     cols = [DColumn(c.name, c.dtype, *_stacked(outs, k), c.dictionary,
                     c.arrow_type)
@@ -875,14 +959,16 @@ def _sort_shards(sh: DTable, key_ids: Sequence[int],
     P, cap = sh.ctx.get_world_size(), sh.cap
     keys = [sh.columns[i] for i in key_ids]
     outs = []
-    for s in range(P):
-        order = ops_sort.lexsort_indices_masked(
-            [_shard(c.data, s, cap) for c in keys],
-            [_shard(c.validity, s, cap) for c in keys], sh.counts[s],
-            ascending)
-        outs.append(ops_gather.take_many(
-            [(_shard(c.data, s, cap), _shard(c.validity, s, cap))
-             for c in sh.columns], order, fill_null=False))
+    with trace.span_sync("sort.local") as sp:
+        for s in range(P):
+            order = ops_sort.lexsort_indices_masked(
+                [_shard(c.data, s, cap) for c in keys],
+                [_shard(c.validity, s, cap) for c in keys], sh.counts[s],
+                ascending)
+            outs.append(ops_gather.take_many(
+                [(_shard(c.data, s, cap), _shard(c.validity, s, cap))
+                 for c in sh.columns], order, fill_null=False))
+        sp.sync(outs)
     cols = [DColumn(c.name, c.dtype, *_stacked(outs, k), c.dictionary,
                     c.arrow_type)
             for k, c in enumerate(sh.columns)]
@@ -894,8 +980,11 @@ def _sort_shards(sh: DTable, key_ids: Sequence[int],
 def _range_shuffle(dt: DTable, key_i: int, ascending: bool) -> DTable:
     if dt.ctx.get_world_size() == 1:
         return dt  # one shard: a local sort is already globally ordered
-    splitters = _sample_splitters([(dt, key_i)], ascending)
-    return _shuffle_by_pids(dt, _range_pids(dt, key_i, splitters, ascending))
+    with trace.span("sort.sample"):
+        splitters = _sample_splitters([(dt, key_i)], ascending)
+    with trace.span("sort.shuffle"):
+        return _shuffle_by_pids(dt, _range_pids(dt, key_i, splitters,
+                                                ascending))
 
 
 @plan_check.instrument
@@ -905,6 +994,9 @@ def dist_sort_multi(dt: DTable, sort_columns: Sequence[Union[int, str]],
     column (equal primary values co-locate, so cross-shard lexicographic
     order holds), then a per-shard masked lexsort over all keys.
     ``ascending``: one bool or a per-column sequence."""
+    plan_check.note("dist_sort_multi", dt, keys=tuple(sort_columns),
+                    decision="shuffle" if dt.ctx.get_world_size() > 1
+                    else "local")
     dt._collapse_pending()
     key_ids = _resolve_ids(dt, sort_columns)
     asc = ([ascending] * len(key_ids) if isinstance(ascending, bool)
@@ -920,6 +1012,9 @@ def dist_sort(dt: DTable, sort_column: Union[int, str],
     requested order, and rows within a shard are sorted (nulls last
     globally), so concatenating shards in order is the sorted table.
     """
+    plan_check.note("dist_sort", dt, key=sort_column,
+                    decision="shuffle" if dt.ctx.get_world_size() > 1
+                    else "local")
     dt._collapse_pending()
     key_i = dt.column_index(sort_column)
     return _sort_shards(_range_shuffle(dt, key_i, ascending), [key_i],
@@ -930,6 +1025,7 @@ def dist_sort(dt: DTable, sort_column: Union[int, str],
 def dist_head(dt: DTable, n: int) -> Table:
     """First ``n`` global rows (shard-major order) as a local Table — the
     small-result gather after a dist_sort (ORDER BY … LIMIT n)."""
+    plan_check.note("dist_head", dt, n=n)
     return dt.head(n)
 
 
@@ -1029,24 +1125,27 @@ def _shard_counts(dt: DTable, mask: torch.Tensor) -> torch.Tensor:
         mask.reshape(P, dt.cap).sum(1).to(torch.int32))
 
 
-def _compact_survivors(dt: DTable, mask: torch.Tensor,
-                       cnts: torch.Tensor) -> DTable:
+def _compact_survivors(dt: DTable, mask: torch.Tensor, cnts: torch.Tensor,
+                       span_name: str = "select.gather") -> DTable:
     """Shared tail of the row filters: compact the rows ``mask`` keeps
     into a block bucketed to the largest per-shard survivor count
     (``cnts``: a device tensor the host reads, or host counts already
-    read)."""
-    per_shard = (cnts if isinstance(cnts, np.ndarray)
-                 else cnts.cpu().numpy())
-    outcap = ops_compact.next_bucket(max(int(per_shard.max(initial=0)), 1),
-                                     minimum=8)
+    read), under the span ``span_name``."""
     cap = dt.cap
     outs, counts = [], []
-    for s in range(dt.ctx.get_world_size()):
-        idx, count = ops_compact.mask_to_indices(_shard(mask, s, cap), outcap)
-        outs.append(ops_gather.take_many(
-            [(_shard(c.data, s, cap), _shard(c.validity, s, cap))
-             for c in dt.columns], idx, fill_null=False))
-        counts.append(count)
+    with trace.span_sync(span_name) as sp:
+        per_shard = (cnts if isinstance(cnts, np.ndarray)
+                     else ops_compact.read_host(cnts))
+        outcap = ops_compact.next_bucket(
+            max(int(per_shard.max(initial=0)), 1), minimum=8)
+        for s in range(dt.ctx.get_world_size()):
+            idx, count = ops_compact.mask_to_indices(_shard(mask, s, cap),
+                                                     outcap)
+            outs.append(ops_gather.take_many(
+                [(_shard(c.data, s, cap), _shard(c.validity, s, cap))
+                 for c in dt.columns], idx, fill_null=False))
+            counts.append(count)
+        sp.sync(outs)
     cols = [DColumn(c.name, c.dtype, *_stacked(outs, k), c.dictionary,
                     c.arrow_type)
             for k, c in enumerate(dt.columns)]
@@ -1067,6 +1166,7 @@ def dist_select(dt: DTable, predicate, params=(), compact: bool = True
     blocks and carries the row mask (``DTable.pending_mask``); groupby,
     aggregate and further selects fold it, every other operator compacts
     on first touch."""
+    plan_check.note("dist_select", dt, deferred=(not compact) or None)
     base = dt.pending_mask if dt.pending_mask is not None else _row_mask(dt)
     mask = _masked_predicate(tuple(c.name for c in dt.columns), predicate,
                              base, _leaves(dt), tuple(params))
@@ -1081,6 +1181,7 @@ def dist_select(dt: DTable, predicate, params=(), compact: bool = True
 def dist_project(dt: DTable, columns: Sequence[Union[int, str]]) -> DTable:
     """Column subset, zero-copy (reference table_api.cpp:1007-1029).  A
     deferred-select mask rides along."""
+    plan_check.note("dist_project", dt, keep=len(columns))
     ids = _resolve_ids(dt, columns)
     out = DTable(dt.ctx, [dt.columns[i] for i in ids], dt.cap, dt.counts,
                  dt.pending_mask, dt.pending_cnts)
@@ -1096,6 +1197,7 @@ def dist_with_column(dt: DTable, name: str, fn, out_type,
     blocks.  ``validity_from`` names input columns whose nulls null the
     output.  A deferred-select mask rides along (the derived column holds
     garbage on masked-out rows, which stay masked)."""
+    plan_check.note("dist_with_column", dt, name=name)
     out = fn(_env(dt.columns)).to(device_dtype(out_type))
     validity = None
     for n in validity_from:
@@ -1150,7 +1252,7 @@ def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
         hit = hit | ((lvalid & ~l_nonnull) & r_null[l_shard])
     keep = (lvalid & ~hit) if anti else hit
     stats = torch.stack([keep.view(P, cap_l).sum(1), overflow], 1)
-    return keep, left.ctx.comm.all_gather(stats).cpu().numpy()
+    return keep, ops_compact.read_host(left.ctx.comm.all_gather(stats))
 
 
 def _semi_mask_sorted(left: DTable, right: DTable, li_keys, ri_keys,
@@ -1173,12 +1275,15 @@ def _semi_mask_sorted(left: DTable, right: DTable, li_keys, ri_keys,
             present = (torch.arange(lcap, device=lc.device) < lc) & ~present
         keeps.append(present)  # semi_mask is False on padding rows
     keep = torch.cat(keeps)
-    return keep, _shard_counts(left, keep).cpu().numpy()
+    return keep, ops_compact.read_host(_shard_counts(left, keep))
 
 
 def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
                        anti: bool, dense_key_range=None,
                        broadcast_threshold=None) -> DTable:
+    node = plan_check.note("dist_anti_join" if anti else "dist_semi_join",
+                           left, right,
+                           dense=dense_key_range is not None or None)
     li_keys = _join_keys(left, left_on)
     ri_keys = _join_keys(right, right_on)
     if len(li_keys) != len(ri_keys):
@@ -1204,8 +1309,18 @@ def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
     use_bcast = r_rows is not None
     if use_bcast:
         trace.count("join.broadcast")
+        plan_check.annotate(
+            node, decision="broadcast",
+            reason=broadcast.small_side_reason(right, r_rows))
         right._collapse_pending()
         right = broadcast.replicate_table(right)
+    elif world > 1:
+        plan_check.annotate(node, decision="shuffle",
+                            reason=_shuffle_reason(
+                                node, "build-side keys not provably "
+                                      "under the broadcast threshold"))
+    else:
+        plan_check.annotate(node, decision="local", reason="world=1")
     # presence bits cost R / stride bytes per shard: gate against the
     # larger side's capacity
     kc0 = left.columns[li_keys[0]]
@@ -1221,34 +1336,40 @@ def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
              "shuffle" if world > 1 else "local")
     decisions[f"semi.{route}.{'dense' if use_dense else 'sort'}"] += 1
     if world > 1 and not use_bcast:
+        trace.count("join.shuffle")
         # deferred-select masks fold into the routing (masked rows go to
         # the dropped partition)
-        if use_dense:
-            lo0 = int(dense_key_range[0])
-            left = _shuffle_masked(left, _mod_pids(left, li_keys[0], lo0,
-                                                   world))
-            right = _shuffle_masked(right, _mod_pids(right, ri_keys[0], lo0,
-                                                     world))
-        else:
-            left = _shuffle_masked(left, _hash_pids(left, li_keys))
-            right = _shuffle_masked(right, _hash_pids(right, ri_keys))
+        with trace.span("semijoin.shuffle"):
+            if use_dense:
+                lo0 = int(dense_key_range[0])
+                left = _shuffle_masked(left, _mod_pids(left, li_keys[0],
+                                                       lo0, world))
+                right = _shuffle_masked(right, _mod_pids(right, ri_keys[0],
+                                                         lo0, world))
+            else:
+                left = _shuffle_masked(left, _hash_pids(left, li_keys))
+                right = _shuffle_masked(right, _hash_pids(right, ri_keys))
     if use_dense:
         lo, hi = int(dense_key_range[0]), int(dense_key_range[1])
-        mask, per_shard = _semi_mask_dense(
-            left, right, left.columns[li_keys[0]],
-            right.columns[ri_keys[0]], lo, hi, anti, stride)
+        with trace.span("semijoin.mask"):
+            mask, per_shard = _semi_mask_dense(
+                left, right, left.columns[li_keys[0]],
+                right.columns[ri_keys[0]], lo, hi, anti, stride)
         bad = int(per_shard[:, 1].sum())
         if bad > 0:
             raise CylonError(Status(Code.Invalid,
                 f"semi-join dense_key_range ({lo}, {hi}) violated: {bad} "
                 "keys outside it"))
-        return _compact_survivors(left, mask, per_shard[:, 0])
+        return _compact_survivors(left, mask, per_shard[:, 0],
+                                  "semijoin.gather")
     # the sort-path probe has no mask operand: compact a deferred select
     # first (world > 1 already folded it into the routing)
     left._collapse_pending()
     right._collapse_pending()
-    mask, per_shard = _semi_mask_sorted(left, right, li_keys, ri_keys, anti)
-    return _compact_survivors(left, mask, per_shard)
+    with trace.span("semijoin.mask"):
+        mask, per_shard = _semi_mask_sorted(left, right, li_keys, ri_keys,
+                                            anti)
+    return _compact_survivors(left, mask, per_shard, "semijoin.gather")
 
 
 @plan_check.instrument
@@ -1307,6 +1428,17 @@ def dist_aggregate(dt: DTable,
     the per-shard partials over the all-gathered values; no sort, no
     groups.  ``where`` follows ``dist_select``'s predicate protocol.
     Over zero rows, sum and count are 0 and min/max/mean are null."""
+    plan_check.note("dist_aggregate", dt,
+                    aggs=tuple(op for _, op in aggregations),
+                    where=where is not None or None)
+    with trace.span_sync("aggregate.scalar") as sp:
+        cols = _aggregate_columns(dt, aggregations, where)
+        sp.sync([c.data for c in cols])
+    return Table(dt.ctx, cols)
+
+
+def _aggregate_columns(dt: DTable, aggregations, where) -> List[Column]:
+    """``dist_aggregate``'s one-row output columns."""
     comm = dt.ctx.comm
     P, cap = dt.ctx.get_world_size(), dt.cap
     pmask = _effective_mask(dt, where)
@@ -1346,7 +1478,7 @@ def dist_aggregate(dt: DTable,
         validity = None if op in ("sum", "count") else (cnt > 0).reshape(1)
         cols.append(Column(f"{op}_{c.name}", DataType(t_out),
                            val.reshape(1).to(device_dtype(t_out)), validity))
-    return Table(dt.ctx, cols)
+    return cols
 
 
 # ---------------------------------------------------------------------------
@@ -1390,33 +1522,37 @@ def _groupby_sorted(dt: DTable, sh: DTable, key_ids, uniq_ids, slot_map,
     block; phase 2 aggregates into it and gathers the keys."""
     P = dt.ctx.get_world_size()
     phase1 = []
-    for s in range(P):
-        kl = _leaf_pairs(sh, key_ids, s)
-        vl = _leaf_pairs(sh, uniq_ids, s)
-        st = ops_groupby.group_structure(
-            tuple(d for d, _ in kl), tuple(v for _, v in kl),
-            _shard_rows(sh, pmask, s),
-            ops_groupby.carry_pack(tuple(d for d, _ in vl),
-                                   tuple(v for _, v in vl)))
-        phase1.append((st, kl, vl))
-    ngs = dt.ctx.comm.all_gather(torch.stack(
-        [ops_groupby.num_groups_of(st) for st, _, _ in phase1]))
-    out_cap = ops_compact.next_bucket(
-        max(int(ngs.cpu().numpy().max(initial=0)), 1), minimum=8)
+    with trace.span("groupby.count"):
+        for s in range(P):
+            kl = _leaf_pairs(sh, key_ids, s)
+            vl = _leaf_pairs(sh, uniq_ids, s)
+            st = ops_groupby.group_structure(
+                tuple(d for d, _ in kl), tuple(v for _, v in kl),
+                _shard_rows(sh, pmask, s),
+                ops_groupby.carry_pack(tuple(d for d, _ in vl),
+                                       tuple(v for _, v in vl)))
+            phase1.append((st, kl, vl))
+        ngs = dt.ctx.comm.all_gather(torch.stack(
+            [ops_groupby.num_groups_of(st) for st, _, _ in phase1]))
     outs, counts = [], []
-    for st, kl, vl in phase1:
-        ucols, uvals = ops_groupby.carry_unpack(st[3],
-                                                tuple(v for _, v in vl))
-        vcols = tuple(ucols[j] for j in slot_map)
-        vvals = tuple(uvals[j] for j in slot_map)
-        key_idx, aouts, avals, ng = ops_groupby.groupby_aggregate(
-            tuple(d for d, _ in kl), tuple(v for _, v in kl), vcols, vvals,
-            aggs, structure=st, out_capacity=out_cap,
-            sorted_values=(vcols, vvals))
-        outs.append(ops_gather.take_many(kl, key_idx, fill_null=False)
-                    + list(zip(aouts, avals)))
-        counts.append(ng)
-    phase1.clear()
+    with trace.span_sync("groupby.local") as sp:
+        out_cap = ops_compact.next_bucket(
+            max(int(ops_compact.read_host(ngs).max(initial=0)), 1),
+            minimum=8)
+        for st, kl, vl in phase1:
+            ucols, uvals = ops_groupby.carry_unpack(st[3],
+                                                    tuple(v for _, v in vl))
+            vcols = tuple(ucols[j] for j in slot_map)
+            vvals = tuple(uvals[j] for j in slot_map)
+            key_idx, aouts, avals, ng = ops_groupby.groupby_aggregate(
+                tuple(d for d, _ in kl), tuple(v for _, v in kl), vcols,
+                vvals, aggs, structure=st, out_capacity=out_cap,
+                sorted_values=(vcols, vvals))
+            outs.append(ops_gather.take_many(kl, key_idx, fill_null=False)
+                        + list(zip(aouts, avals)))
+            counts.append(ng)
+        phase1.clear()
+        sp.sync([o[len(key_ids):] for o in outs])  # the aggregates
     return _groupby_output(dt, sh, key_ids, aggregations, outs, counts,
                            out_cap)
 
@@ -1445,35 +1581,39 @@ def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
     P = dt.ctx.get_world_size()
     kc = sh.columns[key_id]
     phase1, stats = [], []
-    for s in range(P):
-        slot, counts, ng, ov = ops_groupby.dense_group_structure(
-            _shard(kc.data, s, sh.cap), _shard(kc.validity, s, sh.cap),
-            _shard_rows(sh, pmask, s), lo, hi, stride=stride)
-        phase1.append((slot, counts))
-        stats.append(torch.stack([ng, ov]))
-    per_shard = dt.ctx.comm.all_gather(torch.stack(stats)).cpu().numpy()
-    bad = int(per_shard[:, 1].sum())
-    if bad > 0:
-        raise CylonError(Status(Code.Invalid,
-            f"dense_key_range ({lo}, {hi}) violated: {bad} rows carry keys "
-            "outside it"))
-    out_cap = ops_compact.next_bucket(max(int(per_shard[:, 0].max()), 1),
-                                      minimum=8)
-    if emit_empty:
-        # every slot of the range emits, occupied or not
-        out_cap = max(out_cap, ops_compact.next_bucket(
-            -(-(hi - lo + 1) // stride) + 1, minimum=8))
+    with trace.span("groupby.count"):
+        for s in range(P):
+            slot, counts, ng, ov = ops_groupby.dense_group_structure(
+                _shard(kc.data, s, sh.cap), _shard(kc.validity, s, sh.cap),
+                _shard_rows(sh, pmask, s), lo, hi, stride=stride)
+            phase1.append((slot, counts))
+            stats.append(torch.stack([ng, ov]))
+        stats = dt.ctx.comm.all_gather(torch.stack(stats))
     outs, counts = [], []
-    for s, (slot, cnts) in enumerate(phase1):
-        vl = _leaf_pairs(sh, uniq_ids, s)
-        kd, kv, aouts, avals, ng = ops_groupby.dense_groupby_aggregate(
-            slot, cnts, tuple(vl[j][0] for j in slot_map),
-            tuple(vl[j][1] for j in slot_map), aggs, out_cap, lo,
-            kc.data.dtype, kc.validity is not None, stride=stride,
-            phase=s if stride > 1 else 0, emit_empty=emit_empty, hi=hi)
-        outs.append([(kd, kv)] + list(zip(aouts, avals)))
-        counts.append(ng)
-    phase1.clear()
+    with trace.span_sync("groupby.local") as sp:
+        per_shard = ops_compact.read_host(stats)
+        bad = int(per_shard[:, 1].sum())
+        if bad > 0:
+            raise CylonError(Status(Code.Invalid,
+                f"dense_key_range ({lo}, {hi}) violated: {bad} rows carry "
+                "keys outside it"))
+        out_cap = ops_compact.next_bucket(
+            max(int(per_shard[:, 0].max()), 1), minimum=8)
+        if emit_empty:
+            # every slot of the range emits, occupied or not
+            out_cap = max(out_cap, ops_compact.next_bucket(
+                -(-(hi - lo + 1) // stride) + 1, minimum=8))
+        for s, (slot, cnts) in enumerate(phase1):
+            vl = _leaf_pairs(sh, uniq_ids, s)
+            kd, kv, aouts, avals, ng = ops_groupby.dense_groupby_aggregate(
+                slot, cnts, tuple(vl[j][0] for j in slot_map),
+                tuple(vl[j][1] for j in slot_map), aggs, out_cap, lo,
+                kc.data.dtype, kc.validity is not None, stride=stride,
+                phase=s if stride > 1 else 0, emit_empty=emit_empty, hi=hi)
+            outs.append([(kd, kv)] + list(zip(aouts, avals)))
+            counts.append(ng)
+        phase1.clear()
+        sp.sync([o[1:] for o in outs])  # the aggregates
     return _groupby_output(dt, sh, [key_id], aggregations, outs, counts,
                            out_cap)
 
@@ -1507,6 +1647,12 @@ def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
     the partial groups move.  They combine by one all_gather onto shard 0
     when ``broadcast.rows_if_small`` proves them few, else by a hash
     shuffle of the partials."""
+    node = None
+    if not _local_only:
+        node = plan_check.note("dist_groupby", dt, keys=tuple(key_columns),
+                               aggs=tuple(op for _, op in aggregations),
+                               dense=dense_key_range is not None or None,
+                               where=where is not None or None)
     key_ids = _resolve_ids(dt, key_columns)
     val_ids = [dt.column_index(c) for c, _ in aggregations]
     # distinct value columns ride the sort ONCE; slot_map re-expands them
@@ -1533,6 +1679,8 @@ def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
             "emit_empty requires an engaged dense_key_range (integer "
             "non-dictionary single key, slot space within 4x capacity) — "
             "the zero-count groups only exist on the direct-address path"))
+    near_unique = False
+    explicit = pre_aggregate is not None
     if pre_aggregate is None:
         # a dense range wider than a shard means near-unique keys per
         # shard: the partial pass could not shrink the exchange
@@ -1540,6 +1688,11 @@ def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
                        and (int(dense_key_range[1])
                             - int(dense_key_range[0]) + 1) > dt.cap)
         pre_aggregate = world > 1 and not _local_only and not near_unique
+    if node is not None:
+        decision, reason = _groupby_decision(
+            world, pre_aggregate, explicit, dense, near_unique,
+            dense_key_range, dt.cap)
+        plan_check.annotate(node, decision=decision, reason=reason)
     if world > 1 and pre_aggregate and not _local_only:
         return _dist_groupby_preagg(dt, key_ids, aggregations, where,
                                     dense_key_range, emit_empty)
@@ -1547,20 +1700,42 @@ def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
     if world == 1 or _local_only:
         sh = dt
     else:
-        if dense is not None:
-            pid = _mod_pids(dt, key_ids[0], dense[0], world)
-        else:
-            pid = _hash_pids(dt, key_ids)
-        if pmask is not None:
-            # filter pushdown: failing rows never enter the exchange
-            pid = torch.where(pmask, pid, world)
-            pmask = None
-        sh = _shuffle_by_pids(_cleared(dt), pid, owner="groupby")
+        with trace.span("groupby.shuffle"):
+            if dense is not None:
+                pid = _mod_pids(dt, key_ids[0], dense[0], world)
+            else:
+                pid = _hash_pids(dt, key_ids)
+            if pmask is not None:
+                # filter pushdown: failing rows never enter the exchange
+                pid = torch.where(pmask, pid, world)
+                pmask = None
+            sh = _shuffle_by_pids(_cleared(dt), pid, owner="groupby")
     if dense is not None:
         return _groupby_dense(dt, sh, key_ids[0], uniq_ids, slot_map, aggs,
                               aggregations, dense, pmask, emit_empty)
     return _groupby_sorted(dt, sh, key_ids, uniq_ids, slot_map, aggs,
                            aggregations, pmask)
+
+
+def _groupby_decision(world: int, pre_aggregate: bool, explicit: bool,
+                      dense, near_unique: bool, dense_key_range,
+                      cap: int) -> Tuple[str, str]:
+    """``dist_groupby``'s plan annotation: the path it takes and why."""
+    if world > 1 and pre_aggregate:
+        return "pre-aggregate", (
+            "explicit pre_aggregate=True" if explicit else
+            "decomposable aggs: per-shard partials replace rows on the wire")
+    if world == 1:
+        return ("dense-local" if dense is not None else "local",
+                "world=1: every group is already local")
+    if near_unique:
+        width = int(dense_key_range[1]) - int(dense_key_range[0]) + 1
+        reason = (f"near_unique-skip: dense key range {width} > shard "
+                  f"capacity {cap} — the partial pass could not shrink "
+                  "the exchange")
+    else:
+        reason = "explicit pre_aggregate=False"
+    return "dense+shuffle" if dense is not None else "shuffle", reason
 
 
 # partial op → the aggregation that combines two partials of it
@@ -1630,6 +1805,7 @@ def _dist_groupby_preagg(dt: DTable, key_ids: List[int], aggregations,
     if broadcast.rows_if_small(part, None) is not None:
         # few partial groups: one all_gather in place of the shuffle;
         # shard 0 owns every partial row (HEAD) and combines them alone
+        trace.count("groupby.broadcast_combine")
         part_rep = broadcast.replicate_table(
             part, mode=broadcast.HEAD, span_name="groupby.broadcast_gather",
             cache=False)
@@ -1729,12 +1905,13 @@ def _note_sketch_state(dt: DTable, aggregations, sh: DTable, K: int, kinds,
                          kinds=tuple(kinds), qs=tuple(qs)))
 
 
-def _shuffle_by_keys(dt: DTable, K: int) -> DTable:
-    """Hash-shuffle a partial table on its first ``K`` (key) columns."""
+def _shuffle_by_keys(dt: DTable, K: int, combine: bool = False) -> DTable:
+    """Hash-shuffle a partial table on its first ``K`` (key) columns
+    (``combine``: count its rows as ``groupby.partials_rows``)."""
     if dt.ctx.get_world_size() == 1:
         return dt  # one shard: every group is already home
     return _shuffle_by_pids(dt, _hash_pids(dt, list(range(K))),
-                            owner="groupby")
+                            owner="groupby", combine=combine)
 
 
 def merge_agg_state(a: AggState, b: AggState) -> AggState:
@@ -1887,7 +2064,7 @@ def _psum_combine(dt: DTable, key_ids, partial, lanes, domains, pmask,
 
 
 def _fused_psum_groupby(dt: DTable, key_ids: List[int], aggregations,
-                        where) -> Optional[DTable]:
+                        where, node=None, reason=None) -> Optional[DTable]:
     """The combine-in-the-collective arm of ``dist_groupby_fused`` if the
     table qualifies at execution time, else None: world > 1, every key
     dictionary-encoded with integer codes (structurally in range, so no
@@ -1918,15 +2095,18 @@ def _fused_psum_groupby(dt: DTable, key_ids: List[int], aggregations,
     # combines [R+1, lanes] packs (8-byte lanes plus the rows-per-group
     # lane) replicated to the other P − 1 shards
     trace.count("groupby.psum_combine")
+    plan_check.annotate(node, decision="psum-combine", reason=reason)
     moved = (R + 1) * (dt.ctx.get_world_size() - 1)
     moved_bytes = moved * 8 * (1 + len(lanes))
     trace.count("broadcast.rows_sent", moved)
     trace.count("broadcast.bytes_sent", moved_bytes)
     trace.count("groupby.bytes_moved", moved_bytes)
     out_cap = ops_compact.next_bucket(R, minimum=8)
-    keys_out, vals_out, counts = _psum_combine(
-        dt, key_ids, partial, lanes, domains, _effective_mask(dt, where),
-        out_cap)
+    pmask = _effective_mask(dt, where)
+    with trace.span_sync("groupby.psum_combine") as sp:
+        keys_out, vals_out, counts = _psum_combine(
+            dt, key_ids, partial, lanes, domains, pmask, out_cap)
+        sp.sync(vals_out)
     cols = []
     for i, (kd, kv) in zip(key_ids, keys_out):
         c = dt.columns[i]
@@ -1970,11 +2150,14 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
 
     The mode that ran is counted in ``decisions`` ("groupby.<mode>", or
     "groupby.local" at world 1).  ``reason`` is the planner's note on why
-    it chose ``mode`` (the JAX package shows it in its plan report; here
-    it is carried for the signature only)."""
+    it chose ``mode``; the plan report shows it beside the decision."""
     if mode not in ("psum", "pre-aggregate", "shuffle"):
         raise CylonError(Status(Code.Invalid,
             f"dist_groupby_fused: unknown mode {mode!r}"))
+    node = plan_check.note("dist_groupby_fused", dt,
+                           keys=tuple(key_columns),
+                           aggs=tuple(op for _, op in aggregations),
+                           mode=mode, where=where is not None or None)
     trace.count("groupby.pushdown")
     key_ids = _resolve_ids(dt, key_columns)
     world = dt.ctx.get_world_size()
@@ -1983,24 +2166,31 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
             raise CylonError(Status(Code.Invalid,
                                     f"unknown aggregation {op!r}"))
     if mode == "psum" and not emit_empty:
-        out = _fused_psum_groupby(dt, key_ids, aggregations, where)
+        out = _fused_psum_groupby(dt, key_ids, aggregations, where, node,
+                                  reason)
         if out is not None:
             decisions["groupby.psum"] += 1
             return out
         mode = "pre-aggregate"
+        reason = "psum re-check failed at execution; partial exchange"
     if world <= 1 or mode == "shuffle":
         decisions["groupby.local" if world <= 1 else "groupby.shuffle"] += 1
+        plan_check.annotate(node, decision=("local" if world <= 1
+                                            else "shuffle"),
+                            reason=reason)
         return dist_groupby(dt, key_ids, list(aggregations), where=where,
                             dense_key_range=dense_key_range,
                             pre_aggregate=False, emit_empty=emit_empty)
     decisions["groupby.pre-aggregate"] += 1
+    plan_check.annotate(node, decision="pre-aggregate", reason=reason)
     K = len(key_ids)
     partial, plan = _decompose_aggs(dt, aggregations)
     part = dist_groupby(dt, key_ids, partial, where=where,
                         dense_key_range=dense_key_range, pre_aggregate=False,
                         _local_only=True, emit_empty=emit_empty)
     comb_aggs = [(K + j, _COMBINE_OP[op]) for j, (_, op) in enumerate(partial)]
-    sh = _shuffle_by_keys(part, K)
+    with trace.span("groupby.shuffle"):
+        sh = _shuffle_by_keys(part, K, combine=True)
     comb = dist_groupby(sh, list(range(K)), comb_aggs,
                         dense_key_range=dense_key_range, pre_aggregate=False,
                         _local_only=True)
@@ -2138,7 +2328,7 @@ def _sketch_partial_table(dt: DTable, key_ids, val_ids, kinds, where,
     ngs = dt.ctx.comm.all_gather(torch.stack(
         [ops_groupby.num_groups_of(st) for _, st in phase1]))
     out_cap = ops_compact.next_bucket(
-        max(int(ngs.cpu().numpy().max(initial=0)), 1), minimum=8)
+        max(int(ops_compact.read_host(ngs).max(initial=0)), 1), minimum=8)
     keys, sks, counts = _ShardBlocks(P, out_cap), _ShardBlocks(P, out_cap), []
     for s in range(P):
         kl, (idxS, is_first, rvS, carried) = phase1[s]
@@ -2249,6 +2439,9 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
     Output columns: the keys, then ``approx_distinct_{col}`` (int64) /
     ``p{q·100}_{col}`` (float32, null for all-null groups) in aggregation
     order.  ``where`` follows ``dist_select``'s predicate protocol."""
+    plan_check.note("dist_groupby_sketch", dt, keys=tuple(key_columns),
+                    aggs=tuple(op for _, op in aggregations))
+    trace.count("sketch.groupbys")
     key_ids = _resolve_ids(dt, key_columns)
     K = len(key_ids)
     val_ids = [dt.column_index(c) for c, _ in aggregations]
@@ -2257,9 +2450,17 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
     qs = tuple(-1.0 if q is None else q for _, q in parsed)
     part = _sketch_partial_table(dt, key_ids, val_ids, kinds, where, 0,
                                  dt.cap)
-    sh = _shuffle_by_keys(part, K)
+    prows = int(part.counts_host().sum())
+    trace.count("sketch.partial_rows", prows)
+    sk_leaves = [lf for c in part.columns[K:]
+                 for lf in (c.data, c.validity) if lf is not None]
+    trace.count("sketch.register_bytes", prows * max(row_bytes(sk_leaves), 1))
+    with trace.span("sketch.shuffle"):
+        sh = _shuffle_by_keys(part, K)
     del part  # the shuffled copy replaces it before the merge's transients
-    keys_out, outs, counts = _sketch_combine(sh, K, kinds, qs, True)
+    with trace.span_sync("sketch.combine") as sp:
+        keys_out, outs, counts = _sketch_combine(sh, K, kinds, qs, True)
+        sp.sync(outs)
     _note_sketch_state(dt, aggregations, sh, K, kinds, qs)
     return _sketch_result(sh, [dt.columns[i] for i in key_ids], keys_out,
                           _base_meta(dt, aggregations), outs, kinds, counts)

@@ -104,7 +104,7 @@ class DTable:
         """Per-shard valid row counts on the host (one read, then cached)."""
         self._collapse_pending()
         if self._counts_host is None:
-            self._counts_host = self.counts.cpu().numpy()
+            self._counts_host = ops_compact.read_host(self.counts)
         return self._counts_host
 
     @property
@@ -211,6 +211,61 @@ class DTable:
                      self.pending_cnts)
         out._counts_host = self._counts_host  # same rows, same counts
         return out
+
+    def explain(self, plan=None, *, tables=None, validate: bool = False,
+                analyze: bool = False, optimize: bool = False):
+        """Describe, check or measure a plan.
+
+        ``dt.explain()`` returns a structural summary of the table itself;
+        with ``validate=True`` it first checks the shape invariants the
+        kernels assume (counts dtype and width, leaf lengths, validity
+        dtypes, dictionary sort order, the pending mask).
+
+        ``dt.explain(plan, tables=..., analyze=True)`` is **EXPLAIN
+        ANALYZE**: ``plan`` (a callable receiving this table, or the dict
+        ``tables``) runs FOR REAL, once, with tracing on and every
+        distributed operator instrumented; the returned ``PlanReport``'s
+        nodes carry rows in/out, bytes moved, the planner's decision and
+        wall-clock, and ``report.output`` holds the result.
+        ``optimize=True`` routes the plan through the logical planner
+        first, so the report describes the OPTIMIZED plan (rule fires as
+        ``optimizer=…`` annotations, the plan-cache traffic in
+        ``totals["optimizer"]``).
+
+        The static form, ``dt.explain(plan)`` without ``analyze``
+        (abstract interpretation of the plan), is not ported yet."""
+        from ..analysis import plan_check
+        if plan is None:
+            if analyze:
+                raise CylonError(Status(Code.Invalid,
+                    "explain(analyze=True) needs a plan callable — there "
+                    "is nothing to run"))
+            if validate:
+                plan_check._check_table("explain", self)
+            cols = ", ".join(f"{c.name}:{c.dtype.type.name}"
+                             for c in self.columns)
+            ch = self._counts_host
+            rows = (f"{int(ch.sum())} rows" if ch is not None
+                    else "rows data-dependent")
+            mask = ", deferred-select mask pending" \
+                if self.pending_mask is not None else ""
+            return (f"DTable[{rows} over {self.nparts} shards, "
+                    f"cap={self.cap}{mask}]({cols})")
+        if not analyze:
+            raise CylonError(Status(Code.NotImplemented,
+                "explain(plan) without analyze=True is the abstract plan "
+                "checker, not ported yet (ROADMAP A11b); pass "
+                "analyze=True to run and measure the plan"))
+        target = tables if tables is not None else self
+        op = plan
+        if optimize:
+            from .. import plan as planner
+            ctx = self.ctx
+
+            def op(tgt, _plan=plan, _ctx=ctx):  # noqa: F811 — optimized form
+                return planner.run(_ctx, _plan, tgt)
+        from .. import observe
+        return observe.analyze(op, target)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.dtype.type.name}" for c in self.columns)

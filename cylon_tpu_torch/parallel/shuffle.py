@@ -21,15 +21,17 @@ package's.
 """
 from __future__ import annotations
 
-import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import trace
+from ..analysis import plan_check
+from ..observe import devmem
+from ..observe.metrics import row_bytes
 from ..ops import gather as ops_gather
-from ..ops.compact import next_bucket
+from ..ops.compact import next_bucket, read_host
 
 
 def exchange_sizes(counts: np.ndarray) -> Tuple[int, int, np.ndarray]:
@@ -97,14 +99,30 @@ def _exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     return newcount, outs
 
 
-def row_bytes(leaves: Sequence[torch.Tensor]) -> int:
-    """Payload width of one row across the leaves: element size times the
-    trailing elements per row (a validity lane is 1 byte)."""
-    return sum(lf.element_size() * math.prod(lf.shape[1:]) for lf in leaves)
+def _devmem_before(ctx):
+    """Pre-exchange device-memory snapshot (observe.devmem), taken only
+    under an active plan capture (EXPLAIN ANALYZE): production exchanges
+    pay nothing."""
+    if not plan_check.capturing():
+        return None
+    return devmem.snapshot(ctx.device)
+
+
+def _note_exchange_peak(ctx, dm0) -> None:
+    """Under a plan capture, annotate the exchange just run with the
+    device memory it was observed to take (``peak=observed N bytes``)
+    and watermark it as ``devmem.peak_bytes``."""
+    if dm0 is None:
+        return
+    obs = devmem.observed_exchange_bytes(dm0, devmem.snapshot(ctx.device))
+    if obs is not None:
+        trace.count_max("devmem.peak_bytes", obs)
+        plan_check.annotate_append("peak", f"observed {obs} bytes "
+                                           f"({dm0.source})")
 
 
 def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
-                   owner: str = ""
+                   owner: str = "", combine: bool = False
                    ) -> Tuple[List[torch.Tensor], torch.Tensor, int]:
     """Repartition rows of flat ``[P*cap]`` ``leaves`` by target ids ``pid``
     (int32 ``[P*cap]``; padding rows carry P and are dropped).  A leaf with
@@ -113,19 +131,41 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     Counts the rows that leave their shard (the count matrix's
     off-diagonal) as ``shuffle.rows_sent`` and times the row width as
     ``shuffle.bytes_sent``; ``owner="groupby"`` also adds the bytes to
-    ``groupby.bytes_moved``.
+    ``groupby.bytes_moved``, and ``combine`` (a partial-group table)
+    counts every partial row as ``groupby.partials_rows``.  Spans:
+    ``shuffle.counts`` (the count matrix) and ``shuffle.exchange`` (the
+    host read of the counts, the all_to_all and the compaction).
 
     Returns ``(new_leaves [P*outcap], counts [P], outcap)``.
     """
     comm = ctx.comm
-    counts = _counts(comm, pid).cpu().numpy()  # the one host read
     trace.count("shuffle.exchanges")
-    moved = int(counts.sum() - np.trace(counts))
-    moved_bytes = moved * max(row_bytes(leaves), 1)
-    trace.count("shuffle.rows_sent", moved)
-    trace.count("shuffle.bytes_sent", moved_bytes)
-    if owner == "groupby":
-        trace.count("groupby.bytes_moved", moved_bytes)
-    block, outcap, _ = exchange_sizes(counts)
-    newcounts, outs = _exchange(comm, pid, leaves, block, outcap)
+    rbytes = max(row_bytes(leaves), 1)
+    with trace.span("shuffle.counts"):
+        cnt_dev = _counts(comm, pid)
+    dm0 = _devmem_before(ctx)
+    with trace.span_sync("shuffle.exchange") as sp:
+        counts = read_host(cnt_dev)  # the one host read
+        moved = int(counts.sum() - np.trace(counts))
+        trace.count("shuffle.rows_sent", moved)
+        trace.count("shuffle.bytes_sent", moved * rbytes)
+        if owner == "groupby":
+            trace.count("groupby.bytes_moved", moved * rbytes)
+        if combine:
+            trace.count("groupby.partials_rows", int(counts.sum()))
+        block, outcap, _ = exchange_sizes(counts)
+        newcounts, outs = _exchange(comm, pid, leaves, block, outcap)
+        sp.sync(outs)
+    trace.count("shuffle.strategy.single_shot")
+    trace.count_max("shuffle.exchange_bytes_peak",
+                    price_single_shot(comm.world, block, outcap, rbytes))
+    plan_check.annotate_append("exchange", "single-shot: the one lowering")
+    _note_exchange_peak(ctx, dm0)
     return outs, newcounts, outcap
+
+
+def price_single_shot(P: int, block: int, outcap: int, rbytes: int) -> int:
+    """Peak bytes per device of a single-shot exchange: the send and
+    receive blocks ``[P, block]`` plus the compacted ``[outcap]`` output
+    (the JAX package's ``cost.price_single_shot`` peak)."""
+    return int((2 * P * block + outcap) * rbytes)

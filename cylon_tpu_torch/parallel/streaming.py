@@ -34,6 +34,7 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from .. import trace
 from ..analysis import plan_check
 from ..config import JoinConfig
 from ..ops import compact as ops_compact
@@ -120,17 +121,29 @@ def dist_join_streaming(left: DTable, right: DTable, config: JoinConfig,
     how = config.join_type.value
     if chunks <= 1 or left.cap < chunks or how in ("right", "full_outer"):
         return dist_join(left, right, config)
+    plan_check.note("dist_join_streaming", left, right, how=how,
+                    chunks=chunks, decision="streaming-shuffle")
     left, right, li_key, ri_key, alg, splitters = _join_prologue(
         left, right, config)
     rsh = _copartition(right, ri_key, alg, splitters)  # once, resident
+
+    def _cells(dt: DTable) -> int:
+        per_row = sum(1 + (c.validity is not None) for c in dt.columns)
+        return dt.ctx.get_world_size() * dt.cap * per_row
+
     w = ops_compact.next_bucket(math.ceil(left.cap / chunks), minimum=8)
     parts: List[DTable] = []
-    for lo in range(0, left.cap, w):
-        chunk = _slice_rows(left, lo, min(lo + w, left.cap))
-        csh = _copartition(chunk, li_key, alg, splitters)
-        parts.append(_join_copartitioned(csh, rsh, li_key, ri_key, how,
-                                         alg))
-        del chunk, csh
+    with trace.span("join.streaming"):
+        for lo in range(0, left.cap, w):
+            chunk = _slice_rows(left, lo, min(lo + w, left.cap))
+            csh = _copartition(chunk, li_key, alg, splitters)
+            # the live exchange transient of the staged plan: the
+            # resident right co-partition plus the in-flight chunk block
+            trace.count_max("shuffle.capacity_cells_live_peak",
+                            _cells(rsh) + _cells(csh))
+            parts.append(_join_copartitioned(csh, rsh, li_key, ri_key, how,
+                                             alg))
+            del chunk, csh
     return _concat_compact(parts)
 
 

@@ -52,6 +52,7 @@ import numpy as np
 
 from .. import trace
 from ..analysis import plan_check
+from ..observe import stats as obstats
 from ..status import Code, CylonError, Status
 from . import ir, rules
 from .ir import Node
@@ -474,6 +475,11 @@ def materialize(builder, root: Node):
     for i, n in enumerate(pre_nodes):
         n.origin_idx = i
     key = (_config_fingerprint(builder.ctx), fingerprint(root))
+    # run-stats store (observe.stats): hand the cache key's digest to the
+    # active digest collector (EXPLAIN ANALYZE opens one), which then
+    # records the run's observations under it; one thread-local read
+    # and no digest otherwise
+    obstats.note_plan(key)
     entry = _cache_get(key)
     if entry is None:
         t0 = time.perf_counter()

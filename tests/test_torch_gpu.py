@@ -611,3 +611,88 @@ def test_planned_tpch_on_card_matches_eager(card_tpch, q):
     assert first.get("plan.cache_miss", 0) >= 1
     assert second.get("plan.cache_miss", 0) == 0
     assert second.get("plan.cache_hit", 0) >= 1
+
+
+# ---------------------------------------------------------------------------
+# observability on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_devmem_reads_the_allocator_on_card(card):
+    """``devmem.snapshot`` on CUDA reads the caching allocator (source
+    ``memory_stats``): its peak is ``max_memory_allocated`` and it never
+    resets the peak itself."""
+    from cylon_tpu_torch.observe import devmem
+    torch.cuda.reset_peak_memory_stats(card)
+    big = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    del big
+    s = devmem.snapshot(card)
+    assert s.source == "memory_stats"
+    assert s.live_bytes == torch.cuda.memory_allocated(card)
+    assert s.peak_bytes == torch.cuda.max_memory_allocated(card)
+    assert s.peak_bytes >= 64 << 20
+    again = devmem.snapshot(card)
+    assert again.peak_bytes == s.peak_bytes  # the peak was not reset
+
+
+def _sort_on_card(card):
+    rng = np.random.default_rng(41)
+    ctx = pt.CylonContext(device=card, world=4)
+    t = pt.Table.from_columns(ctx, {"k": rng.integers(0, 1000, 50_000),
+                                    "v": rng.random(50_000)})
+    return DTable.from_table(ctx, t)
+
+
+@pytest.mark.gpu
+def test_spans_synchronize_only_while_tracing_on_card(card, monkeypatch):
+    """Tracing off (counters on): a HASH join and a sort call
+    ``torch.cuda.synchronize`` never and count ``trace.sync`` 0; tracing
+    on: every barrier is one synchronize, one ``trace.sync`` and one
+    nested ``sync`` span."""
+    dt = _sort_on_card(card)
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: (calls.append(d), real(d)))
+    cfg = pt.JoinConfig(pt.JoinType.INNER, pt.JoinAlgorithm.HASH, "k", "k",
+                        broadcast_threshold=0)
+    trace.reset()
+    trace.enable_counters()
+    try:
+        dist_join(dt, dt, cfg)
+        dist_sort(dt, "k")
+        assert calls == []
+        assert trace.counters().get("trace.sync", 0) == 0
+        assert trace.get_span_records(all_threads=True) == []
+        trace.reset()
+        trace.enable()
+        dist_join(dt, dt, cfg)
+        dist_sort(dt, "k")
+        syncs = trace.counters()["trace.sync"]
+        spans = [n for n, _, _ in trace.get_spans()]
+    finally:
+        trace.disable()
+        trace.disable_counters()
+        trace.reset()
+    assert syncs == len(calls) == spans.count("sync") > 0
+    assert "shuffle.exchange" in spans and "sort.local" in spans
+
+
+@pytest.mark.gpu
+def test_analyze_join_on_card(card):
+    """EXPLAIN ANALYZE of a HASH join at world 4 on the card: the eager
+    rows, the partition kernel launched inside the run, node bytes =
+    totals = the exchange counters."""
+    dt = _sort_on_card(card)
+    cfg = pt.JoinConfig(pt.JoinType.INNER, pt.JoinAlgorithm.HASH, "k", "k",
+                        broadcast_threshold=0)
+    eager = dist_join(dt, dt, cfg)
+    hash_cuda.launches = 0
+    rep = dt.ctx.analyze(lambda t: dist_join(t, t, cfg), dt)
+    assert rep.ok and hash_cuda.launches > 0
+    assert port_rows(rep.output) == port_rows(eager)
+    c = rep.totals["counters"]
+    assert sum(n.runtime["bytes_moved"] for n in rep.nodes
+               if n.runtime["depth"] == 1) == rep.totals["bytes_moved"] \
+        == c["shuffle.bytes_sent"] + c.get("broadcast.bytes_sent", 0) > 0
+    assert rep.nodes[0].runtime["decision"] == "shuffle"

@@ -34,7 +34,13 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.ops.groupby, cylon_tpu_torch.parallel.broadcast, "
         "cylon_tpu_torch.ops.sketch, cylon_tpu_torch.parallel.streaming, "
         "cylon_tpu_torch.tpch, cylon_tpu_torch.plan, cylon_tpu_torch.trace, "
-        "cylon_tpu_torch.analysis.plan_check\n"
+        "cylon_tpu_torch.analysis.plan_check, cylon_tpu_torch.logging, "
+        "cylon_tpu_torch.observe, cylon_tpu_torch.observe.locks, "
+        "cylon_tpu_torch.observe.histogram, cylon_tpu_torch.observe.metrics, "
+        "cylon_tpu_torch.observe.export, cylon_tpu_torch.observe.devmem, "
+        "cylon_tpu_torch.observe.compile, cylon_tpu_torch.observe.flightrec, "
+        "cylon_tpu_torch.observe.doctor, cylon_tpu_torch.observe.stats, "
+        "cylon_tpu_torch.observe.analyze\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -295,3 +295,126 @@ def queries_param(names):
     return pytest.mark.parametrize(
         "q,world", [(q, w) for q in names for w in WORLDS])
 
+
+
+# ---------------------------------------------------------------------------
+# EXPLAIN ANALYZE of the queries (tests/test_torch_analyze_tpch_*.py)
+# ---------------------------------------------------------------------------
+
+ANALYZE_WORLDS = (8,)
+
+
+def _analyzed(base, kw, jctx, jt, tctx, tt, optimize=False):
+    """Both packages' ``analyze`` of one query (through each planner when
+    ``optimize``, where the port's runs twice: a plan-cache miss, then a
+    hit).  Replica caches are cleared first, so each query's wire bytes
+    are its own."""
+    from cylon_tpu import observe as jobserve
+    from cylon_tpu.parallel import broadcast as jbroadcast
+    from cylon_tpu.tpch import queries as jqueries
+
+    from cylon_tpu_torch import observe as tobserve
+
+    def jq(t):
+        return jqueries.QUERIES[base](jctx, t, **kw)
+
+    def tq(t):
+        return tqueries.QUERIES[base](tctx, t, **kw)
+
+    if optimize:
+        # the DTable surface: explain(plan, tables=..., analyze=True,
+        # optimize=True) routes the plan through the planner
+        def jrun():
+            return jt["lineitem"].explain(jq, tables=jt, analyze=True,
+                                          optimize=True)
+
+        def trun():
+            return tt["lineitem"].explain(tq, tables=tt, analyze=True,
+                                          optimize=True)
+    else:
+        def jrun():
+            return jobserve.analyze(jq, jt)
+
+        def trun():
+            return tobserve.analyze(tq, tt)
+    jbroadcast.clear_replica_cache()
+    tbroadcast.clear_replica_cache()
+    want = jrun()
+    tbroadcast.clear_replica_cache()
+    got = trun()
+    again = None
+    if optimize:
+        tbroadcast.clear_replica_cache()
+        again = trun()
+    return {"got": got, "want": want, "again": again}
+
+
+def run_analyzed(names, optimize=False):
+    """``{(query, 8): {"got", "want", "again"}}``: the reports of
+    ``analyze`` on both packages (plan caches cleared first)."""
+    from cylon_tpu import plan as jplan
+    jplan.clear_plan_cache()
+    tplan.clear_plan_cache()
+    try:
+        return _sweep(names, functools.partial(_analyzed,
+                                               optimize=optimize),
+                      worlds=ANALYZE_WORLDS)
+    finally:
+        jplan.clear_plan_cache()
+        tplan.clear_plan_cache()
+
+
+ANALYZE_FIELDS = ("depth", "decision", "bytes_moved", "rows_out")
+
+
+def check_analyzed(results, q: str, world: int) -> None:
+    """The port's EXPLAIN ANALYZE of ``q`` against the JAX package's: the
+    same result, the same operators in order with equal depth, decision,
+    bytes moved, rows out and (where the JAX package has one) rows in;
+    equal total bytes and rows sent; every counter in the catalogue; the
+    top-level nodes' bytes summing to the totals."""
+    from cylon_tpu_torch.observe import METRICS
+
+    r = results[(q, world)]
+    got, want = r["got"], r["want"]
+    assert want.ok, want.error
+    assert got.ok, got.error
+    check_tables(q, got.output, want.output)
+    assert [n.op for n in got.nodes] == [n.op for n in want.nodes]
+    for g, w in zip(got.nodes, want.nodes):
+        for f in ANALYZE_FIELDS:
+            assert g.runtime[f] == w.runtime[f], (q, g.op, f, g.runtime[f],
+                                                  w.runtime[f])
+        if w.runtime["rows_in"] is not None:
+            assert g.runtime["rows_in"] == w.runtime["rows_in"], (q, g.op)
+    for k in ("bytes_moved", "rows_sent"):
+        assert got.totals[k] == want.totals[k], (q, k)
+    counters = got.totals["counters"]
+    assert set(counters) <= set(METRICS), set(counters) - set(METRICS)
+    top = sum(n.runtime["bytes_moved"] for n in got.nodes
+              if n.runtime["depth"] == 1)
+    assert top == got.totals["bytes_moved"]
+    assert got.totals["syncs"] == counters.get("trace.sync", 0) > 0
+
+
+def check_analyzed_optimized(results, q: str, world: int) -> None:
+    """``check_analyzed`` through the planners, plus the optimizer totals:
+    the JAX package's rule fires, row bytes and cache miss, then a rerun
+    that hits the plan cache with the same rows."""
+    check_analyzed(results, q, world)
+    r = results[(q, world)]
+    got, want, again = r["got"], r["want"], r["again"]
+    opt, jopt = got.totals["optimizer"], want.totals["optimizer"]
+    assert opt == jopt
+    assert opt["cache_misses"] >= 1 and opt["cache_hits"] == 0
+    aopt = again.totals["optimizer"]
+    assert aopt["cache_misses"] == 0 and aopt["cache_hits"] >= 1
+    assert aopt["rule_fires"] == opt["rule_fires"]
+    assert port_rows(again.output, ordered=True) == \
+        port_rows(got.output, ordered=True)
+    assert got.stats_digests and again.stats_digests == got.stats_digests
+
+
+def analyzed_param(names):
+    return pytest.mark.parametrize(
+        "q,world", [(q, w) for q in names for w in ANALYZE_WORLDS])
