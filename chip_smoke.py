@@ -54,10 +54,25 @@ of every query on the SF-10 tables (each equal to its eager result, its
 counters in the catalogue, the ``devmem`` peak equal to
 ``torch.cuda.max_memory_allocated()``; one line each), then the Chrome
 trace of the last one written under ``build/`` and parsed back, and a
-flight-recorder bundle that ``doctor`` renders.  Every check that fails raises, so the script exits non-zero; without a
+flight-recorder bundle that ``doctor`` renders.  The redistribution
+phase: after the SORT join, ``shuffle_table`` by ``k`` and the world-4
+HASH join on the join cell under every exchange lowering forced
+(single-shot, chunked, ring, allgather, and hierarchical under a (2, 2)
+mesh shape: each shard's sorted row hashes equal single-shot's, the join
+equal to the oracle, 2 kernel launches), then under a budget inside each
+band the cost model finds for that count matrix (the lowering that runs
+is ``cost.choose``'s), then under a transient ``compact.read_counts``
+fault, a shrunk ``resilience.budget`` and the exchange watchdog; one line
+each with seconds, rounds, the priced peak per shard and the observed
+card peak.  After the trace export, on the SF-10 tables: the fused
+partial exchange by ``l_orderkey`` at the default budget and at half its
+priced peak (the chunked fold-combine, groups equal; the exchange's own
+observed peak from EXPLAIN ANALYZE), then the 22 queries eager under a
+256 MiB per-shard budget, each equal to its default-budget result, the
+budget halving until some exchange degrades.  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
-on the groupby and TPC-H paths), its time, its plain version's time and
+on the groupby, TPC-H and redistribution paths), its time, its plain version's time and
 its bound.  ``--profile`` adds torch.profiler tables of device time by
 kernel (and by input shape) for the world-4 HASH and SORT joins, one
 ``dist_sort``, one ``dist_union``, the default ``orderkey`` groupby, the
@@ -2126,6 +2141,351 @@ def phase_trace_export():
         doctor_lines=len(out.getvalue().splitlines()))
 
 
+# ---------------------------------------------------------------------------
+# phase: redistribution — every exchange lowering, the chooser, faults
+# ---------------------------------------------------------------------------
+
+LOWERINGS = (("single-shot", None), ("chunked", None), ("ring", None),
+             ("allgather", None), ("hierarchical", (2, 2)))
+MIX = -7046029254386353131  # 0x9E3779B97F4A7C15 as a signed int64
+
+
+def shard_row_hashes(dt):
+    """Per shard, the sorted 64-bit hashes of its rows (every column's
+    4-byte words mixed), on the card: a lowering's per-shard row
+    multiset, independent of the order within the shard."""
+    counts = dt.counts_host()
+    h = torch.zeros(dt.nparts * dt.cap, dtype=torch.int64, device=DEVICE)
+    for c in dt.columns:
+        w = c.data.view(torch.int32).long() & 0xFFFFFFFF
+        h = (h ^ w) * MIX
+        h = h ^ ((h >> 29) & 0x7FFFFFFFF)
+    return [torch.sort(h[s * dt.cap:s * dt.cap + int(n)]).values
+            for s, n in enumerate(counts)]
+
+
+def lowering_rounds(strategy: str, shape, counters) -> int:
+    if strategy == "chunked":
+        return counters["shuffle.chunked_rounds"]
+    return {"ring": WORLD - 1, "hierarchical": (shape or (1,))[0]}.get(
+        strategy, 1)
+
+
+def run_lowering(label, fn, strategy):
+    """(result, seconds, priced peak per shard, observed card peak,
+    observed transient, counters) of ``fn()`` with counters reset."""
+    from cylon_tpu_torch import trace
+    trace.reset()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = wall(fn)
+    peak = torch.cuda.max_memory_allocated()
+    c = trace.counters()
+    if strategy is not None:
+        check(c.get(f"shuffle.strategy.{strategy.replace('-', '_')}", 0)
+              >= 1, f"{label}: ran the {strategy} lowering ({c})")
+    return out, secs, c.get("shuffle.exchange_bytes_peak", 0), peak, \
+        peak - base, c
+
+
+def join_sides(ldata, rdata):
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.parallel import DTable
+
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    return (DTable.from_table(ctx, to_table(ctx, ldata, None)),
+            DTable.from_table(ctx, to_table(ctx, rdata, None)))
+
+
+def hash_join(lt, rt):
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import dist_join
+
+    # broadcast pinned off: the small warm-up sides must shuffle too
+    return dist_join(lt, rt, JoinConfig(JoinType.INNER, JoinAlgorithm.HASH,
+                                        0, 0, broadcast_threshold=0)
+                     ).to_table()
+
+
+def phase_redistribution(ldata, rdata, want, warm: bool = False):
+    """(a) ``shuffle_table`` by ``k`` and the world-4 HASH ``dist_join`` on
+    the join cell under every lowering, forced: the shuffle's per-shard
+    row multisets equal single-shot's, the join equals the oracle, the
+    partition kernel launches twice per join; one line each (seconds,
+    rounds, priced peak per shard, observed card peak).  (b) The natural
+    choice: from the same count matrix, a budget one byte under the
+    single-shot price and one inside each other strategy's band; the
+    lowering that runs is ``cost.choose``'s, results unchanged.  (e)
+    Faults: the join under a transient ``compact.read_counts`` rule and
+    under a ``resilience.budget`` rule, then under the exchange
+    watchdog.  Returns the partition-kernel launches per join."""
+    import os
+
+    from cylon_tpu_torch import config, faults, resilience, trace
+    from cylon_tpu_torch.observe import row_bytes
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import cost, dist_ops, shuffle, shuffle_table
+
+    trace.enable_counters()
+    lt, rt = join_sides(ldata, rdata)
+    n = len(ldata["k"])
+    tag = "warm-up " if warm else ""
+    launches = {}
+    base_rows = None
+    P = WORLD
+    # (a) every lowering, forced
+    for strategy, shape in LOWERINGS:
+        config.set_exchange_strategy(strategy)
+        config.set_mesh_shape(shape)
+        try:
+            label = f"{tag}redistribution {strategy} rows={n} world={P}"
+            sh, secs, priced, peak, transient, c = run_lowering(
+                label, lambda: shuffle_table(lt, ["k"]), strategy)
+            rows = shard_row_hashes(sh)
+            if base_rows is None:
+                base_rows = rows
+            check(all(torch.equal(a, b) for a, b in zip(rows, base_rows)),
+                  f"{label}: every shard holds single-shot's rows")
+            del sh
+            hash_cuda.launches = 0
+            local, jsecs, jpriced, jpeak, jtransient, jc = run_lowering(
+                label, lambda: hash_join(lt, rt), strategy)
+            launches[strategy] = hash_cuda.launches
+            check(hash_cuda.launches == 2, f"{label}: the partition kernel "
+                  f"launched 2 times in the join (got {hash_cuda.launches})")
+            check_join(label, local, want)
+            del local
+        finally:
+            config.set_exchange_strategy(None)
+            config.set_mesh_shape(None)
+        say(label, shuffle_seconds=f"{secs:.6f}",
+            rounds=lowering_rounds(strategy, shape, c),
+            priced_peak_bytes=priced, observed_peak_gib=f"{peak / 2**30:.3f}",
+            observed_transient_bytes=transient,
+            transient_over_p_priced=f"{transient / max(P * priced, 1):.3f}",
+            join_seconds=f"{jsecs:.6f}", join_priced_peak_bytes=jpriced,
+            join_observed_peak_gib=f"{jpeak / 2**30:.3f}",
+            kernel_launches=launches[strategy])
+    # (b) the natural choice under a budget in each strategy's band
+    pid = dist_ops._hash_pids(lt, [0])
+    counts = shuffle._counts(lt.ctx.comm, pid).cpu().numpy().astype(np.int64)
+    del pid
+    leaves = [lf for c in lt.columns for lf in (c.data, c.validity)
+              if lf is not None]
+    rbytes = row_bytes(leaves)
+    ss = cost.price_single_shot(P, *cost.exchange_sizes(counts)[:2],
+                                rbytes).peak_bytes
+    bands = {}
+    b = ss - 1
+    while b > ss // 1000:  # the largest budget of each band, scanning down
+        pick, _, feasible = cost.choose(cost.enumerate_strategies(
+            P, lt.cap, counts, rbytes, b), b)
+        if feasible:
+            bands.setdefault(pick.strategy, b)
+        b = int(b * 0.93)
+    say(f"{tag}redistribution bands", single_shot_price=ss,
+        **{s.replace("-", "_"): bands.get(s, "none")
+           for s in ("chunked", "ring", "allgather")})
+    check("chunked" in bands, "a budget one byte under single-shot "
+          "degrades to a cheaper lowering")
+    for strategy, budget in sorted(bands.items(), key=lambda x: -x[1]):
+        prev = config.set_device_memory_budget(budget)
+        try:
+            label = (f"{tag}redistribution natural budget={budget} "
+                     f"rows={n} world={P}")
+            sh, secs, priced, peak, transient, c = run_lowering(
+                label, lambda: shuffle_table(lt, ["k"]), strategy)
+            check(c.get("shuffle.strategy.downgrades", 0) >= 1,
+                  f"{label}: counted as a downgrade")
+            rows = shard_row_hashes(sh)
+            check(all(torch.equal(a, b) for a, b in zip(rows, base_rows)),
+                  f"{label}: every shard holds single-shot's rows")
+            del sh
+            hash_cuda.launches = 0
+            local, jsecs, _, jpeak, _, jc = run_lowering(
+                label, lambda: hash_join(lt, rt), None)
+            check(hash_cuda.launches == 2, f"{label}: 2 kernel launches")
+            check(jc.get("shuffle.strategy.downgrades", 0) >= 1,
+                  f"{label}: the join's exchanges degraded")
+            check_join(label, local, want)
+            del local
+        finally:
+            config.set_device_memory_budget(prev)
+        say(label, chosen=strategy, shuffle_seconds=f"{secs:.6f}",
+            rounds=lowering_rounds(strategy, None, c),
+            priced_peak_bytes=priced, observed_peak_gib=f"{peak / 2**30:.3f}",
+            observed_transient_bytes=transient, join_seconds=f"{jsecs:.6f}",
+            join_observed_peak_gib=f"{jpeak / 2**30:.3f}",
+            join_strategies=",".join(
+                f"{k.split('.')[-1]}:{v}" for k, v in sorted(jc.items())
+                if k.startswith("shuffle.strategy.")))
+    # (e) faults: a transient count-read failure, a shrunk budget, and
+    # the watchdog
+    label = f"{tag}redistribution faults world={P}"
+    plan = faults.FaultPlan(0, [faults.FaultRule(
+        "compact.read_counts", kind="transient", nth=2)])
+    with faults.active(plan):
+        local, secs, _, _, _, c = run_lowering(label, lambda: hash_join(
+            lt, rt), None)
+    check_join(f"{label} (transient count read)", local, want)
+    check(c.get("retry.attempts", 0) == 1 and c.get("fault.injected", 0) == 1,
+          f"{label}: one retry, one injected fault ({c})")
+    say(label, rule="compact.read_counts transient nth=2",
+        seconds=f"{secs:.6f}", retry_attempts=c["retry.attempts"],
+        fault_injected=c["fault.injected"])
+    shrink = max(ss // 4, 1)
+    plan = faults.FaultPlan(0, [faults.FaultRule(
+        "resilience.budget", kind="value", mutate=lambda b: shrink)])
+    with faults.active(plan):
+        local, secs, _, _, _, c = run_lowering(label, lambda: hash_join(
+            lt, rt), None)
+    check_join(f"{label} (shrunk budget)", local, want)
+    check(c.get("shuffle.strategy.downgrades", 0) >= 1
+          and c.get("fault.injected", 0) >= 1,
+          f"{label}: the shrunk budget degraded the exchanges ({c})")
+    say(label, rule=f"resilience.budget value -> {shrink}",
+        seconds=f"{secs:.6f}", downgrades=c["shuffle.strategy.downgrades"],
+        fault_injected=c["fault.injected"],
+        strategies=",".join(f"{k.split('.')[-1]}:{v}" for k, v in
+                            sorted(c.items())
+                            if k.startswith("shuffle.strategy.")))
+    check(resilience.exchange_budget(lt.ctx.device)
+          == config.device_memory_budget(lt.ctx.device),
+          "no fault plan left installed")
+    os.environ["CYLON_EXCHANGE_TIMEOUT_MS"] = "600000"
+    try:
+        local, secs, _, _, _, c = run_lowering(label, lambda: hash_join(
+            lt, rt), None)
+    finally:
+        del os.environ["CYLON_EXCHANGE_TIMEOUT_MS"]
+    check_join(f"{label} (watchdog)", local, want)
+    check(c.get("shuffle.watchdog_timeouts", 0) == 0,
+          f"{label}: no watchdog timeout")
+    say(label, watchdog_ms=600000, seconds=f"{secs:.6f}",
+        watchdog_timeouts=c.get("shuffle.watchdog_timeouts", 0))
+    return launches
+
+
+def phase_redistribution_tpch(tables, sf: float, eager, exports):
+    """On the SF-10 tables at world 4: (c) the fused partial exchange by
+    ``l_orderkey`` at the default budget and at half its priced
+    single-shot peak (the chunked fold-combine, groups equal); (d) the 22
+    queries eager under ``CYLON_MEMORY_BUDGET`` = 256 MiB per shard, each
+    equal to its default-budget result, at least one exchange degraded
+    (the budget halves until one does).  Returns the partition-kernel
+    launches of (c)'s two runs and of (d)."""
+    import os
+
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.parallel import (broadcast, dist_groupby_fused,
+                                          dist_project, dist_with_column)
+    from cylon_tpu_torch.tpch import QUERIES
+    from cylon_tpu_torch import Type
+
+    trace.enable_counters()
+    launches = {}
+    # (c) the fused partial exchange by l_orderkey
+    li = dist_with_column(dist_project(tables["lineitem"], [
+        "l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+        "l_shipdate"]), "disc_price", _disc_price, Type.DOUBLE)
+    keys = ["l_orderkey"]
+    aggs = [("disc_price", "sum"), ("disc_price", "mean"),
+            ("l_quantity", "count"), ("l_discount", "min"),
+            ("l_shipdate", "max")]
+    exact = ["l_orderkey", "count_l_quantity", "min_l_discount",
+             "max_l_shipdate"]
+    label = f"redistribution fused l_orderkey sf={sf} world={WORLD}"
+    fused = lambda: dist_groupby_fused(li, keys, aggs,  # noqa: E731
+                                       mode="pre-aggregate")
+    from cylon_tpu_torch.ops import hash_cuda
+    hash_cuda.launches = 0
+    out, secs, priced, peak, transient, c = run_lowering(
+        label, fused, "single-shot")
+    launches["fused_default"] = hash_cuda.launches
+    base, _ = exports.submit(lambda: engine_result(out, keys)).wait()
+    del out
+    say(label, budget="default", seconds=f"{secs:.6f}",
+        priced_peak_bytes=priced, observed_peak_gib=f"{peak / 2**30:.3f}",
+        observed_transient_bytes=transient,
+        transient_over_p_priced=f"{transient / max(WORLD * priced, 1):.3f}",
+        groups=len(base["l_orderkey"]), kernel_launches=hash_cuda.launches)
+    half = priced // 2
+    prev = config.set_device_memory_budget(half)
+    try:
+        hash_cuda.launches = 0
+        out, secs, hpriced, hpeak, htransient, c = run_lowering(
+            label, fused, "chunked")
+        launches["fused_half"] = hash_cuda.launches
+    finally:
+        config.set_device_memory_budget(prev)
+    check(c.get("shuffle.fold_combined", 0) >= 1,
+          f"{label}: the chunked rounds folded by key")
+    got, _ = exports.submit(lambda: engine_result(out, keys)).wait()
+    del out
+    check_groups(f"{label} half budget vs default", got, base, exact,
+                 ["sum_disc_price", "mean_disc_price"])
+    say(label, budget=half, chosen="chunked", seconds=f"{secs:.6f}",
+        rounds=c["shuffle.chunked_rounds"],
+        fold_combined=c["shuffle.fold_combined"],
+        priced_peak_bytes=hpriced, observed_peak_gib=f"{hpeak / 2**30:.3f}",
+        observed_transient_bytes=htransient,
+        default_observed_peak_gib=f"{peak / 2**30:.3f}",
+        groups=len(got["l_orderkey"]), kernel_launches=hash_cuda.launches)
+    # the exchange's own transient: EXPLAIN ANALYZE samples the device
+    # memory around each exchange (``peak=<strategy>: predicted P /
+    # observed O bytes``)
+    for name, b in (("default", None), ("half", half)):
+        prev = config.set_device_memory_budget(b)
+        try:
+            rep = li.ctx.analyze(lambda t: dist_groupby_fused(
+                t, keys, aggs, mode="pre-aggregate"), li)
+        finally:
+            config.set_device_memory_budget(prev)
+        check(rep.ok, f"{label}: analyzed at the {name} budget ({rep.error})")
+        peaks = [n.info["peak"] for n in rep.nodes if "peak" in n.info]
+        check(len(peaks) == 1, f"{label}: one exchange peak annotated")
+        say(label, budget=name, analyzed="yes",
+            exchange_peak=repr(peaks[0]))
+    del li, got, base
+    # (d) the 22 queries under a 256 MiB per-shard budget
+    ctx = tables["lineitem"].ctx
+    budget = 268_435_456
+    while True:
+        os.environ["CYLON_MEMORY_BUDGET"] = str(budget)
+        degraded, secs_all, n_launch = 0, 0.0, 0
+        try:
+            for q in QUERIES:
+                broadcast.clear_replica_cache()
+                trace.reset()
+                hash_cuda.launches = 0
+                out, secs = wall(lambda: QUERIES[q](ctx, tables))
+                c = trace.counters()
+                n_launch += hash_cuda.launches
+                order = same_result(q, eager[q], out)
+                degraded += c.get("shuffle.strategy.downgrades", 0)
+                secs_all += secs
+                say(f"redistribution tpch {q} sf={sf} world={WORLD}",
+                    budget=budget, seconds=f"{secs:.6f}", rows=out.num_rows,
+                    equal_to_default=order, kernel_launches=hash_cuda.launches,
+                    strategies=",".join(
+                        f"{k.split('.')[-1]}:{v}" for k, v in sorted(c.items())
+                        if k.startswith("shuffle.strategy.")) or "none")
+        finally:
+            del os.environ["CYLON_MEMORY_BUDGET"]
+        say(f"redistribution tpch sf={sf} world={WORLD}", budget=budget,
+            degraded_exchanges=degraded, total_seconds=f"{secs_all:.6f}",
+            kernel_launches=n_launch)
+        if degraded:
+            break
+        check(budget > 1 << 20, "some exchange degrades above 1 MiB")
+        budget //= 2
+    launches["tpch_tight"] = n_launch
+    broadcast.clear_replica_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -2162,6 +2522,10 @@ def main() -> int:
     launches_analyze = phase_analyze_join(ldata, rdata, want,
                                           inner_times["join_s"])
     phase_sort_join(ldata, rdata, want, args.profile)
+    wwant = oracle(t(wl["k"]), t(wr["k"]), t(wl["v0"]), t(wr["v0"]),
+                   None, None, int(KEY_FRAC * 4096))
+    phase_redistribution(wl, wr, wwant, warm=True)
+    launches_redist = phase_redistribution(ldata, rdata, want)
     phase_outer(args.seed)
     phase_hash_partition(ldata)
     phase_dist_sort(ldata, args.seed, args.profile)
@@ -2222,6 +2586,8 @@ def main() -> int:
     launches_analyze_tpch = phase_tpch_analyze(tctx, tables, args.tpch_sf,
                                                results, times)
     phase_trace_export()
+    launches_redist.update(phase_redistribution_tpch(tables, args.tpch_sf,
+                                                     results, exports))
     del results
     launches_fused = phase_fused_groupby(tables, args.tpch_sf, exports,
                                          args.profile)
@@ -2279,6 +2645,7 @@ def main() -> int:
         "launches_agg_state": launches_state,
         "launches_streaming": launches_stream,
         "launches_multiway": launches_multiway,
+        "launches_redistribution": launches_redist,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
         "max_abs_err": max_err,

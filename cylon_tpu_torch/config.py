@@ -2,15 +2,18 @@
 
 The PyTorch port's copy of the join part of ``cylon_tpu/config.py``
 (reference: join/join_config.hpp:29-89), the broadcast row threshold,
-the device memory budget, the optimizer switch, the plan-cache
-capacity, and the lock-order checks of ``observe.locks``.
+the device memory budget, the exchange knobs the costed shuffle reads
+(the forced strategy, the (slow, fast) mesh shape, the watchdog
+timeout), the optimizer switch, the plan-cache capacity, and the
+lock-order checks of ``observe.locks``.
 """
 from __future__ import annotations
 
 import enum
 import os
+import re
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,9 +85,10 @@ def set_device_memory_budget(n: Optional[int]) -> Optional[int]:
     return prev
 
 
-def device_memory_budget(device: torch.device) -> int:
+def device_memory_budget(device: Optional[torch.device] = None) -> int:
     """The effective memory budget in bytes for ``device`` (explicit knob,
-    else ``CYLON_MEMORY_BUDGET``, else the default fraction)."""
+    else ``CYLON_MEMORY_BUDGET``, else the default fraction of the
+    device's memory; None is the current CUDA device)."""
     if _device_memory_budget is not None:
         return _device_memory_budget
     env = os.environ.get("CYLON_MEMORY_BUDGET", "")
@@ -96,7 +100,7 @@ def device_memory_budget(device: torch.device) -> int:
             raise CylonError(Status(Code.Invalid,
                 f"CYLON_MEMORY_BUDGET must be an int byte count, "
                 f"got {env!r}")) from None
-    if device.type == "cuda":
+    if device is None or device.type == "cuda":
         limit = torch.cuda.get_device_properties(device).total_memory
     else:
         limit = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
@@ -106,6 +110,154 @@ def device_memory_budget(device: torch.device) -> int:
 def explicit_memory_budget() -> Optional[int]:
     """The explicitly set budget (None when env / default resolved)."""
     return _device_memory_budget
+
+
+# The exchange lowering override (the costed chooser of
+# parallel/shuffle.py picks one per exchange from the budget and the
+# count matrix; this forces one session-wide, the A/B escape hatch of
+# the parity tests and the chip smoke): explicit set_exchange_strategy()
+# > CYLON_EXCHANGE_STRATEGY env > None (the costed choice).
+_exchange_strategy: Optional[str] = None
+
+
+def _validate_strategy(name, what: str) -> str:
+    # the chooser's own catalogue (late import: config loads first)
+    from .parallel.cost import STAGED_SPILL, STRATEGIES
+    if not isinstance(name, str) or name not in STRATEGIES:
+        raise CylonError(Status(Code.Invalid,
+            f"{what} must be one of {STRATEGIES} or None to "
+            f"restore the costed chooser, got {name!r}"))
+    if name == STAGED_SPILL:
+        raise CylonError(Status(Code.NotImplemented,
+            f"{what} {name!r}: the host-tier staged-spill lowering comes "
+            "with spill/ (ROADMAP A12.3) and is not in the port yet"))
+    return name
+
+
+def set_exchange_strategy(name: Optional[str]) -> Optional[str]:
+    """Force every eligible exchange onto one lowering (None restores
+    the costed chooser); returns the previous explicit setting.
+    Combine-spec exchanges (the fused groupby's fold-by-key rounds)
+    cannot run a forced ring / allgather / hierarchical lowering and
+    stay on the single-shot / chunked / hierarchical-combine set."""
+    global _exchange_strategy
+    if name is not None:
+        name = _validate_strategy(name, "exchange strategy")
+    prev = _exchange_strategy
+    _exchange_strategy = name
+    return prev
+
+
+def exchange_strategy() -> Optional[str]:
+    """The forced exchange lowering, or None for the costed chooser."""
+    if _exchange_strategy is not None:
+        return _exchange_strategy
+    env = os.environ.get("CYLON_EXCHANGE_STRATEGY", "")
+    if env:
+        return _validate_strategy(env, "CYLON_EXCHANGE_STRATEGY")
+    return None
+
+
+# The (slow, fast) factorization of the world: fast = the cheap axis,
+# slow = the expensive boundary.  A non-trivial split makes the
+# hierarchical lowerings enumerable (topology.axis_split resolves it per
+# context): explicit set_mesh_shape() > CYLON_MESH_SHAPE env ("SxF") >
+# the flat (1, world).
+_mesh_shape: Optional[Tuple[int, int]] = None
+
+
+def _validate_mesh_shape(shape, what: str) -> Tuple[int, int]:
+    ok = (isinstance(shape, (tuple, list)) and len(shape) == 2
+          and all(isinstance(x, int) and not isinstance(x, bool)
+                  for x in shape)
+          and all(x > 0 for x in shape))
+    if not ok:
+        raise CylonError(Status(Code.Invalid,
+            f"{what} must be a (slow, fast) pair of positive ints or "
+            f"None to restore platform resolution, got {shape!r}"))
+    return (int(shape[0]), int(shape[1]))
+
+
+def set_mesh_shape(shape: Optional[Tuple[int, int]]
+                   ) -> Optional[Tuple[int, int]]:
+    """Set the explicit (slow, fast) factorization (None restores env
+    resolution); returns the previous explicit setting.  The shape need
+    not tile every context's world: ``topology.axis_split`` falls back
+    to a flat split when it does not."""
+    global _mesh_shape
+    if shape is not None:
+        shape = _validate_mesh_shape(shape, "mesh shape")
+    prev = _mesh_shape
+    _mesh_shape = shape
+    return prev
+
+
+def mesh_shape() -> Optional[Tuple[int, int]]:
+    """The configured (slow, fast) shape, or None (explicit knob, else
+    ``CYLON_MESH_SHAPE`` as ``SxF``, e.g. ``2x4``)."""
+    if _mesh_shape is not None:
+        return _mesh_shape
+    env = os.environ.get("CYLON_MESH_SHAPE", "")
+    if env:
+        m = re.fullmatch(r"(\d+)\s*[xX,]\s*(\d+)", env.strip())
+        if not m:
+            raise CylonError(Status(Code.Invalid,
+                f"CYLON_MESH_SHAPE must look like 'SxF' (e.g. '2x4'), "
+                f"got {env!r}"))
+        return _validate_mesh_shape((int(m.group(1)), int(m.group(2))),
+                                    "CYLON_MESH_SHAPE")
+    return None
+
+
+# The exchange watchdog: a bounded timeout around each collective
+# dispatch of parallel/shuffle.py; a breach raises a TransientFault
+# naming the fault point instead of hanging.  Explicit
+# set_exchange_timeout_ms() > CYLON_EXCHANGE_TIMEOUT_MS env > None
+# (disabled: the guard runs each dispatch on a helper thread).
+_exchange_timeout_ms: Optional[int] = None
+
+
+def _validate_timeout_ms(n, what: str) -> int:
+    if isinstance(n, bool) or not isinstance(n, int):
+        raise CylonError(Status(Code.Invalid,
+            f"{what} must be a positive int millisecond count, "
+            f"got {type(n).__name__} {n!r}"))
+    if n <= 0:
+        raise CylonError(Status(Code.Invalid,
+            f"{what} must be positive, got {n} (pass None to disable "
+            "the watchdog)"))
+    return n
+
+
+def exchange_timeout_ms() -> Optional[int]:
+    """The collective-dispatch watchdog timeout in ms, or None when the
+    watchdog is off (explicit knob, else ``CYLON_EXCHANGE_TIMEOUT_MS``).
+    The guarded window covers the whole dispatch, a first call's CUDA
+    library warm-up included: set it generously."""
+    if _exchange_timeout_ms is not None:
+        return _exchange_timeout_ms
+    env = os.environ.get("CYLON_EXCHANGE_TIMEOUT_MS", "")
+    if env:
+        try:
+            return _validate_timeout_ms(int(env),
+                                        "CYLON_EXCHANGE_TIMEOUT_MS")
+        except ValueError:
+            raise CylonError(Status(Code.Invalid,
+                f"CYLON_EXCHANGE_TIMEOUT_MS must be an int millisecond "
+                f"count, got {env!r}")) from None
+    return None
+
+
+def set_exchange_timeout_ms(n: Optional[int]) -> Optional[int]:
+    """Set the exchange watchdog timeout in ms (None restores env
+    resolution / off); returns the previous explicit setting.  Zero,
+    negative, float and bool values raise."""
+    global _exchange_timeout_ms
+    if n is not None:
+        n = _validate_timeout_ms(n, "exchange watchdog timeout")
+    prev = _exchange_timeout_ms
+    _exchange_timeout_ms = n
+    return prev
 
 
 # The LRU entry cap of the planner's compiled-plan cache

@@ -13,7 +13,7 @@ communicator can replace it without touching the operators.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -24,28 +24,84 @@ class LocalCommunicator:
     """``world`` ranks simulated on one device.
 
     Per-rank values travel as tensors whose leading axis is the rank.
+    ``all_to_all``, ``all_gather`` and ``ppermute`` also run GROUP-LOCAL
+    over one axis of a ``(slow, fast)`` split of the world (``split``,
+    ``axis`` "slow" or "fast"; rank ``p`` sits at slow coordinate
+    ``p // fast`` and fast coordinate ``p % fast``): a group is the
+    ranks that share the other coordinate, and its size ``G`` is that
+    axis's extent.  On one device a group-local collective is a reshape
+    to ``[slow, fast, ...]`` and a transpose or roll inside each group.
     """
 
     def __init__(self, world: int, device: torch.device):
         self.world = world
         self.device = device
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        """``x[src, dst, ...]`` is what rank ``src`` sends to ``dst``;
-        returns ``y[dst, src, ...]``, what each rank received from each."""
-        if x.shape[0] != self.world or x.shape[1] != self.world:
+    def _split(self, split, axis) -> Tuple[int, int]:
+        slow, fast = int(split[0]), int(split[1])
+        if slow * fast != self.world or axis not in ("slow", "fast"):
             raise CylonError(Status(Code.Invalid,
-                f"all_to_all wants [{self.world}, {self.world}, ...], "
-                f"got {tuple(x.shape)}"))
-        return x.transpose(0, 1).contiguous()
+                f"a group-local collective wants a (slow, fast) split of "
+                f"world {self.world} and axis 'slow' or 'fast', got "
+                f"{tuple(split)!r}, {axis!r}"))
+        return slow, fast
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``x[rank, ...]`` one value block per rank → the same blocks,
-        visible to every rank (here: one tensor all ranks share)."""
-        if x.shape[0] != self.world:
+    def _want(self, what: str, x: torch.Tensor, lead) -> None:
+        if tuple(x.shape[:len(lead)]) != tuple(lead):
             raise CylonError(Status(Code.Invalid,
-                f"all_gather wants [{self.world}, ...], got {tuple(x.shape)}"))
-        return x
+                f"{what} wants {list(lead) + ['...']}, got "
+                f"{tuple(x.shape)}"))
+
+    def all_to_all(self, x: torch.Tensor, split=None,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """``x[src, dst, ...]`` is what rank ``src`` sends to ``dst``;
+        returns ``y[dst, src, ...]``, what each rank received from each.
+        Group-local (``split``): ``x[p, g]`` goes to the ``g``-th rank of
+        ``p``'s group, and ``y[p, g]`` came from the ``g``-th."""
+        if split is None:
+            self._want("all_to_all", x, (self.world, self.world))
+            return x.transpose(0, 1).contiguous()
+        slow, fast = self._split(split, axis)
+        tail = tuple(x.shape[2:])
+        if axis == "fast":
+            self._want("all_to_all", x, (self.world, fast))
+            return (x.reshape((slow, fast, fast) + tail).transpose(1, 2)
+                    .reshape((self.world, fast) + tail))
+        self._want("all_to_all", x, (self.world, slow))
+        return (x.reshape((slow, fast, slow) + tail).transpose(0, 2)
+                .reshape((self.world, slow) + tail))
+
+    def all_gather(self, x: torch.Tensor, split=None,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """``x[rank, ...]`` one value block per rank → the same blocks,
+        visible to every rank (here: one tensor all ranks share).
+        Group-local (``split``): ``y[p, g]`` is the block of the
+        ``g``-th rank of ``p``'s group."""
+        self._want("all_gather", x, (self.world,))
+        if split is None:
+            return x
+        slow, fast = self._split(split, axis)
+        tail = tuple(x.shape[1:])
+        xv = x.reshape((slow, fast) + tail)
+        if axis == "fast":
+            y = xv.unsqueeze(1).expand((slow, fast, fast) + tail)
+            return y.reshape((self.world, fast) + tail)
+        y = xv.transpose(0, 1).unsqueeze(0).expand((slow, fast, slow) + tail)
+        return y.reshape((self.world, slow) + tail)
+
+    def ppermute(self, x: torch.Tensor, shift: int, split=None,
+                 axis: Optional[str] = None) -> torch.Tensor:
+        """Rank ``i``'s block ``x[i]`` goes to rank ``(i + shift) % P``;
+        returns what each rank received.  Group-local (``split``): the
+        shift runs along ``axis`` inside each group."""
+        self._want("ppermute", x, (self.world,))
+        if split is None:
+            return torch.roll(x, int(shift), 0)
+        slow, fast = self._split(split, axis)
+        tail = tuple(x.shape[1:])
+        dim = 0 if axis == "slow" else 1
+        return torch.roll(x.reshape((slow, fast) + tail), int(shift),
+                          dim).reshape(x.shape)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """``x[rank, ...]`` one block per rank → their sum over the ranks,

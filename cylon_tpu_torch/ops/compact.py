@@ -24,6 +24,22 @@ def read_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def read_counts(t: torch.Tensor) -> np.ndarray:
+    """The shuffle's blocking count read: :func:`read_host` behind the
+    ``compact.read_counts`` fault point, retried under the session
+    ``resilience`` policy (the read has no side effect, so a transient
+    transfer failure is safely retried).  One ``host.read`` however many
+    attempts."""
+    from .. import faults, resilience, trace
+    trace.count("host.read")
+
+    def attempt():
+        faults.check("compact.read_counts")
+        return t.cpu().numpy()
+
+    return resilience.retry_call(attempt, point="compact.read_counts")
+
+
 def scatter_drop(size: int, tgt: torch.Tensor, values: torch.Tensor,
                  fill=0, dtype=None) -> torch.Tensor:
     """``full(size, fill).at[tgt].set(values, mode="drop")``: targets outside

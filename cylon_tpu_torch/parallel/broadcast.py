@@ -31,13 +31,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import trace
+from .. import resilience, trace
 from ..analysis import plan_check
-from ..config import broadcast_join_threshold, device_memory_budget
+from ..config import broadcast_join_threshold
 from ..observe.locks import OrderedLock
 from ..observe.metrics import row_bytes
 from ..ops import compact as ops_compact
 from ..ops.gather import signed_view
+from . import cost
 from .dtable import DColumn, DTable
 
 ALL = "all"
@@ -47,13 +48,6 @@ HEAD = "head"
 def _leaves(dt: DTable):
     return [lf for c in dt.columns for lf in (c.data, c.validity)
             if lf is not None]
-
-
-def price_replicate(nparts: int, cap: int, outcap: int, rbytes: int) -> int:
-    """Peak bytes of a replica: the all-gathered [P·cap] blocks plus the
-    compacted [outcap] replica (the JAX package's ``cost.price_replicate``
-    ``peak_bytes``)."""
-    return int((nparts * cap + outcap) * rbytes)
 
 
 def rows_if_small(dt: DTable, threshold: Optional[int],
@@ -79,8 +73,11 @@ def rows_if_small(dt: DTable, threshold: Optional[int],
         return None
     rbytes = max(row_bytes(_leaves(dt)), 1)
     outcap = ops_compact.next_bucket(max(rows, 1), minimum=8)
-    priced = price_replicate(dt.nparts, dt.cap, outcap, rbytes)
-    budget = device_memory_budget(dt.ctx.device)
+    # the replica is priced through the shared cost model, against the
+    # budget the shuffle chooser reads (its fault point included)
+    priced = cost.price_replicate(dt.nparts, dt.cap, outcap,
+                                  rbytes).peak_bytes
+    budget = resilience.exchange_budget(dt.ctx.device)
     if priced > budget:
         if not quiet:
             trace.count("broadcast.budget_veto")

@@ -10,7 +10,7 @@ DoDistributedSetOperation, :214-297 Shuffle, :977-1005 Select,
               ops/hash_cuda.py on the card, its plain version on the CPU —
               for the HASH join and the set ops; or sampled-splitter range
               partitioning (sample-sort) for the SORT join and dist_sort;
-  shuffle     the single-shot two-phase all_to_all (shuffle.shuffle_leaves);
+  shuffle     the costed two-phase exchange (shuffle.shuffle_leaves);
   local op    the sort-plan join kernel (ops/join.py), the masked sorts
               (ops/sort.py), the set-op grouping (ops/setops.py) or the
               groupby (ops/groupby.py) per shard on its padded block,
@@ -165,10 +165,14 @@ def _unify_dtable_dicts(a: DTable, b: DTable,
 # ---------------------------------------------------------------------------
 
 def _shuffle_by_pids(dt: DTable, pid: torch.Tensor, owner: str = "",
-                     combine: bool = False) -> DTable:
+                     combine=None) -> DTable:
     """Exchange rows to their target shards; rebuild the DTable.
     ``owner="groupby"`` also counts the bytes as ``groupby.bytes_moved``;
-    ``combine`` marks a partial-group table (``groupby.partials_rows``)."""
+    ``combine`` is the fold spec of a partial-group table
+    (``_combine_leaf_spec``: ``groupby.partials_rows``, and the chunked
+    and hierarchical lowerings fold rounds by key with it).  The
+    lowering is the costed chooser's per-execution decision
+    (``shuffle.shuffle_leaves``)."""
     if dt.pending_mask is not None:
         # ``pid`` was computed against THESE blocks: a deferred select must
         # have been folded into it (see ``_cleared``) or collapsed first
@@ -1905,9 +1909,9 @@ def _note_sketch_state(dt: DTable, aggregations, sh: DTable, K: int, kinds,
                          kinds=tuple(kinds), qs=tuple(qs)))
 
 
-def _shuffle_by_keys(dt: DTable, K: int, combine: bool = False) -> DTable:
+def _shuffle_by_keys(dt: DTable, K: int, combine=None) -> DTable:
     """Hash-shuffle a partial table on its first ``K`` (key) columns
-    (``combine``: count its rows as ``groupby.partials_rows``)."""
+    (``combine``: its fold spec, see ``_shuffle_by_pids``)."""
     if dt.ctx.get_world_size() == 1:
         return dt  # one shard: every group is already home
     return _shuffle_by_pids(dt, _hash_pids(dt, list(range(K))),
@@ -1960,9 +1964,10 @@ def _combine_leaf_spec(part: DTable, K: int, partial_ops) -> Tuple:
     """Leaf-layout combiner spec of a partial-group table: the wire leaf
     positions (data, then validity if any, per column, in
     ``_shuffle_by_pids`` order) of the key slots and of the value slots
-    with their combine ops.  The JAX package's chunked and hierarchical
-    exchanges fold rounds by key with it; the port's single-shot exchange
-    carries it as data only (the JAX single-shot path ignores it too)."""
+    with their combine ops.  The chunked and hierarchical-combine
+    exchange lowerings fold rounds by key with it; the single-shot
+    exchange ignores it (the local combine downstream handles the
+    concatenated partials)."""
     idx = 0
     key_slots, val_slots = [], []
     for i, c in enumerate(part.columns):
@@ -2190,7 +2195,9 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
                         _local_only=True, emit_empty=emit_empty)
     comb_aggs = [(K + j, _COMBINE_OP[op]) for j, (_, op) in enumerate(partial)]
     with trace.span("groupby.shuffle"):
-        sh = _shuffle_by_keys(part, K, combine=True)
+        sh = _shuffle_by_keys(
+            part, K, combine=_combine_leaf_spec(part, K,
+                                                [op for _, op in partial]))
     comb = dist_groupby(sh, list(range(K)), comb_aggs,
                         dense_key_range=dense_key_range, pre_aggregate=False,
                         _local_only=True)

@@ -1,27 +1,51 @@
-"""Row shuffle: the single-shot two-phase all_to_all exchange.
+"""Row shuffle: the two-phase exchange and its costed lowerings.
 
-Mirror of the single-shot path of ``cylon_tpu/parallel/shuffle.py``
-(``_counts_fn``, ``_exchange_fn`` and ``shuffle_leaves``; reference:
+Mirror of ``cylon_tpu/parallel/shuffle.py`` (reference:
 cpp/src/cylon/table_api.cpp:214-297 Shuffle — HashPartition + split +
-AllToAll + concat).  Both phases run batched over the P shards of a
-DTable's flat ``[P*cap]`` leaves, and reach the other ranks only through
-the context's communicator:
+AllToAll + concat).  Every phase runs batched over the P shards of a
+DTable's flat ``[P*cap]`` leaves, and reaches the other ranks only
+through the context's communicator (``all_to_all``, ``all_gather``,
+``ppermute``, the last two also group-local over a ``(slow, fast)``
+split):
 
   1. counts    per-shard ``bincount`` of the target ids → ``[P_src, P_dst]``
-               (gathered to every rank), read by the host to size the
-               exchange (``block`` = largest cell, ``outcap`` = largest
-               receive total, both bucketed by ``next_bucket``);
-  2. exchange  per shard: rows grouped by target (stable sort), gathered
-               into a ``[P_dst, block]`` send buffer, one ``all_to_all``,
-               then the received rows compacted into ``[outcap]``.
+               (gathered to every rank), read by the host once
+               (``ops/compact.read_counts``: the ``compact.read_counts``
+               fault point under the session retry policy);
+  2. choice    the costed chooser (``parallel/cost.py``) prices the
+               candidate lowerings from the count matrix against
+               ``resilience.exchange_budget()`` and picks the cheapest
+               that fits; single-shot wins whenever it fits;
+  3. exchange  the chosen lowering:
 
-Rows keep sender order within a target, and senders arrive in rank order,
-so every shard's output rows come out in the same order as the JAX
-package's.
+     ``single-shot``   per shard: rows grouped by target (stable sort),
+                       gathered into a ``[P_dst, block]`` send buffer, one
+                       ``all_to_all``, the received rows compacted into
+                       ``[outcap]`` (sender order);
+     ``chunked``       K rounds of the single-shot exchange over rank
+                       slices of ≤ C rows per (sender, target) cell,
+                       folded receiver-side round after round; a
+                       partial-group payload (``combine``) folds BY KEY,
+                       so the accumulator grows with the groups;
+     ``ring``          own rows first, then P−1 ``ppermute`` rounds, round
+                       r moving each shard's (me → me+r) cell whole;
+     ``allgather``     every shard's block gathered, each shard keeping
+                       its rows (sender order);
+     ``hierarchical``  one fast-axis ``all_to_all`` to the target's fast
+                       coordinate, then a slow-axis ring (the combine
+                       spelling pre-combines by key between the stages).
+
+Every lowering gives the same per-shard row multiset; within a shard the
+order is the lowering's own and equal to the JAX package's for the same
+lowering.  The choice and its reason are annotated on the plan
+(``exchange=…``, ``degraded=…``) and counted in ``shuffle.strategy.*``.
+A lowering that fails (a CUDA out-of-memory error included) propagates:
+nothing here catches it and reroutes.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,72 +55,446 @@ from ..analysis import plan_check
 from ..observe import devmem
 from ..observe.metrics import row_bytes
 from ..ops import gather as ops_gather
-from ..ops.compact import next_bucket, read_host
+from ..ops.compact import next_bucket, read_counts
+from . import cost
+
+# warn-once keys this module has used (skew, budget floor), so
+# clear_chunk_state can forget them
+_warned: set = set()
+_warned_lock = threading.Lock()
 
 
-def exchange_sizes(counts: np.ndarray) -> Tuple[int, int, np.ndarray]:
-    """counts [P, P] → (block, outcap, per_recv), the single-shot sizing
-    rule of the JAX package (parallel/cost.py exchange_sizes)."""
-    block = next_bucket(max(int(counts.max(initial=0)), 1), minimum=8)
-    per_recv = counts.sum(axis=0)
-    outcap = next_bucket(max(int(per_recv.max(initial=0)), 1), minimum=8)
-    return block, outcap, per_recv
+def clear_chunk_state() -> None:
+    """Forget the shuffle's per-signature state: the skew and
+    budget-floor warnings already given (test isolation)."""
+    from .. import logging as glog
+    with _warned_lock:
+        keys = list(_warned)
+        _warned.clear()
+    for key in keys:
+        glog.reset_warn_once(key)
 
 
-def _shard_offsets(P: int, cap: int, device) -> torch.Tensor:
-    """[P*cap] shard id of every flat row, times ``P + 1`` (bincount bins)."""
-    return torch.arange(P, device=device).repeat_interleave(cap) * (P + 1)
+def _warn_once(key, msg: str, *args) -> None:
+    from .. import logging as glog
+    with _warned_lock:
+        _warned.add(key)
+    glog.warn_once(key, msg, *args)
+
+
+# ---------------------------------------------------------------------------
+# batched building blocks
+# ---------------------------------------------------------------------------
+
+def _shard_offsets(P: int, cap: int, device, bins: int) -> torch.Tensor:
+    """[P*cap] shard id of every flat row, times ``bins`` (bincount bins
+    per shard)."""
+    return torch.arange(P, device=device).repeat_interleave(cap) * bins
+
+
+def _compact_rows(mask: torch.Tensor, size: int):
+    """mask [R, n] → (idx [R, size] int64, fill 0; count [R]): per row,
+    the positions of its True entries in order; entries past ``size``
+    are dropped."""
+    R, n = mask.shape
+    pos = torch.cumsum(mask, 1) - 1
+    slots = torch.where(mask & (pos < size), pos, size)
+    idx = torch.zeros((R, size + 1), dtype=torch.int64, device=mask.device)
+    idx.scatter_(1, slots, torch.arange(n, device=mask.device).expand(R, -1))
+    return idx[:, :size], mask.sum(1)
+
+
+def _gather_rows(M: torch.Tensor, P: int, idx: torch.Tensor) -> torch.Tensor:
+    """M [P*n, C], idx [P, k] (per-shard row positions) → [P, k, C]."""
+    n = M.shape[0] // P
+    base = (torch.arange(P, device=M.device) * n)[:, None]
+    return M[(base + idx).reshape(-1)].view(P, idx.shape[1], M.shape[1])
+
+
+def _scatter_rows(acc: torch.Tensor, slots: torch.Tensor,
+                  src: torch.Tensor) -> None:
+    """acc [P, m+1, ...] (row m drops), slots [P, k] in [0, m], src
+    [P, k, ...]: ``acc[p, slots[p, j]] = src[p, j]``."""
+    P, m1 = acc.shape[0], acc.shape[1]
+    flat = ((torch.arange(P, device=acc.device) * m1)[:, None]
+            + slots).reshape(-1)
+    acc.view((P * m1,) + tuple(acc.shape[2:]))[flat] = \
+        src.reshape((-1,) + tuple(acc.shape[2:]))
+
+
+def _where_rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask.reshape(mask.shape + (1,) * (x.dim()
+                                                         - mask.dim())),
+                       x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _counts(comm, pid: torch.Tensor) -> torch.Tensor:
     """pid [P*cap] → counts [P_src, P_dst] int32; pid P (padding) dropped."""
     P = comm.world
     cap = pid.shape[0] // P
-    flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device)
+    flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device, P + 1)
     cnt = torch.bincount(flat, minlength=P * (P + 1)).view(P, P + 1)[:, :P]
     return comm.all_gather(cnt.to(torch.int32))
 
 
+def _send_plan(pid: torch.Tensor, P: int, T: int):
+    """pid [P*cap] → (order [P*cap], cnt [P, T]): a stable sort by
+    (shard, target) — each shard's rows grouped by target, in row order
+    within a target (argsort per shard, batched) — and the per-cell
+    counts; target ``T`` (padding) dropped."""
+    cap = pid.shape[0] // P
+    flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device, T + 1)
+    order = torch.sort(flat, stable=True).indices                     # [P*cap]
+    cnt = torch.bincount(flat, minlength=P * (T + 1)).view(P, T + 1)[:, :T]
+    return order, cnt
+
+
 def _exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
-              block: int, outcap: int):
+              block: int, outcap: int, split=None, plan=None,
+              start: int = 0, take: Optional[int] = None):
     """Group-by-target, all_to_all, compact.  Returns (counts [P] int32,
-    new leaves [P*outcap])."""
+    new leaves [P*outcap]).  With ``split`` = (slow, fast) the targets
+    are fast coordinates (``fast`` = drop) and the all_to_all runs
+    inside each slow group: the first stage of the hierarchical
+    exchange.  With ``plan`` (``_send_plan`` of ``pid``) and ``take``
+    only the rank slice [start, start + take) of every (sender, target)
+    cell moves: one chunked round, every round cut from the one sort."""
     P = comm.world
+    T = P if split is None else int(split[1])      # targets per shard
+    a2a = ({} if split is None else {"split": split, "axis": "fast"})
     dev = pid.device
     cap = pid.shape[0] // P
     shard_base = torch.arange(P, device=dev) * cap                    # [P]
-    # stable sort by (shard, target): each shard's rows grouped by target,
-    # in row order within a target — argsort per shard, batched
-    flat = pid.to(torch.int64) + _shard_offsets(P, cap, dev)
-    order = torch.sort(flat, stable=True).indices                     # [P*cap]
-    cnt = torch.bincount(flat, minlength=P * (P + 1)).view(P, P + 1)[:, :P]
-    offs = torch.cumsum(cnt, 1) - cnt                                 # [P, P]
+    order, cnt = _send_plan(pid, P, T) if plan is None else plan
+    offs = torch.cumsum(cnt, 1) - cnt                                 # [P, T]
+    if take is not None:
+        offs = offs + start
+        cnt = torch.clamp(cnt - start, 0, take)
     jj = torch.arange(block, device=dev)
-    gather_pos = torch.clamp(offs[:, :, None] + jj, 0, cap - 1)       # [P,P,blk]
+    gather_pos = torch.clamp(offs[:, :, None] + jj, 0, cap - 1)       # [P,T,blk]
     send_idx = order[(shard_base[:, None, None] + gather_pos).reshape(-1)]
-    valid_send = (jj < cnt[:, :, None]).reshape(-1)                  # [P*P*blk]
+    valid_send = (jj < cnt[:, :, None]).reshape(-1)                  # [P*T*blk]
 
     # the 8-int header of mpi_channel.cpp, as one exchange of counts
-    rcnt = comm.all_to_all(cnt)                                       # [P_dst, P_src]
-    recv_valid = (jj < rcnt[:, :, None]).reshape(P, P * block)
-    pos = torch.cumsum(recv_valid, 1) - 1
-    slots = torch.where(recv_valid & (pos < outcap), pos, outcap)
-    vidx = torch.zeros((P, outcap + 1), dtype=torch.int64, device=dev)
-    vidx.scatter_(1, slots, torch.arange(P * block, device=dev).expand(P, -1))
-    vidx = vidx[:, :outcap] + (torch.arange(P, device=dev) * (P * block))[:, None]
+    rcnt = comm.all_to_all(cnt, **a2a)                                # [P, T_src]
+    recv_valid = (jj < rcnt[:, :, None]).reshape(P, T * block)
+    vidx, _ = _compact_rows(recv_valid, outcap)
+    vidx = vidx + (torch.arange(P, device=dev) * (T * block))[:, None]
     newcount = rcnt.sum(1).to(torch.int32)                            # [P]
     keep = (torch.arange(outcap, device=dev) < newcount[:, None]).reshape(-1)
 
     outs: List[torch.Tensor] = [None] * len(leaves)
     for M, positions, dtypes in ops_gather.pack_columns(leaves):
         C = M.shape[1]
-        S = torch.where(valid_send[:, None], M[send_idx], 0)          # [P*P*blk, C]
-        R = comm.all_to_all(S.view(P, P, block, C))                   # [P_dst, P_src, blk, C]
-        got = R.view(P * P * block, C)[vidx.reshape(-1)]              # [P*outcap, C]
+        S = torch.where(valid_send[:, None], M[send_idx], 0)          # [P*T*blk, C]
+        R = comm.all_to_all(S.view(P, T, block, C), **a2a)           # [P, T_src, blk, C]
+        got = R.view(P * T * block, C)[vidx.reshape(-1)]              # [P*outcap, C]
         got = torch.where(keep[:, None], got, 0)
         for col, p in zip(ops_gather.unpack_columns(got, dtypes), positions):
             outs[p] = col
     return newcount, outs
+
+
+def _ring_exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
+                   block: int, outcap: int, split=None):
+    """Staged ring: own rows first, then T−1 ``ppermute`` rounds, round
+    r moving each shard's whole (me → me+r) cell as one [block] buffer
+    and landing it after the rows already received.  With ``split`` the
+    ring runs along the slow axis (``pid`` holds slow coordinates, the
+    slow extent = drop): the second stage of the hierarchical exchange.
+    Returns (counts [P] int32, new leaves [P*outcap])."""
+    P = comm.world
+    dev = pid.device
+    if split is None:
+        T, me, perm = P, torch.arange(P, device=dev), {}
+    else:
+        T = int(split[0])
+        me = torch.arange(P, device=dev) // int(split[1])
+        perm = {"split": split, "axis": "slow"}
+    cap = pid.shape[0] // P
+    pid2 = pid.view(P, cap).to(torch.int64)
+    iota = torch.arange(block, device=dev)
+    groups = ops_gather.pack_columns(leaves)
+    # round 0 (no wire): own rows compact straight into the result
+    vidx0, total = _compact_rows(pid2 == me[:, None], outcap)
+    keep0 = torch.arange(outcap, device=dev) < total[:, None]
+    accs = []
+    for M, _, _ in groups:
+        acc = torch.zeros((P, outcap + 1, M.shape[1]), dtype=M.dtype,
+                          device=dev)
+        acc[:, :outcap] = _where_rows(keep0, _gather_rows(M, P, vidx0))
+        accs.append(acc)
+    for r in range(1, T):
+        sel = pid2 == ((me + r) % T)[:, None]
+        idx, cnt = _compact_rows(sel, block)
+        valid = iota < cnt[:, None]
+        rcnt = comm.ppermute(cnt, r, **perm)
+        rvalid = iota < rcnt[:, None]
+        slots = torch.where(rvalid, total[:, None] + iota, outcap)
+        slots = torch.clamp(slots, max=outcap)
+        for (M, _, _), acc in zip(groups, accs):
+            S = _where_rows(valid, _gather_rows(M, P, idx))
+            R = _where_rows(rvalid, comm.ppermute(S, r, **perm))
+            _scatter_rows(acc, slots, R)
+        total = total + rcnt
+    outs: List[torch.Tensor] = [None] * len(leaves)
+    for (_, positions, dtypes), acc in zip(groups, accs):
+        A = acc[:, :outcap].reshape(P * outcap, acc.shape[2])
+        for col, p in zip(ops_gather.unpack_columns(A, dtypes), positions):
+            outs[p] = col
+    return total.to(torch.int32), outs
+
+
+def _allgather_exchange(comm, pid: torch.Tensor,
+                        leaves: Sequence[torch.Tensor], outcap: int):
+    """Replicate-and-filter: every shard's block gathered to every shard
+    (pid lane included), each shard keeping the rows targeted at it in
+    gathered order, which is sender order."""
+    P = comm.world
+    dev = pid.device
+    cap = pid.shape[0] // P
+    gpid = comm.all_gather(pid.view(P, cap)).reshape(-1).to(torch.int64)
+    # each receiver's rows of the gathered block, in gathered order: a
+    # stable sort by target lists every receiver's rows contiguously
+    order = torch.sort(gpid, stable=True).indices
+    cnt = torch.bincount(gpid, minlength=P + 1)[:P]
+    offs = torch.cumsum(cnt, 0) - cnt
+    jj = torch.arange(outcap, device=dev)
+    vidx = order[torch.clamp(offs[:, None] + jj, max=P * cap - 1)]
+    keep = (jj < cnt[:, None]).reshape(-1)
+    outs: List[torch.Tensor] = [None] * len(leaves)
+    for M, positions, dtypes in ops_gather.pack_columns(leaves):
+        G = comm.all_gather(M.view(P, cap, M.shape[1])).reshape(P * cap, -1)
+        got = torch.where(keep[:, None], G[vidx.reshape(-1)], 0)
+        for col, p in zip(ops_gather.unpack_columns(got, dtypes), positions):
+            outs[p] = col
+    return cnt.to(torch.int32), outs
+
+
+def _fold(acc, acc_cnt, rleaves, rcnt, P: int, incap: int, outcap: int):
+    """Receiver-side concatenation of one round's compacted output into
+    the result block: per shard, the round's ``rcnt`` rows land at
+    offset ``acc_cnt`` (rounds back to back).  ``acc`` None starts a
+    zeroed block.  The block is kept as ``[P, outcap + 1, ...]`` (row
+    ``outcap`` drops) until :func:`_fold_done`.  Returns (acc_cnt,
+    acc)."""
+    dev = rcnt.device
+    if acc is None:
+        acc_cnt = torch.zeros_like(rcnt)
+        acc = [torch.zeros((P, outcap + 1) + tuple(lf.shape[1:]),
+                           dtype=lf.dtype, device=dev) for lf in rleaves]
+    idx = torch.arange(incap, device=dev)
+    keep = idx < rcnt[:, None]
+    tgt = torch.clamp(torch.where(keep, acc_cnt[:, None] + idx, outcap),
+                      max=outcap)
+    for a, lf in zip(acc, rleaves):
+        _scatter_rows(a, tgt, _where_rows(
+            keep, lf.view((P, incap) + tuple(lf.shape[1:]))))
+    return acc_cnt + rcnt, acc
+
+
+def _fold_done(acc, P: int, outcap: int) -> List[torch.Tensor]:
+    """The folded result block as flat ``[P*outcap]`` leaves."""
+    return [a[:, :outcap].reshape((P * outcap,) + tuple(a.shape[2:]))
+            for a in acc]
+
+
+def _fold_combine(spec, P: int, parts, out_cap: int):
+    """Receiver-side fold of chunk rounds that COMBINES partial-group
+    rows by key: per shard, the local groupby over the concatenated
+    ``parts`` (each ``(count [P], leaves [P*cap_i])``) with the combine
+    ops (sum of sums / counts, min of mins, max of maxes), so the result
+    holds one row per distinct group.  ``spec`` = ``(key_slots,
+    val_slots)`` over the wire leaf positions.  Output dtypes are the
+    wire dtypes; rows past the group count are unspecified.  Returns
+    (groups [P] int32, leaves [P*out_cap]).
+
+    One groupby per shard, each writing its slice of the result in
+    place: only one shard's sort and scans are live at a time.  (One
+    groupby over (shard, keys) for all P shards took the same time on
+    the H100 and held every shard's working set at once: 6.9 GB against
+    1.1 GB at SF 10, PERF.md run H.)"""
+    from ..ops import groupby as ops_groupby
+    key_slots, val_slots = spec
+    first = parts[0][1]
+    dev = parts[0][0].device
+    outs = [torch.zeros((P * out_cap,) + tuple(lf.shape[1:]), dtype=lf.dtype,
+                        device=dev) for lf in first]
+    ngs = torch.zeros(P, dtype=torch.int32, device=dev)
+    for s in range(P):
+        leaves = []
+        for j in range(len(first)):
+            pieces = [lvs[j][s * (lvs[j].shape[0] // P):
+                             (s + 1) * (lvs[j].shape[0] // P)]
+                      for _, lvs in parts]
+            leaves.append(torch.cat(pieces) if len(pieces) > 1
+                          else pieces[0])
+        row_valid = torch.cat([
+            torch.arange(lvs[0].shape[0] // P, device=dev) < cnt[s]
+            for cnt, lvs in parts])
+        kpairs = tuple((leaves[d], None if v is None else leaves[v])
+                       for d, v in key_slots)
+        key_idx, aggs, agg_valids, ng = ops_groupby.groupby_aggregate(
+            tuple(d for d, _ in kpairs), tuple(v for _, v in kpairs),
+            tuple(leaves[d] for d, _v, _op in val_slots),
+            tuple(None if v is None else leaves[v]
+                  for _d, v, _op in val_slots),
+            tuple(op for _d, _v, op in val_slots),
+            row_valid=row_valid, out_capacity=out_cap)
+        keys_out = ops_gather.take_many(kpairs, key_idx, fill_null=False)
+        rows = slice(s * out_cap, (s + 1) * out_cap)
+        for (d, v), (kd, kv) in zip(key_slots, keys_out):
+            outs[d][rows] = kd
+            if v is not None:
+                outs[v][rows] = kv
+        for (d, v, _op), arr, av in zip(val_slots, aggs, agg_valids):
+            outs[d][rows] = arr
+            if v is not None:
+                outs[v][rows] = True if av is None else av
+        ngs[s] = ng
+    return ngs, outs
+
+
+# ---------------------------------------------------------------------------
+# accounting, choice, instrumentation
+# ---------------------------------------------------------------------------
+
+def _account(counts: np.ndarray, rbytes: int, combine=None,
+             owner: str = "", split=None) -> None:
+    """Exchange-volume accounting: the count matrix's off-diagonal as
+    ``shuffle.rows_sent`` / ``shuffle.bytes_sent`` (``owner="groupby"``
+    also ``groupby.bytes_moved``); a partial-group payload (``combine``)
+    counts every partial row as ``groupby.partials_rows``; otherwise,
+    under a non-trivial ``(slow, fast)`` split, the rows crossing slow
+    groups as ``shuffle.rows_sent_slow``."""
+    moved = int(counts.sum() - np.trace(counts))
+    trace.count("shuffle.rows_sent", moved)
+    trace.count("shuffle.bytes_sent", moved * rbytes)
+    if owner == "groupby":
+        trace.count("groupby.bytes_moved", moved * rbytes)
+    if combine is not None:
+        trace.count("groupby.partials_rows", int(counts.sum()))
+    elif split is not None:
+        slow, fast = split
+        c = np.asarray(counts)
+        if slow > 1 and fast > 1 and c.shape[0] == slow * fast:
+            slow_of = np.arange(slow * fast) // fast
+            cross = slow_of[:, None] != slow_of[None, :]
+            trace.count("shuffle.rows_sent_slow", int(c[cross].sum()))
+
+
+def _axis_split_of(ctx):
+    """``topology.axis_split(ctx)`` when NON-trivial and tiling the
+    world, else None (flat: no hierarchy to price)."""
+    from .. import topology
+    slow, fast = topology.axis_split(ctx)
+    if slow > 1 and fast > 1 and slow * fast == ctx.get_world_size():
+        return (slow, fast)
+    return None
+
+
+def _warn_skew(Pn: int, sig, per_recv: np.ndarray, outcap: int) -> None:
+    """The hot-key-skew warning, once per shuffle signature: every
+    shard's receive block is sized to the hottest receiver."""
+    mean_recv = max(float(per_recv.mean()), 1.0)
+    if not (Pn > 1 and outcap >= 65536 and outcap > 4 * mean_recv):
+        return
+    _warn_once(
+        ("shuffle.skew", sig),
+        "skewed exchange: hottest receiver gets %d rows "
+        "(%.1fx the %.0f mean); every shard's receive block is "
+        "bucketed to %d — peak memory ~%.1fx the data "
+        "(warned once per shuffle signature per session)",
+        int(per_recv.max(initial=0)), per_recv.max() / mean_recv,
+        mean_recv, outcap, outcap / mean_recv)
+
+
+def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
+            budget: int, combine, ctx=None):
+    """Run the costed chooser for one sized exchange: a feasible
+    single-shot takes the fast path; otherwise enumerate the candidate
+    lowerings (a combine-spec payload only those that fold by key) and
+    pick under ``budget``, honouring the ``CYLON_EXCHANGE_STRATEGY``
+    override.  Returns ``(price, reason, feasible)``."""
+    from ..config import exchange_strategy
+    forced = exchange_strategy()
+    split = _axis_split_of(ctx) if ctx is not None else None
+    if forced is None:
+        # fast path: a feasible single-shot wins the (rounds, wire,
+        # catalogue) order outright
+        block, outcap, _ = cost.exchange_sizes(counts)
+        ss = cost.price_single_shot(Pn, block, outcap, rbytes)
+        if ss.peak_bytes <= budget:
+            ss = cost.slow_share(ss, Pn, split)
+            return ss, f"{ss.describe()} <= budget {budget} B", True
+    cands = cost.enumerate_strategies(Pn, cap, counts, rbytes, budget,
+                                      staged_ok=combine is None,
+                                      split=split)
+    return cost.choose(cands, budget, forced)
+
+
+def _note_choice(choice, reason: str, nparts=None) -> None:
+    """Record one chooser decision: the per-strategy counter, the slow
+    axis bytes, a downgrade (counter + flight-recorder event) and the
+    plan annotation ``exchange=<strategy>: <reason>``."""
+    from ..observe import flightrec
+    trace.count(cost.strategy_counter(choice.strategy))
+    if nparts is not None and choice.slow_wire_bytes:
+        trace.count("shuffle.bytes_sent_slow",
+                    int(choice.slow_wire_bytes) * int(nparts))
+    if choice.strategy != cost.SINGLE_SHOT:
+        trace.count("shuffle.strategy.downgrades")
+        flightrec.note("exchange_choice", strategy=choice.strategy,
+                       reason=reason[:200])
+    plan_check.annotate_append("exchange", f"{choice.strategy}: {reason}")
+
+
+def _watchdog_dispatch(point: str, thunk, device):
+    """Bounded-timeout guard around one collective dispatch.  With
+    ``CYLON_EXCHANGE_TIMEOUT_MS`` set, the dispatch and its completion
+    wait run on a helper thread, on the CALLER's CUDA stream (so its
+    work stays ordered with the caller's), waited with
+    ``torch.cuda.synchronize``; a breach raises a
+    :class:`faults.TransientFault` naming the point and bumps
+    ``shuffle.watchdog_timeouts``.  The wedged helper is left behind (a
+    daemon): a stuck collective cannot be interrupted from the host.
+    Off (the default) this is one knob read and a direct call."""
+    from ..config import exchange_timeout_ms
+    timeout_ms = exchange_timeout_ms()
+    if not timeout_ms:
+        return thunk()
+    cuda = device.type == "cuda"
+    stream = torch.cuda.current_stream(device) if cuda else None
+    box: dict = {}
+    done = threading.Event()
+
+    def run():
+        try:
+            if cuda:
+                with torch.cuda.stream(stream):
+                    out = thunk()
+                torch.cuda.synchronize(device)
+            else:
+                out = thunk()
+            box["out"] = out
+        except BaseException as e:  # re-raised on the caller's thread
+            box["err"] = e
+        finally:
+            done.set()
+
+    th = threading.Thread(target=run, name="cylon-exchange-watchdog",
+                          daemon=True)
+    th.start()
+    if not done.wait(timeout_ms / 1e3):
+        from .. import faults
+        trace.count("shuffle.watchdog_timeouts")
+        raise faults.TransientFault(point, detail=(
+            f"exchange watchdog: collective dispatch at {point!r} "
+            f"exceeded CYLON_EXCHANGE_TIMEOUT_MS={timeout_ms} ms — "
+            "treating the exchange as wedged (transient class)"))
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
 
 
 def _devmem_before(ctx):
@@ -108,64 +506,306 @@ def _devmem_before(ctx):
     return devmem.snapshot(ctx.device)
 
 
-def _note_exchange_peak(ctx, dm0) -> None:
-    """Under a plan capture, annotate the exchange just run with the
-    device memory it was observed to take (``peak=observed N bytes``)
-    and watermark it as ``devmem.peak_bytes``."""
+def _note_exchange_ms(ctx, choice, dm0) -> None:
+    """Under a plan capture, annotate the exchange just run with its
+    priced peak against the device memory it was observed to take
+    (``peak=<strategy>: predicted N / observed M bytes``) and watermark
+    the observation as ``devmem.peak_bytes``.  The predicted-time half
+    needs a probed mesh profile (``parallel/meshprobe.py``), which the
+    port does not have: it stays silent, as in the JAX package without
+    a probe."""
     if dm0 is None:
         return
-    obs = devmem.observed_exchange_bytes(dm0, devmem.snapshot(ctx.device))
+    after = devmem.snapshot(ctx.device)
+    obs = devmem.observed_exchange_bytes(dm0, after)
     if obs is not None:
         trace.count_max("devmem.peak_bytes", obs)
-        plan_check.annotate_append("peak", f"observed {obs} bytes "
-                                           f"({dm0.source})")
+        plan_check.annotate_append(
+            "peak", f"{choice.strategy}: predicted {choice.peak_bytes} / "
+                    f"observed {obs} bytes ({after.source})")
 
+
+# ---------------------------------------------------------------------------
+# the staged lowerings
+# ---------------------------------------------------------------------------
+
+def _staged_exchange(ctx, pid, leaves, choice, outcap_total: int):
+    """Dispatch one ring / allgather exchange (sized by the chooser:
+    ``choice.sizes`` = (block | cap, outcap))."""
+    comm = ctx.comm
+    trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
+    dm0 = _devmem_before(ctx)
+    with trace.span_sync("shuffle.exchange") as sp:
+        if choice.strategy == cost.RING:
+            block = choice.sizes[0]
+            newcounts, outs = _watchdog_dispatch(
+                "shuffle.exchange", lambda: _ring_exchange(
+                    comm, pid, leaves, block, outcap_total), ctx.device)
+        else:
+            newcounts, outs = _watchdog_dispatch(
+                "shuffle.exchange", lambda: _allgather_exchange(
+                    comm, pid, leaves, outcap_total), ctx.device)
+        sp.sync(outs)
+    _note_exchange_ms(ctx, choice, dm0)
+    return list(outs), newcounts, outcap_total
+
+
+def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
+                      budget: int, outcap_total: int, combine=None,
+                      plan=None, choice=None):
+    """Run the K bounded rounds and fold them into the result block.
+    Each round's transient is priced ≤ budget (best-effort once the
+    per-cell floor C = 1 is reached); the result block is the shuffle's
+    RESULT, the capacity single-shot returns.  Rows land round-major,
+    each round in sender order.
+
+    With a ``combine`` spec the rounds fold BY GROUP KEY
+    (:func:`_fold_combine`): the accumulator holds one row per distinct
+    group so far, sized exactly from the previous fold's group count
+    (one host read per round), so it grows with the groups, not the
+    rows received."""
+    comm, Pn = ctx.comm, ctx.get_world_size()
+    rounds, C, block, outcap_k = (plan if plan is not None else
+                                  cost.chunk_plan(Pn, counts, rbytes, budget))
+    trace.count("shuffle.chunked")
+    trace.count("shuffle.chunked_rounds", rounds)
+    priced_k = cost.single_shot_bytes(Pn, (block, outcap_k), rbytes)
+    trace.count_max("shuffle.exchange_bytes_peak", priced_k)
+    if priced_k > budget:
+        _warn_once(
+            ("shuffle.budget_floor", str(ctx.device), Pn),
+            "memory budget %d B is below the smallest possible exchange "
+            "round (%d B at 1 row/cell) — running best-effort chunked "
+            "rounds anyway", budget, priced_k)
+    plan_check.annotate(
+        degraded=f"chunked shuffle: {rounds} rounds of <= {C} rows/cell "
+                 f"({priced_k} B/round vs {budget} B budget)")
+    dm0 = _devmem_before(ctx)
+    with trace.span_sync("shuffle.exchange") as sp:
+        # one sort for every round: round k moves the rank slice
+        # [k·C, (k+1)·C) of each (sender, target) cell, a contiguous run
+        # of the sorted cell
+        plan_k = _send_plan(pid, Pn, Pn)
+        acc_cnt = acc = None
+        acc_cap = outcap_total
+        acc_groups = None  # per-shard distinct-group counts (combine)
+        for k in range(rounds):
+            cnt_k, outs_k = _watchdog_dispatch(
+                "shuffle.exchange",
+                lambda k=k: _exchange(comm, pid, leaves, block, outcap_k,
+                                      plan=plan_k, start=k * C, take=C),
+                ctx.device)
+            if combine is None:
+                acc_cnt, acc = _fold(acc, acc_cnt, outs_k, cnt_k, Pn,
+                                     outcap_k, outcap_total)
+                continue
+            trace.count("shuffle.fold_combined")
+            if acc is None:
+                # round 0 already combines: groups ≤ received rows, so
+                # capacity outcap_k can never overflow
+                prev_cap, out_cap = 0, outcap_k
+                acc_cnt, acc = _fold_combine(combine, Pn, [(cnt_k, outs_k)],
+                                             out_cap)
+            else:
+                # exact: groups after the fold ≤ groups in the
+                # accumulator + rows this round adds
+                recv_k = np.minimum(np.maximum(counts - k * C, 0),
+                                    C).sum(axis=0)
+                bound = acc_groups + recv_k
+                prev_cap = acc_cap
+                out_cap = next_bucket(max(int(bound.max(initial=0)), 1),
+                                      minimum=8)
+                acc_cnt, acc = _fold_combine(
+                    combine, Pn, [(acc_cnt, acc), (cnt_k, outs_k)], out_cap)
+            acc_cap = out_cap
+            # the fold's transient: the round blocks + both accumulator
+            # generations live at once
+            trace.count_max("shuffle.exchange_bytes_peak",
+                            priced_k + (prev_cap + acc_cap) * rbytes)
+            if k + 1 < rounds:
+                acc_groups = read_counts(acc_cnt)
+        if combine is None:
+            acc = _fold_done(acc, Pn, outcap_total)
+        sp.sync(acc)
+    if choice is not None:
+        _note_exchange_ms(ctx, choice, dm0)
+    if combine is not None:
+        return list(acc), acc_cnt, acc_cap
+    return acc, acc_cnt, outcap_total
+
+
+def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
+                           rbytes: int, outcap_total: int, choice,
+                           combine=None):
+    """Dispatch one two-level exchange (``hierarchical`` /
+    ``hierarchical-combine``, sized by ``cost.hier_plan``): a fast-axis
+    all_to_all routes every row (its pid riding as an extra int32 lane)
+    to its target's fast coordinate, then a slow-axis ring keyed on
+    ``pid // F`` delivers the slow hop.  The combine spelling folds the
+    first stage's landing by (keys, pid) BEFORE the slow axis, and each
+    slow round's received cell into the accumulator, so the slow edge
+    carries per-group partials only (``groupby.axis_precombine_rows``)."""
+    comm, Pn = ctx.comm, ctx.get_world_size()
+    S, F, block1, outcap1, block2, _outcap_ss = choice.sizes
+    split = (S, F)
+    dev = pid.device
+    trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
+    dm0 = _devmem_before(ctx)
+    try:
+        with trace.span_sync("shuffle.exchange") as sp:
+            tf = torch.where(pid < Pn, pid % F, F).to(torch.int32)
+            cnt1, outs1 = _watchdog_dispatch(
+                "shuffle.exchange", lambda: _exchange(
+                    comm, tf, list(leaves) + [pid], block1, outcap1,
+                    split=split), dev)
+            pid_idx = len(leaves)
+            landed = outs1[pid_idx].view(Pn, outcap1).to(torch.int64)
+            valid1 = torch.arange(outcap1, device=dev) < cnt1[:, None]
+            if combine is None:
+                pid2 = torch.where(valid1 & (landed < Pn), landed // F,
+                                   S).reshape(-1)
+                cnt2, outs2 = _watchdog_dispatch(
+                    "shuffle.exchange", lambda: _ring_exchange(
+                        comm, pid2, outs1[:pid_idx], block2, outcap_total,
+                        split=split), dev)
+                sp.sync(outs2)
+                return list(outs2), cnt2, outcap_total
+            # combine path: axis-local pre-combine, then per-round folds
+            trace.count("groupby.axis_precombine")
+            key_slots, val_slots = combine
+            spec2 = (tuple(key_slots) + ((pid_idx, None),),
+                     tuple(val_slots))
+            ngc, comb = _fold_combine(spec2, Pn, [(cnt1, outs1)], outcap1)
+            trace.count("shuffle.fold_combined")
+            cpid = comb[pid_idx].view(Pn, outcap1).to(torch.int64)
+            cvalid = torch.arange(outcap1, device=dev) < ngc[:, None]
+            ts = torch.where(cvalid & (cpid < Pn), cpid // F, S)  # [P, cap]
+            c2 = torch.stack([(ts == s).sum(1) for s in range(S)], 1)
+            c2c = read_counts(comm.all_gather(c2.to(torch.int32)))
+            slow_of = np.arange(Pn) // F
+            fast_of = np.arange(Pn) % F
+            cross = c2c.copy()
+            cross[np.arange(Pn), slow_of] = 0
+            moved_slow = int(cross.sum())
+            trace.count("shuffle.rows_sent_slow", moved_slow)
+            trace.count("groupby.axis_precombine_rows", moved_slow)
+            block_own = next_bucket(
+                max(int(c2c[np.arange(Pn), slow_of].max(initial=0)), 1),
+                minimum=8)
+            block_x = next_bucket(max(int(cross.max(initial=0)), 1),
+                                  minimum=8)
+            me = torch.arange(Pn, device=dev) // F
+            per_recv = np.zeros((Pn,), np.int64)
+            acc = acc_cnt = None
+            acc_cap = 0
+            for r in range(S):
+                blk_r = block_own if r == 0 else block_x
+                src = ((slow_of - r) % S) * F + fast_of
+                per_recv += c2c[src, slow_of]
+                out_cap = next_bucket(max(int(per_recv.max(initial=0)), 1),
+                                      minimum=8)
+                rcnt, cells = _watchdog_dispatch(
+                    "shuffle.exchange",
+                    lambda blk=blk_r, rr=r: _slow_cell(
+                        comm, ts, comb, me, S, rr, blk, split), dev)
+                parts = ([(rcnt, cells)] if acc is None
+                         else [(acc_cnt, acc), (rcnt, cells)])
+                acc_cnt, acc = _fold_combine(spec2, Pn, parts, out_cap)
+                trace.count("shuffle.fold_combined")
+                trace.count_max("shuffle.exchange_bytes_peak",
+                                choice.peak_bytes
+                                + (acc_cap + out_cap) * rbytes)
+                acc_cap = out_cap
+            sp.sync(acc)
+            return list(acc[:pid_idx]), acc_cnt, acc_cap
+    finally:
+        _note_exchange_ms(ctx, choice, dm0)
+
+
+def _slow_cell(comm, ts, leaves, me, S: int, r: int, block: int, split):
+    """One slow-ring round of the hierarchical COMBINE path: each shard
+    compacts its rows bound for slow group (me + r) % S into a [block]
+    cell and (r > 0) permutes it r hops along the slow axis.  Returns
+    (received count [P], received leaves [P*block])."""
+    P = comm.world
+    dev = ts.device
+    idx, cnt = _compact_rows(ts == ((me + r) % S)[:, None], block)
+    valid = torch.arange(block, device=dev) < cnt[:, None]
+    perm = {"split": split, "axis": "slow"}
+    rcnt = cnt if r == 0 else comm.ppermute(cnt, r, **perm)
+    rvalid = torch.arange(block, device=dev) < rcnt[:, None]
+    outs: List[torch.Tensor] = [None] * len(leaves)
+    for M, positions, dtypes in ops_gather.pack_columns(leaves):
+        C = _where_rows(valid, _gather_rows(M, P, idx))
+        if r:
+            C = _where_rows(rvalid, comm.ppermute(C, r, **perm))
+        C = C.reshape(P * block, M.shape[1])
+        for col, p in zip(ops_gather.unpack_columns(C, dtypes), positions):
+            outs[p] = col
+    return rcnt.to(torch.int32), outs
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
 
 def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
-                   owner: str = "", combine: bool = False
+                   owner: str = "", combine=None
                    ) -> Tuple[List[torch.Tensor], torch.Tensor, int]:
     """Repartition rows of flat ``[P*cap]`` ``leaves`` by target ids ``pid``
     (int32 ``[P*cap]``; padding rows carry P and are dropped).  A leaf with
     trailing dimensions (``[P*cap, M]`` sketch state) moves by row.
 
-    Counts the rows that leave their shard (the count matrix's
-    off-diagonal) as ``shuffle.rows_sent`` and times the row width as
-    ``shuffle.bytes_sent``; ``owner="groupby"`` also adds the bytes to
-    ``groupby.bytes_moved``, and ``combine`` (a partial-group table)
-    counts every partial row as ``groupby.partials_rows``.  Spans:
-    ``shuffle.counts`` (the count matrix) and ``shuffle.exchange`` (the
-    host read of the counts, the all_to_all and the compaction).
+    The count matrix is read once; the rows that leave their shard are
+    counted (``_account``); the costed chooser picks the lowering under
+    ``resilience.exchange_budget(ctx.device)`` (a feasible single-shot
+    keeps the fast path: the one ``all_to_all``); the chosen lowering
+    runs.  ``owner="groupby"`` attributes the bytes to
+    ``groupby.bytes_moved``; ``combine`` — the ``(key_slots, val_slots)``
+    leaf spec of a partial-group table (``dist_ops._combine_leaf_spec``)
+    — lets the chunked and hierarchical lowerings fold rounds by key.
+    Spans: ``shuffle.counts`` (the count matrix) and ``shuffle.exchange``
+    (the host read and the single-shot exchange; a degraded lowering
+    runs in a ``shuffle.exchange`` span of its own).
 
     Returns ``(new_leaves [P*outcap], counts [P], outcap)``.
     """
+    from .. import resilience
     comm = ctx.comm
+    Pn = comm.world
     trace.count("shuffle.exchanges")
     rbytes = max(row_bytes(leaves), 1)
+    split = _axis_split_of(ctx)
+    sig = (str(ctx.device), Pn, pid.shape[0])
     with trace.span("shuffle.counts"):
         cnt_dev = _counts(comm, pid)
+    budget = resilience.exchange_budget(ctx.device)
+    cap = pid.shape[0] // max(Pn, 1)
     dm0 = _devmem_before(ctx)
     with trace.span_sync("shuffle.exchange") as sp:
-        counts = read_host(cnt_dev)  # the one host read
-        moved = int(counts.sum() - np.trace(counts))
-        trace.count("shuffle.rows_sent", moved)
-        trace.count("shuffle.bytes_sent", moved * rbytes)
-        if owner == "groupby":
-            trace.count("groupby.bytes_moved", moved * rbytes)
-        if combine:
-            trace.count("groupby.partials_rows", int(counts.sum()))
-        block, outcap, _ = exchange_sizes(counts)
-        newcounts, outs = _exchange(comm, pid, leaves, block, outcap)
-        sp.sync(outs)
-    trace.count("shuffle.strategy.single_shot")
-    trace.count_max("shuffle.exchange_bytes_peak",
-                    price_single_shot(comm.world, block, outcap, rbytes))
-    plan_check.annotate_append("exchange", "single-shot: the one lowering")
-    _note_exchange_peak(ctx, dm0)
-    return outs, newcounts, outcap
-
-
-def price_single_shot(P: int, block: int, outcap: int, rbytes: int) -> int:
-    """Peak bytes per device of a single-shot exchange: the send and
-    receive blocks ``[P, block]`` plus the compacted ``[outcap]`` output
-    (the JAX package's ``cost.price_single_shot`` peak)."""
-    return int((2 * P * block + outcap) * rbytes)
+        counts = read_counts(cnt_dev)  # the one host read
+        _account(counts, rbytes, combine, owner, split=split)
+        block, outcap, per_recv = cost.exchange_sizes(counts)
+        _warn_skew(Pn, sig, per_recv, outcap)
+        choice, reason, _ = _choose(Pn, cap, counts, rbytes, budget,
+                                    combine, ctx=ctx)
+        if choice.strategy == cost.SINGLE_SHOT:
+            _note_choice(choice, reason, nparts=Pn)
+            newcounts, outs = _watchdog_dispatch(
+                "shuffle.exchange",
+                lambda: _exchange(comm, pid, leaves, block, outcap),
+                ctx.device)
+            sp.sync(outs)
+    if choice.strategy == cost.SINGLE_SHOT:
+        trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
+        _note_exchange_ms(ctx, choice, dm0)
+        return outs, newcounts, outcap
+    _note_choice(choice, reason, nparts=Pn)
+    if choice.strategy == cost.CHUNKED:
+        return _chunked_exchange(ctx, pid, leaves, counts, rbytes, budget,
+                                 outcap, combine, plan=choice.sizes,
+                                 choice=choice)
+    if choice.strategy in (cost.HIERARCHICAL, cost.HIER_COMBINE):
+        return _hierarchical_exchange(ctx, pid, leaves, counts, rbytes,
+                                      outcap, choice, combine)
+    return _staged_exchange(ctx, pid, leaves, choice, outcap)

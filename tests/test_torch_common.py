@@ -26,23 +26,34 @@ def jax_trace_shim(monkeypatch):
     (shuffle blocks, join, groupby and select capacities), its select
     kernel cache and its broadcast replica cache, so its capacities come
     from this call's counts (as the port's always do) rather than from an
-    earlier call of the same shape.  JAX is imported here, not at module
-    level: the card-only tests import this module on a machine without
-    JAX."""
+    earlier call of the same shape.  It clears the JAX shuffle's
+    degraded-signature state (``shuffle.clear_chunk_state``) and resets
+    its forced exchange strategy and mesh shape before and after the
+    test.  JAX is imported here, not at module level: the card-only
+    tests import this module on a machine without JAX."""
     import jax
     from jax._src import core as jcore
 
+    from cylon_tpu import config as jconfig
     from cylon_tpu.parallel import broadcast, dist_ops, shuffle
     if not hasattr(jax.core, "trace_state_clean"):
         monkeypatch.setattr(jax.core, "trace_state_clean",
                             jcore.trace_state_clean, raising=False)
+
+    def reset_exchange():
+        shuffle.clear_chunk_state()
+        jconfig.set_exchange_strategy(None)
+        jconfig.set_mesh_shape(None)
+
     shuffle._block_hints.clear()
     dist_ops._capacity_hints.clear()
     dist_ops._group_cap_hints.clear()
     dist_ops._select_cap_hints.clear()
     dist_ops._select_cache.clear()
     broadcast.clear_replica_cache()
+    reset_exchange()
     yield
+    reset_exchange()
 
 
 def port_table_from_jax(table, device="cpu"):

@@ -696,3 +696,99 @@ def test_analyze_join_on_card(card):
                if n.runtime["depth"] == 1) == rep.totals["bytes_moved"] \
         == c["shuffle.bytes_sent"] + c.get("broadcast.bytes_sent", 0) > 0
     assert rep.nodes[0].runtime["decision"] == "shuffle"
+
+
+def _lowering_rows(dt):
+    """Rows per shard as sorted lists of (k, v) pairs, from the card."""
+    counts = dt.counts_host()
+    k = dt.column("k").data.cpu()
+    v = dt.column("v").data.cpu()
+    return [sorted(zip(k[s * dt.cap:s * dt.cap + int(c)].tolist(),
+                       v[s * dt.cap:s * dt.cap + int(c)].tolist()))
+            for s, c in enumerate(counts)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,shape", [
+    ("chunked", None), ("ring", None), ("allgather", None),
+    ("hierarchical", (2, 2))])
+def test_exchange_lowering_on_card(card, strategy, shape):
+    """At 1,048,576 rows and world 4 on the card, each forced lowering
+    gives every shard the rows single-shot gives it, with the partition
+    kernel launched once; the fold-combine (chunked and
+    hierarchical-combine) gives the fused groupby's groups."""
+    from cylon_tpu_torch.parallel import dist_groupby_fused, shuffle_table
+    rng = np.random.default_rng(61)
+    n = 1 << 20
+    ctx = pt.CylonContext(device=card, world=4)
+    t = pt.Table.from_columns(ctx, {
+        "k": rng.integers(0, 1 << 18, n).astype(np.int32),
+        "v": rng.random(n)})
+    dt = DTable.from_table(ctx, t)
+    want = _lowering_rows(shuffle_table(dt, ["k"]))
+    aggs = [("v", "sum"), ("v", "count"), ("v", "max")]
+    gwant = port_rows(dist_groupby_fused(dt, ["k"], aggs,
+                                         mode="pre-aggregate"))
+    tconfig.set_exchange_strategy(strategy)
+    tconfig.set_mesh_shape(shape)
+    trace.enable_counters()
+    trace.reset()
+    try:
+        hash_cuda.launches = 0
+        got = shuffle_table(dt, ["k"])
+        assert hash_cuda.launches == 1
+        assert _lowering_rows(got) == want
+        c = trace.counters()
+        assert c[f"shuffle.strategy.{strategy}"] == 1
+        if strategy in ("chunked", "hierarchical"):
+            if strategy == "hierarchical":
+                tconfig.set_exchange_strategy("hierarchical-combine")
+            trace.reset()
+            gg = dist_groupby_fused(dt, ["k"], aggs, mode="pre-aggregate")
+            assert trace.counters()["shuffle.fold_combined"] >= 1
+            assert_rows_close(port_rows(gg), gwant, float_rtols(gg))
+    finally:
+        tconfig.set_exchange_strategy(None)
+        tconfig.set_mesh_shape(None)
+        trace.disable_counters()
+        trace.reset()
+
+
+@pytest.mark.gpu
+def test_watchdog_dispatch_runs_on_the_callers_stream(card):
+    """Under ``CYLON_EXCHANGE_TIMEOUT_MS`` the dispatch runs on a helper
+    thread but on the caller's CUDA stream, and its result is complete
+    when the caller gets it; a whole shuffle under the watchdog gives
+    the rows it gives without, with no timeout counted."""
+    import threading
+    from cylon_tpu_torch.parallel import shuffle as tshuffle
+    from cylon_tpu_torch.parallel import shuffle_table
+    side = torch.cuda.Stream(card)
+    seen = {}
+
+    def thunk():
+        seen["thread"] = threading.current_thread().name
+        seen["stream"] = torch.cuda.current_stream(card)
+        x = torch.ones(1 << 22, device=card)
+        return (x * 2).sum()
+
+    prev = tconfig.set_exchange_timeout_ms(60_000)
+    trace.enable_counters()
+    trace.reset()
+    try:
+        with torch.cuda.stream(side):
+            out = tshuffle._watchdog_dispatch("shuffle.exchange", thunk,
+                                              card)
+        assert seen["thread"] == "cylon-exchange-watchdog"
+        assert seen["stream"] == side
+        assert float(out) == 2.0 * (1 << 22)
+        dt = _sort_on_card(card)
+        tconfig.set_exchange_timeout_ms(None)
+        want = _lowering_rows(shuffle_table(dt, ["k"]))
+        tconfig.set_exchange_timeout_ms(60_000)
+        assert _lowering_rows(shuffle_table(dt, ["k"])) == want
+        assert trace.counters().get("shuffle.watchdog_timeouts", 0) == 0
+    finally:
+        tconfig.set_exchange_timeout_ms(prev)
+        trace.disable_counters()
+        trace.reset()

@@ -418,3 +418,71 @@ def check_analyzed_optimized(results, q: str, world: int) -> None:
 def analyzed_param(names):
     return pytest.mark.parametrize(
         "q,world", [(q, w) for q in names for w in ANALYZE_WORLDS])
+
+
+# ---------------------------------------------------------------------------
+# the 22 queries under a tight exchange budget
+# (tests/test_torch_budget_tpch_*.py)
+# ---------------------------------------------------------------------------
+
+# bytes per shard: below the single-shot price of most of the queries'
+# exchanges at this scale, above the floor of their chunked rounds
+TIGHT_BUDGET = 1 << 14
+
+
+def run_budget(names, budget=TIGHT_BUDGET):
+    """``{(query, 8): {"got", "want", "decisions"}}``: both packages'
+    ``analyze`` of each query with the device memory budget set to
+    ``budget`` in both, and the port's ``dist_ops.decisions``."""
+    from cylon_tpu import config as jconfig
+    from cylon_tpu.parallel import shuffle as jshuffle
+
+    def one(base, kw, jctx, jt, tctx, tt):
+        jshuffle.clear_chunk_state()
+        tdist_ops.decisions.clear()
+        r = _analyzed(base, kw, jctx, jt, tctx, tt)
+        r["decisions"] = dict(tdist_ops.decisions)
+        return r
+
+    jprev = jconfig.set_device_memory_budget(budget)
+    tprev = tconfig.set_device_memory_budget(budget)
+    try:
+        return _sweep(names, one, worlds=ANALYZE_WORLDS)
+    finally:
+        jconfig.set_device_memory_budget(jprev)
+        tconfig.set_device_memory_budget(tprev)
+        jshuffle.clear_chunk_state()
+
+
+def _join_decisions(nodes) -> dict:
+    """The join paths a report's nodes took, in ``dist_ops.decisions``
+    form: ``join.<decision>`` per ``dist_join`` node, ``semi.<decision>``
+    per semi / anti join node (the JAX package keeps no decisions
+    counter; its nodes carry the same decisions)."""
+    out: dict = {}
+    for n in nodes:
+        family = {"dist_join": "join", "dist_semi_join": "semi",
+                  "dist_anti_join": "semi"}.get(n.op)
+        if family is not None:
+            key = f"{family}.{n.runtime['decision']}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def check_budget(results, q: str, world: int) -> None:
+    """``check_analyzed`` under the tight budget, plus every node's
+    ``exchange=`` / ``degraded=`` / ``broadcast_veto=`` annotations equal
+    to the JAX package's, and the port's ``dist_ops.decisions`` naming
+    the join paths of the JAX package's nodes."""
+    check_analyzed(results, q, world)
+    r = results[(q, world)]
+    got, want = r["got"], r["want"]
+    for g, w in zip(got.nodes, want.nodes):
+        for key in ("exchange", "degraded", "broadcast_veto"):
+            assert g.info.get(key) == w.info.get(key), (q, g.op, key)
+    taken: dict = {}
+    for k, v in r["decisions"].items():
+        if k.startswith(("join.", "semi.")):
+            k = k[:-len(".dense")] if k.endswith(".dense") else k
+            taken[k] = taken.get(k, 0) + v
+    assert taken == _join_decisions(want.nodes), (q, taken)
