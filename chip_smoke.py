@@ -69,10 +69,23 @@ partial exchange by ``l_orderkey`` at the default budget and at half its
 priced peak (the chunked fold-combine, groups equal; the exchange's own
 observed peak from EXPLAIN ANALYZE), then the 22 queries eager under a
 256 MiB per-shard budget, each equal to its default-budget result, the
-budget halving until some exchange degrades.  Every check that fails raises, so the script exits non-zero; without a
+budget halving until some exchange degrades.  The out-of-core phases:
+after the redistribution phase, on the join cell, a spill round trip of
+the left side (the card's allocated bytes fall by the leaves' bytes,
+pinned host blocks, the fault-in bit for bit, a re-spill hit; the host
+link's D2H and H2D GB/s beside the nominal 64 GB/s), the HASH join with
+the left side spilled, streamed in 4 morsels (= the oracle), and
+``shuffle_table`` and the HASH join under a forced ``staged-spill``
+(single-shot's rows in the chunked plan's order; the join = the oracle);
+at SF 10, the JAX bench's out-of-core stage (Q1, Q18 and Q11 through
+``ctx.optimize`` under ``max(192 KiB, lineitem's price // 48)``, each
+equal to its ample-budget run; Q1 again with the tier switched off), and
+after the sketch phase the fused ``l_orderkey`` and sketch ``l_suppkey``
+groupbys of spilled lineitem projections in 4 morsels, each equal to its
+resident result.  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
-on the groupby, TPC-H and redistribution paths), its time, its plain version's time and
+on the groupby, TPC-H, redistribution and spill paths), its time, its plain version's time and
 its bound.  ``--profile`` adds torch.profiler tables of device time by
 kernel (and by input shape) for the world-4 HASH and SORT joins, one
 ``dist_sort``, one ``dist_union``, the default ``orderkey`` groupby, the
@@ -83,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +109,7 @@ KEY_FRAC = 0.99             # keys uniform in [0, 0.99 n): ~1% duplicates
 REL_TOL = 1e-9              # float64 checksum sums, reordered on the card
 DEVICE = "cuda"             # every table and context of the run
 WORLD = 4                   # shards of the distributed phases
+RESIDENT = {}  # (phase, sf) -> a resident result the spilled phases match
 
 
 T0 = time.perf_counter()  # ``at=`` on every line: seconds into the run
@@ -1485,6 +1500,15 @@ def _disc_price(env):
     return env["l_extendedprice"].double() * (1.0 - env["l_discount"].double())
 
 
+# the fused groupby by l_orderkey (its aggregations and the columns that
+# compare exactly)
+FUSED_OK_AGGS = [("disc_price", "sum"), ("disc_price", "mean"),
+                 ("l_quantity", "count"), ("l_discount", "min"),
+                 ("l_shipdate", "max")]
+FUSED_OK_EXACT = ["l_orderkey", "count_l_quantity", "min_l_discount",
+                  "max_l_shipdate"]
+
+
 def phase_fused_groupby(tables, sf: float, exports, profile: bool):
     """``dist_groupby_fused`` at SF 10, world 4: ``psum`` over Q1's
     dictionary keys under Q1's shipdate filter (against numpy and the
@@ -1552,17 +1576,15 @@ def phase_fused_groupby(tables, sf: float, exports, profile: bool):
                                                 mode="psum"))
     # pre-aggregate and shuffle by l_orderkey (about 15M groups)
     keys = ["l_orderkey"]
-    aggs = [("disc_price", "sum"), ("disc_price", "mean"),
-            ("l_quantity", "count"), ("l_discount", "min"),
-            ("l_shipdate", "max")]
+    aggs = FUSED_OK_AGGS
     eager, esecs, epeak, enl = measured(lambda: dist_groupby(li, keys, aggs))
     ewant, _ = exports.submit(lambda: engine_result(eager, keys)).wait()
     del eager
     say(f"dist_groupby l_orderkey (eager) sf={sf} world={WORLD}", rows=n,
         seconds=f"{esecs:.6f}", groups=len(ewant["l_orderkey"]),
         peak_gib=f"{epeak:.2f}", kernel_launches=enl)
-    exact = ["l_orderkey", "count_l_quantity", "min_l_discount",
-             "max_l_shipdate"]
+    exact = FUSED_OK_EXACT
+    RESIDENT[("fused", sf)] = ewant
     for mode in ("pre-aggregate", "shuffle"):
         dist_ops.decisions.clear()
         out, secs, peak, nl = measured(lambda: dist_groupby_fused(
@@ -1631,6 +1653,7 @@ def phase_sketch(tables, sf: float, exports, profile: bool):
     starts = np.searchsorted(comb, groups << 32)
     sizes = np.bincount(sk)[groups]
     got, _ = t_got.wait()
+    RESIDENT[("sketch", sf)] = got
     host_s = time.perf_counter() - t0
     check(np.array_equal(got["l_suppkey"], all_groups),
           f"{label}: the {len(all_groups)} suppliers of numpy")
@@ -2150,18 +2173,19 @@ LOWERINGS = (("single-shot", None), ("chunked", None), ("ring", None),
 MIX = -7046029254386353131  # 0x9E3779B97F4A7C15 as a signed int64
 
 
-def shard_row_hashes(dt):
+def shard_row_hashes(dt, ordered: bool = False):
     """Per shard, the sorted 64-bit hashes of its rows (every column's
     4-byte words mixed), on the card: a lowering's per-shard row
-    multiset, independent of the order within the shard."""
+    multiset, independent of the order within the shard (``ordered``: in
+    the shard's row order instead)."""
     counts = dt.counts_host()
     h = torch.zeros(dt.nparts * dt.cap, dtype=torch.int64, device=DEVICE)
     for c in dt.columns:
         w = c.data.view(torch.int32).long() & 0xFFFFFFFF
         h = (h ^ w) * MIX
         h = h ^ ((h >> 29) & 0x7FFFFFFFF)
-    return [torch.sort(h[s * dt.cap:s * dt.cap + int(n)]).values
-            for s, n in enumerate(counts)]
+    rows = [h[s * dt.cap:s * dt.cap + int(n)] for s, n in enumerate(counts)]
+    return rows if ordered else [torch.sort(r).values for r in rows]
 
 
 def lowering_rounds(strategy: str, shape, counters) -> int:
@@ -2379,7 +2403,8 @@ def phase_redistribution_tpch(tables, sf: float, eager, exports):
 
     from cylon_tpu_torch import trace
     from cylon_tpu_torch import config
-    from cylon_tpu_torch.parallel import (broadcast, dist_groupby_fused,
+    from cylon_tpu_torch.parallel import (broadcast, dist_groupby,
+                                          dist_groupby_fused, dist_ops,
                                           dist_project, dist_with_column)
     from cylon_tpu_torch.tpch import QUERIES
     from cylon_tpu_torch import Type
@@ -2436,6 +2461,7 @@ def phase_redistribution_tpch(tables, sf: float, eager, exports):
     # the exchange's own transient: EXPLAIN ANALYZE samples the device
     # memory around each exchange (``peak=<strategy>: predicted P /
     # observed O bytes``)
+    observed = {}
     for name, b in (("default", None), ("half", half)):
         prev = config.set_device_memory_budget(b)
         try:
@@ -2446,8 +2472,55 @@ def phase_redistribution_tpch(tables, sf: float, eager, exports):
         check(rep.ok, f"{label}: analyzed at the {name} budget ({rep.error})")
         peaks = [n.info["peak"] for n in rep.nodes if "peak" in n.info]
         check(len(peaks) == 1, f"{label}: one exchange peak annotated")
+        observed[name] = int(re.search(r"observed (\d+) bytes",
+                                       peaks[0]).group(1))
         say(label, budget=name, analyzed="yes",
             exchange_peak=repr(peaks[0]))
+    # the fold-combine's transient at half its priced peak against the
+    # single-shot exchange's at the default budget: the analyzed windows
+    # above (a live delta when the groupby's own peak came first), then
+    # the partial table's exchange alone, the card's peak reset right
+    # before it
+    say(f"{label} fold-combine transient",
+        half_budget_chunked_bytes=observed["half"],
+        default_single_shot_bytes=observed["default"],
+        below_single_shot="yes" if observed["half"] < observed["default"]
+        else "no")
+    partial, _ = dist_ops._decompose_aggs(li, aggs)
+    part = dist_groupby(li, keys, partial, pre_aggregate=False,
+                        _local_only=True)
+    spec = dist_ops._combine_leaf_spec(part, 1, [op for _, op in partial])
+    alone = {}
+    for name, b in (("default", None), ("half", half)):
+        prev = config.set_device_memory_budget(b)
+        try:
+            trace.reset()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sh, secs = wall(lambda: dist_ops._shuffle_by_keys(
+                part, 1, combine=spec))
+            alone[name] = (torch.cuda.max_memory_allocated() - base,
+                           torch.cuda.memory_allocated() - base, secs,
+                           ",".join(k.split(".")[-1] for k in
+                                    trace.counters()
+                                    if k.startswith("shuffle.strategy.")))
+            del sh
+        finally:
+            config.set_device_memory_budget(prev)
+    say(f"{label} partial exchange alone",
+        partial_rows=int(part.counts_host().sum()),
+        default_strategy=alone["default"][3],
+        default_transient_bytes=alone["default"][0],
+        default_result_bytes=alone["default"][1],
+        default_seconds=f"{alone['default'][2]:.6f}",
+        half_budget=half, half_strategy=alone["half"][3],
+        half_transient_bytes=alone["half"][0],
+        half_result_bytes=alone["half"][1],
+        half_seconds=f"{alone['half'][2]:.6f}",
+        below_single_shot="yes" if alone["half"][0] < alone["default"][0]
+        else "no")
+    del part
     del li, got, base
     # (d) the 22 queries under a 256 MiB per-shard budget
     ctx = tables["lineitem"].ctx
@@ -2483,6 +2556,429 @@ def phase_redistribution_tpch(tables, sf: float, eager, exports):
         budget //= 2
     launches["tpch_tight"] = n_launch
     broadcast.clear_replica_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases: the out-of-core tier — the spill pool on pinned host memory, the
+# morsel join, the forced staged-spill exchange, the JAX bench's
+# out-of-core stage at SF 10, the spilled operators and the switch
+# ---------------------------------------------------------------------------
+
+HOST_LINK_BYTES_PER_S = 64e9  # PCIe Gen5 x16, nominal, per direction
+
+
+def host_link_gbps(leaves):
+    """(D2H, H2D) GB/s of ``leaves`` through pinned host blocks on the
+    spill pool's copy stream, timed by CUDA events (best of 3; the blocks
+    are allocated before timing)."""
+    from cylon_tpu_torch.spill import pool as tpool
+
+    dev = leaves[0].device
+    hosts = [tpool.pinned_empty(tuple(x.shape), x.dtype, dev) for x in leaves]
+    backs = [torch.empty_like(x) for x in leaves]
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    copy = tpool._copy_stream(dev)
+    rates = []
+    for pairs in (list(zip(hosts, leaves)), list(zip(backs, hosts))):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(copy):
+                start.record()
+                for dst, src in pairs:
+                    dst.copy_(src, non_blocking=True)
+                end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        rates.append(nbytes / (best / 1e3) / 1e9)
+    check(all(torch.equal(b, x) for b, x in zip(backs, leaves)),
+          "host link: the round trip through pinned blocks is exact")
+    return rates[0], rates[1]
+
+
+def phase_spill_roundtrip(ldata):
+    """(1) The join cell's left side at world 4 spilled to pinned host
+    blocks: the card's allocated bytes drop by at least the leaves'
+    bytes, the fault-in gives them back bit for bit, a re-spill is a hit
+    with no device read; the host link's D2H and H2D rates beside the
+    nominal 64 GB/s per direction."""
+    from cylon_tpu_torch import CylonContext, config, trace
+    from cylon_tpu_torch.parallel import DTable, broadcast
+    from cylon_tpu_torch.spill import pool as tpool
+
+    trace.enable_counters()
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    dt = DTable.from_table(ctx, to_table(ctx, ldata, None))
+    n = dt.num_rows
+    label = f"spill round trip rows={n} world={WORLD}"
+    orig = [c.data.cpu() for c in dt.columns]
+    leaf_bytes = sum(c.data.numel() * c.data.element_size()
+                     for c in dt.columns)
+    d2h, h2d = host_link_gbps([c.data for c in dt.columns])
+    broadcast.clear_replica_cache()
+    tpool.clear_pool()
+    trace.reset()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    _, spill_s = wall(dt.spill)
+    m1 = torch.cuda.memory_allocated()
+    check(dt.is_spilled and m0 - m1 >= leaf_bytes,
+          f"{label}: spill() freed {m0 - m1} B of the card, at least the "
+          f"leaves' {leaf_bytes} B")
+    check(all(d.is_pinned() for d, _ in dt._spill_entry.leaves),
+          f"{label}: the host blocks are pinned")
+    pinned = tpool.get_pool().pinned_bytes()
+    _, fault_s = wall(dt.ensure_device)
+    check(all(torch.equal(c.data.view(torch.int32).cpu(),
+                          o.view(torch.int32))
+              for c, o in zip(dt.columns, orig)),
+          f"{label}: the faulted-in leaves equal the originals bit for bit")
+    c1 = trace.counters()
+    _, respill_s = wall(dt.spill)
+    c2 = trace.counters()
+    check(c2.get("spill.respill_hits", 0) == 1
+          and c2["spill.stage_outs"] == c1["spill.stage_outs"],
+          f"{label}: the re-spill is a hit with no device read")
+    m2 = torch.cuda.memory_allocated()
+    check(m0 - m2 >= leaf_bytes, f"{label}: the re-spill freed the card")
+    say(label, leaf_bytes=leaf_bytes, host_budget=config.host_memory_budget(),
+        pinned_bytes=pinned, allocated_before=m0, allocated_spilled=m1,
+        freed_bytes=m0 - m1, spill_seconds=f"{spill_s:.6f}",
+        fault_in_seconds=f"{fault_s:.6f}", respill_seconds=f"{respill_s:.6f}",
+        spill_gbps=f"{leaf_bytes / spill_s / 1e9:.3f}",
+        fault_in_gbps=f"{leaf_bytes / fault_s / 1e9:.3f}",
+        d2h_gbps=f"{d2h:.3f}", h2d_gbps=f"{h2d:.3f}",
+        bound_gbps_per_direction=f"{HOST_LINK_BYTES_PER_S / 1e9:.0f}",
+        d2h_share_of_bound=f"{d2h * 1e9 / HOST_LINK_BYTES_PER_S:.3f}",
+        h2d_share_of_bound=f"{h2d * 1e9 / HOST_LINK_BYTES_PER_S:.3f}")
+    del dt, orig
+    tpool.clear_pool()
+    return {"d2h_gbps": d2h, "h2d_gbps": h2d}
+
+
+def phase_morsel_join(ldata, rdata, want, tag=""):
+    """(2) The world-4 HASH join of the join cell with the left side
+    spilled, under a budget that plans 4 morsels: the oracle's rows; the
+    seconds beside the resident join, the peak above the resident right
+    side, the partition-kernel launches (2 per morsel: each morsel's
+    join co-partitions both sides)."""
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType, config, trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import dist_join
+    from cylon_tpu_torch.spill import morsel as tmorsel
+    from cylon_tpu_torch.spill import pool as tpool
+
+    trace.enable_counters()
+    lt, rt = join_sides(ldata, rdata)
+    n = lt.num_rows
+    label = f"{tag}spill morsel join HASH rows={n} world={WORLD}"
+    cfg = JoinConfig(JoinType.INNER, JoinAlgorithm.HASH, 0, 0,
+                     broadcast_threshold=0)
+    joined, res_s = wall(lambda: dist_join(lt, rt, cfg))
+    del joined
+    rbytes = tmorsel._spilled_rbytes(lt)
+    budget = tmorsel.table_priced_bytes(WORLD, -(-lt.cap // 4), rbytes)
+    k, w, per = tmorsel.plan_morsels(WORLD, lt.cap, rbytes, budget)
+    check(k >= 4, f"{label}: the budget plans {k} >= 4 morsels")
+    tpool.clear_pool()
+    lt.spill()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trace.reset()
+    hash_cuda.launches = 0
+    prev = config.set_device_memory_budget(budget)
+    try:
+        out, secs = wall(lambda: dist_join(lt, rt, cfg))
+    finally:
+        config.set_device_memory_budget(prev)
+    launches = hash_cuda.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    c = trace.counters()
+    check(c.get("spill.morsel_joins", 0) == 1
+          and c.get("spill.morsels", 0) == k,
+          f"{label}: one morsel join of {k} morsels ({c})")
+    check(lt.is_spilled and c.get("spill.faultins", 0) == 0,
+          f"{label}: the left side stayed spilled")
+    check(launches == 2 * k, f"{label}: the partition kernel launched 2 "
+          f"times per morsel (got {launches})")
+    local = out.to_table()
+    check_join(label, local, want)
+    say(label, budget=budget, morsels=k, rows_per_morsel_per_shard=w,
+        per_morsel_priced_bytes=per, rows_out=local.num_rows,
+        seconds=f"{secs:.6f}", resident_seconds=f"{res_s:.6f}",
+        peak_above_resident_right_bytes=peak,
+        stage_in_bytes=c.get("spill.stage_in_bytes", 0),
+        kernel_launches=launches)
+    del out, local, lt, rt
+    tpool.clear_pool()
+    return launches
+
+
+def phase_staged_spill(ldata, rdata, want, tag=""):
+    """(3) The join cell's ``shuffle_table`` by ``k`` and its HASH join
+    under ``set_exchange_strategy("staged-spill")``: every shard holds
+    single-shot's rows, in the forced chunked plan's order, with its
+    capacity and counts; the join equals the oracle; the rounds,
+    ``spill.morsels``, staged bytes and seconds."""
+    from cylon_tpu_torch import config, trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import shuffle_table
+    from cylon_tpu_torch.spill import pool as tpool
+
+    trace.enable_counters()
+    lt, rt = join_sides(ldata, rdata)
+    n = lt.num_rows
+    label = f"{tag}spill staged-spill rows={n} world={WORLD}"
+    sh, ss_s = wall(lambda: shuffle_table(lt, ["k"]))
+    base_rows = shard_row_hashes(sh)
+    del sh
+    config.set_exchange_strategy("chunked")
+    try:
+        ch, ch_s = wall(lambda: shuffle_table(lt, ["k"]))
+    finally:
+        config.set_exchange_strategy(None)
+    chunk_rows = shard_row_hashes(ch, ordered=True)
+    chunk_cap, chunk_counts = ch.cap, ch.counts_host().copy()
+    del ch
+    tpool.clear_pool()
+    trace.reset()
+    hash_cuda.launches = 0
+    config.set_exchange_strategy("staged-spill")
+    try:
+        sp, secs = wall(lambda: shuffle_table(lt, ["k"]))
+        launches = hash_cuda.launches
+        c = trace.counters()
+        hash_cuda.launches = 0
+        local, jsecs = wall(lambda: hash_join(lt, rt))
+        jlaunches = hash_cuda.launches
+        jc = trace.counters()
+    finally:
+        config.set_exchange_strategy(None)
+    check(c.get("shuffle.strategy.staged_spill", 0) == 1
+          and c.get("spill.exchanges", 0) == 1,
+          f"{label}: ran the staged-spill lowering ({c})")
+    rows = shard_row_hashes(sp)
+    check(all(torch.equal(a, b) for a, b in zip(rows, base_rows)),
+          f"{label}: every shard holds single-shot's rows")
+    check(all(torch.equal(a, b) for a, b in
+              zip(shard_row_hashes(sp, ordered=True), chunk_rows)),
+          f"{label}: in the chunked plan's order")
+    check(sp.cap == chunk_cap and np.array_equal(sp.counts_host(),
+                                                 chunk_counts),
+          f"{label}: the chunked plan's capacity and counts")
+    check(launches == 1, f"{label}: one partition-kernel launch for the "
+          f"exchange's ids (got {launches})")
+    check(jlaunches == 2, f"{label}: 2 launches in the join (got "
+          f"{jlaunches})")
+    check_join(f"{label} join", local, want)
+    staged = c.get("spill.stage_out_bytes", 0) + c.get("spill.stage_in_bytes",
+                                                       0)
+    say(label, rounds=c.get("spill.morsels", 0),
+        spill_morsels=c.get("spill.morsels", 0), staged_bytes=staged,
+        stage_out_bytes=c.get("spill.stage_out_bytes", 0),
+        stage_in_bytes=c.get("spill.stage_in_bytes", 0),
+        seconds=f"{secs:.6f}", single_shot_seconds=f"{ss_s:.6f}",
+        chunked_seconds=f"{ch_s:.6f}", cap=sp.cap,
+        priced_peak_bytes=c.get("shuffle.exchange_bytes_peak", 0),
+        join_seconds=f"{jsecs:.6f}",
+        join_spill_morsels=jc.get("spill.morsels", 0) - c.get(
+            "spill.morsels", 0),
+        kernel_launches=launches, join_kernel_launches=jlaunches)
+    del sp, local, lt, rt
+    tpool.clear_pool()
+    return {"shuffle": launches, "join": jlaunches}
+
+
+def planned_run(ctx, op, tables):
+    """``op(tables)`` through the planner as ``ctx.optimize`` runs it,
+    with the builder's rule fires: (result, fires)."""
+    from cylon_tpu_torch.plan import Builder, ir
+
+    b = Builder(ctx)
+    with ir.capture(b):
+        out = b.finish(op(b.wrap_tables(tables)))
+    return out, list(b.stats["fires"])
+
+
+OOC_QUERIES = ("q1", "q18", "q11")
+
+
+def phase_ooc_tpch(ctx, tables, sf: float):
+    """(4) The JAX bench's out-of-core stage: Q1, Q18 and Q11 through
+    ``ctx.optimize`` under a device budget of ``max(192 KiB, priced //
+    48)`` (``priced``: lineitem's morsel price), each from a cleared plan
+    cache and pool, against the ample-budget planned run of the same
+    query (columns, types, rows and order; floats within the oracle
+    phase's tolerances).  (6) The switch: under
+    ``set_spill_enabled(False)`` the Q1 plan fires no morsel scan and
+    gives the same rows.  Returns the partition-kernel launches per
+    query."""
+    from cylon_tpu_torch import config, plan, trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.spill import morsel as tmorsel
+    from cylon_tpu_torch.spill import pool as tpool
+    from cylon_tpu_torch.tpch import QUERIES
+
+    trace.enable_counters()
+    li = tables["lineitem"]
+    priced = tmorsel.table_priced_bytes(WORLD, li.cap,
+                                        tmorsel._spilled_rbytes(li))
+    budget = max(192 << 10, priced // 48)
+    say(f"tpch ooc sf={sf} world={WORLD}", lineitem_rows=li.num_rows,
+        lineitem_priced_bytes=priced, budget=budget,
+        host_budget=config.host_memory_budget())
+    launches, morsels, ample_rows = {}, {}, {}
+
+    def fresh():
+        plan.clear_plan_cache()
+        tpool.clear_pool()
+        broadcast.clear_replica_cache()
+
+    for q in OOC_QUERIES:
+        op = lambda t, q=q: QUERIES[q](ctx, t)  # noqa: E731
+        fresh()
+        ample, ample_s = wall(lambda: ctx.optimize(op, tables))
+        ample_rows[q] = ample
+        fresh()
+        trace.reset()
+        hash_cuda.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prev = config.set_device_memory_budget(budget)
+        try:
+            (out, fires), secs = wall(lambda: planned_run(ctx, op, tables))
+        finally:
+            config.set_device_memory_budget(prev)
+        peak = torch.cuda.max_memory_allocated() - base
+        c = trace.counters()
+        launches[q] = hash_cuda.launches
+        morsels[q] = c.get("spill.morsels", 0)
+        pinned = tpool.get_pool().pinned_bytes()
+        fresh()
+        for dt in tables.values():   # a spilled scan comes back for the
+            dt.ensure_device()        # later phases
+        same_ordered(f"tpch ooc {q} == ample", out, ample)
+        check(not morsels[q] or any("morsel-scan" in f for f in fires),
+              f"tpch ooc {q}: morsels stream only where the plan has a "
+              "morsel scan")
+        say(f"tpch ooc {q} sf={sf} world={WORLD}", budget=budget,
+            seconds=f"{secs:.6f}", ample_seconds=f"{ample_s:.6f}",
+            rows=out.num_rows,
+            spill_bytes=c.get("spill.stage_out_bytes", 0)
+            + c.get("spill.stage_in_bytes", 0),
+            stage_out_bytes=c.get("spill.stage_out_bytes", 0),
+            stage_in_bytes=c.get("spill.stage_in_bytes", 0),
+            spills=c.get("spill.spills", 0), morsels=morsels[q],
+            faultins=c.get("spill.faultins", 0),
+            morsel_groupbys=c.get("spill.morsel_groupbys", 0),
+            morsel_joins=c.get("spill.morsel_joins", 0),
+            exchange_bytes_peak=c.get("shuffle.exchange_bytes_peak", 0),
+            pinned_bytes=pinned,
+            peak_above_resident_bytes=peak,
+            kernel_launches=launches[q],
+            strategies=",".join(f"{k.split('.')[-1]}:{v}" for k, v in
+                                sorted(c.items())
+                                if k.startswith("shuffle.strategy."))
+            or "none",
+            morsel_fires=sum("morsel-scan" in f for f in fires))
+        del out
+    check(any(morsels.values()), "tpch ooc: some query streamed morsels")
+    # (6) the switch
+    op = lambda t: QUERIES["q1"](ctx, t)  # noqa: E731
+    fresh()
+    trace.reset()
+    prev_b = config.set_device_memory_budget(budget)
+    prev_s = config.set_spill_enabled(False)
+    try:
+        (out, fires), secs = wall(lambda: planned_run(ctx, op, tables))
+    finally:
+        config.set_spill_enabled(prev_s)
+        config.set_device_memory_budget(prev_b)
+        fresh()
+    c = trace.counters()
+    check(not any("morsel-scan" in f for f in fires)
+          and c.get("spill.spills", 0) == 0 and c.get("spill.morsels", 0) == 0,
+          "tpch ooc q1 spill off: no morsel scan, nothing spilled")
+    same_ordered("tpch ooc q1 spill off == ample", out, ample_rows["q1"])
+    say(f"tpch ooc q1 spill=off sf={sf} world={WORLD}", budget=budget,
+        seconds=f"{secs:.6f}", rows=out.num_rows, morsel_fires=0,
+        spills=0, strategies=",".join(
+            f"{k.split('.')[-1]}:{v}" for k, v in sorted(c.items())
+            if k.startswith("shuffle.strategy.")) or "none")
+    return launches
+
+
+def phase_spilled_operators(tables, sf: float, exports):
+    """(5) Spilled inputs at SF 10: the fused groupby by ``l_orderkey``
+    (pre-aggregate) of the fused phase's lineitem projection, and the
+    sketch groupby by ``l_suppkey`` of a lineitem projection, each spilled
+    and run under a budget that plans 4 morsels: each equals its resident
+    result from ``phase_fused_groupby`` / ``phase_sketch``; the partition
+    kernel launches once, on the final exchange."""
+    from cylon_tpu_torch import Type, config, trace
+    from cylon_tpu_torch.parallel import (dist_groupby_fused,
+                                          dist_groupby_sketch, dist_project,
+                                          dist_with_column)
+    from cylon_tpu_torch.spill import morsel as tmorsel
+    from cylon_tpu_torch.spill import pool as tpool
+
+    trace.enable_counters()
+    launches = {}
+    li = dist_with_column(dist_project(tables["lineitem"], [
+        "l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+        "l_shipdate"]), "disc_price", _disc_price, Type.DOUBLE)
+    sk = dist_project(tables["lineitem"], ["l_suppkey", "l_partkey",
+                                           "l_extendedprice"])
+    runs = (("fused", li, ["l_orderkey"], lambda t: dist_groupby_fused(
+                t, ["l_orderkey"], FUSED_OK_AGGS, mode="pre-aggregate")),
+            ("sketch", sk, ["l_suppkey"], lambda t: dist_groupby_sketch(
+                t, ["l_suppkey"], SKETCH_AGGS)))
+    for name, dt, keys, fn in runs:
+        label = f"spilled {name} groupby sf={sf} world={WORLD}"
+        rbytes = tmorsel._spilled_rbytes(dt)
+        budget = tmorsel.table_priced_bytes(WORLD, -(-dt.cap // 4), rbytes)
+        tpool.clear_pool()
+        trace.reset()
+        dt.spill()
+        prev = config.set_device_memory_budget(budget)
+        try:
+            out, secs, peak, nl = measured(lambda: fn(dt))
+        finally:
+            config.set_device_memory_budget(prev)
+        c = trace.counters()
+        launches[name] = nl
+        check(dt.is_spilled and c.get("spill.morsels", 0) >= 4
+              and c.get("spill.faultins", 0) == 0,
+              f"{label}: streamed >= 4 morsels, no fault-in ({c})")
+        check(nl == 1, f"{label}: one partition-kernel launch, on the final "
+              f"exchange (got {nl})")
+        got, _ = exports.submit(lambda: engine_result(out, keys)).wait()
+        want = RESIDENT[(name, sf)]
+        if name == "fused":
+            check_groups(f"{label} vs resident", got, want, FUSED_OK_EXACT,
+                         ["sum_disc_price", "mean_disc_price"])
+        else:
+            check(all(np.array_equal(got[k], want[k]) for k in want),
+                  f"{label}: every column equals the resident sketch's")
+        say(label, budget=budget, seconds=f"{secs:.6f}",
+            morsels=c.get("spill.morsels", 0),
+            groups=len(got[keys[0]]), peak_gib=f"{peak:.2f}",
+            stage_out_bytes=c.get("spill.stage_out_bytes", 0),
+            stage_in_bytes=c.get("spill.stage_in_bytes", 0),
+            strategies=",".join(f"{k.split('.')[-1]}:{v}" for k, v in
+                                sorted(c.items())
+                                if k.startswith("shuffle.strategy."))
+            or "none",
+            kernel_launches=nl)
+        del out, got
+    del li, sk
+    tpool.clear_pool()
     return launches
 
 
@@ -2526,6 +3022,14 @@ def main() -> int:
                    None, None, int(KEY_FRAC * 4096))
     phase_redistribution(wl, wr, wwant, warm=True)
     launches_redist = phase_redistribution(ldata, rdata, want)
+    # the out-of-core tier on the join cell (small warm-ups first)
+    phase_morsel_join(wl, wr, wwant, tag="warm-up ")
+    phase_staged_spill(wl, wr, wwant, tag="warm-up ")
+    link = phase_spill_roundtrip(ldata)
+    launches_spill = {"morsel_join": phase_morsel_join(ldata, rdata, want)}
+    staged = phase_staged_spill(ldata, rdata, want)
+    launches_spill["staged_spill_shuffle"] = staged["shuffle"]
+    launches_spill["staged_spill_join"] = staged["join"]
     phase_outer(args.seed)
     phase_hash_partition(ldata)
     phase_dist_sort(ldata, args.seed, args.profile)
@@ -2570,6 +3074,8 @@ def main() -> int:
     phase_agg_state(wtables, 0.05, wexports)
     phase_q9_streaming(wctx, wtables, 0.05, False)
     phase_multiway(wtables, 0.05, wexports)
+    phase_ooc_tpch(wctx, wtables, 0.05)
+    phase_spilled_operators(wtables, 0.05, wexports)
     wexports.finish()
     del wtables
     broadcast.clear_replica_cache()
@@ -2588,10 +3094,14 @@ def main() -> int:
     phase_trace_export()
     launches_redist.update(phase_redistribution_tpch(tables, args.tpch_sf,
                                                      results, exports))
+    launches_spill["ooc_tpch"] = phase_ooc_tpch(tctx, tables, args.tpch_sf)
     del results
     launches_fused = phase_fused_groupby(tables, args.tpch_sf, exports,
                                          args.profile)
     launches_sketch = phase_sketch(tables, args.tpch_sf, exports, args.profile)
+    spilled = phase_spilled_operators(tables, args.tpch_sf, exports)
+    launches_spill["spilled_fused_final_exchange"] = spilled["fused"]
+    launches_spill["spilled_sketch_final_exchange"] = spilled["sketch"]
     launches_state = phase_agg_state(tables, args.tpch_sf, exports)
     launches_stream["q9"] = phase_q9_streaming(tctx, tables, args.tpch_sf,
                                                args.profile)
@@ -2605,6 +3115,11 @@ def main() -> int:
           and launches_sketch > 0,
           "the partition kernel ran on the fused partial exchange, the "
           "fused shuffle and the sketch combine")
+    check(launches_spill["staged_spill_shuffle"] > 0
+          and launches_spill["morsel_join"] > 0
+          and launches_spill["spilled_fused_final_exchange"] > 0,
+          "the partition kernel ran on the staged-spill exchange, the "
+          "morsel join and the morsel groupby's final exchange")
 
     # the kernel at the main path's shape: the world-4 partition of one side
     # ([P*cap] rows of one int32 key, no validity, 4 parts)
@@ -2646,12 +3161,17 @@ def main() -> int:
         "launches_streaming": launches_stream,
         "launches_multiway": launches_multiway,
         "launches_redistribution": launches_redist,
+        "launches_spill": launches_spill,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": hash_bound_ms((k,), (None,), k.shape[0]),
         "bound_by": "bytes", "library_ms": None}]
+    say("host link", d2h_gbps=f"{link['d2h_gbps']:.3f}",
+        h2d_gbps=f"{link['h2d_gbps']:.3f}",
+        bound_gbps_per_direction=f"{HOST_LINK_BYTES_PER_S / 1e9:.0f}")
+    say("chip_smoke", wall_seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -272,7 +272,9 @@ def instrument(fn: Callable) -> Callable:
 
 def _summarize(dt) -> str:
     try:
-        cols = getattr(dt, "columns", ())
+        # a DTable's metadata list: summarizing a spilled table must not
+        # fault its leaves in
+        cols = getattr(dt, "_columns", None) or getattr(dt, "columns", ())
         cap = getattr(dt, "cap", None)
         nparts = getattr(dt, "nparts", 1)
         rows = ""

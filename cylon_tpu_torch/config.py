@@ -2,7 +2,8 @@
 
 The PyTorch port's copy of the join part of ``cylon_tpu/config.py``
 (reference: join/join_config.hpp:29-89), the broadcast row threshold,
-the device memory budget, the exchange knobs the costed shuffle reads
+the device memory budget, the host-tier (spill) budget and switch, the
+exchange knobs the costed shuffle reads
 (the forced strategy, the (slow, fast) mesh shape, the watchdog
 timeout), the optimizer switch, the plan-cache capacity, and the
 lock-order checks of ``observe.locks``.
@@ -112,6 +113,86 @@ def explicit_memory_budget() -> Optional[int]:
     return _device_memory_budget
 
 
+# The host-tier (spill) budget: the byte ceiling of the spill pool
+# (spill/pool.py), the host memory spilled DTable leaves and staged-spill
+# payloads may hold at once.  Pinned entries (the only copy of their
+# data) count in full; resident entries (host copies kept after a
+# fault-in) are evictable cache.  Resolved as
+#   1. an explicit set_host_memory_budget(bytes),
+#   2. the CYLON_HOST_MEMORY_BUDGET env var (bytes),
+#   3. DEFAULT_HOST_BUDGET_FRACTION of physical host RAM (floor 64 MiB).
+DEFAULT_HOST_BUDGET_FRACTION = 0.5
+
+_host_memory_budget: Optional[int] = None
+_auto_host_budget: Optional[int] = None     # detection cache
+
+
+def set_host_memory_budget(n: Optional[int]) -> Optional[int]:
+    """Set the host-tier spill budget in bytes; returns the previous
+    explicit setting.  None restores env / default resolution."""
+    global _host_memory_budget
+    if n is not None:
+        n = _validate_budget(n, "host memory budget")
+    prev = _host_memory_budget
+    _host_memory_budget = n
+    return prev
+
+
+def host_memory_budget() -> int:
+    """The effective host-tier spill budget in bytes (explicit knob, else
+    ``CYLON_HOST_MEMORY_BUDGET``, else half the physical RAM, at least
+    64 MiB).  The spill pool prices every stage-out against it and raises
+    a typed ``Code.OutOfMemory`` when the pinned bytes would exceed it."""
+    global _auto_host_budget
+    if _host_memory_budget is not None:
+        return _host_memory_budget
+    env = os.environ.get("CYLON_HOST_MEMORY_BUDGET", "")
+    if env:
+        try:
+            return _validate_budget(int(env), "CYLON_HOST_MEMORY_BUDGET")
+        except ValueError:
+            raise CylonError(Status(Code.Invalid,
+                f"CYLON_HOST_MEMORY_BUDGET must be an int byte count, "
+                f"got {env!r}")) from None
+    if _auto_host_budget is None:
+        try:
+            limit = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        except (ValueError, OSError, AttributeError):
+            limit = 0
+        if not limit or limit <= 0:
+            limit = 16 << 30
+        _auto_host_budget = max(int(limit * DEFAULT_HOST_BUDGET_FRACTION),
+                                64 << 20)
+    return _auto_host_budget
+
+
+# The out-of-core switch: whether the spill tier engages at all (the
+# planner's morsel scans, the chooser's staged-spill tier, DTable.spill):
+# explicit set_spill_enabled() > CYLON_SPILL env (any value but "0" /
+# empty enables; default on).
+_spill_enabled: Optional[bool] = None
+
+
+def spill_enabled() -> bool:
+    """Whether the host-tier spill subsystem is active."""
+    if _spill_enabled is not None:
+        return _spill_enabled
+    return os.environ.get("CYLON_SPILL", "1") not in ("", "0")
+
+
+def set_spill_enabled(on: Optional[bool]) -> Optional[bool]:
+    """Set the spill switch (None restores env resolution); returns the
+    previous explicit setting."""
+    global _spill_enabled
+    if on is not None and not isinstance(on, bool):
+        raise CylonError(Status(Code.Invalid,
+            "spill switch must be True, False or None (env-resolved), "
+            f"got {type(on).__name__} {on!r}"))
+    prev = _spill_enabled
+    _spill_enabled = on
+    return prev
+
+
 # The exchange lowering override (the costed chooser of
 # parallel/shuffle.py picks one per exchange from the budget and the
 # count matrix; this forces one session-wide, the A/B escape hatch of
@@ -122,15 +203,11 @@ _exchange_strategy: Optional[str] = None
 
 def _validate_strategy(name, what: str) -> str:
     # the chooser's own catalogue (late import: config loads first)
-    from .parallel.cost import STAGED_SPILL, STRATEGIES
+    from .parallel.cost import STRATEGIES
     if not isinstance(name, str) or name not in STRATEGIES:
         raise CylonError(Status(Code.Invalid,
             f"{what} must be one of {STRATEGIES} or None to "
             f"restore the costed chooser, got {name!r}"))
-    if name == STAGED_SPILL:
-        raise CylonError(Status(Code.NotImplemented,
-            f"{what} {name!r}: the host-tier staged-spill lowering comes "
-            "with spill/ (ROADMAP A12.3) and is not in the port yet"))
     return name
 
 

@@ -108,6 +108,18 @@ def clear_replica_cache() -> None:
         _replica_cache.clear()
 
 
+def forget_replicas_of(columns) -> None:
+    """Drop the cached replicas built from ``columns`` (a table whose
+    device leaves are being dropped: the cache pins its source columns,
+    which would keep those tensors alive)."""
+    ids = {id(c.data) for c in columns}
+    with _replica_lock:
+        stale = [k for k, (_, cols, _) in _replica_cache.items()
+                 if any(id(c.data) in ids for c in cols)]
+        for k in stale:
+            del _replica_cache[k]
+
+
 def _cache_key(dt: DTable, mode: str) -> Tuple:
     # names and dictionary identity belong in the key: a rename or a
     # dictionary swap shares the device tensors and must not hit a

@@ -38,6 +38,11 @@ collectives are the communicator's: ``all_to_all``, ``ppermute``,
                    the "small side fits P times over" veto.
   ``hierarchical`` / ``hierarchical-combine``: the two-level exchange
                    over a (slow, fast) split of the world.
+  ``staged-spill`` the host tier: the payload staged out to the spill
+                   pool, then streamed back in the chunked plan's rounds,
+                   one staged morsel at a time.  Peak = one chunked round
+                   + the staged morsel block; 2 × payload crosses the
+                   host link.
 
 Pricing inputs are host-side metadata only — the [P, P] count matrix
 the shuffle reads, or the ``P × cap`` capacity bound.  Nothing here
@@ -47,15 +52,15 @@ touches device data.
 ``resilience.exchange_budget()``: the cheapest FEASIBLE strategy by
 ``(rounds, wire_bytes, catalogue order)``.  ``single-shot`` therefore
 keeps winning whenever it fits the budget (1 round, least wire); over
-budget, the chooser degrades to the cheapest sequence that fits.  When
-NOTHING fits, the chunked plan at its C = 1 floor runs best-effort.
+budget, the chooser degrades to the cheapest sequence that fits; past
+every resident strategy it tries ``staged-spill``.  When NOTHING fits,
+the chunked plan at its C = 1 floor runs best-effort.
 ``config.set_exchange_strategy`` / ``CYLON_EXCHANGE_STRATEGY`` force one
 lowering session-wide.
 
-Left out until their readers are ported (ROADMAP A12.2 / A12.3): the
-staged-spill and remesh prices, the checkpoint price, the measured
-ranking (``predicted_ms`` from a probed mesh profile) and the replan
-arm's ``exclude``.
+Left out until their readers are ported (ROADMAP A12.2): the remesh
+price, the checkpoint price, the measured ranking (``predicted_ms`` from
+a probed mesh profile) and the replan arm's ``exclude``.
 """
 from __future__ import annotations
 
@@ -72,7 +77,7 @@ __all__ = [
     "STRATEGIES", "StrategyPrice",
     "exchange_sizes", "single_shot_bytes", "price_single_shot",
     "price_chunked", "price_ring", "price_allgather", "price_replicate",
-    "chunk_plan", "hier_plan", "price_hierarchical", "price_hier_combine",
+    "price_staged_spill", "chunk_plan", "hier_plan", "price_hierarchical", "price_hier_combine",
     "slow_share", "enumerate_strategies", "choose",
 ]
 
@@ -83,10 +88,9 @@ ALLGATHER = "allgather"
 REPLICATE = "replicate"   # broadcast replication (priced, never chosen
 #                           by the shuffle chooser — it changes the
 #                           layout contract, not just the lowering)
-STAGED_SPILL = "staged-spill"   # host-tier staging (docs/out_of_core.md):
-#                           catalogued for the forced-strategy knob, which
-#                           refuses it — the port has no spill/ yet, so
-#                           nothing prices or runs it
+STAGED_SPILL = "staged-spill"   # host-tier staging (spill/): the
+#                           payload waits in the spill pool and comes back
+#                           one rank-sliced morsel per round
 
 HIERARCHICAL = "hierarchical"   # the 2-level shuffle (docs/
 #                           tpu_perf_notes.md "Hierarchical
@@ -144,6 +148,9 @@ class StrategyPrice:
     wire_bytes: int
     rounds: int
     sizes: Tuple[int, ...]
+    # bytes crossing the host link (staged-spill: the payload out and
+    # back); 0 for every resident strategy
+    host_bytes: int = 0
     # of wire_bytes, the share that crosses the SLOW mesh axis under the
     # live (slow, fast) split — the expensive edge the hierarchical
     # lowerings exist to starve.  Zero when the split is trivial (flat
@@ -152,8 +159,11 @@ class StrategyPrice:
     slow_wire_bytes: int = 0
 
     def describe(self) -> str:
+        host = (f", {self.host_bytes} B host-staged"
+                if self.host_bytes else "")
         return (f"{self.strategy}: peak {self.peak_bytes} B, "
-                f"{self.rounds} round(s), {self.wire_bytes} B wire")
+                f"{self.rounds} round(s), {self.wire_bytes} B wire"
+                f"{host}")
 
 
 def exchange_sizes(counts: np.ndarray) -> Tuple[int, int, np.ndarray]:
@@ -280,6 +290,26 @@ def price_chunked(nparts: int, counts: np.ndarray, rbytes: int,
         rounds=rounds, sizes=(rounds, C, block, outcap_r))
 
 
+def price_staged_spill(nparts: int, counts: np.ndarray, rbytes: int,
+                       budget: int) -> StrategyPrice:
+    """The host-tier lowering: stage the payload out to the spill pool
+    (D2H), stream it back in the chunked plan's rounds, each a bounded
+    ``[P, bucket(C)]`` exchange over a MORSEL-sized staged block, folded
+    receiver-side like the chunked rounds.  The full input block is not
+    needed on the device while the rounds run: the transient is one
+    round (the chunked formula) plus the staged morsel block, and the
+    payload crosses the host link twice (``host_bytes``)."""
+    rounds, C, block, outcap_r = chunk_plan(nparts, counts, rbytes, budget)
+    payload = int(counts.sum()) * rbytes
+    return StrategyPrice(
+        STAGED_SPILL,
+        peak_bytes=(single_shot_bytes(nparts, (block, outcap_r), rbytes)
+                    + nparts * block * rbytes),
+        wire_bytes=int(rounds * (nparts - 1) * block * rbytes),
+        rounds=rounds, sizes=(rounds, C, block, outcap_r),
+        host_bytes=2 * payload)
+
+
 def hier_plan(nparts: int, split: Tuple[int, int], counts: np.ndarray
               ) -> Tuple[int, int, int, np.ndarray]:
     """Size the two-level exchange from the [P, P] count matrix under a
@@ -382,6 +412,7 @@ def slow_share(price: StrategyPrice, nparts: int,
 def enumerate_strategies(nparts: int, cap: int, counts: np.ndarray,
                          rbytes: int, budget: int,
                          staged_ok: bool = True,
+                         spill_ok: bool = False,
                          split: Optional[Tuple[int, int]] = None
                          ) -> List[StrategyPrice]:
     """Every candidate lowering for one exchange, priced from the count
@@ -389,7 +420,10 @@ def enumerate_strategies(nparts: int, cap: int, counts: np.ndarray,
     payload).  ``staged_ok=False`` restricts the flat catalogue to
     single-shot + chunked — the combine-spec (fold-by-key partial
     aggregation) exchanges, whose receiver-side group fold only the
-    chunked rounds implement.  A non-trivial ``split`` (``(slow, fast)``,
+    chunked rounds implement.  ``spill_ok`` adds the host-tier
+    ``staged-spill`` lowering (the spill tier is enabled), which the
+    chooser reaches only when no resident strategy fits.  A non-trivial
+    ``split`` (``(slow, fast)``,
     both > 1, tiling ``nparts``) adds the matching hierarchical
     lowering — the two-level shuffle for plain exchanges, the
     pre-combining spelling for combine-spec ones — and decorates every
@@ -400,6 +434,8 @@ def enumerate_strategies(nparts: int, cap: int, counts: np.ndarray,
         out.append(price_allgather(nparts, cap, outcap, rbytes))
         out.append(price_ring(nparts, block, outcap, rbytes))
     out.append(price_chunked(nparts, counts, rbytes, budget))
+    if spill_ok and nparts > 1:
+        out.append(price_staged_spill(nparts, counts, rbytes, budget))
     hier = (split is not None and split[0] > 1 and split[1] > 1
             and split[0] * split[1] == nparts)
     if hier:
@@ -434,8 +470,18 @@ def choose(candidates: Sequence[StrategyPrice], budget: int,
         c = by_name[forced]
         return c, f"forced by CYLON_EXCHANGE_STRATEGY ({c.describe()})", \
             c.peak_bytes <= budget
-    feasible = [c for c in candidates if c.peak_bytes <= budget]
+    # the host tier never competes with a FITTING resident strategy: it
+    # trades host-link round trips for resident bytes, which pays only
+    # when nothing resident fits.  It sits between "a resident strategy
+    # fits" and the best-effort floor
+    spill_c = by_name.get(STAGED_SPILL)
+    feasible = [c for c in candidates
+                if c.peak_bytes <= budget and c.strategy != STAGED_SPILL]
     if not feasible:
+        if spill_c is not None and spill_c.peak_bytes <= budget:
+            return spill_c, ("no resident strategy fits the "
+                             f"{budget} B budget — host-tier staging: "
+                             f"{spill_c.describe()}"), True
         c = by_name.get(CHUNKED, min(candidates,
                                      key=lambda s: s.peak_bytes))
         return c, (f"budget {budget} B below every strategy's "

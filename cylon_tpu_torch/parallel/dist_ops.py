@@ -626,7 +626,16 @@ def dist_join(left: DTable, right: DTable, config: JoinConfig,
     raises.  Neither the broadcast nor the dense path keeps SORT's global
     key order.  The order of attempts is the JAX package's: FK, then
     broadcast, then the shuffle.
+
+    A SPILLED left side of an INNER / LEFT join against a resident right
+    side streams through the morsel scan (``spill.morsel.morsel_join``)
+    instead of faulting the whole block in.
     """
+    if left.is_spilled and config.join_type.value in ("inner", "left") \
+            and not right.is_spilled:
+        from ..spill import morsel as spill_morsel
+        return spill_morsel.morsel_join(left, right, config,
+                                        dense_key_range=dense_key_range)
     node = plan_check.note("dist_join", left, right,
                            how=config.join_type.value,
                            alg=config.algorithm.value,
@@ -1881,8 +1890,9 @@ def collect_agg_state():
 
 
 def _base_meta(dt: DTable, aggregations):
+    # metadata only: a spilled table answers without a fault-in
     return [(c.name, c.dtype, op) for c, op in
-            ((dt.columns[dt.column_index(cref)], op)
+            ((dt._columns[dt.column_index(cref)], op)
              for cref, op in aggregations)]
 
 
@@ -2155,10 +2165,21 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
 
     The mode that ran is counted in ``decisions`` ("groupby.<mode>", or
     "groupby.local" at world 1).  ``reason`` is the planner's note on why
-    it chose ``mode``; the plan report shows it beside the decision."""
+    it chose ``mode``; the plan report shows it beside the decision.
+
+    A SPILLED input (every mode but ``emit_empty``, which needs the
+    resident dense hint) streams through the morsel scan
+    (``spill.morsel.morsel_groupby``), row-identical to the resident
+    path."""
     if mode not in ("psum", "pre-aggregate", "shuffle"):
         raise CylonError(Status(Code.Invalid,
             f"dist_groupby_fused: unknown mode {mode!r}"))
+    if dt.is_spilled and not emit_empty:
+        from ..spill import morsel as spill_morsel
+        return spill_morsel.morsel_groupby(
+            dt, list(key_columns), list(aggregations), where=where,
+            dense_key_range=dense_key_range, emit_empty=emit_empty,
+            reason=reason)
     node = plan_check.note("dist_groupby_fused", dt,
                            keys=tuple(key_columns),
                            aggs=tuple(op for _, op in aggregations),
@@ -2430,6 +2451,67 @@ def _sketch_result(sh: DTable, key_meta_cols, keys_out, base_meta, outs,
     return DTable(sh.ctx, cols, sh.cap, counts)
 
 
+def _sketch_spilled_partials(dt: DTable, key_ids, val_ids, kinds, qs, where,
+                             node) -> DTable:
+    """The sketch partials of a SPILLED table: per staged morsel (rows
+    ``[m·w, (m+1)·w)`` of each shard, so ``off = m·w``), merged into the
+    accumulator as they come (retaining every morsel's partials would
+    scale device memory with the input × the sketch width)."""
+    from contextlib import closing
+
+    from ..resilience import exchange_budget
+    from ..spill import morsel as spill_morsel
+    from ..spill import pool as spill_pool
+    from .streaming import _concat_compact
+    entry = spill_pool.get_pool().pin_for_scan(dt)
+    cap = entry.cap
+    k, w, per = spill_morsel.plan_morsels(
+        dt.nparts, cap, spill_morsel._spilled_rbytes(dt),
+        exchange_budget(dt.ctx.device))
+    plan_check.annotate(node, decision="morsel-scan",
+                        reason=f"{k} morsels x {w} rows/shard "
+                               f"({per} B/morsel)")
+    K = len(key_ids)
+    acc = None
+    with closing(spill_morsel.iter_morsels(dt, entry, k, w, cap)) as scan:
+        for m, sl in enumerate(scan):
+            part_m = _sketch_partial_table(sl, key_ids, val_ids, kinds,
+                                           where, m * w, cap)
+            del sl
+            if acc is None:
+                acc = part_m
+                continue
+            cat = _concat_compact([acc, part_m])
+            del acc, part_m
+            acc = _fit_groups(_sketch_merge_local(cat, K, kinds, qs))
+            del cat
+    return acc
+
+
+def _fit_groups(part: DTable) -> DTable:
+    """``part`` in blocks of the size class of its largest shard's group
+    count (one host read), as ``_sketch_partial_table`` sizes them: a
+    merge writes its groups into blocks as wide as its input, and the
+    morsel fold would otherwise widen the accumulator every morsel."""
+    cap = ops_compact.next_bucket(max(int(part.counts_host().max(initial=0)),
+                                      1), minimum=8)
+    if cap >= part.cap:
+        return part
+    P = part.nparts
+
+    def cut(x):
+        tail = tuple(x.shape[1:])
+        return x.reshape((P, part.cap) + tail)[:, :cap].reshape(
+            (P * cap,) + tail)
+
+    cols = [DColumn(c.name, c.dtype, cut(c.data),
+                    None if c.validity is None else cut(c.validity),
+                    c.dictionary, c.arrow_type) for c in part.columns]
+    out = DTable(part.ctx, cols, cap, part.counts)
+    out._counts_host = part._counts_host
+    return out
+
+
 @plan_check.instrument
 def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
                         aggregations: Sequence[Tuple[Union[int, str], str]],
@@ -2445,9 +2527,15 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
 
     Output columns: the keys, then ``approx_distinct_{col}`` (int64) /
     ``p{q·100}_{col}`` (float32, null for all-null groups) in aggregation
-    order.  ``where`` follows ``dist_select``'s predicate protocol."""
-    plan_check.note("dist_groupby_sketch", dt, keys=tuple(key_columns),
-                    aggs=tuple(op for _, op in aggregations))
+    order.  ``where`` follows ``dist_select``'s predicate protocol.
+
+    A SPILLED input builds its partials per staged morsel (the sample
+    priorities seed from the morsel's row offset, so they equal the
+    resident run's) and merges them into the accumulator morsel by
+    morsel: it holds one state row per group seen so far."""
+    node = plan_check.note("dist_groupby_sketch", dt,
+                           keys=tuple(key_columns),
+                           aggs=tuple(op for _, op in aggregations))
     trace.count("sketch.groupbys")
     key_ids = _resolve_ids(dt, key_columns)
     K = len(key_ids)
@@ -2455,8 +2543,12 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
     parsed = [_parse_sketch_op(op) for _, op in aggregations]
     kinds = tuple(kind for kind, _ in parsed)
     qs = tuple(-1.0 if q is None else q for _, q in parsed)
-    part = _sketch_partial_table(dt, key_ids, val_ids, kinds, where, 0,
-                                 dt.cap)
+    if dt.is_spilled:
+        part = _sketch_spilled_partials(dt, key_ids, val_ids, kinds, qs,
+                                        where, node)
+    else:
+        part = _sketch_partial_table(dt, key_ids, val_ids, kinds, where, 0,
+                                     dt.cap)
     prows = int(part.counts_host().sum())
     trace.count("sketch.partial_rows", prows)
     sk_leaves = [lf for c in part.columns[K:]
@@ -2469,5 +2561,5 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
         keys_out, outs, counts = _sketch_combine(sh, K, kinds, qs, True)
         sp.sync(outs)
     _note_sketch_state(dt, aggregations, sh, K, kinds, qs)
-    return _sketch_result(sh, [dt.columns[i] for i in key_ids], keys_out,
+    return _sketch_result(sh, [dt._columns[i] for i in key_ids], keys_out,
                           _base_meta(dt, aggregations), outs, kinds, counts)

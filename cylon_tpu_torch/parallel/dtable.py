@@ -9,6 +9,12 @@ The reference has no separate distributed-table type: an ``arrow::Table``
 per rank *is* the partition (reference: cpp/src/cylon/table.hpp:39-278).
 Here all P ranks' shards live in one process, so the partitioned state is
 a first-class object, as in the JAX package.
+
+The host tier: ``spill()`` moves the leaves to the spill pool
+(``spill/pool.py``) and drops the device tensors; ``columns`` and
+``counts`` are properties that fault them back in on first device use.
+Metadata (names, dtypes, row counts) answers host-side without a
+fault-in.
 """
 from __future__ import annotations
 
@@ -24,6 +30,19 @@ from ..ops import compact as ops_compact
 from ..ops.gather import signed_view
 from ..status import Code, CylonError, Status
 from ..table import Column, Table
+
+
+class _SpilledLeaf:
+    """Placeholder leaf of a spilled column: metadata stays readable, and
+    any device use that bypasses the fault-in fails loudly."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "<spilled>"
+
+
+_SPILLED = _SpilledLeaf()
 
 
 @dataclass
@@ -65,12 +84,67 @@ class DTable:
                  pending_mask: Optional[torch.Tensor] = None,
                  pending_cnts: Optional[torch.Tensor] = None):
         self.ctx = ctx
+        # host-tier state: while _spill_entry is set the leaves live in the
+        # spill pool and the columns / counts properties fault them back
+        # in.  _spill_sig is the content signature: it survives a fault-in
+        # (an unchanged table re-spills without a device read) and is
+        # cleared whenever the contents change (_collapse_pending)
+        self._spill_entry = None
+        self._spill_sig: Optional[int] = None
         self.columns = columns
         self.cap = int(cap)
         self.counts = counts               # [P] int32
         self.pending_mask = pending_mask   # [P*cap] bool or None
         self.pending_cnts = pending_cnts   # [P] survivor counts or None
         self._counts_host: Optional[np.ndarray] = None
+
+    # -- the host tier -------------------------------------------------------
+
+    @property
+    def columns(self) -> List[DColumn]:
+        if self._spill_entry is not None:
+            self._fault_in()
+        return self._columns
+
+    @columns.setter
+    def columns(self, v: List[DColumn]) -> None:
+        self._columns = v
+
+    @property
+    def counts(self) -> torch.Tensor:
+        if self._spill_entry is not None:
+            self._fault_in()
+        return self._counts
+
+    @counts.setter
+    def counts(self, v: torch.Tensor) -> None:
+        self._counts = v
+
+    @property
+    def is_spilled(self) -> bool:
+        """Whether the leaves currently live host-side (spill pool)."""
+        return self._spill_entry is not None
+
+    def spill(self) -> "DTable":
+        """Move this table's leaves to the host-tier spill pool and drop
+        the device tensors.  Metadata (names, dtypes, row counts) stays
+        readable host-side, any device use faults the leaves back in, and
+        the morsel scan (``spill/morsel.py``) stages row slices straight
+        from the pool.  Idempotent; returns self."""
+        from ..spill import pool as spill_pool
+        spill_pool.spill_table(self)
+        return self
+
+    def ensure_device(self) -> "DTable":
+        """Fault spilled leaves back onto the device now (the eager form
+        of the properties' transparent fault-in); returns self."""
+        if self._spill_entry is not None:
+            self._fault_in()
+        return self
+
+    def _fault_in(self) -> None:
+        from ..spill import pool as spill_pool
+        spill_pool.ensure_device(self)
 
     def _collapse_pending(self) -> None:
         """Materialize a deferred select IN PLACE (the handle keeps
@@ -85,6 +159,7 @@ class DTable:
         self.cap = out.cap
         self.counts = out.counts
         self._counts_host = None
+        self._spill_sig = None  # new contents: a pooled copy no longer matches
 
     # -- shape ---------------------------------------------------------------
 
@@ -94,14 +169,15 @@ class DTable:
 
     @property
     def num_columns(self) -> int:
-        return len(self.columns)
+        return len(self._columns)   # metadata: never faults a spill in
 
     @property
     def column_names(self) -> List[str]:
-        return [c.name for c in self.columns]
+        return [c.name for c in self._columns]
 
     def counts_host(self) -> np.ndarray:
-        """Per-shard valid row counts on the host (one read, then cached)."""
+        """Per-shard valid row counts on the host (one read, then cached;
+        a spilled table answers from the counts cached at its spill)."""
         self._collapse_pending()
         if self._counts_host is None:
             self._counts_host = ops_compact.read_host(self.counts)
@@ -116,7 +192,7 @@ class DTable:
 
     def column_index(self, i: Union[int, str]) -> int:
         if isinstance(i, str):
-            for j, c in enumerate(self.columns):
+            for j, c in enumerate(self._columns):   # metadata only
                 if c.name == i:
                     return j
             raise CylonError(Status(Code.KeyError, f"no column {i!r}"))
@@ -127,7 +203,7 @@ class DTable:
         if self.num_columns != other.num_columns:
             raise CylonError(Status(Code.Invalid,
                 f"column count mismatch {self.num_columns} vs {other.num_columns}"))
-        for a, b in zip(self.columns, other.columns):
+        for a, b in zip(self._columns, other._columns):
             if a.dtype.type != b.dtype.type:
                 raise CylonError(Status(Code.TypeError,
                     f"type mismatch {a.name}:{a.dtype.type.name} vs "
@@ -243,14 +319,15 @@ class DTable:
             if validate:
                 plan_check._check_table("explain", self)
             cols = ", ".join(f"{c.name}:{c.dtype.type.name}"
-                             for c in self.columns)
+                             for c in self._columns)
             ch = self._counts_host
             rows = (f"{int(ch.sum())} rows" if ch is not None
                     else "rows data-dependent")
             mask = ", deferred-select mask pending" \
                 if self.pending_mask is not None else ""
+            spilled = ", spilled to host" if self.is_spilled else ""
             return (f"DTable[{rows} over {self.nparts} shards, "
-                    f"cap={self.cap}{mask}]({cols})")
+                    f"cap={self.cap}{mask}{spilled}]({cols})")
         if not analyze:
             raise CylonError(Status(Code.NotImplemented,
                 "explain(plan) without analyze=True is the abstract plan "
@@ -268,5 +345,7 @@ class DTable:
         return observe.analyze(op, target)
 
     def __repr__(self) -> str:
-        cols = ", ".join(f"{c.name}:{c.dtype.type.name}" for c in self.columns)
-        return f"DTable[P={self.nparts}, cap={self.cap}]({cols})"
+        cols = ", ".join(f"{c.name}:{c.dtype.type.name}"
+                         for c in self._columns)
+        spilled = ", spilled to host" if self.is_spilled else ""
+        return f"DTable[P={self.nparts}, cap={self.cap}{spilled}]({cols})"

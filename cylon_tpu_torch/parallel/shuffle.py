@@ -299,60 +299,194 @@ def _fold_done(acc, P: int, outcap: int) -> List[torch.Tensor]:
             for a in acc]
 
 
-def _fold_combine(spec, P: int, parts, out_cap: int):
-    """Receiver-side fold of chunk rounds that COMBINES partial-group
-    rows by key: per shard, the local groupby over the concatenated
-    ``parts`` (each ``(count [P], leaves [P*cap_i])``) with the combine
-    ops (sum of sums / counts, min of mins, max of maxes), so the result
-    holds one row per distinct group.  ``spec`` = ``(key_slots,
-    val_slots)`` over the wire leaf positions.  Output dtypes are the
-    wire dtypes; rows past the group count are unspecified.  Returns
-    (groups [P] int32, leaves [P*out_cap]).
-
-    One groupby per shard, each writing its slice of the result in
-    place: only one shard's sort and scans are live at a time.  (One
-    groupby over (shard, keys) for all P shards took the same time on
-    the H100 and held every shard's working set at once: 6.9 GB against
-    1.1 GB at SF 10, PERF.md run H.)"""
+def _combine_shard(spec, pieces, out_cap: int):
+    """One shard's fold that COMBINES partial-group rows by key: the local
+    groupby over the concatenated ``pieces`` (each ``(count, leaves)``,
+    the count a device scalar, the leaves ``[n_i, ...]``) with the combine
+    ops (sum of sums / counts, min of mins, max of maxes).  ``spec`` =
+    ``(key_slots, val_slots)`` over the wire leaf positions.  Returns
+    (leaves ``[out_cap, ...]`` in the wire dtypes, group count); rows past
+    the group count are unspecified."""
     from ..ops import groupby as ops_groupby
     key_slots, val_slots = spec
+    first = pieces[0][1]
+    dev = first[0].device
+    leaves = [torch.cat([lvs[j] for _, lvs in pieces]) if len(pieces) > 1
+              else first[j] for j in range(len(first))]
+    row_valid = torch.cat([torch.arange(lvs[0].shape[0], device=dev) < cnt
+                           for cnt, lvs in pieces])
+    kpairs = tuple((leaves[d], None if v is None else leaves[v])
+                   for d, v in key_slots)
+    key_idx, aggs, agg_valids, ng = ops_groupby.groupby_aggregate(
+        tuple(d for d, _ in kpairs), tuple(v for _, v in kpairs),
+        tuple(leaves[d] for d, _v, _op in val_slots),
+        tuple(None if v is None else leaves[v] for _d, v, _op in val_slots),
+        tuple(op for _d, _v, op in val_slots),
+        row_valid=row_valid, out_capacity=out_cap)
+    del leaves, row_valid
+    keys_out = ops_gather.take_many(kpairs, key_idx, fill_null=False)
+    outs: List[torch.Tensor] = [None] * len(first)
+    for (d, v), (kd, kv) in zip(key_slots, keys_out):
+        outs[d] = kd.to(first[d].dtype)
+        if v is not None:
+            outs[v] = kv.to(first[v].dtype)
+    for (d, v, _op), arr, av in zip(val_slots, aggs, agg_valids):
+        outs[d] = arr.to(first[d].dtype)
+        if v is not None:
+            outs[v] = (torch.ones(out_cap, dtype=torch.bool, device=dev)
+                       if av is None else av.to(torch.bool))
+    return outs, ng
+
+
+def _fold_combine(spec, P: int, parts, out_cap: int):
+    """Fold-by-key of flat exchange outputs: per shard, ``_combine_shard``
+    over the shard's slice of every part (each ``(count [P], leaves
+    [P*cap_i])``).  Returns (groups [P] int32, leaves [P*out_cap]).  One
+    groupby per shard, each writing its slice of the result in place:
+    only one shard's sort and scans are live at a time.  (One groupby
+    over (shard, keys) for all P shards held every shard's working set at
+    once: 6.9 GB against 1.1 GB at SF 10, PERF.md run H.)"""
     first = parts[0][1]
     dev = parts[0][0].device
-    outs = [torch.zeros((P * out_cap,) + tuple(lf.shape[1:]), dtype=lf.dtype,
+    outs = [torch.empty((P * out_cap,) + tuple(lf.shape[1:]), dtype=lf.dtype,
                         device=dev) for lf in first]
     ngs = torch.zeros(P, dtype=torch.int32, device=dev)
     for s in range(P):
-        leaves = []
-        for j in range(len(first)):
-            pieces = [lvs[j][s * (lvs[j].shape[0] // P):
-                             (s + 1) * (lvs[j].shape[0] // P)]
-                      for _, lvs in parts]
-            leaves.append(torch.cat(pieces) if len(pieces) > 1
-                          else pieces[0])
-        row_valid = torch.cat([
-            torch.arange(lvs[0].shape[0] // P, device=dev) < cnt[s]
-            for cnt, lvs in parts])
-        kpairs = tuple((leaves[d], None if v is None else leaves[v])
-                       for d, v in key_slots)
-        key_idx, aggs, agg_valids, ng = ops_groupby.groupby_aggregate(
-            tuple(d for d, _ in kpairs), tuple(v for _, v in kpairs),
-            tuple(leaves[d] for d, _v, _op in val_slots),
-            tuple(None if v is None else leaves[v]
-                  for _d, v, _op in val_slots),
-            tuple(op for _d, _v, op in val_slots),
-            row_valid=row_valid, out_capacity=out_cap)
-        keys_out = ops_gather.take_many(kpairs, key_idx, fill_null=False)
-        rows = slice(s * out_cap, (s + 1) * out_cap)
-        for (d, v), (kd, kv) in zip(key_slots, keys_out):
-            outs[d][rows] = kd
-            if v is not None:
-                outs[v][rows] = kv
-        for (d, v, _op), arr, av in zip(val_slots, aggs, agg_valids):
-            outs[d][rows] = arr
-            if v is not None:
-                outs[v][rows] = True if av is None else av
+        pieces = [(cnt[s], [lf[s * (lf.shape[0] // P):
+                               (s + 1) * (lf.shape[0] // P)] for lf in lvs])
+                  for cnt, lvs in parts]
+        got, ng = _combine_shard(spec, pieces, out_cap)
+        for o, g in zip(outs, got):
+            o[s * out_cap:(s + 1) * out_cap] = g
         ngs[s] = ng
     return ngs, outs
+
+
+class _RoundFold:
+    """Receiver-side fold of an exchange's rounds (the chunked and the
+    staged-spill lowerings): round k's compacted output either lands back
+    to back in the result block (``_fold``), or, under a ``combine``
+    spec, folds BY KEY into an accumulator of one row per distinct group
+    so far, sized exactly from the previous fold's group count (one host
+    read per round), so it grows with the groups, not the rows received.
+
+    The by-key accumulator is kept as one block per shard: each shard's
+    previous block is freed right after that shard's fold, so the two
+    accumulator generations overlap by one shard, not by all P; the
+    result is assembled into the flat ``[P*cap]`` leaves at the end, each
+    shard's block freed as it is copied."""
+
+    def __init__(self, Pn: int, counts: np.ndarray, rounds: int, C: int,
+                 outcap_k: int, outcap_total: int, rbytes: int,
+                 priced: int, combine=None):
+        self.Pn, self.counts, self.rounds, self.C = Pn, counts, rounds, C
+        self.outcap_k, self.outcap_total = outcap_k, outcap_total
+        self.rbytes, self.priced, self.combine = rbytes, priced, combine
+        self.acc = self.acc_cnt = None
+        self.acc_cap = outcap_total
+        self.acc_groups = None  # per-shard distinct-group counts (combine)
+
+    def add(self, k: int, cnt_k: torch.Tensor, outs_k) -> None:
+        Pn, incap = self.Pn, self.outcap_k
+        if self.combine is None:
+            self.acc_cnt, self.acc = _fold(self.acc, self.acc_cnt, outs_k,
+                                           cnt_k, Pn, incap,
+                                           self.outcap_total)
+            return
+        trace.count("shuffle.fold_combined")
+        if self.acc is None:
+            # round 0 already combines: groups <= received rows, so
+            # capacity outcap_k can never overflow
+            prev_cap, out_cap = 0, incap
+        else:
+            # exact: groups after the fold <= groups in the accumulator +
+            # rows this round adds
+            recv_k = np.minimum(np.maximum(self.counts - k * self.C, 0),
+                                self.C).sum(axis=0)
+            bound = self.acc_groups + recv_k
+            prev_cap = self.acc_cap
+            out_cap = next_bucket(max(int(bound.max(initial=0)), 1),
+                                  minimum=8)
+        blocks, ngs = [], []
+        for s in range(Pn):
+            rnd = (cnt_k[s], [lf[s * incap:(s + 1) * incap] for lf in outs_k])
+            pieces = [rnd] if self.acc is None else \
+                [(self.acc_cnt[s], self.acc[s]), rnd]
+            got, ng = _combine_shard(self.combine, pieces, out_cap)
+            del pieces, rnd
+            if self.acc is not None:
+                self.acc[s] = None   # this shard's previous block goes now
+            blocks.append(got)
+            ngs.append(ng)
+        self.acc = blocks
+        self.acc_cnt = torch.stack(ngs).to(torch.int32)
+        self.acc_cap = out_cap
+        # the fold's transient as the JAX package prices it: the round
+        # blocks + both accumulator generations
+        trace.count_max("shuffle.exchange_bytes_peak",
+                        self.priced + (prev_cap + out_cap) * self.rbytes)
+        if k + 1 < self.rounds:
+            self.acc_groups = read_counts(self.acc_cnt)
+
+    def done(self):
+        """(flat result leaves, counts [P], capacity)."""
+        if self.combine is None:
+            return (_fold_done(self.acc, self.Pn, self.outcap_total),
+                    self.acc_cnt, self.outcap_total)
+        Pn, cap = self.Pn, self.acc_cap
+        outs = []
+        for j in range(len(self.acc[0])):
+            ref = self.acc[0][j]
+            flat = torch.empty((Pn * cap,) + tuple(ref.shape[1:]),
+                               dtype=ref.dtype, device=ref.device)
+            del ref
+            for s in range(Pn):
+                flat[s * cap:(s + 1) * cap] = self.acc[s][j]
+                self.acc[s][j] = None
+            outs.append(flat)
+        self.acc = None
+        return outs, self.acc_cnt, cap
+
+
+def _cell_rank(pid: torch.Tensor, P: int) -> torch.Tensor:
+    """[P*cap] int32 rank of every row within its (shard, target) cell, in
+    row order, without sorting the pid lane: one masked cumsum per
+    target."""
+    cap = pid.shape[0] // P
+    pid2 = pid.view(P, cap)
+    rank = torch.zeros((P, cap), dtype=torch.int32, device=pid.device)
+    for t in range(P):
+        m = pid2 == t
+        rank = torch.where(m, torch.cumsum(m, 1, dtype=torch.int32) - 1, rank)
+        del m
+    return rank.view(-1)
+
+
+def _rank_morsel(pid: torch.Tensor, leaves, rank: torch.Tensor, P: int,
+                 lo: int, hi: int, mcap: int):
+    """The rows of rank ``[lo, hi)`` in their (shard, target) cells, moved
+    to the front of per-shard ``[mcap]`` blocks in row order (padding: pid
+    ``P``, zero leaves): one chunked round's morsel, which the single-shot
+    ``_exchange`` then sends as that round.  Returns (pid [P*mcap],
+    leaves)."""
+    cap = pid.shape[0] // P
+    dev = pid.device
+    src = torch.nonzero((pid < P) & (rank >= lo) & (rank < hi)).squeeze(1)
+    shard = torch.div(src, cap, rounding_mode="floor")
+    n = torch.bincount(shard, minlength=P)
+    start = torch.cumsum(n, 0) - n
+    dst = shard * mcap + (torch.arange(src.shape[0], device=dev)
+                          - start[shard])
+    del shard, n, start
+    pid_m = torch.full((P * mcap,), P, dtype=pid.dtype, device=dev)
+    pid_m[dst] = pid[src]
+    out = []
+    for lf in leaves:
+        m = torch.zeros((P * mcap,) + tuple(lf.shape[1:]), dtype=lf.dtype,
+                        device=dev)
+        m[dst] = lf[src]
+        out.append(m)
+    return pid_m, out
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +549,10 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
     single-shot takes the fast path; otherwise enumerate the candidate
     lowerings (a combine-spec payload only those that fold by key) and
     pick under ``budget``, honouring the ``CYLON_EXCHANGE_STRATEGY``
-    override.  Returns ``(price, reason, feasible)``."""
-    from ..config import exchange_strategy
+    override; past every resident lowering, the host-tier staged-spill
+    one when the spill tier is on.  Returns ``(price, reason,
+    feasible)``."""
+    from ..config import exchange_strategy, spill_enabled
     forced = exchange_strategy()
     split = _axis_split_of(ctx) if ctx is not None else None
     if forced is None:
@@ -429,7 +565,7 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
             return ss, f"{ss.describe()} <= budget {budget} B", True
     cands = cost.enumerate_strategies(Pn, cap, counts, rbytes, budget,
                                       staged_ok=combine is None,
-                                      split=split)
+                                      spill_ok=spill_enabled(), split=split)
     return cost.choose(cands, budget, forced)
 
 
@@ -565,6 +701,7 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
     (one host read per round), so it grows with the groups, not the
     rows received."""
     comm, Pn = ctx.comm, ctx.get_world_size()
+    cap = pid.shape[0] // Pn
     rounds, C, block, outcap_k = (plan if plan is not None else
                                   cost.chunk_plan(Pn, counts, rbytes, budget))
     trace.count("shuffle.chunked")
@@ -581,57 +718,161 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
         degraded=f"chunked shuffle: {rounds} rounds of <= {C} rows/cell "
                  f"({priced_k} B/round vs {budget} B budget)")
     dm0 = _devmem_before(ctx)
+    fold = _RoundFold(Pn, counts, rounds, C, outcap_k, outcap_total, rbytes,
+                      priced_k, combine)
     with trace.span_sync("shuffle.exchange") as sp:
-        # one sort for every round: round k moves the rank slice
-        # [k·C, (k+1)·C) of each (sender, target) cell, a contiguous run
-        # of the sorted cell
-        plan_k = _send_plan(pid, Pn, Pn)
-        acc_cnt = acc = None
-        acc_cap = outcap_total
-        acc_groups = None  # per-shard distinct-group counts (combine)
+        if combine is None:
+            # one sort for every round: round k moves the rank slice
+            # [k·C, (k+1)·C) of each (sender, target) cell, a contiguous
+            # run of the sorted cell
+            plan_k = _send_plan(pid, Pn, Pn)
+            round_k = lambda k: _exchange(  # noqa: E731
+                comm, pid, leaves, block, outcap_k, plan=plan_k,
+                start=k * C, take=C)
+        else:
+            # a by-key fold holds its accumulator beside the rounds: the
+            # rounds are cut from one int32 rank lane instead of a full
+            # sort of the pid lane, each round's rows moved to a
+            # morsel-sized block first
+            rank = _cell_rank(pid, Pn)
+            mcap = next_bucket(max(min(Pn * C, cap), 1), minimum=8)
+
+            def round_k(k):
+                pid_m, leaves_m = _rank_morsel(pid, leaves, rank, Pn, k * C,
+                                               (k + 1) * C, mcap)
+                return _exchange(comm, pid_m, leaves_m, block, outcap_k)
         for k in range(rounds):
             cnt_k, outs_k = _watchdog_dispatch(
-                "shuffle.exchange",
-                lambda k=k: _exchange(comm, pid, leaves, block, outcap_k,
-                                      plan=plan_k, start=k * C, take=C),
-                ctx.device)
-            if combine is None:
-                acc_cnt, acc = _fold(acc, acc_cnt, outs_k, cnt_k, Pn,
-                                     outcap_k, outcap_total)
-                continue
-            trace.count("shuffle.fold_combined")
-            if acc is None:
-                # round 0 already combines: groups ≤ received rows, so
-                # capacity outcap_k can never overflow
-                prev_cap, out_cap = 0, outcap_k
-                acc_cnt, acc = _fold_combine(combine, Pn, [(cnt_k, outs_k)],
-                                             out_cap)
-            else:
-                # exact: groups after the fold ≤ groups in the
-                # accumulator + rows this round adds
-                recv_k = np.minimum(np.maximum(counts - k * C, 0),
-                                    C).sum(axis=0)
-                bound = acc_groups + recv_k
-                prev_cap = acc_cap
-                out_cap = next_bucket(max(int(bound.max(initial=0)), 1),
-                                      minimum=8)
-                acc_cnt, acc = _fold_combine(
-                    combine, Pn, [(acc_cnt, acc), (cnt_k, outs_k)], out_cap)
-            acc_cap = out_cap
-            # the fold's transient: the round blocks + both accumulator
-            # generations live at once
-            trace.count_max("shuffle.exchange_bytes_peak",
-                            priced_k + (prev_cap + acc_cap) * rbytes)
-            if k + 1 < rounds:
-                acc_groups = read_counts(acc_cnt)
-        if combine is None:
-            acc = _fold_done(acc, Pn, outcap_total)
+                "shuffle.exchange", lambda k=k: round_k(k), ctx.device)
+            fold.add(k, cnt_k, outs_k)
+            del cnt_k, outs_k
+        # the send plan / rank lane go before the result is assembled
+        round_k = plan_k = rank = None
+        acc, acc_cnt, acc_cap = fold.done()
         sp.sync(acc)
     if choice is not None:
         _note_exchange_ms(ctx, choice, dm0)
-    if combine is not None:
-        return list(acc), acc_cnt, acc_cap
-    return acc, acc_cnt, outcap_total
+    return list(acc), acc_cnt, acc_cap
+
+
+def _spill_plan(hpid: np.ndarray, Pn: int, cap: int):
+    """Host-side round plan of a staged-spill exchange: one stable sort of
+    the rows by (shard, target) cell.  Returns ``(order, start, count)``:
+    cell ``(i, t)``'s rows, in row order, are ``order[start[i, t] :
+    start[i, t] + count[i, t]]``, so round k's rows of the cell are the
+    rank slice ``[k·C, (k+1)·C)`` of that run (padding rows, target
+    ``Pn``, sort past each shard's cells).  The cell id fits a uint16 lane
+    for any world up to 255, and numpy's stable sort of a uint16 lane is
+    a radix sort."""
+    width = Pn + 1
+    lane = np.uint16 if Pn * width <= 0xFFFF else np.int64
+    cell = np.repeat(np.arange(Pn, dtype=lane) * lane(width), cap)
+    cell += hpid.astype(lane)
+    order = np.argsort(cell, kind="stable")
+    count = np.bincount(cell, minlength=Pn * width).reshape(Pn, width)
+    start = (np.cumsum(count) - count.reshape(-1)).reshape(Pn, width)
+    return order, start[:, :Pn], count[:, :Pn]
+
+
+def _staged_spill_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
+                           budget: int, outcap_total: int, choice,
+                           combine=None):
+    """The host-tier lowering: stage the payload OUT to the spill pool,
+    then stream it back in ``rounds`` rank-sliced morsels, each a
+    ``[P, bucket(C)]``-shaped bounded exchange over a morsel-sized staged
+    block, folded receiver-side like the chunked rounds (plain concat, or
+    fold-by-key under ``combine``).  The same rows, order, shard placement
+    and ``(block, outcap)`` as the chunked plan.
+
+    The payload and two morsel staging blocks are reserved against the
+    host budget first (an over-budget exchange raises the typed
+    OutOfMemory before any copy).  Host work: one sort of the staged pid
+    lane by (shard, target) cell (``_spill_plan``), then per round a
+    gather of each cell's rank slice into one of two pinned staging
+    blocks, reused across rounds (a block is refilled only after the
+    copy that last read it completed).  A morsel holds each shard's rows
+    grouped by target, in row order within a target: the exchange's own
+    stable sort by target keeps that order, so each round sends what the
+    chunked plan's round sends.  Morsel k+1's
+    gather and host→device copy run on a ``HostPipeline`` worker while
+    morsel k's exchange runs; the consumer's stream waits on each
+    morsel's copy event."""
+    from ..spill import pool as spill_pool
+    from .streaming import HostPipeline
+    comm, Pn = ctx.comm, ctx.get_world_size()
+    rounds, C, block, outcap_k = choice.sizes
+    trace.count("spill.exchanges")
+    trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
+    plan_check.annotate(
+        degraded=f"staged-spill shuffle: {rounds} host-staged morsels "
+                 f"of <= {C} rows/cell ({choice.peak_bytes} B/morsel "
+                 f"vs {budget} B budget)")
+    cap = pid.shape[0] // max(Pn, 1)
+    mcap = next_bucket(max(min(Pn * C, cap), 1), minimum=8)
+    payload = [pid] + list(leaves)
+    per_row = sum(lf.element_size()
+                  * int(np.prod(tuple(lf.shape[1:]), dtype=np.int64))
+                  for lf in payload)
+    reserve = cap * Pn * per_row + 2 * Pn * mcap * per_row
+    the_pool = spill_pool.get_pool()
+    the_pool.reserve_transient(reserve)
+    pipe = None
+    try:
+        hosts = spill_pool.stage_out_arrays(payload)
+        del payload
+        hnp = [h.numpy() for h in hosts]
+        order, start, count = _spill_plan(hnp[0], Pn, cap)
+        staging = [[spill_pool.pinned_empty((Pn * mcap,) + tuple(h.shape[1:]),
+                                            h.dtype, ctx.device)
+                    for h in hosts] for _ in range(2)]
+        last_read = [None, None]   # the copy event that last read each set
+
+        def stage(k: int):
+            bufs = staging[k % 2]
+            if last_read[k % 2] is not None:
+                last_read[k % 2].synchronize()
+            bnp = [b.numpy() for b in bufs]
+            bnp[0].fill(Pn)
+            for b in bnp[1:]:
+                b.fill(0)
+            lo = k * C
+            for i in range(Pn):
+                rows = np.concatenate([
+                    order[start[i, t] + min(lo, count[i, t]):
+                          start[i, t] + min(lo + C, count[i, t])]
+                    for t in range(Pn)])
+                at = i * mcap
+                for b, h in zip(bnp, hnp):
+                    np.take(h, rows, axis=0, out=b[at:at + len(rows)])
+            staged = spill_pool.stage_in_arrays(ctx, bufs, defer=True)
+            last_read[k % 2] = staged.event
+            return staged
+
+        dm0 = _devmem_before(ctx)
+        fold = _RoundFold(Pn, counts, rounds, C, outcap_k, outcap_total,
+                          rbytes, choice.peak_bytes, combine)
+        pipe = HostPipeline(name="spill-exchange")
+        with trace.span_sync("shuffle.exchange") as sp:
+            nxt = pipe.submit(lambda: stage(0))
+            for k in range(rounds):
+                morsel = nxt.wait().ready()
+                if k + 1 < rounds:
+                    nxt = pipe.submit(lambda k=k: stage(k + 1))
+                trace.count("spill.morsels")
+                cnt_k, outs_k = _watchdog_dispatch(
+                    "shuffle.exchange", lambda m=morsel: _exchange(
+                        comm, m[0], m[1:], block, outcap_k), ctx.device)
+                del morsel
+                fold.add(k, cnt_k, outs_k)
+                del cnt_k, outs_k
+            acc, acc_cnt, acc_cap = fold.done()
+            sp.sync(acc)
+    finally:
+        if pipe is not None:
+            pipe.close()
+        the_pool.release_transient(reserve)
+    _note_exchange_ms(ctx, choice, dm0)
+    return list(acc), acc_cnt, acc_cap
 
 
 def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
@@ -805,6 +1046,9 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
         return _chunked_exchange(ctx, pid, leaves, counts, rbytes, budget,
                                  outcap, combine, plan=choice.sizes,
                                  choice=choice)
+    if choice.strategy == cost.STAGED_SPILL:
+        return _staged_spill_exchange(ctx, pid, leaves, counts, rbytes,
+                                      budget, outcap, choice, combine)
     if choice.strategy in (cost.HIERARCHICAL, cost.HIER_COMBINE):
         return _hierarchical_exchange(ctx, pid, leaves, counts, rbytes,
                                       outcap, choice, combine)

@@ -117,7 +117,14 @@ def dist_join_streaming(left: DTable, right: DTable, config: JoinConfig,
     shard).  RIGHT / FULL_OUTER, ``chunks <= 1`` and a left block narrower
     than ``chunks`` take the one-shot ``dist_join``.  The strategies of
     ``dist_join`` that move no left rows (broadcast, dense FK) are not
-    tried here: the streaming join always co-partitions."""
+    tried here: the streaming join always co-partitions.  A SPILLED left
+    side of an INNER / LEFT join streams from the spill pool through the
+    morsel scan instead (``spill.morsel.morsel_join``): the first leaf
+    read here would otherwise fault the whole block back in."""
+    if left.is_spilled and config.join_type.value in ("inner", "left") \
+            and not right.is_spilled:
+        from ..spill import morsel as spill_morsel
+        return spill_morsel.morsel_join(left, right, config)
     how = config.join_type.value
     if chunks <= 1 or left.cap < chunks or how in ("right", "full_outer"):
         return dist_join(left, right, config)

@@ -283,6 +283,37 @@ def _lower_shuffle(ctx, ins, static, rt):
     return dist_ops.shuffle_table(ins[0], list(static["keys"]))
 
 
+def _lower_morsel_scan(ctx, ins, static, rt):
+    """The out-of-core seam: price the scan again against the LIVE budget
+    (``resilience.exchange_budget``, which the budget fault point can move
+    under a cached plan) and spill its leaves to the host pool when it
+    still does not fit.  The spilled table flows to the
+    consumer unchanged; dist_groupby_fused / dist_groupby_sketch /
+    dist_join / dist_join_streaming detect the spilled input and stream
+    it in morsels."""
+    from ..config import spill_enabled
+    from ..resilience import exchange_budget
+    from ..spill import morsel as spill_morsel
+    dt = ins[0]
+    if not spill_enabled() or dt.is_spilled:
+        return dt
+    priced = spill_morsel.table_priced_bytes(
+        ctx.get_world_size(), dt.cap, spill_morsel._spilled_rbytes(dt))
+    budget = exchange_budget(ctx.device)
+    node = plan_check.note("morsel_scan", priced_bytes=priced,
+                           budget=budget)
+    if priced <= budget:
+        plan_check.annotate(node, decision="resident",
+                            reason=f"{priced} B fits the {budget} B "
+                                   "budget at execution — no spill")
+        return dt
+    plan_check.annotate(node, decision="spill",
+                        reason=f"{priced} B over the {budget} B budget "
+                               "— leaves staged to the host pool")
+    dt.spill()
+    return dt
+
+
 LOWERING = {
     "scan": _lower_scan,
     "rename": _lower_rename,
@@ -305,6 +336,7 @@ LOWERING = {
     "dist_intersect": _lower_setop("dist_intersect"),
     "dist_subtract": _lower_setop("dist_subtract"),
     "shuffle_table": _lower_shuffle,
+    "morsel_scan": _lower_morsel_scan,
 }
 
 

@@ -128,7 +128,7 @@ EXCHANGE_OPS = frozenset({
 # row-count-preserving ops: plan-time row bounds flow through these
 ROW_PRESERVING = frozenset({
     "dist_project", "rename", "dist_sort", "dist_sort_multi",
-    "shuffle_table", "dist_with_column",
+    "shuffle_table", "dist_with_column", "morsel_scan",
 })
 
 
@@ -171,7 +171,7 @@ FOLDABLE_AGG_TAILS = frozenset({
 
 FOLD_LINEAR_OPS = frozenset({
     "scan", "rename", "dist_select", "dist_project", "dist_with_column",
-    "shuffle_table",
+    "shuffle_table", "morsel_scan",
 })
 
 
@@ -321,7 +321,7 @@ def infer_schema(op: str, ins: Sequence[Schema], static: Dict) -> Schema:
         return static["schema"]
     if op in ("dist_select", "shuffle_table", "dist_sort",
               "dist_sort_multi", "dist_head", "dist_semi_join",
-              "dist_anti_join"):
+              "dist_anti_join", "morsel_scan"):
         return ins[0]
     if op == "dist_project":
         return tuple(_col(ins[0], n) for n in static["columns"])

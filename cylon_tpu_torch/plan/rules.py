@@ -54,9 +54,14 @@ Rules, in application order:
                         statics, same inputs, same runtime payload
                         identities) collapse to one node.
 
-The reference's ``morsel scans`` rule (out-of-core streaming of a scan
-priced over the memory budget) needs the spill tier, which is not
-ported; it is left out of the rule list.
+  morsel scans          a ``dist_groupby_fused`` / ``dist_groupby_sketch``
+                        / INNER-LEFT join whose streamable input prices
+                        over the memory budget from a known scan gets a
+                        ``morsel_scan`` node: the lowering prices again
+                        against the LIVE budget per execution and spills
+                        the table to the host pool when it still does not
+                        fit, and the consumer streams it in
+                        admission-priced morsels (``spill/morsel.py``).
 
 Every fire is recorded on the rewritten node's ``opt_notes``; the
 executor attaches them to the lowered operator's recorded node.
@@ -719,6 +724,73 @@ def _cse(root: Node, fires: _Fires) -> Node:
 
 
 # ---------------------------------------------------------------------------
+# morsel scans: the out-of-core axis
+# ---------------------------------------------------------------------------
+
+def _morsel_scans(root: Node, fires: _Fires, world: int, device) -> Node:
+    """Insert ``morsel_scan`` nodes over scans whose priced working set
+    exceeds the memory budget.
+
+    Eligibility is structural: a ``dist_groupby_fused`` (every mode; psum
+    is a performance lowering, the morsel fold the generic one;
+    ``emit_empty`` needs the resident dense hint and stays resident) or
+    ``dist_groupby_sketch``, or an INNER / LEFT ``dist_join`` /
+    ``dist_join_streaming`` whose streamed input prices from a known scan
+    through the row-preserving chain (``ir.known_rows``).  The price is
+    ``morsel.table_priced_bytes`` (the resident block plus one
+    capacity-bound single-shot exchange) of the PRUNED width against
+    ``config.device_memory_budget``.
+
+    The budget read here shapes the plan but does not bind it: the
+    ``morsel_scan`` lowering prices again against the live budget on
+    every execution and is the identity when the scan fits.  (The port's
+    plan cache keys on the explicit budget, so setting it replans; the
+    live budget can still move under a cached plan through the
+    ``resilience.budget`` fault point.)"""
+    if world <= 1:
+        return root
+    from ..config import device_memory_budget, spill_enabled
+    if not spill_enabled():
+        return root
+    from ..ops.compact import next_bucket
+    from ..spill import morsel as spill_morsel
+    budget = device_memory_budget(device)
+
+    def step(n: Node) -> Node:
+        if n.op in ("dist_groupby_fused", "dist_groupby_sketch"):
+            if n.static.get("emit_empty"):
+                return n
+        elif n.op in ("dist_join", "dist_join_streaming"):
+            if n.static.get("how") not in ("inner", "left"):
+                return n
+        else:
+            return n
+        child = n.inputs[0]
+        if child.op == "morsel_scan":
+            return n
+        rows = ir.known_rows(child)
+        if rows is None:
+            return n
+        width = max(ir.row_width(child.schema), 1)
+        cap = next_bucket(max(-(-rows // world), 1), minimum=8)
+        priced = spill_morsel.table_priced_bytes(world, cap, width)
+        if priced <= budget:
+            return n
+        k, w, per = spill_morsel.plan_morsels(world, cap, width, budget)
+        node = Node("morsel_scan", [child], {"priced_bytes": int(priced)},
+                    {}, child.schema, None, [], None)
+        fires.fire(node, "morsel-scan",
+                   f"scan priced {priced} B over the {budget} B budget: "
+                   f"{k} morsels x {w} rows/shard ({per} B/morsel; "
+                   "re-priced at execution)")
+        new_ins = list(n.inputs)
+        new_ins[0] = node
+        return _clone(n, new_ins)
+
+    return _remap(root, step)
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
@@ -735,6 +807,6 @@ def optimize(builder, root: Node) -> Tuple[Node, List[str], int, int]:
     root = _join_strategy(root, fires, world)
     root = _projection_pruning(root, fires)
     root = _project_cleanup(root)
-    # (the reference's _morsel_scans goes here: it needs the spill tier)
+    root = _morsel_scans(root, fires, world, builder.ctx.device)
     root = _cse(root, fires)
     return root, fires.records, pre, exchange_row_bytes(root)

@@ -109,3 +109,62 @@ def test_optimizer_switch(pkg, err, monkeypatch):
         assert not pkg.optimizer_enabled()
     finally:
         pkg.set_optimizer_enabled(prev)
+
+
+@pytest.fixture
+def unset_host_budgets():
+    tprev = tconfig.set_host_memory_budget(None)
+    jprev = jconfig.set_host_memory_budget(None)
+    yield
+    tconfig.set_host_memory_budget(tprev)
+    jconfig.set_host_memory_budget(jprev)
+
+
+def test_host_memory_budget_matches_jax(monkeypatch, unset_host_budgets):
+    """The host-tier (spill) budget: explicit setting, then
+    ``CYLON_HOST_MEMORY_BUDGET``, then half the physical RAM (at least
+    64 MiB), with the same validation, in both packages."""
+    monkeypatch.delenv("CYLON_HOST_MEMORY_BUDGET", raising=False)
+    auto = tconfig.host_memory_budget()
+    assert auto == jconfig.host_memory_budget() >= 64 << 20
+    monkeypatch.setenv("CYLON_HOST_MEMORY_BUDGET", "98765432")
+    assert tconfig.host_memory_budget() == jconfig.host_memory_budget() \
+        == 98_765_432
+    assert tconfig.set_host_memory_budget(1 << 20) is None
+    jconfig.set_host_memory_budget(1 << 20)
+    assert tconfig.host_memory_budget() == jconfig.host_memory_budget() \
+        == 1 << 20
+    assert tconfig.set_host_memory_budget(None) == 1 << 20
+    jconfig.set_host_memory_budget(None)
+    for bad in ("0", "-5", "abc", "1.5"):
+        monkeypatch.setenv("CYLON_HOST_MEMORY_BUDGET", bad)
+        with pytest.raises(TCylonError):
+            tconfig.host_memory_budget()
+        with pytest.raises(JCylonError):
+            jconfig.host_memory_budget()
+    for bad in (0, -3, 1.5, True, "64"):
+        with pytest.raises(TCylonError):
+            tconfig.set_host_memory_budget(bad)
+        with pytest.raises(JCylonError):
+            jconfig.set_host_memory_budget(bad)
+    monkeypatch.delenv("CYLON_HOST_MEMORY_BUDGET")
+    assert tconfig.host_memory_budget() == auto
+
+
+@pytest.mark.parametrize("pkg,err", [(tconfig, TCylonError),
+                                     (jconfig, JCylonError)])
+def test_spill_switch(pkg, err, monkeypatch):
+    with pytest.raises(err):
+        pkg.set_spill_enabled(1)  # not a bool
+    prev = pkg.set_spill_enabled(None)
+    try:
+        for value, on in (("0", False), ("", False), ("1", True),
+                          ("yes", True)):
+            monkeypatch.setenv("CYLON_SPILL", value)
+            assert pkg.spill_enabled() is on
+        monkeypatch.delenv("CYLON_SPILL")
+        assert pkg.spill_enabled()
+        assert pkg.set_spill_enabled(False) is None
+        assert not pkg.spill_enabled()
+    finally:
+        pkg.set_spill_enabled(prev)

@@ -24,11 +24,9 @@ SETTINGS = settings(derandomize=True, max_examples=60, deadline=None,
 
 def _t(price):
     """A StrategyPrice as a plain tuple (the two packages' classes
-    differ): the port's fields, then the host-staged bytes that only the
-    JAX package's class carries (0 for every strategy the port prices)."""
+    differ): the port's fields, host-staged bytes included."""
     return tuple(getattr(price, f.name)
-                 for f in dataclasses.fields(tcost.StrategyPrice)) + (
-        getattr(price, "host_bytes", 0),)
+                 for f in dataclasses.fields(tcost.StrategyPrice))
 
 
 @st.composite
@@ -202,21 +200,19 @@ def test_combine_spec_restricts_to_foldable_strategies():
 
 def test_forced_strategy_knob_validation(monkeypatch):
     from cylon_tpu import config as jconfig
-    from cylon_tpu_torch.status import Code, CylonError
+    from cylon_tpu_torch.status import CylonError
     monkeypatch.delenv("CYLON_EXCHANGE_STRATEGY", raising=False)
     for bad in ("nope", 1, True):
         with pytest.raises(CylonError):
             tconfig.set_exchange_strategy(bad)
-    # the host-tier lowering is not in the port: refused, never rerouted
-    with pytest.raises(CylonError) as ei:
-        tconfig.set_exchange_strategy("staged-spill")
-    assert ei.value.status.code == Code.NotImplemented
-    assert "A12.3" in str(ei.value)
+    # the host-tier lowering is in the port: accepted like the others
+    prev = tconfig.set_exchange_strategy("staged-spill")
+    try:
+        assert tconfig.exchange_strategy() == "staged-spill"
+    finally:
+        tconfig.set_exchange_strategy(prev)
     assert tconfig.exchange_strategy() is None
-    monkeypatch.setenv("CYLON_EXCHANGE_STRATEGY", "staged-spill")
-    with pytest.raises(CylonError):
-        tconfig.exchange_strategy()
-    for name in ("ring", "allgather", "hierarchical"):
+    for name in ("ring", "allgather", "hierarchical", "staged-spill"):
         monkeypatch.setenv("CYLON_EXCHANGE_STRATEGY", name)
         assert tconfig.exchange_strategy() == jconfig.exchange_strategy()
     monkeypatch.setenv("CYLON_EXCHANGE_STRATEGY", "bogus")
@@ -256,3 +252,32 @@ def test_mesh_shape_and_timeout_knobs_equal_jax(monkeypatch):
     for bad in (0, -1, 1.5, True):
         with pytest.raises(CylonError):
             tconfig.set_exchange_timeout_ms(bad)
+
+
+@SETTINGS
+@given(exchanges(), st.booleans(), st.sampled_from(
+    [None, "single-shot", "chunked", "staged-spill"]))
+def test_staged_spill_price_and_choice_equal_jax(ex, staged_ok, forced):
+    """``price_staged_spill``, ``enumerate_strategies(spill_ok=True)`` and
+    ``choose`` over it: the same prices (host-staged bytes included),
+    candidates, choice, reason and feasibility as the JAX package's."""
+    P, cap, c, rbytes, budget, split = ex
+    assert _t(tcost.price_staged_spill(P, c, rbytes, budget)) == \
+        _t(jcost.price_staged_spill(P, c, rbytes, budget))
+    assert tcost.price_staged_spill(P, c, rbytes, budget).describe() == \
+        jcost.price_staged_spill(P, c, rbytes, budget).describe()
+    tc = tcost.enumerate_strategies(P, cap, c, rbytes, budget,
+                                    staged_ok=staged_ok, spill_ok=True,
+                                    split=split)
+    jc = jcost.enumerate_strategies(P, cap, c, rbytes, budget,
+                                    staged_ok=staged_ok, spill_ok=True,
+                                    split=split)
+    assert [_t(x) for x in tc] == [_t(x) for x in jc]
+    assert (tcost.STAGED_SPILL in [x.strategy for x in tc]) == (P > 1)
+    # every budget band of this matrix, the spill tier's included
+    for b in sorted({budget} | {x.peak_bytes for x in tc}
+                    | {x.peak_bytes - 1 for x in tc}):
+        b = max(b, 1)
+        tp, tr, tf = tcost.choose(tc, b, forced)
+        jp, jr, jf = jcost.choose(jc, b, forced)
+        assert (_t(tp), tr, tf) == (_t(jp), jr, jf)

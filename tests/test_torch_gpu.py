@@ -711,7 +711,7 @@ def _lowering_rows(dt):
 @pytest.mark.gpu
 @pytest.mark.parametrize("strategy,shape", [
     ("chunked", None), ("ring", None), ("allgather", None),
-    ("hierarchical", (2, 2))])
+    ("hierarchical", (2, 2)), ("staged-spill", None)])
 def test_exchange_lowering_on_card(card, strategy, shape):
     """At 1,048,576 rows and world 4 on the card, each forced lowering
     gives every shard the rows single-shot gives it, with the partition
@@ -739,8 +739,8 @@ def test_exchange_lowering_on_card(card, strategy, shape):
         assert hash_cuda.launches == 1
         assert _lowering_rows(got) == want
         c = trace.counters()
-        assert c[f"shuffle.strategy.{strategy}"] == 1
-        if strategy in ("chunked", "hierarchical"):
+        assert c[f"shuffle.strategy.{strategy.replace('-', '_')}"] == 1
+        if strategy in ("chunked", "hierarchical", "staged-spill"):
             if strategy == "hierarchical":
                 tconfig.set_exchange_strategy("hierarchical-combine")
             trace.reset()
@@ -792,3 +792,144 @@ def test_watchdog_dispatch_runs_on_the_callers_stream(card):
         tconfig.set_exchange_timeout_ms(prev)
         trace.disable_counters()
         trace.reset()
+
+
+def _spill_table_on_card(card, n=1 << 20, world=4, seed=71):
+    """The join cell's column shape: an int32 key, three float32
+    payloads."""
+    rng = np.random.default_rng(seed)
+    ctx = pt.CylonContext(device=card, world=world)
+    data = {"k": rng.integers(0, n, n).astype(np.int32)}
+    for j in range(3):
+        data[f"v{j}"] = rng.random(n).astype(np.float32)
+    return DTable.from_table(ctx, pt.Table.from_columns(ctx, data)), data
+
+
+@pytest.mark.gpu
+def test_spill_frees_card_memory_into_pinned_blocks(card):
+    """``spill()`` on the card: the host blocks are pinned, the card's
+    allocated bytes drop by at least the leaves' bytes, the fault-in
+    gives the leaves back bit for bit, and a re-spill is a hit with no
+    device read."""
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.spill import pool as tpool
+    tpool.clear_pool()
+    broadcast.clear_replica_cache()
+    dt, _ = _spill_table_on_card(card)
+    before = [c.data.clone() for c in dt.columns]
+    leaf_bytes = sum(c.data.numel() * c.data.element_size()
+                     for c in dt.columns)
+    trace.enable_counters()
+    trace.reset()
+    try:
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(card)
+        dt.spill()
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_allocated(card)
+        assert m0 - m1 >= leaf_bytes
+        entry = dt._spill_entry
+        assert all(d.is_pinned() for d, _ in entry.leaves)
+        assert tpool.get_pool().pinned_bytes() >= leaf_bytes
+        dt.ensure_device()
+        for c, b in zip(dt.columns, before):
+            assert c.data.device.type == "cuda"
+            assert torch.equal(c.data.view(torch.int32), b.view(torch.int32))
+        outs = trace.counters()["spill.stage_outs"]
+        dt.spill()
+        c = trace.counters()
+        assert c["spill.respill_hits"] == 1
+        assert c["spill.stage_outs"] == outs
+    finally:
+        trace.disable_counters()
+        trace.reset()
+        tpool.clear_pool()
+
+
+@pytest.mark.gpu
+def test_stage_in_waits_on_the_copy_event(card):
+    """A deferred stage-in runs on the copy stream and hands the consumer
+    an event; after ``ready()`` the consumer's stream reads the staged
+    data, which equals the pinned source."""
+    from cylon_tpu_torch.spill import pool as tpool
+    ctx = pt.CylonContext(device=card, world=4)
+    src = tpool.pinned_empty((1 << 22,), torch.float32, card)
+    src.copy_(torch.arange(1 << 22, dtype=torch.float32))
+    assert src.is_pinned()
+    staged = tpool.stage_in_arrays(ctx, [[src[:1 << 21], src[1 << 21:]]],
+                                   defer=True)
+    assert isinstance(staged.event, torch.cuda.Event)
+    assert tpool._copy_stream(card) != torch.cuda.current_stream(card)
+    staged.ready()
+    assert staged.event is None
+    assert torch.equal(staged[0].cpu(), src)
+    hosts = tpool.stage_out_arrays([staged[0]])
+    assert hosts[0].is_pinned() and torch.equal(hosts[0], src)
+
+
+@pytest.mark.gpu
+def test_morsel_join_and_groupby_on_card_match_cpu(card):
+    """The morsel join (HASH, world 4) and the morsel groupby of a
+    spilled table on the card give the CPU's rows, launching the
+    partition kernel on every morsel's join and on the groupby's final
+    exchange."""
+    from cylon_tpu_torch.spill import morsel as tmorsel
+    from cylon_tpu_torch.spill import pool as tpool
+    outs = {}
+    launches = {}
+    for dev in (card, torch.device("cpu")):
+        tpool.clear_pool()
+        lt, data = _spill_table_on_card(dev, n=1 << 18)
+        rt, _ = _spill_table_on_card(dev, n=1 << 18, seed=72)
+        cfg = pt.JoinConfig(pt.JoinType.INNER, pt.JoinAlgorithm.HASH, 0, 0,
+                            broadcast_threshold=0)
+        lt.spill()
+        hash_cuda.launches = 0
+        j = tmorsel.morsel_join(lt, rt, cfg, morsels=4)
+        launches[dev.type, "join"] = hash_cuda.launches
+        hash_cuda.launches = 0
+        g = tmorsel.morsel_groupby(lt, ["k"], [("v0", "sum"),
+                                               ("v1", "count")], morsels=4)
+        launches[dev.type, "groupby"] = hash_cuda.launches
+        assert lt.is_spilled
+        outs[dev.type] = (sorted(port_rows(j.to_table())),
+                          port_rows(g))
+    assert outs["cuda"][0] == outs["cpu"][0]
+    assert_rows_close(outs["cuda"][1], outs["cpu"][1], [0, 1e-6, 0])
+    assert launches["cuda", "join"] >= 4 and launches["cuda", "groupby"] == 1
+    tpool.clear_pool()
+
+
+@pytest.mark.gpu
+def test_two_thread_fault_in_on_card(card):
+    """Two threads touching one spilled table on the card: one stage-in,
+    both results equal."""
+    import threading
+    from cylon_tpu_torch.spill import pool as tpool
+    tpool.clear_pool()
+    dt, _ = _spill_table_on_card(card, n=1 << 18)
+    want = port_rows(dist_groupby(dt, ["k"], [("v0", "count")]))
+    dt.spill()
+    trace.enable_counters()
+    trace.reset()
+    res, errs = [], []
+
+    def use():
+        try:
+            res.append(port_rows(dist_groupby(dt, ["k"], [("v0", "count")])))
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errs.append(e)
+
+    try:
+        ts = [threading.Thread(target=use) for _ in range(2)]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join()
+        assert not errs, errs
+        assert trace.counters()["spill.faultins"] == 1
+        assert res == [want, want]
+    finally:
+        trace.disable_counters()
+        trace.reset()
+        tpool.clear_pool()

@@ -522,9 +522,7 @@ def test_captured_surface_matches_reference():
         assert spec.arg_names == jspec.arg_names, name
         assert spec.defaults == jspec.defaults, name
         assert spec.materializes == jspec.materializes, name
-    # the reference also lowers morsel_scan, which needs the spill tier
-    assert set(tplan.executor.LOWERING) == \
-        set(jplan.executor.LOWERING) - {"morsel_scan"}
+    assert set(tplan.executor.LOWERING) == set(jplan.executor.LOWERING)
     assert set(tplan.ir.CAPTURED_OPS) <= set(tplan.executor.LOWERING)
     # the groupby-strategy rule reads the psum slot cap: equal caps give
     # the same planned mode in both packages
