@@ -82,11 +82,24 @@ at SF 10, the JAX bench's out-of-core stage (Q1, Q18 and Q11 through
 equal to its ample-budget run; Q1 again with the tier switched off), and
 after the sketch phase the fused ``l_orderkey`` and sketch ``l_suppkey``
 groupbys of spilled lineitem projections in 4 morsels, each equal to its
-resident result.  Every check that fails raises, so the script exits non-zero; without a
+resident result.  The recovery phases: after the out-of-core phases, on
+the join cell, the JAX ``two_stage`` plan (a HASH join, then a groupby by
+the key, broadcast threshold 1) through ``ctx.optimize`` at world 4,
+fault-free (= a float64 oracle on the card), then under a transient and a
+resource ``exec.stage`` fault (the strategies before and after the
+replan), a ``recover.checkpoint_restore`` fault, a lost slot (4 → 3:
+evacuated bytes, ``recover.remesh_us``, the card's allocated bytes before
+the loss, after the evacuation and after the run; the card holds each
+scan table once), its rejoin in the next plan (3 → 4), 4 → 3 → 4 within
+one plan, and with recovery switched off (the fault propagates), each
+equal to the fault-free run and the oracle; at SF 10 after the multiway
+phase Q5 and Q21 losing a slot, each equal to its fault-free planned run
+(the tables then move back to world 4).  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
-on the groupby, TPC-H, redistribution and spill paths), its time, its plain version's time and
-its bound.  ``--profile`` adds torch.profiler tables of device time by
+on the groupby, TPC-H, redistribution, spill and recovery paths), its time, its plain version's time and
+its bound, and the kernel at nparts 3 on the survivor layout.
+``--profile`` adds torch.profiler tables of device time by
 kernel (and by input shape) for the world-4 HASH and SORT joins, one
 ``dist_sort``, one ``dist_union``, the default ``orderkey`` groupby, the
 Q1 shape, the two slowest TPC-H queries, the psum and pre-aggregate
@@ -1364,14 +1377,15 @@ def phase_tpch_oracles(tables, results, sf: float):
         q22_edge_customers=int(edge.sum()))
 
 
-def same_result(q: str, a, b) -> str:
-    """World-1 result ``a`` against world-4 result ``b``: the same columns
-    and rows; keys and integers exact, floats within ``_rtol``.  Rows compare in order; if only the order differs,
+def same_result(q: str, a, b, what: str = "world 1 and world 4") -> str:
+    """Result ``a`` against result ``b`` (by default world 1's against world
+    4's): the same columns and rows; keys and integers exact, floats
+    within ``_rtol``.  Rows compare in order; if only the order differs,
     the rows (identified by their non-float columns) must match and the
     answer says so."""
     ca, cb = _cols(a), _cols(b)
     check(list(ca) == list(cb) and a.num_rows == b.num_rows,
-          f"{q}: world 1 and world 4 give the same columns and row count")
+          f"{q}: {what} give the same columns and row count")
 
     def equal(pa_, pb_):
         for c in ca:
@@ -1390,7 +1404,7 @@ def same_result(q: str, a, b) -> str:
     ka = sorted(range(n), key=lambda i: tuple(str(ca[c][i]) for c in keys))
     kb = sorted(range(n), key=lambda i: tuple(str(cb[c][i]) for c in keys))
     check(equal(np.array(ka), np.array(kb)),
-          f"{q}: world 1 and world 4 give the same rows")
+          f"{q}: {what} give the same rows")
     return "same rows, order differs among float ties"
 
 
@@ -2982,6 +2996,451 @@ def phase_spilled_operators(tables, sf: float, exports):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# recovery: the planner's recovery driver and the elastic re-mesh
+# ---------------------------------------------------------------------------
+
+RECOVERY_RTOL = 1e-5   # float32 group sums against the float64 oracle
+RERUN_RTOL = 1e-6      # ... against another run (another summation order)
+HOST_SLACK = 8 << 20   # allocator slack of the no-old-copy check (bytes)
+
+
+def two_stage(t):
+    """The JAX ``two_stage`` fixture's plan: a HASH join, then a groupby
+    by the key (two exchange-boundary stages)."""
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import dist_groupby, dist_join
+
+    j = dist_join(t["l"], t["r"], JoinConfig(JoinType.INNER,
+                                             JoinAlgorithm.HASH, 0, 0))
+    return dist_groupby(j, ["lt-k"], [("rt-v0", "sum")])
+
+
+def two_stage_oracle(ldata, rdata):
+    """(keys, sums) of ``two_stage`` without the engine: per key, the left
+    count times the right ``v0`` sum, in float64 on the card."""
+    kl = torch.from_numpy(ldata["k"]).to(DEVICE).long()
+    kr = torch.from_numpy(rdata["k"]).to(DEVICE).long()
+    n_k = int(max(kl.max(), kr.max())) + 1
+    cl = torch.bincount(kl, minlength=n_k)
+    cr = torch.bincount(kr, minlength=n_k)
+    sr = torch.zeros(n_k, dtype=torch.float64, device=DEVICE).index_add_(
+        0, kr, torch.from_numpy(rdata["v0"]).to(DEVICE).double())
+    keys = torch.nonzero((cl > 0) & (cr > 0)).squeeze(1)
+    return keys, cl[keys].double() * sr[keys]
+
+
+def sorted_groups(out):
+    """(keys, sums) of a ``two_stage`` result, by key."""
+    t = out.to_table()
+    k, v = t.columns[0].data.long(), t.columns[1].data.double()
+    order = torch.argsort(k)
+    return k[order], v[order]
+
+
+def check_groups_close(label: str, got, want, rtol: float) -> None:
+    (gk, gv), (wk, wv) = got, want
+    check(gk.shape == wk.shape and torch.equal(gk, wk),
+          f"{label}: the same group keys")
+    err = float(((gv - wv).abs() / wv.abs().clamp_min(1e-30)).max())
+    check(err <= rtol, f"{label}: sums within {rtol} (max rel err {err:.3e})")
+
+
+def recover_counts(c) -> str:
+    return ",".join(f"{k.split('.', 1)[1]}:{v}" for k, v in sorted(c.items())
+                    if k.startswith("recover.") and k != "recover.remesh_us"
+                    ) or "none"
+
+
+def scan_bytes(tables) -> int:
+    """Device bytes of the tables' leaves and counts."""
+    return sum(sum(c.data.numel() * c.data.element_size()
+                   + (0 if c.validity is None else c.validity.numel())
+                   for c in t.columns) + t.counts.numel() * 4
+               for t in tables.values())
+
+
+def settled_allocated() -> int:
+    """``memory_allocated`` once the queued work is done and the caching
+    allocator has seen a malloc (so blocks freed under a recorded copy
+    stream are returned)."""
+    torch.cuda.synchronize()
+    torch.empty(1, device=DEVICE)
+    return torch.cuda.memory_allocated()
+
+
+def recovery_attempts():
+    """The ladder's attempt log of the last recovered plan."""
+    from cylon_tpu_torch.observe import flightrec
+
+    done = [e for e in flightrec.events() if e.get("kind") == "recover"
+            and e.get("action") == "recovered"]
+    return [a["action"] for a in done[-1]["attempts"]] if done else []
+
+
+class StrategySpy:
+    """Records the chooser's picks per recovery attempt (the driver opens
+    one ``collect_strategy_choices`` window per attempt)."""
+
+    def __enter__(self):
+        import contextlib
+
+        from cylon_tpu_torch import resilience
+
+        self.mod, self.real = resilience, resilience.collect_strategy_choices
+        self.attempts = []
+
+        @contextlib.contextmanager
+        def spy():
+            with self.real() as sink:
+                self.attempts.append(sink)
+                yield sink
+        resilience.collect_strategy_choices = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.collect_strategy_choices = self.real
+
+
+class EvacuationSpy:
+    """Reads the card's allocated bytes right after each re-mesh
+    evacuation of the recovery driver."""
+
+    def __enter__(self):
+        from cylon_tpu_torch.plan import executor
+
+        self.mod, self.real = executor, executor._evacuate
+        self.after = []
+
+        def spy(*args, **kwargs):
+            evac = self.real(*args, **kwargs)
+            self.after.append(settled_allocated())
+            return evac
+        executor._evacuate = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._evacuate = self.real
+
+
+def recovery_plan(label, tables, rules, ref, oracle):
+    """One ``ctx.optimize`` of ``two_stage`` under ``FaultPlan(0, rules)``
+    with the counts at 0: its groups are checked against the fault-free
+    run and the oracle.  Returns (counters, launches, launches by nparts,
+    seconds)."""
+    from cylon_tpu_torch import faults, trace
+    from cylon_tpu_torch.observe import flightrec
+    from cylon_tpu_torch.ops import hash_cuda
+
+    ctx = tables["ctx"]
+    tabs = {"l": tables["l"], "r": tables["r"]}
+    trace.reset()
+    flightrec.clear()
+    hash_cuda.launches = 0
+    hash_cuda.launches_by_nparts.clear()
+    with faults.active(faults.FaultPlan(0, rules)):
+        out, secs = wall(lambda: ctx.optimize(two_stage, tabs))
+    launches = hash_cuda.launches
+    by_np = dict(hash_cuda.launches_by_nparts)
+    c = trace.counters()
+    got = sorted_groups(out)
+    del out
+    check_groups_close(f"{label} == fault-free", got, ref, RERUN_RTOL)
+    check_groups_close(f"{label} == oracle", got, oracle, RECOVERY_RTOL)
+    check(launches > 0, f"{label}: the partition kernel ran")
+    return c, launches, by_np, secs
+
+
+def phase_recovery_join(ldata, rdata, tag=""):
+    """The recovery driver on the join cell: the two-stage plan at world
+    4 with the broadcast threshold at 1, fault-free (= the oracle), then
+    under a transient ``exec.stage`` (stage retry from the memo), a
+    resource ``exec.stage`` (replan: the failed attempt's strategies
+    never come back, chunked apart), a ``recover.checkpoint_restore``
+    fault (replay), a lost slot 4 → 3 (the TOPOLOGY rung: the card's
+    allocated bytes before the loss, after the evacuation and after the
+    run; no old-world copy of a scan table left), its rejoin 3 → 4 in
+    the next plan (the scale-up arm), 4 → 3 → 4 within one plan, and
+    with recovery switched off (the first fault propagates).  Every run
+    equals the fault-free run and the oracle.  Returns the
+    partition-kernel launches per run and those at nparts 3."""
+    from cylon_tpu_torch import config, faults, topology, trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import broadcast
+
+    t_start = time.perf_counter()
+    trace.enable_counters()
+    lt, rt = join_sides(ldata, rdata)
+    ctx = lt.ctx
+    tables = {"l": lt, "r": rt, "ctx": ctx}
+    tabs = {"l": lt, "r": rt}
+    n = lt.num_rows
+    label = f"{tag}recovery rows={n} world={WORLD}"
+    oracle = two_stage_oracle(ldata, rdata)
+    prev_thr = config.set_broadcast_join_threshold(1)
+    broadcast.clear_replica_cache()
+    launches, at3 = {}, {}
+    try:
+        hash_cuda.launches = 0
+        ref, secs = wall(lambda: sorted_groups(ctx.optimize(two_stage, tabs)))
+        launches["fault_free"] = hash_cuda.launches
+        check_groups_close(f"{label} fault-free == oracle", ref, oracle,
+                           RECOVERY_RTOL)
+        say(f"{label} fault-free", seconds=f"{secs:.6f}",
+            groups=int(ref[0].numel()), kernel_launches=hash_cuda.launches)
+
+        c, launches["transient"], _, secs = recovery_plan(
+            f"{label} transient", tables, [faults.FaultRule(
+                "exec.stage", kind="transient", nth=2)], ref, oracle)
+        check(c.get("recover.stage_retries", 0) == 1
+              and c.get("recover.recovered", 0) == 1
+              and c.get("recover.checkpoints", 0) >= 1
+              and c.get("recover.stages_replayed", 0) == 0,
+              f"{label} transient: one stage retry resumed from the memo "
+              f"({recover_counts(c)})")
+        say(f"{label} transient exec.stage", seconds=f"{secs:.6f}",
+            attempts=",".join(recovery_attempts()),
+            recover=recover_counts(c),
+            kernel_launches=launches["transient"])
+
+        with StrategySpy() as spy:
+            c, launches["resource"], _, secs = recovery_plan(
+                f"{label} resource", tables, [faults.FaultRule(
+                    "exec.stage", kind="resource", nth=2)], ref, oracle)
+        failed, replanned = spy.attempts[0], spy.attempts[-1]
+        check(len(spy.attempts) == 2 and c.get("recover.replans", 0) == 1
+              and c.get("recover.recovered", 0) == 1
+              and c.get("recover.checkpoint_hits", 0) >= 1,
+              f"{label} resource: one replan resumed from the checkpoint "
+              f"({recover_counts(c)})")
+        check(not (replanned - {"chunked"}) & failed,
+              f"{label} resource: no strategy of the failed attempt "
+              f"({sorted(failed)}) came back ({sorted(replanned)})")
+        say(f"{label} resource exec.stage", seconds=f"{secs:.6f}",
+            attempts=",".join(recovery_attempts()),
+            strategies_before=",".join(sorted(failed)) or "none",
+            strategies_after=",".join(sorted(replanned)) or "none",
+            recover=recover_counts(c), kernel_launches=launches["resource"])
+
+        c, launches["checkpoint_restore"], _, secs = recovery_plan(
+            f"{label} restore fault", tables, [
+                faults.FaultRule("exec.stage", kind="resource", nth=2),
+                faults.FaultRule("recover.checkpoint_restore",
+                                 kind="transient", probability=1.0)],
+            ref, oracle)
+        check(c.get("recover.restore_failed", 0) >= 1
+              and c.get("recover.stages_replayed", 0) >= 1
+              and c.get("recover.recovered", 0) == 1,
+              f"{label} restore fault: the stage replayed "
+              f"({recover_counts(c)})")
+        say(f"{label} recover.checkpoint_restore", seconds=f"{secs:.6f}",
+            attempts=",".join(recovery_attempts()),
+            recover=recover_counts(c),
+            kernel_launches=launches["checkpoint_restore"])
+
+        # a lost slot, 4 -> 3, then its rejoin in the next plan, 3 -> 4
+        try:
+            old = scan_bytes(tabs)
+            m_before = settled_allocated()
+            with EvacuationSpy() as ev:
+                c, launches["lost_4_to_3"], by_np, secs = recovery_plan(
+                    f"{label} lost", tables, [faults.FaultRule(
+                        "mesh.device_lost", kind="topology", nth=2,
+                        lost=1)], ref, oracle)
+            m_after = settled_allocated()
+            new = scan_bytes(tabs)
+            at3["lost_4_to_3"] = by_np.get(3, 0)
+            check(c.get("recover.remesh", 0) == 1
+                  and c.get("recover.recovered", 0) == 1
+                  and lt.nparts == rt.nparts == 3
+                  and lt.ctx is topology.effective(ctx),
+                  f"{label} lost: re-meshed onto 3 survivors "
+                  f"({recover_counts(c)})")
+            check(at3["lost_4_to_3"] > 0,
+                  f"{label} lost: the partition kernel ran at nparts 3 "
+                  f"({by_np})")
+            check(m_after - m_before <= new - old + HOST_SLACK,
+                  f"{label} lost: the card holds the scan tables once "
+                  f"(allocated {m_before} -> {m_after} B, tables {old} -> "
+                  f"{new} B)")
+            say(f"{label} mesh.device_lost 4->3", seconds=f"{secs:.6f}",
+                attempts=",".join(recovery_attempts()),
+                evacuated_bytes=c.get("recover.evacuated_bytes", 0),
+                remesh_us=c.get("recover.remesh_us", 0),
+                allocated_before_loss=m_before,
+                allocated_after_evacuation=ev.after[0],
+                allocated_after_run=m_after, scan_bytes_before=old,
+                scan_bytes_after=new, recover=recover_counts(c),
+                kernel_launches=launches["lost_4_to_3"],
+                kernel_launches_nparts3=at3["lost_4_to_3"])
+            c, launches["joined_3_to_4"], by_np, secs = recovery_plan(
+                f"{label} joined", tables, [faults.FaultRule(
+                    "mesh.device_joined", kind="topology", nth=1, lost=1)],
+                ref, oracle)
+            check(c.get("recover.scaleups", 0) == 1
+                  and lt.ctx is ctx and rt.ctx is ctx
+                  and not topology.degraded(ctx),
+                  f"{label} joined: the plan grew back onto world 4 "
+                  f"({recover_counts(c)})")
+            say(f"{label} mesh.device_joined 3->4", seconds=f"{secs:.6f}",
+                evacuated_bytes=c.get("recover.evacuated_bytes", 0),
+                remesh_us=c.get("recover.remesh_us", 0),
+                recover=recover_counts(c),
+                kernel_launches=launches["joined_3_to_4"],
+                kernel_launches_by_nparts=by_np)
+        finally:
+            topology.reset()
+
+        # 4 -> 3 -> 4 within one plan
+        try:
+            m_before = settled_allocated()
+            with EvacuationSpy() as ev:
+                c, launches["lost_joined_one_plan"], by_np, secs = \
+                    recovery_plan(f"{label} lost+joined", tables, [
+                        faults.FaultRule("mesh.device_lost", kind="topology",
+                                         nth=2, lost=1),
+                        faults.FaultRule("mesh.device_joined",
+                                         kind="topology", probability=1.0,
+                                         limit=1, lost=1,
+                                         after="mesh.device_lost")],
+                        ref, oracle)
+            m_after = settled_allocated()
+            check(c.get("recover.remesh", 0) == 1
+                  and c.get("recover.scaleups", 0) == 1
+                  and lt.ctx is ctx and rt.ctx is ctx,
+                  f"{label} lost+joined: 4 -> 3 -> 4 in one plan "
+                  f"({recover_counts(c)})")
+            check(m_after - m_before <= HOST_SLACK,
+                  f"{label} lost+joined: back on world 4, the card holds "
+                  f"what it held ({m_before} -> {m_after} B)")
+            say(f"{label} 4->3->4 in one plan", seconds=f"{secs:.6f}",
+                evacuated_bytes=c.get("recover.evacuated_bytes", 0),
+                remesh_us=c.get("recover.remesh_us", 0),
+                allocated_before_loss=m_before,
+                allocated_after_evacuations=",".join(map(str, ev.after)),
+                allocated_after_run=m_after, recover=recover_counts(c),
+                kernel_launches=launches["lost_joined_one_plan"],
+                kernel_launches_by_nparts=by_np)
+        finally:
+            topology.reset()
+
+        # recovery off: the first fault propagates
+        prev = config.set_recovery_enabled(False)
+        trace.reset()
+        hash_cuda.launches = 0
+        try:
+            with faults.active(faults.FaultPlan(0, [faults.FaultRule(
+                    "exec.stage", kind="transient", nth=2)])):
+                ctx.optimize(two_stage, tabs)
+            raise AssertionError(f"check failed: {label} recovery off: "
+                                 "the fault did not propagate")
+        except faults.TransientFault as e:
+            check(not hasattr(e, "ladder"), f"{label} recovery off: the "
+                  "error carries no attempt log")
+        finally:
+            config.set_recovery_enabled(prev)
+        c = trace.counters()
+        launches["recovery_off"] = hash_cuda.launches
+        check(recover_counts(c) == "none",
+              f"{label} recovery off: no ladder ran ({recover_counts(c)})")
+        say(f"{label} recovery off", propagated="TransientFault",
+            kernel_launches=launches["recovery_off"])
+    finally:
+        config.set_broadcast_join_threshold(prev_thr)
+        topology.reset()
+        broadcast.clear_replica_cache()
+    say(f"{label} phases", wall_seconds=f"{time.perf_counter() - t_start:.3f}")
+    return launches, at3
+
+
+RECOVERY_QUERIES = ("q5", "q21")
+
+
+def phase_recovery_tpch(ctx, tables, sf: float):
+    """Q5 and Q21 (the queries with the most exchanges) through
+    ``ctx.optimize`` at world 4, each losing a slot at its second exchange
+    boundary: the plan resumes on 3 survivors and equals its fault-free
+    planned run; the partition kernel runs at nparts 3; the card holds
+    each scan table once afterwards.  The scan tables then move back onto
+    world 4 (timed).  Returns the launches per query and those at
+    nparts 3."""
+    from cylon_tpu_torch import faults, topology, trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.parallel.remesh import remesh_table
+    from cylon_tpu_torch.tpch import QUERIES
+
+    t_start = time.perf_counter()
+    trace.enable_counters()
+    launches, at3 = {}, {}
+    for q in RECOVERY_QUERIES:
+        label = f"recovery tpch {q} sf={sf} world={WORLD}"
+        op = lambda t, q=q: QUERIES[q](ctx, t)  # noqa: E731
+        broadcast.clear_replica_cache()
+        hash_cuda.launches = 0
+        ref, ref_s = wall(lambda: ctx.optimize(op, tables))
+        ref_launches = hash_cuda.launches
+        broadcast.clear_replica_cache()
+        old = scan_bytes(tables)
+        m_before = settled_allocated()
+        trace.reset()
+        hash_cuda.launches = 0
+        hash_cuda.launches_by_nparts.clear()
+        try:
+            with EvacuationSpy() as ev, \
+                    faults.active(faults.FaultPlan(0, [faults.FaultRule(
+                        "mesh.device_lost", kind="topology", nth=2,
+                        lost=1)])):
+                out, secs = wall(lambda: ctx.optimize(op, tables))
+            launches[q] = hash_cuda.launches
+            at3[q] = hash_cuda.launches_by_nparts.get(3, 0)
+            c = trace.counters()
+            order = same_result(q, ref, out, what="the fault-free run and "
+                                "the run that lost a slot")
+            del out
+            broadcast.clear_replica_cache()
+            m_after = settled_allocated()
+            new = scan_bytes(tables)
+            moved = [k for k, t in tables.items() if t.nparts == 3]
+            check(c.get("recover.remesh", 0) == 1
+                  and c.get("recover.recovered", 0) >= 1 and moved,
+                  f"{label}: re-meshed onto 3 survivors "
+                  f"({recover_counts(c)})")
+            # a plan whose exchanges are all broadcasts or dense-key
+            # shuffles hashes nothing (Q5 at SF 10; every query's small
+            # tables)
+            check(at3[q] > 0 or not ref_launches,
+                  f"{label}: the partition kernel ran at nparts 3, as the "
+                  f"fault-free run launched it ({ref_launches} times)")
+            check(m_after - m_before <= new - old + HOST_SLACK,
+                  f"{label}: the card holds the scan tables once "
+                  f"(allocated {m_before} -> {m_after} B, tables {old} -> "
+                  f"{new} B)")
+        finally:
+            topology.reset()
+            t0 = time.perf_counter()
+            back = sum(remesh_table(t, ctx) for t in tables.values()
+                       if t.ctx is not ctx)
+            torch.cuda.synchronize()
+            back_s = time.perf_counter() - t0
+        say(label, seconds=f"{secs:.6f}", fault_free_seconds=f"{ref_s:.6f}",
+            rows=ref.num_rows, order=order.replace(" ", "_"),
+            remeshed_tables=",".join(moved),
+            evacuated_bytes=c.get("recover.evacuated_bytes", 0),
+            remesh_us=c.get("recover.remesh_us", 0),
+            allocated_before_loss=m_before,
+            allocated_after_evacuation=ev.after[0] if ev.after else "none",
+            allocated_after_run=m_after, scan_bytes_before=old,
+            scan_bytes_after=new, recover=recover_counts(c),
+            kernel_launches=launches[q], kernel_launches_nparts3=at3[q],
+            fault_free_kernel_launches=ref_launches,
+            back_to_world4_bytes=back, back_to_world4_seconds=f"{back_s:.3f}")
+        del ref
+    say(f"recovery tpch sf={sf}",
+        wall_seconds=f"{time.perf_counter() - t_start:.3f}")
+    return launches, at3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -3030,6 +3489,9 @@ def main() -> int:
     staged = phase_staged_spill(ldata, rdata, want)
     launches_spill["staged_spill_shuffle"] = staged["shuffle"]
     launches_spill["staged_spill_join"] = staged["join"]
+    # the recovery driver and the elastic re-mesh on the join cell
+    phase_recovery_join(wl, wr, tag="warm-up ")
+    launches_recovery, launches_nparts3 = phase_recovery_join(ldata, rdata)
     phase_outer(args.seed)
     phase_hash_partition(ldata)
     phase_dist_sort(ldata, args.seed, args.profile)
@@ -3106,6 +3568,9 @@ def main() -> int:
     launches_stream["q9"] = phase_q9_streaming(tctx, tables, args.tpch_sf,
                                                args.profile)
     launches_multiway = phase_multiway(tables, args.tpch_sf, exports)
+    rec_tpch, rec_tpch3 = phase_recovery_tpch(tctx, tables, args.tpch_sf)
+    launches_recovery.update({f"tpch_{q}_lost": v for q, v in rec_tpch.items()})
+    launches_nparts3.update({f"tpch_{q}_lost": v for q, v in rec_tpch3.items()})
     del tables
     broadcast.clear_replica_cache()
     phase_tpch_worlds(args.tpch_check_sf, args.seed)
@@ -3120,6 +3585,12 @@ def main() -> int:
           and launches_spill["spilled_fused_final_exchange"] > 0,
           "the partition kernel ran on the staged-spill exchange, the "
           "morsel join and the morsel groupby's final exchange")
+    check(all(v > 0 for k, v in launches_recovery.items()
+              if k not in ("recovery_off", "tpch_q5_lost"))
+          and launches_nparts3["lost_4_to_3"] > 0
+          and launches_nparts3["tpch_q21_lost"] > 0,
+          "the partition kernel ran on every recovery path that hashes, at "
+          "nparts 3 after the join cell's and Q21's losses")
 
     # the kernel at the main path's shape: the world-4 partition of one side
     # ([P*cap] rows of one int32 key, no validity, 4 parts)
@@ -3142,6 +3613,25 @@ def main() -> int:
     say("kernel at the groupby shape", rows=ok.shape[0], key="int64",
         ms=f"{gb_ms:.4f}", plain_ms=f"{gb_plain_ms:.3f}",
         bound_ms=f"{gb_bound:.4f}", share_of_bound=f"{gb_bound / gb_ms:.3f}")
+    # and at the survivor world's shape: the same side re-blocked over 3
+    # shards ([3*cap3] rows), nparts 3
+    cap3 = next_bucket(-(-args.rows // 3), minimum=8)
+    k3 = pad_to(t(ldata["k"]), 3 * cap3)
+    got3 = hash_cuda.partition_ids_fused((k3,), (None,), 3)
+    plain3 = plain_hash.partition_ids(plain_hash.row_hash((k3,), (None,)), 3)
+    err3 = int((got3.long() - plain3.long()).abs().max())
+    check(err3 == 0, "kernel == plain at nparts 3")
+    del got3, plain3
+    n3 = {"rows": int(k3.shape[0]), "nparts": 3, "max_abs_err": err3,
+          "ms": cuda_ms(lambda: hash_cuda.partition_ids_fused(
+              (k3,), (None,), 3), 20),
+          "plain_ms": cuda_ms(lambda: plain_hash.partition_ids(
+              plain_hash.row_hash((k3,), (None,)), 3), 3, warmup=1),
+          "bound_ms": hash_bound_ms((k3,), (None,), k3.shape[0])}
+    say("kernel at the survivor world's shape", rows=n3["rows"], nparts=3,
+        ms=f"{n3['ms']:.4f}", plain_ms=f"{n3['plain_ms']:.3f}",
+        bound_ms=f"{n3['bound_ms']:.4f}",
+        share_of_bound=f"{n3['bound_ms'] / n3['ms']:.3f}")
     kernels = [{
         "name": "partition_hash", "route": "cuda",
         "source": "cylon_tpu_torch/csrc/partition_hash.cu",
@@ -3162,6 +3652,9 @@ def main() -> int:
         "launches_multiway": launches_multiway,
         "launches_redistribution": launches_redist,
         "launches_spill": launches_spill,
+        "launches_recovery": launches_recovery,
+        "launches_recovery_nparts3": launches_nparts3,
+        "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
         "max_abs_err": max_err,

@@ -23,7 +23,7 @@ Layer map:
                       broadcast.py: replicate_table + replica cache
     plan/             the logical planner behind ``ctx.optimize``: lazy
                       capture (ir), rewrite rules, lowering + plan cache
-                      (executor)
+                      and the recovery driver (executor)
     analysis/         plan_check: the capture hook on every dist op and
                       the plan nodes EXPLAIN ANALYZE annotates
     trace.py          phase spans (off by default; on, they synchronize
@@ -37,11 +37,18 @@ Layer map:
     ops/              hash (plain + CUDA), compaction, gathers, join, sort,
                       set-op and groupby kernels
     config.py         JoinConfig, the broadcast threshold, memory budget,
-                      the optimizer switch, the plan-cache capacity
+                      the optimizer switch, the plan-cache capacity, the
+                      recovery switch
+    faults.py         named fault points + seeded fault plans
+    resilience.py     budget reads, bounded retry, failure classes, the
+                      recovery ladder's decisions and exchange demotions
+    topology.py       the survivor-context registry (device loss and
+                      rejoin) and the (slow, fast) mesh split
     context.py        CylonContext: device, world, communicator, optimize,
                       analyze
 """
 
+from . import faults
 from .config import JoinAlgorithm, JoinConfig, JoinType
 from .context import CylonContext
 from .dtypes import DataType, Layout, Type
@@ -49,6 +56,9 @@ from .status import Code, CylonError, Status
 from .table import Column, Table
 
 __version__ = "0.1.0"
+
+# CYLON_CHAOS=<seed>: run the process under the seeded default fault plan
+faults.install_chaos_from_env()
 
 __all__ = [
     "CylonContext", "Table", "Column", "Status", "Code", "CylonError",

@@ -5,8 +5,9 @@ The PyTorch port's copy of the join part of ``cylon_tpu/config.py``
 the device memory budget, the host-tier (spill) budget and switch, the
 exchange knobs the costed shuffle reads
 (the forced strategy, the (slow, fast) mesh shape, the watchdog
-timeout), the optimizer switch, the plan-cache capacity, and the
-lock-order checks of ``observe.locks``.
+timeout), the optimizer switch, the plan-cache capacity, the
+lock-order checks of ``observe.locks``, and the recovery driver's two
+knobs (the recovery switch and the re-mesh flap-damping window).
 """
 from __future__ import annotations
 
@@ -464,6 +465,66 @@ def set_lock_hold_watchdog_ms(ms: Optional[int]) -> Optional[int]:
             f"None (env-resolved), got {type(ms).__name__} {ms!r}"))
     prev = _lock_hold_watchdog_ms
     _lock_hold_watchdog_ms = ms
+    return prev
+
+
+# The self-healing recovery switch: whether plan/executor.materialize
+# wraps execution in the recovery driver (classified stage retry,
+# exchange replan, re-mesh, annotated fail) or propagates the first
+# failure unchanged.  Explicit set_recovery_enabled() > CYLON_RECOVERY
+# env (any value but "0" / empty enables; default on).
+_recovery_enabled: Optional[bool] = None
+
+
+def recovery_enabled() -> bool:
+    """Whether the executor's recovery ladder is active (explicit knob,
+    else ``CYLON_RECOVERY``)."""
+    if _recovery_enabled is not None:
+        return _recovery_enabled
+    return os.environ.get("CYLON_RECOVERY", "1") not in ("", "0")
+
+
+def set_recovery_enabled(on: Optional[bool]) -> Optional[bool]:
+    """Set the recovery switch (None restores env resolution); returns
+    the previous explicit setting."""
+    global _recovery_enabled
+    if on is not None and not isinstance(on, bool):
+        raise CylonError(Status(Code.Invalid,
+            "recovery switch must be True, False or None (env-resolved), "
+            f"got {type(on).__name__} {on!r}"))
+    prev = _recovery_enabled
+    _recovery_enabled = on
+    return prev
+
+
+# The flap-damping window of elastic topology transitions
+# (topology.mark_joined): a rejoin within this many ms of the last
+# transition is held pending.  Explicit set_remesh_cooldown_ms() >
+# CYLON_REMESH_COOLDOWN_MS env (default 0: joins apply at once).
+_remesh_cooldown_ms: Optional[int] = None
+
+
+def remesh_cooldown_ms() -> int:
+    """Flap-damping hysteresis window in ms (0 disables)."""
+    if _remesh_cooldown_ms is not None:
+        return _remesh_cooldown_ms
+    try:
+        return int(os.environ.get("CYLON_REMESH_COOLDOWN_MS", "0"))
+    except ValueError:
+        return 0
+
+
+def set_remesh_cooldown_ms(ms: Optional[int]) -> Optional[int]:
+    """Set the remesh flap-damping window (None restores env resolution,
+    0 disables); returns the previous explicit setting."""
+    global _remesh_cooldown_ms
+    if ms is not None and (not isinstance(ms, int)
+                           or isinstance(ms, bool) or ms < 0):
+        raise CylonError(Status(Code.Invalid,
+            "remesh cooldown must be a non-negative int of ms or "
+            f"None (env-resolved), got {type(ms).__name__} {ms!r}"))
+    prev = _remesh_cooldown_ms
+    _remesh_cooldown_ms = ms
     return prev
 
 

@@ -145,6 +145,12 @@ class CylonContext:
         self._comm = LocalCommunicator(int(world), dev)
         self._config: Dict[str, str] = dict(config or {})
 
+    def with_world(self, world: int) -> "CylonContext":
+        """A context on the same device with ``world`` shards and a copy
+        of this one's config map: the survivor (or grown) context of an
+        elastic re-mesh (``topology.mark_lost`` / ``mark_joined``)."""
+        return CylonContext(dict(self._config), self._device, world)
+
     def get_rank(self) -> int:
         """Lowest rank this process drives (all of them: 0)."""
         return 0

@@ -11,8 +11,10 @@ Two shapes of fault exist:
     :class:`~cylon_tpu_torch.status.CylonError` subclasses naming the
     point — exactly where a real host-read / IO / allocation failure
     would surface.  The transient class is what
-    ``resilience.retry_call`` retries; the others propagate
-    (``resilience.classify`` names their class).
+    ``resilience.retry_call`` retries; inside a planned query the
+    escalation ladder (``resilience.Ladder``, run by the plan
+    executor) answers each class: stage retry, replan, re-mesh, or an
+    annotated failure.
   * **value points** (``perturb(name, value)``) mutate an engine-internal
     value in flight, e.g. shrink the memory budget mid-query to simulate
     allocation pressure (degrading shuffles to a staged lowering).
@@ -28,16 +30,19 @@ same points in the same order as in the JAX package.
 Every fire bumps the ``fault.injected`` counter and the plan's own
 ``injected`` tally (visible without counters enabled).
 
-The catalogue holds the points the port has sites for:
-``compact.read_counts`` (the shuffle's count read,
-``ops/compact.read_counts``) and ``resilience.budget``
-(``resilience.exchange_budget``).  The JAX package's other points
-(``io.*``, ``spill.*``, ``serve.*``, ``recover.*``, ``exec.stage``,
-``mesh.*``, ``compact.hint`` / ``compact.flush``), the ``poll`` event
-hook and the ``CYLON_CHAOS`` default plan come with the sites that
-consult them.  A rule may still name any point: the draws are keyed by
-the name, so a plan decides the same consultations as in the JAX
-package.
+The catalogue holds the points the port has sites for: the shuffle's
+count read (``compact.read_counts``), the budget read
+(``resilience.budget``), the spill pool's two staging boundaries
+(``spill.*``), and the recovery driver's seams in the plan executor
+(``exec.stage``, ``recover.*``, ``mesh.*``).  The JAX package's other
+points (``io.*``, ``serve.*``, ``matview.fold``, ``compact.hint`` /
+``compact.flush``) come with the sites that consult them.  A rule may
+still name any point: the draws are keyed by the name, so a plan decides
+the same consultations as in the JAX package.
+
+``CYLON_CHAOS=<seed>`` installs ``FaultPlan.default(seed)`` when the
+package is imported (:func:`install_chaos_from_env`): every recoverable
+fault class, at low probability, at the port's points.
 
 Scoped use::
 
@@ -61,6 +66,7 @@ __all__ = [
     "POINTS", "FaultError", "TransientFault", "ResourceFault",
     "PermanentFault", "TopologyFault", "FaultRule", "FaultPlan",
     "install", "uninstall", "active", "plan", "check", "perturb",
+    "poll", "install_chaos_from_env",
 ]
 
 # ---------------------------------------------------------------------------
@@ -78,6 +84,54 @@ POINTS: Dict[str, str] = {
         "value point: the device memory budget read — a shrinking "
         "mutation simulates allocation pressure mid-query, degrading "
         "over-budget exchanges to the chunked multi-round path",
+    # recovery seams: the self-healing executor's own failure surfaces
+    # are fault points too, so the recovery machinery is chaos-testable
+    # like everything it recovers
+    "exec.stage":
+        "the plan executor's per-stage dispatch at an exchange boundary "
+        "(plan/executor._execute) — a mid-query failure between stages; "
+        "transient rules exercise stage retry from checkpoint, resource "
+        "rules exercise the replan arm, permanent rules the annotated "
+        "bundle",
+    "recover.checkpoint_restore":
+        "a stage resume from a retained checkpoint — a failed restore "
+        "drops the checkpoint and re-executes the stage from its "
+        "inputs instead",
+    "recover.replan":
+        "the escalation ladder's replan trigger — a failure here means "
+        "the degraded re-lowering itself could not be set up, and the "
+        "ladder fails the query with the annotated bundle",
+    # the host tier: the spill pool's two staging boundaries.  Failures
+    # here are classed onto the RESOURCE arm of the escalation ladder,
+    # transient kind included (an injected PERMANENT stays permanent)
+    "spill.stage_out":
+        "the spill pool's batched device->host staging transfer "
+        "(spill/pool.stage_out_arrays) — a failed D2H on a tunneled "
+        "backend, or host allocation failure for the pinned blocks",
+    "spill.stage_in":
+        "the spill pool's host->device staging transfer "
+        "(spill/pool.stage_in_arrays; whole fault-ins and per-morsel "
+        "slices) — a failed H2D or device allocation failure for the "
+        "staged block",
+    # elastic degraded-mesh execution: loss of a shard slot mid-query,
+    # consulted at the executor's exchange-boundary dispatch next to
+    # exec.stage; topology-kind rules raise a TopologyFault carrying how
+    # many slots died, and the ladder's TOPOLOGY rung evacuates to the
+    # host tier and re-meshes onto the survivors
+    "mesh.device_lost":
+        "loss of a device (or mesh slice) mid-query, surfacing as a "
+        "collective failure at an exchange boundary "
+        "(plan/executor._execute) — topology rules carry lost=k; the "
+        "escalation ladder's TOPOLOGY rung evacuates and re-meshes "
+        "onto the P-k survivors",
+    "mesh.device_joined":
+        "return of a repaired device (or mesh slice), surfacing at the "
+        "same exchange-boundary dispatch (plan/executor._execute) — an "
+        "EVENT point consulted via poll(), not check(): a rejoin is an "
+        "opportunity, not a failure.  Topology rules carry lost=k as "
+        "the rejoin count; the executor answers by growing the mesh "
+        "back along the roster (topology.mark_joined) and expanding or "
+        "deferring per the amortization bound",
 }
 
 
@@ -109,9 +163,9 @@ class TransientFault(FaultError):
 
 class ResourceFault(FaultError):
     """An injected failure of the resource class (a typed OOM: the
-    allocation a strategy needed did not fit) — in the JAX package the
-    escalation ladder answers these by REPLANNING the exchange onto a
-    degraded catalogue strategy, not by blind retry."""
+    allocation a strategy needed did not fit) — the escalation ladder
+    (``resilience.Ladder``) answers these by REPLANNING the exchange
+    onto a degraded catalogue strategy, not by blind retry."""
 
     def __init__(self, point: str):
         super().__init__(point, "resource")
@@ -239,6 +293,50 @@ class FaultPlan:
             digest_size=8).digest()
         return int.from_bytes(h, "big") / 2.0 ** 64
 
+    @staticmethod
+    def default(seed: int = 0) -> "FaultPlan":
+        """The ``CYLON_CHAOS`` plan at the port's points: low-probability
+        transient count reads, occasional allocation pressure on the
+        memory budget, mid-query stage failures (transient and
+        resource), host-tier staging faults, one device loss and the
+        flap pattern on top.  Every injected class is recoverable — a
+        suite that is correct under this plan demonstrated its retry,
+        replan and re-mesh machinery end to end."""
+        return FaultPlan(seed, [
+            FaultRule("compact.read_counts", kind="transient",
+                      probability=0.03),
+            FaultRule("resilience.budget", kind="value", probability=0.02,
+                      mutate=lambda b: max(int(b) // 8, 1 << 20)),
+            # mid-query stage failures at the executor's exchange
+            # boundaries: transient ones exercise checkpointed stage
+            # retry, resource ones the replan arm of the ladder
+            FaultRule("exec.stage", kind="transient", probability=0.02),
+            FaultRule("exec.stage", kind="resource", probability=0.01),
+            # host-tier staging faults, classed RESOURCE.  limit=1: a
+            # morsel scan consults these points once per morsel, and an
+            # uncapped per-call probability would fault every recovery
+            # attempt afresh
+            FaultRule("spill.stage_in", kind="resource",
+                      probability=0.01, limit=1),
+            FaultRule("spill.stage_out", kind="resource",
+                      probability=0.01, limit=1),
+            # one device loss per run (limit=1: the registry keeps the
+            # process on the survivor mesh, so a second fire would
+            # shrink again)
+            FaultRule("mesh.device_lost", kind="topology",
+                      probability=0.003, limit=1),
+            # the flap pattern: the lost device returns within a bounded
+            # interval, then may die again shortly after rejoining —
+            # each leg eligible only within `window` consultations of
+            # the previous one, each capped
+            FaultRule("mesh.device_joined", kind="topology",
+                      probability=0.25, limit=1,
+                      after="mesh.device_lost", window=400),
+            FaultRule("mesh.device_lost", kind="topology",
+                      probability=0.10, limit=1,
+                      after="mesh.device_joined", window=400),
+        ])
+
     def _decide(self, point: str, want_value: bool) -> Optional[FaultRule]:
         """One consultation of ``point``: bump its call counter and
         return the first rule that fires (None for no fault)."""
@@ -342,6 +440,23 @@ def check(point: str) -> None:
     raise TransientFault(point)
 
 
+def poll(point: str) -> Optional[FaultRule]:
+    """Event hook: consult ``point`` like :func:`check` but RETURN the
+    firing rule instead of raising — for event-class points
+    (``mesh.device_joined``) where an injected occurrence is an
+    opportunity the caller acts on, not a failure to recover from.
+    None without an active plan or firing rule.  Fires count into
+    ``fault.injected`` and the plan's tally like any other."""
+    p = _active_plan
+    if p is None:
+        return None
+    rule = p._decide(point, want_value=False)
+    if rule is None:
+        return None
+    _count_injection()
+    return rule
+
+
 def perturb(point: str, value):
     """Value hook: returns ``value`` unchanged without an active plan /
     firing rule, else the rule's mutation of it."""
@@ -353,3 +468,16 @@ def perturb(point: str, value):
         return value
     _count_injection()
     return rule.mutate(value)
+
+
+def install_chaos_from_env() -> Optional[FaultPlan]:
+    """``CYLON_CHAOS=<seed>`` (any value but empty or ``0``) installs
+    ``FaultPlan.default(seed)`` process-wide and returns it; None (and
+    nothing installed) otherwise."""
+    import os
+    seed = os.environ.get("CYLON_CHAOS", "")
+    if seed in ("", "0"):
+        return None
+    new_plan = FaultPlan.default(int(seed))
+    install(new_plan)
+    return new_plan

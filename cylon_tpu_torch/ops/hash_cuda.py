@@ -44,6 +44,8 @@ BUILD_DIR = _PKG.parent / "build" / "cylon_tpu_torch"
 LIBRARY = BUILD_DIR / "libpartition_hash.so"
 
 launches = 0          # kernel launches since the last reset (set it to 0)
+# the same launches by partition count (clear it with ``launches``)
+launches_by_nparts: dict = {}
 build_log = ""        # nvcc's output (with -Xptxas -v) from this process's build
 
 _lib = None
@@ -178,4 +180,6 @@ def partition_ids_fused(cols: Sequence[torch.Tensor],
         raise CylonError(Status(Code.ExecutionError,
             f"partition-hash kernel launch failed: cudaError {rc}"))
     launches += 1
+    launches_by_nparts[int(nparts)] = \
+        launches_by_nparts.get(int(nparts), 0) + 1
     return out

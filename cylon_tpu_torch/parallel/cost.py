@@ -58,9 +58,14 @@ the chunked plan at its C = 1 floor runs best-effort.
 ``config.set_exchange_strategy`` / ``CYLON_EXCHANGE_STRATEGY`` force one
 lowering session-wide.
 
-Left out until their readers are ported (ROADMAP A12.2): the remesh
-price, the checkpoint price, the measured ranking (``predicted_ms`` from
-a probed mesh profile) and the replan arm's ``exclude``.
+The recovery driver's prices: :func:`price_retained` (a stage
+checkpoint's resident bytes), :func:`price_remesh` (the elastic
+re-partition P → P′ through the host tier, never chooser-selectable)
+and :func:`amortized_remesh_win` (the scale-up deferral bound); and the
+replan arm's ``choose(..., exclude=...)``.
+
+Left out until their readers are ported (ROADMAP A12.2): the measured
+ranking (``predicted_ms`` from a probed mesh profile).
 """
 from __future__ import annotations
 
@@ -73,12 +78,14 @@ from ..ops.compact import next_bucket
 
 __all__ = [
     "SINGLE_SHOT", "CHUNKED", "RING", "ALLGATHER", "REPLICATE",
-    "STAGED_SPILL", "HIERARCHICAL", "HIER_COMBINE",
+    "STAGED_SPILL", "REMESH", "HIERARCHICAL", "HIER_COMBINE",
     "STRATEGIES", "StrategyPrice",
     "exchange_sizes", "single_shot_bytes", "price_single_shot",
     "price_chunked", "price_ring", "price_allgather", "price_replicate",
-    "price_staged_spill", "chunk_plan", "hier_plan", "price_hierarchical", "price_hier_combine",
-    "slow_share", "enumerate_strategies", "choose",
+    "price_retained", "price_staged_spill", "price_remesh",
+    "amortized_remesh_win", "chunk_plan", "hier_plan",
+    "price_hierarchical", "price_hier_combine", "slow_share",
+    "enumerate_strategies", "choose",
 ]
 
 SINGLE_SHOT = "single-shot"
@@ -92,6 +99,11 @@ STAGED_SPILL = "staged-spill"   # host-tier staging (spill/): the
 #                           payload waits in the spill pool and comes back
 #                           one rank-sliced morsel per round
 
+REMESH = "remesh"   # the elastic re-partition P -> P': priced like any
+#                     exchange but never chosen by the shuffle chooser —
+#                     it changes the MESH, not the lowering, so only the
+#                     recovery driver dispatches it (parallel/remesh.py;
+#                     annotated remesh=P->P' in EXPLAIN ANALYZE)
 HIERARCHICAL = "hierarchical"   # the 2-level shuffle (docs/
 #                           tpu_perf_notes.md "Hierarchical
 #                           collectives"): one all_to_all WITHIN the
@@ -254,6 +266,59 @@ def price_replicate(nparts: int, cap: int, outcap: int,
         peak_bytes=int((nparts * cap + outcap) * rbytes),
         wire_bytes=int((nparts - 1) * cap * rbytes),
         rounds=1, sizes=(cap, outcap))
+
+
+def price_retained(cap: int, rbytes: int) -> int:
+    """Per-shard RESIDENT bytes of retaining one materialized stage
+    result as a recovery checkpoint (plan/executor.py): the shard's
+    [cap]-row block × the width of one row.  A checkpoint's footprint
+    persists across attempts, which is why checkpointing is a costed
+    decision against a bounded fraction of the memory budget
+    (``resilience.RecoveryPolicy.checkpoint_fraction``)."""
+    return int(max(cap, 0) * max(rbytes, 1))
+
+
+def price_remesh(p_old: int, p_new: int, counts: np.ndarray,
+                 rbytes: int) -> StrategyPrice:
+    """The elastic re-partition: a table's rows move from a ``p_old``-
+    shard layout onto ``p_new`` shards by staging OUT through the host
+    tier (the spill pool's D2H boundary), re-blocking host-side, and
+    staging back IN under the new world — a resharding lowered entirely
+    through the host, because the old mesh can no longer run a
+    collective.
+
+    ``counts`` is the old layout's [p_old] per-shard row counts.
+    ``peak_bytes`` is the NEW resident block, ``wire_bytes`` the payload
+    that crosses shard boundaries, ``host_bytes`` the 2× payload D2H +
+    H2D staging, 1 round."""
+    total = int(np.asarray(counts).sum())
+    per_new = -(-max(total, 1) // max(p_new, 1))
+    cap_new = next_bucket(max(per_new, 1), minimum=8)
+    payload = total * rbytes
+    return StrategyPrice(
+        REMESH,
+        peak_bytes=int(max(p_new, 1) * cap_new * rbytes),
+        wire_bytes=int(payload),
+        rounds=1, sizes=(cap_new,),
+        host_bytes=2 * payload)
+
+
+def amortized_remesh_win(per_stage_bytes: float, stages_left: int,
+                         p_old: int, p_new: int) -> float:
+    """The scale-up deferral bound: priced bytes a mid-plan expansion
+    P → P′ would save over the REMAINING stages.  Each stage's exchange
+    payload is fixed by the data, but the per-shard share shrinks by
+    ``1 − P/P′`` when the same rows spread over more shards.
+    ``per_stage_bytes`` comes from the run-stats store's observed bytes
+    for the plan's fingerprint.  The executor expands only when this
+    win beats the migration cost (the summed ``price_remesh`` wire +
+    host bytes of the plan's live tables); otherwise it defers and
+    re-evaluates at the next stage boundary."""
+    p_old_eff = max(int(p_old), 1)
+    p_new_eff = max(int(p_new), p_old_eff)
+    frac = 1.0 - p_old_eff / p_new_eff
+    return max(float(per_stage_bytes), 0.0) * max(int(stages_left), 0) \
+        * frac
 
 
 def chunk_plan(nparts: int, counts: np.ndarray, rbytes: int,
@@ -448,7 +513,7 @@ def enumerate_strategies(nparts: int, cap: int, counts: np.ndarray,
 
 
 def choose(candidates: Sequence[StrategyPrice], budget: int,
-           forced: Optional[str] = None
+           forced: Optional[str] = None, exclude: Sequence[str] = ()
            ) -> Tuple[StrategyPrice, str, bool]:
     """Pick one strategy under ``budget``.  Returns ``(price, reason,
     feasible)`` — ``feasible`` False only on the best-effort floor
@@ -464,12 +529,27 @@ def choose(candidates: Sequence[StrategyPrice], budget: int,
     (``STRATEGIES``) breaks exact ties deterministically instead.
     ``forced`` (the ``CYLON_EXCHANGE_STRATEGY`` knob) short-circuits to
     the named candidate when present in ``candidates`` — feasibility is
-    reported but not enforced for it (it is a diagnostic override)."""
+    reported but not enforced for it (it is a diagnostic override).
+
+    ``exclude`` removes named strategies from consideration — the
+    escalation ladder's replan arm (``resilience.demoted_exchanges``):
+    a resource-classed failure demotes the chooser off the lowerings
+    that just failed.  An exclusion that would empty the candidate list
+    is ignored (the chooser must always answer), and ``forced`` beats
+    it."""
     by_name = {c.strategy: c for c in candidates}
     if forced is not None and forced in by_name:
         c = by_name[forced]
         return c, f"forced by CYLON_EXCHANGE_STRATEGY ({c.describe()})", \
             c.peak_bytes <= budget
+    demoted = ""
+    if exclude:
+        kept = [c for c in candidates if c.strategy not in exclude]
+        if kept:
+            candidates = kept
+            by_name = {c.strategy: c for c in candidates}
+            demoted = (f"replan demotion excluded "
+                       f"{', '.join(exclude)}; ")
     # the host tier never competes with a FITTING resident strategy: it
     # trades host-link round trips for resident bytes, which pays only
     # when nothing resident fits.  It sits between "a resident strategy
@@ -479,21 +559,22 @@ def choose(candidates: Sequence[StrategyPrice], budget: int,
                 if c.peak_bytes <= budget and c.strategy != STAGED_SPILL]
     if not feasible:
         if spill_c is not None and spill_c.peak_bytes <= budget:
-            return spill_c, ("no resident strategy fits the "
+            return spill_c, (demoted + "no resident strategy fits the "
                              f"{budget} B budget — host-tier staging: "
                              f"{spill_c.describe()}"), True
         c = by_name.get(CHUNKED, min(candidates,
                                      key=lambda s: s.peak_bytes))
-        return c, (f"budget {budget} B below every strategy's "
+        return c, (demoted + f"budget {budget} B below every strategy's "
                    f"floor — best-effort {c.describe()}"), False
     best = min(feasible, key=lambda c: (c.rounds, c.wire_bytes,
                                         STRATEGIES.index(c.strategy)))
     if best.strategy == SINGLE_SHOT:
-        return best, f"{best.describe()} <= budget {budget} B", True
+        return best, demoted + f"{best.describe()} <= budget {budget} B", \
+            True
     ss = by_name.get(SINGLE_SHOT)
     over = (f"single-shot priced {ss.peak_bytes} B over the "
             f"{budget} B budget; " if ss is not None
             and ss.peak_bytes > budget else "")
     losers = [c.strategy for c in feasible if c is not best]
     beat = f" (beat {', '.join(losers)})" if losers else ""
-    return best, over + best.describe() + beat, True
+    return best, demoted + over + best.describe() + beat, True

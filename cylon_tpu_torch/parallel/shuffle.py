@@ -551,11 +551,16 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
     pick under ``budget``, honouring the ``CYLON_EXCHANGE_STRATEGY``
     override; past every resident lowering, the host-tier staged-spill
     one when the spill tier is on.  Returns ``(price, reason,
-    feasible)``."""
+    feasible)``.  Inside a replanned recovery attempt
+    (``resilience.demoted_exchanges``) the demoted strategies are
+    excluded and the fast path is skipped: the lowering that just failed
+    must not be re-picked."""
+    from .. import resilience
     from ..config import exchange_strategy, spill_enabled
     forced = exchange_strategy()
     split = _axis_split_of(ctx) if ctx is not None else None
-    if forced is None:
+    exclude = resilience.exchange_demotions()
+    if forced is None and not exclude:
         # fast path: a feasible single-shot wins the (rounds, wire,
         # catalogue) order outright
         block, outcap, _ = cost.exchange_sizes(counts)
@@ -566,18 +571,23 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
     cands = cost.enumerate_strategies(Pn, cap, counts, rbytes, budget,
                                       staged_ok=combine is None,
                                       spill_ok=spill_enabled(), split=split)
-    return cost.choose(cands, budget, forced)
+    return cost.choose(cands, budget, forced, exclude=exclude)
 
 
 def _note_choice(choice, reason: str, nparts=None) -> None:
     """Record one chooser decision: the per-strategy counter, the slow
     axis bytes, a downgrade (counter + flight-recorder event) and the
-    plan annotation ``exchange=<strategy>: <reason>``."""
+    plan annotation ``exchange=<strategy>: <reason>``.  The recovery
+    driver's per-attempt record (``resilience.note_strategy_choice``)
+    gets the pick too: a resource-classed failure demotes the chooser
+    off it."""
     from ..observe import flightrec
+    from ..resilience import note_strategy_choice
     trace.count(cost.strategy_counter(choice.strategy))
     if nparts is not None and choice.slow_wire_bytes:
         trace.count("shuffle.bytes_sent_slow",
                     int(choice.slow_wire_bytes) * int(nparts))
+    note_strategy_choice(choice.strategy)
     if choice.strategy != cost.SINGLE_SHOT:
         trace.count("shuffle.strategy.downgrades")
         flightrec.note("exchange_choice", strategy=choice.strategy,

@@ -12,7 +12,9 @@ distributed operators:
                   projection pruning, common-subplan elimination;
   * ``executor``  lowering back onto the eager ops + the compiled-plan
                   cache keyed by plan structure, schemas, ingest counts
-                  and the configuration the rules read.
+                  and the configuration the rules read, under the
+                  recovery driver (stage checkpoints, the escalation
+                  ladder, the elastic re-mesh).
 
 The user surface is ``ctx.optimize(plan_fn, tables)``.
 ``CYLON_OPTIMIZER=0`` (or ``config.set_optimizer_enabled(False)``) runs
@@ -34,8 +36,19 @@ def run(ctx, op, tables=None):
     check).  ``op`` receives ``tables`` (a dict of DTables, a single
     DTable, or None) with every table replaced by a lazy
     :class:`ir.LogicalTable`; logical tables in the return value are
-    materialized before returning."""
-    b = Builder(ctx)
+    materialized before returning.
+
+    The context resolves through the elastic-topology registry
+    (``topology.effective``): after a mid-query shard loss re-meshed the
+    process onto a survivor world, every later plan anchors on it, and
+    tables still on the old world are migrated first
+    (``parallel.remesh.ensure_current``), before pricing reads their
+    layout."""
+    from .. import topology
+    if tables is not None:
+        from ..parallel.remesh import ensure_current
+        ensure_current(tables)
+    b = Builder(topology.effective(ctx))
     wrapped = b.wrap_tables(tables) if tables is not None else None
     with ir.capture(b):
         out = op(wrapped) if tables is not None else op()

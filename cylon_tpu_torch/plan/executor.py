@@ -38,19 +38,33 @@ Counters (``trace``): ``plan.cache_hit`` / ``plan.cache_miss`` /
 ``optimizer.rule_fires`` (replayed on hits), ``optimizer.row_bytes_pre``
 / ``optimizer.row_bytes_post``.
 
-The reference's recovery driver (stage checkpoints, re-meshing) is not
-ported: ``materialize`` executes the optimized DAG directly.
+Recovery: ``materialize`` runs the optimized DAG under the recovery
+driver (:func:`_execute_recovering`), the classified escalation ladder
+around ``_execute``: a transient failure retries the stage from the
+intact execution memo; a resource failure (a CUDA out-of-memory error
+included) drops this ladder's memo insertions and re-lowers with the
+exchanges demoted (``resilience.demoted_exchanges``), resuming from the
+priced stage-checkpoint store (:class:`_CheckpointStore`); a topology
+failure (``mesh.device_lost``) drops the whole memo, evacuates the plan's
+scan tables and the retained checkpoints through the host tier onto a
+survivor context (``topology.mark_lost``, ``parallel/remesh.py``) and
+resumes there; permanent or exhausted fails with the attempt log on the
+error (``e.ladder``).  A ``mesh.device_joined`` event at a stage boundary
+grows the world back mid-plan, or defers per the amortization bound.
+``CYLON_RECOVERY=0`` / ``config.set_recovery_enabled(False)`` runs the
+plan without any of it.  Counters: the ``recover.*`` family.
 """
 from __future__ import annotations
 
 import threading
 import time
+import traceback
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
-from .. import trace
+from .. import faults, trace
 from ..analysis import plan_check
 from ..observe import stats as obstats
 from ..status import Code, CylonError, Status
@@ -468,6 +482,482 @@ def _frozen_copy(root: Node) -> Node:
 
 
 # ---------------------------------------------------------------------------
+# stage checkpoints + the recovery driver
+# ---------------------------------------------------------------------------
+
+_MISS = object()
+
+
+def _table_leaves(dt) -> List:
+    """A DTable's leaves (data, then validity, per column) for pricing:
+    the pooled host blocks when it is spilled, so no fault-in."""
+    if dt._spill_entry is not None:
+        return [a for d, v in dt._spill_entry.leaves
+                for a in (d, v) if a is not None]
+    out = []
+    for c in dt._columns:
+        out.append(c.data)
+        if c.validity is not None:
+            out.append(c.validity)
+    return out
+
+
+def _release_frames(exc: BaseException) -> None:
+    """Clear the locals of the failed attempt's frames (everything below
+    the driver's own): until the exception object goes, its traceback
+    would keep the attempt's intermediate tensors allocated on the card
+    while the ladder frees memory, re-meshes or re-lowers."""
+    tb = exc.__traceback__
+    if tb is not None:
+        traceback.clear_frames(tb.tb_next)
+
+
+class _CheckpointStore:
+    """Costed retention of stage results across recovery attempts.
+
+    During ONE ``_execute`` attempt every intermediate is live in the
+    walk's ``results`` anyway; what a checkpoint buys is survival across
+    a REPLAN — the resource arm frees the failed attempt's memo
+    insertions before retrying, so a fault in stage k then resumes from
+    the last retained exchange output instead of replaying the whole
+    plan.  Retention is priced (``cost.price_retained``: the [cap]-row
+    block × row width, per shard) against a bounded fraction of the
+    memory budget (``RecoveryPolicy.checkpoint_fraction``).  Admission
+    keeps the NEWEST checkpoints (the resume points) and evicts
+    oldest-first; a result whose own price exceeds the whole budget is
+    skipped (``recover.checkpoint_skipped``)."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = max(int(budget_bytes), 0)
+        self._entries: Dict[Any, Tuple[Any, int]] = {}
+        self._order: List[Any] = []
+        self.total = 0
+
+    def holds(self, esig) -> bool:
+        return esig in self._entries
+
+    def _evict_oldest(self) -> None:
+        oldest = self._order.pop(0)
+        _, old_price = self._entries.pop(oldest)
+        self.total -= old_price
+        trace.count("recover.checkpoint_evictions")
+
+    def offer(self, esig, out, node: Node) -> None:
+        if esig in self._entries or self.budget <= 0:
+            return
+        cap = getattr(out, "cap", None)
+        if cap is None:
+            return  # local-table stage outputs are not retained
+        from ..parallel import cost
+        price = cost.price_retained(int(cap),
+                                    max(ir.row_width(node.schema), 1))
+        if price > self.budget:
+            trace.count("recover.checkpoint_skipped")
+            return
+        while self.total + price > self.budget and self._order:
+            self._evict_oldest()
+        self._entries[esig] = (out, price)
+        self._order.append(esig)
+        self.total += price
+        trace.count("recover.checkpoints")
+        trace.count_max("recover.checkpoint_bytes", self.total)
+
+    def restore(self, esig):
+        """The retained result for ``esig`` or ``_MISS``.  The
+        ``recover.checkpoint_restore`` fault point fires here: an
+        injected restore failure DROPS the checkpoint and recomputes the
+        stage from its inputs — a bad checkpoint must degrade to replay,
+        never to a wrong answer."""
+        entry = self._entries.get(esig)
+        if entry is None:
+            return _MISS
+        try:
+            faults.check("recover.checkpoint_restore")
+        except faults.FaultError:
+            self._entries.pop(esig, None)
+            if esig in self._order:
+                self._order.remove(esig)
+            self.total -= entry[1]
+            trace.count("recover.restore_failed")
+            return _MISS
+        trace.count("recover.checkpoint_hits")
+        return entry[0]
+
+    def remesh(self, new_ctx) -> int:
+        """Evacuate + re-partition every retained checkpoint onto
+        ``new_ctx`` in place — a checkpoint that cannot move is dropped
+        (its stage replays) rather than poisoning the resumed attempt
+        with old-world tensors.  Prices are re-derived for the new
+        layout and the store is evicted back under its budget; returns
+        the bytes evacuated through the host boundary."""
+        from .. import observe
+        from ..parallel import cost
+        from ..parallel.remesh import remesh_table
+        evac = 0
+        for esig in list(self._order):
+            out, old_price = self._entries[esig]
+            try:
+                evac += remesh_table(out, new_ctx)
+                price = cost.price_retained(
+                    int(out.cap),
+                    max(observe.row_bytes(_table_leaves(out)), 1))
+            except Exception:
+                # a checkpoint that fails to evacuate degrades to replay
+                # of its stage, never to a failed recovery
+                self._entries.pop(esig, None)
+                self._order.remove(esig)
+                self.total -= old_price
+                trace.count("recover.restore_failed")
+                continue
+            self._entries[esig] = (out, price)
+            self.total += price - old_price
+        # the same rows over fewer shards mean bigger resident blocks:
+        # evict oldest-first back under the budget, keeping the newest
+        # resume points
+        while self.total > self.budget and self._order:
+            self._evict_oldest()
+        trace.count_max("recover.checkpoint_bytes", self.total)
+        return evac
+
+
+def _scan_tables(pre_nodes: List[Node]) -> List:
+    """The distinct DTables the plan scans, in pre-order."""
+    seen: Set[int] = set()
+    out = []
+    for n in pre_nodes:
+        if n.op != "scan":
+            continue
+        dt = n.runtime.get("dtable")
+        if dt is None or id(dt) in seen:
+            continue
+        seen.add(id(dt))
+        out.append(dt)
+    return out
+
+
+def _remesh_scan_tables(pre_nodes: List[Node], new_ctx) -> int:
+    """Evacuate + re-partition every scan table of the plan onto
+    ``new_ctx`` in place (parallel/remesh.py) — identity-preserving, so
+    execution-memo signatures and plan fingerprints keep lining up
+    across the resumed attempt.  Staging faults (``spill.stage_out`` /
+    ``spill.stage_in`` fire inside the evacuation too) are retried up to
+    three times per table: aborting mid-evacuation would strand a
+    mixed-world plan, the one state no rung can resume.  Returns bytes
+    evacuated."""
+    from ..parallel.remesh import remesh_table
+    evac = 0
+    for dt in _scan_tables(pre_nodes):
+        for attempt in range(3):
+            try:
+                evac += remesh_table(dt, new_ctx)
+                break
+            except faults.FaultError:
+                if attempt == 2:
+                    raise
+    return evac
+
+
+class _MeshExpansion(Exception):
+    """Control flow, not failure: a stage boundary decided to take a
+    pending world EXPANSION (a rejoin).  Raised by :func:`_maybe_expand`
+    and caught by ``_execute_recovering`` BEFORE the ladder — an
+    expansion is an opportunity, never a rung, and must not consume the
+    loss budget (``RecoveryPolicy.max_remeshes``)."""
+
+    def __init__(self, new_ctx, note: str):
+        super().__init__(note)
+        self.new_ctx = new_ctx
+        self.note = note
+
+
+def _expansion_decision(pre_nodes: List[Node], plan_key, p_old: int,
+                        p_new: int, stages_left: int) -> Tuple[bool, str]:
+    """The amortization bound on a mid-plan expansion P → P′: expand
+    only when the priced bytes the remaining stages save on the grown
+    world beat the migration cost of moving the plan's scan tables
+    (``cost.amortized_remesh_win``).  The per-stage savings come from
+    the run-stats store's OBSERVED bytes for this plan's fingerprint; a
+    fingerprint never observed (or observed moving nothing) expands
+    eagerly.  Returns ``(expand, note)``; ``note`` carries the math for
+    the annotation either way."""
+    from .. import observe
+    from ..parallel import cost
+    move = 0
+    for dt in _scan_tables(pre_nodes):
+        counts = np.asarray(dt.counts_host()).astype(np.int64)
+        rbytes = max(observe.row_bytes(_table_leaves(dt)), 1)
+        price = cost.price_remesh(p_old, p_new, counts, rbytes)
+        move += price.wire_bytes + price.host_bytes
+    rec = None
+    if plan_key is not None:
+        rec = obstats.STORE.get(obstats.plan_digest(plan_key))
+    observed = 0
+    nstages = 0
+    if rec:
+        observed = sum(int(node.get("bytes_moved") or 0)
+                       for node in rec.get("nodes", []))
+        nstages = sum(1 for node in rec.get("nodes", [])
+                      if node.get("exchange"))
+        if not observed:
+            observed = sum(int(v) for k, v in
+                           (rec.get("counters") or {}).items()
+                           if k in ("shuffle.bytes_sent",
+                                    "broadcast.bytes_sent"))
+    if observed <= 0:
+        return True, (f"no observed bytes for fingerprint — expanding "
+                      f"eagerly (migration {move} B)")
+    per_stage = observed / max(nstages, stages_left, 1)
+    win = cost.amortized_remesh_win(per_stage, stages_left, p_old, p_new)
+    note = (f"win {int(win)} B ({int(per_stage)} B/stage x "
+            f"{stages_left} left) vs migration {move} B")
+    return win >= move, note
+
+
+def _maybe_expand(builder, pre_nodes: List[Node], stages_left: int,
+                  expand: Optional[Dict[str, int]], plan_key) -> None:
+    """The stage-boundary scale-up consult (the inverse of the
+    ``mesh.device_lost`` consult next to it in ``_execute``): poll the
+    ``mesh.device_joined`` event point, flush any hysteresis-pending
+    joins, and — when the effective world has GROWN past the builder's —
+    either take the expansion (raise :class:`_MeshExpansion`) or defer
+    it per the amortization bound, annotating ``remesh=deferred(P->P')``.
+    With recovery disabled (``expand`` is None) joins still register in
+    the topology registry, so the NEXT query anchors on the grown
+    world."""
+    from .. import topology
+    rule = faults.poll("mesh.device_joined")
+    if rule is not None:
+        topology.mark_joined(builder.ctx, rule.lost)
+    elif topology.pending_joins(builder.ctx):
+        topology.mark_joined(builder.ctx, 0)
+    new_ctx = topology.effective(builder.ctx)
+    if new_ctx is builder.ctx:
+        return
+    p_old = builder.ctx.get_world_size()
+    p_new = new_ctx.get_world_size()
+    if p_new <= p_old:
+        return      # a shrink routes through the ladder's topology rung
+    if expand is None or expand.get("left", 0) <= 0:
+        return
+    do_expand, note = _expansion_decision(pre_nodes, plan_key, p_old,
+                                          p_new, stages_left)
+    if do_expand:
+        raise _MeshExpansion(new_ctx, note)
+    trace.count("recover.scaleup_deferred")
+    plan_check.annotate_append("remesh",
+                               f"deferred({p_old}->{p_new}): {note}")
+
+
+def _evacuate(builder, pre_nodes: List[Node], ckpt: _CheckpointStore,
+              inserted: Set[Any], new_ctx) -> int:
+    """The re-mesh dance shared by the topology rung and the scale-up
+    arm: drop EVERY memo result (old-world tensors cannot feed new-world
+    collectives, and the drop is what lets the card free them), migrate
+    the scan tables and the retained checkpoints onto ``new_ctx``, drop
+    the replicas cached from old-world columns.  Returns bytes
+    evacuated."""
+    from ..parallel import broadcast
+    for esig in list(builder.exec_memo.keys()):
+        builder.exec_memo.pop(esig, None)
+    inserted.clear()
+    evac = _remesh_scan_tables(pre_nodes, new_ctx)
+    evac += ckpt.remesh(new_ctx)
+    broadcast.clear_replica_cache()
+    return evac
+
+
+def _fail_annotated(ladder, exc: BaseException, klass: str,
+                    what: str) -> None:
+    """Book a failure of the ladder's own machinery (a replan whose setup
+    failed, an evacuation that failed mid-flight): the attempt log says
+    what happened, the error carries it, the flight recorder holds it."""
+    from .. import resilience
+    from ..observe import flightrec
+    trace.count("recover.failures")
+    ladder.attempts.append(resilience.LadderAttempt(
+        klass, "fail", f"{what}: {type(exc).__name__}: {str(exc)[:120]}"))
+    exc.ladder = ladder.as_dicts()
+    flightrec.note("recover_failed", attempts=ladder.as_dicts(),
+                   error=f"{what}: {exc}")
+
+
+def _execute_recovering(builder, opt_root: Node, pre_nodes: List[Node],
+                        plan_key=None):
+    """The classified escalation ladder around ``_execute``: transient →
+    bounded stage retry resuming from the INTACT execution memo
+    (completed results are immutable: only the failed stage and
+    downstream re-run); resource → replan: this ladder's memo insertions
+    are dropped to free memory and the next attempt runs under
+    ``resilience.demoted_exchanges`` (off the cheap prefix of the
+    catalogue and every lowering the failed attempts picked), resuming
+    from the priced checkpoint store; topology (a lost shard slot) →
+    REMESH: the whole memo is dropped, the plan's scan tables and the
+    retained checkpoints evacuate through the host tier onto a survivor
+    context, the builder re-anchors on it, and the attempt resumes from
+    the re-meshed checkpoints — every remaining stage re-lowers under
+    the new world because the eager operators read it from their
+    (re-meshed) input tables; permanent or exhausted → fail, with the
+    attempt log attached to the error (``e.ladder``) and a
+    ``recover_failed`` flight-recorder event.  ``CYLON_RECOVERY=0`` /
+    ``config.set_recovery_enabled(False)`` bypasses all of it."""
+    from .. import resilience, topology
+    from ..config import recovery_enabled
+    from ..logging import warning as _warn
+    from ..observe import flightrec
+    if not recovery_enabled():
+        return _execute(builder, opt_root, pre_nodes, plan_key=plan_key)
+    ladder = resilience.Ladder()
+    ckpt = _CheckpointStore(int(ladder.policy.checkpoint_fraction
+                                * resilience.exchange_budget(
+                                    builder.ctx.device)))
+    prior: Set[Any] = set()
+    inserted: Set[Any] = set()
+    failed_strategies: Set[str] = set()
+    # the mid-plan scale-up budget (RecoveryPolicy.max_scaleups): a
+    # flapping device cannot re-raise expansions forever
+    expand = {"left": ladder.policy.max_scaleups}
+    while True:
+        try:
+            with resilience.demoted_exchanges(
+                    ladder.demote_level,
+                    failed=tuple(sorted(failed_strategies))), \
+                    resilience.collect_strategy_choices() as chosen:
+                out = _execute(builder, opt_root, pre_nodes, ckpt=ckpt,
+                               prior=prior, inserted=inserted,
+                               expand=expand, plan_key=plan_key)
+            if ladder.attempts:
+                trace.count("recover.recovered")
+                resilience.note_recovery("recovered")
+                flightrec.note("recover", action="recovered",
+                               attempts=ladder.as_dicts(),
+                               stages=ir.stage_count(opt_root))
+            return out
+        except BaseException as e:
+            if isinstance(e, (KeyboardInterrupt, SystemExit,
+                              GeneratorExit)):
+                raise   # interpreter shutdown is never a recovery outcome
+            if isinstance(e, _MeshExpansion):
+                # the scale-up arm: an opportunity taken, not a rung —
+                # the ladder never sees it
+                expand["left"] -= 1
+                _release_frames(e)
+                t0 = time.perf_counter()
+                try:
+                    evac = _evacuate(builder, pre_nodes, ckpt, inserted,
+                                     e.new_ctx)
+                except BaseException as re_err:
+                    # mid-flight failure: the plan may be mixed-world,
+                    # the one state nothing can resume
+                    _fail_annotated(ladder, re_err, resilience.TOPOLOGY,
+                                    "scale-up evacuation failed")
+                    raise
+                new_world = e.new_ctx.get_world_size()
+                builder.ctx = e.new_ctx
+                trace.count("recover.remesh_us",
+                            int((time.perf_counter() - t0) * 1e6))
+                _warn("recovery: mesh expansion — evacuated %d B and "
+                      "re-meshed onto %d devices mid-plan (%s), "
+                      "resuming from checkpoint", evac, new_world,
+                      e.note)
+                flightrec.note("recover", action="scaleup",
+                               new_world=new_world,
+                               evacuated_bytes=evac, note=e.note)
+                continue
+            action = ladder.decide(e)
+            if action == "fail":
+                if len(ladder.attempts) == 1 \
+                        and not isinstance(e, (CylonError, MemoryError)):
+                    # plain first-failure user errors pass through
+                    # untouched: the ladder only annotates failures it
+                    # engaged with
+                    raise
+                if not (ladder.retries or ladder.replans) \
+                        and not isinstance(e, faults.FaultError):
+                    # an organic first failure the ladder never engaged
+                    # with: annotate, but do not book recover.failures
+                    try:
+                        e.ladder = ladder.as_dicts()
+                    except Exception:
+                        pass   # an unannotatable error still raises
+                    raise
+                trace.count("recover.failures")
+                attempts = ladder.as_dicts()
+                try:
+                    e.ladder = attempts
+                except Exception:
+                    pass       # an unannotatable error still raises
+                flightrec.note("recover_failed", attempts=attempts,
+                               error=f"{type(e).__name__}: "
+                                     f"{str(e)[:160]}")
+                raise
+            err = f"{type(e).__name__}: {str(e)[:160]}"
+            if action == "replan":
+                # the RESOURCE arm frees memory before the degraded
+                # retry: every memo entry this ladder inserted is
+                # dropped, and the priced checkpoint store becomes the
+                # only retained state.  (The transient arm keeps the
+                # memo: completed results are immutable and correct.)
+                _release_frames(e)
+                for esig in inserted:
+                    builder.exec_memo.pop(esig, None)
+                inserted.clear()
+                # never re-pick a lowering the failed attempt chose
+                # (chunked excepted, see demoted_exchanges)
+                failed_strategies |= set(chosen)
+                try:
+                    faults.check("recover.replan")
+                except faults.FaultError as fe:
+                    _fail_annotated(ladder, fe, resilience.RESOURCE,
+                                    "replan setup failed")
+                    raise
+                trace.count("recover.replans")
+                _warn("recovery: resource-class failure (%s) — "
+                      "replanning exchanges at demotion level %d and "
+                      "resuming from checkpoint",
+                      type(e).__name__, ladder.demote_level)
+                flightrec.note("recover", action="replan",
+                               level=ladder.demote_level, error=err)
+            elif action == "remesh":
+                # the TOPOLOGY rung: a shard slot died — retrying any
+                # collective on the old world re-touches it, so shrink
+                # the world instead.  A world of one has no survivors;
+                # the rung degrades to a checkpointed stage retry there
+                lost = max(int(getattr(e, "lost", 1) or 1), 1)
+                new_ctx = topology.mark_lost(builder.ctx, lost)
+                if new_ctx is builder.ctx:
+                    ladder.attempts[-1].action = "retry (no survivors)"
+                    trace.count("recover.stage_retries")
+                    flightrec.note("recover", action="stage_retry",
+                                   retries=ladder.retries, error=err)
+                    continue
+                _release_frames(e)
+                t0 = time.perf_counter()
+                try:
+                    evac = _evacuate(builder, pre_nodes, ckpt, inserted,
+                                     new_ctx)
+                except BaseException as re_err:
+                    _fail_annotated(ladder, re_err, resilience.TOPOLOGY,
+                                    "remesh evacuation failed")
+                    raise
+                builder.ctx = new_ctx
+                trace.count("recover.remesh")
+                trace.count("recover.remesh_us",
+                            int((time.perf_counter() - t0) * 1e6))
+                _warn("recovery: topology-class failure (%s) — lost %d "
+                      "device(s); evacuated %d B and re-meshed onto %d "
+                      "survivors, resuming from checkpoint",
+                      type(e).__name__, lost, evac,
+                      new_ctx.get_world_size())
+                flightrec.note("recover", action="remesh", lost=lost,
+                               survivor_world=new_ctx.get_world_size(),
+                               evacuated_bytes=evac, error=err)
+            else:
+                trace.count("recover.stage_retries")
+                flightrec.note("recover", action="stage_retry",
+                               retries=ladder.retries, error=err)
+
+
+# ---------------------------------------------------------------------------
 # materialization
 # ---------------------------------------------------------------------------
 
@@ -534,7 +1024,7 @@ def materialize(builder, root: Node):
     builder.stats["fires"] += entry.fires
     builder.stats["pre_exchange_row_bytes"] += entry.pre_bytes
     builder.stats["post_exchange_row_bytes"] += entry.post_bytes
-    out = _execute(builder, entry.root, pre_nodes)
+    out = _execute_recovering(builder, entry.root, pre_nodes, plan_key=key)
     builder.memo_put(root, out)
     return out
 
@@ -549,13 +1039,34 @@ def _bound_runtime(node: Node, pre_nodes: List[Node]) -> Dict[str, Any]:
     return node.runtime
 
 
-def _execute(builder, opt_root: Node, pre_nodes: List[Node]):
+def _execute(builder, opt_root: Node, pre_nodes: List[Node],
+             ckpt: Optional[_CheckpointStore] = None,
+             prior: Optional[Set[Any]] = None,
+             inserted: Optional[Set[Any]] = None,
+             expand: Optional[Dict[str, int]] = None,
+             plan_key=None):
     """Children-first walk of the optimized DAG; each node lowers through
     LOWERING under suspended capture, memoized per run by content
     signature so shared subplans (within and across materialization
-    boundaries) execute once.  Signatures are pure structure + runtime
-    identity, computed for the whole DAG up front; a root-down pass then
-    skips every subtree the memo already covers."""
+    boundaries) execute once.
+
+    Under the recovery driver (:func:`_execute_recovering`) the extra
+    seams are live: ``ckpt`` serves stage results retained from a prior
+    attempt (and receives new exchange-boundary results, costed);
+    ``prior`` is the set of signatures lowered by EARLIER attempts, so
+    re-lowering one counts ``recover.stages_replayed``; ``inserted``
+    records this attempt's memo insertions for rollback; ``expand`` is
+    the scale-up budget.  Before each exchange-boundary lowering the
+    ``exec.stage`` and ``mesh.device_lost`` fault points are consulted
+    and the ``mesh.device_joined`` event polled — once per lowered
+    boundary, in ``ir.topo`` order, never for memo hits or restored
+    checkpoints.
+
+    Signatures are pure structure + runtime identity, computed for the
+    whole DAG up front; the root-down coverage pass then restores
+    retained checkpoints ON DEMAND and skips every subtree the memo
+    covers, so a resumed attempt never re-dispatches the upstream of a
+    restored boundary."""
     order = ir.topo(opt_root)
     esigs: Dict[int, Tuple] = {}
     rts: Dict[int, Dict[str, Any]] = {}
@@ -565,6 +1076,11 @@ def _execute(builder, opt_root: Node, pre_nodes: List[Node]):
         esigs[id(node)] = (node.op, rules._static_sig(node),
                            tuple(esigs[id(c)] for c in node.inputs),
                            tuple(sorted((k, id(v)) for k, v in rt.items())))
+    # root-down coverage: a memo'd node serves its whole subtree; a
+    # retained checkpoint restores on demand during the descent (one
+    # subsumed by a newer downstream checkpoint is never reinstated, and
+    # recover.checkpoint_hits counts only restores the replay consumed);
+    # a failed restore drops the checkpoint and descends into the subtree
     needed: set = set()
     stack = [opt_root]
     while stack:
@@ -572,8 +1088,22 @@ def _execute(builder, opt_root: Node, pre_nodes: List[Node]):
         if id(n) in needed:
             continue
         needed.add(id(n))
-        if esigs[id(n)] not in builder.exec_memo:
-            stack.extend(n.inputs)
+        esig = esigs[id(n)]
+        if esig in builder.exec_memo:
+            continue
+        if ckpt is not None and ckpt.holds(esig):
+            kept = ckpt.restore(esig)
+            if kept is not _MISS:
+                builder.exec_memo[esig] = (n, kept)
+                if inserted is not None:
+                    inserted.add(esig)
+                continue
+        stack.extend(n.inputs)
+    # stages this attempt will actually lower: the scale-up consult
+    # prices its amortization bound against how many are LEFT
+    stages_left = sum(1 for n in order
+                      if id(n) in needed and ir.is_stage_boundary(n)
+                      and esigs[id(n)] not in builder.exec_memo)
     results: Dict[int, Any] = {}
     for node in order:
         if id(node) not in needed:
@@ -583,6 +1113,19 @@ def _execute(builder, opt_root: Node, pre_nodes: List[Node]):
         if hit is not None:
             results[id(node)] = hit[1]
             continue
+        boundary = ir.is_stage_boundary(node)
+        if boundary:
+            faults.check("exec.stage")
+            # a shard slot dying surfaces as a collective failure at an
+            # exchange boundary: the recovering driver's TOPOLOGY rung
+            # answers by evacuating + re-meshing onto the survivors
+            faults.check("mesh.device_lost")
+            # ...and the inverse event: a repaired slot rejoining —
+            # expand onto it now, or defer per the amortization bound
+            _maybe_expand(builder, pre_nodes, stages_left, expand,
+                          plan_key)
+            if prior is not None and esig in prior:
+                trace.count("recover.stages_replayed")
         lower = LOWERING.get(node.op)
         if lower is None:
             raise CylonError(Status(Code.Invalid,
@@ -594,5 +1137,13 @@ def _execute(builder, opt_root: Node, pre_nodes: List[Node]):
         if node.opt_notes:
             plan_check.annotate_at(idx, optimizer="; ".join(node.opt_notes))
         builder.exec_memo[esig] = (node, out)
+        if inserted is not None:
+            inserted.add(esig)
+        if boundary:
+            stages_left -= 1
+            if prior is not None:
+                prior.add(esig)
+            if ckpt is not None:
+                ckpt.offer(esig, out, node)
         results[id(node)] = out
     return results[id(opt_root)]

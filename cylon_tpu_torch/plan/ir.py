@@ -40,7 +40,7 @@ __all__ = ["ColSpec", "Node", "LogicalTable", "Builder", "CAPTURED_OPS",
            "capture", "capturing", "suspended", "referenced_columns",
            "sig_of_schema", "params_sig", "topo", "known_rows",
            "row_width", "infer_schema", "EXCHANGE_OPS", "ROW_PRESERVING",
-           "fold_analysis"]
+           "fold_analysis", "is_stage_boundary", "stage_count"]
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +217,22 @@ def fold_analysis(root: Node):
         if node.op not in FOLD_LINEAR_OPS:
             foldable = False
     return bases, foldable, scan_counts
+
+
+def is_stage_boundary(node: Node) -> bool:
+    """Is ``node`` a recovery STAGE boundary?  The exchange-shaped ops
+    are the failure points (every collective dispatch lives under one),
+    so they are also where the recovery driver checkpoints and resumes
+    (plan/executor.py): the materialized output of an exchange is a
+    consistent cut of the plan."""
+    return node.op in EXCHANGE_OPS
+
+
+def stage_count(root: Node) -> int:
+    """Number of stage boundaries in the plan under ``root`` — the
+    denominator of the partial-replay claim (``recover.stages_replayed``
+    below it proves a resumed query did not start over)."""
+    return sum(1 for n in topo(root) if is_stage_boundary(n))
 
 
 def known_rows(node: Node) -> Optional[int]:

@@ -34,19 +34,28 @@ re-raises the last transient error.
 **Failure classes.**  :func:`classify` sorts any failure into transient /
 resource / permanent / topology.  A CUDA out-of-memory error
 (``torch.OutOfMemoryError``) is the resource class, as XLA's
-``RESOURCE_EXHAUSTED`` is in the JAX package.  The escalation ladder that
-acts on the class (``Ladder``, ``RecoveryPolicy``, the exchange
-demotions, the recovery collectors) comes with the recovery driver,
-which is not in the port yet: today nothing catches a failed exchange
-and reroutes it.
+``RESOURCE_EXHAUSTED`` is in the JAX package.
+
+**The escalation ladder.**  The plan executor's recovery driver
+(``plan/executor._execute_recovering``) runs one :class:`Ladder` per
+materialization under the session :class:`RecoveryPolicy`: a transient
+failure retries the stage (resuming from the execution memo), a
+resource failure replans (the chooser runs under
+:func:`demoted_exchanges`, off the lowerings the failed attempt picked,
+which :func:`collect_strategy_choices` recorded), a topology failure
+re-meshes onto the survivors, and anything else, or an exhausted arm,
+fails with the attempt log attached.  :func:`note_recovery` hands
+outcomes to a per-query collector; the serving layer that opens one is
+not in the port yet, so without a collector it is a no-op.
 """
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, List, Optional, Sequence, Tuple, Type
 
 import torch
 
@@ -55,7 +64,10 @@ from .status import Code, CylonError, Status
 
 __all__ = [
     "RetryPolicy", "retry_policy", "set_retry_policy", "retry_call",
-    "exchange_budget", "classify",
+    "exchange_budget", "classify", "TRANSIENT", "RESOURCE", "PERMANENT",
+    "TOPOLOGY", "RecoveryPolicy", "recovery_policy", "set_recovery_policy",
+    "LadderAttempt", "Ladder", "note_recovery", "note_strategy_choice",
+    "collect_strategy_choices", "exchange_demotions", "demoted_exchanges",
 ]
 
 
@@ -269,3 +281,204 @@ def classify(exc: BaseException) -> str:
     if isinstance(exc, _policy.transient_types):
         return TRANSIENT
     return PERMANENT
+
+
+# ---------------------------------------------------------------------------
+# the escalation ladder (plan/executor._execute_recovering runs it)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RecoveryPolicy:
+    """Bounds of one recovery ladder (the plan executor runs one per
+    materialization).
+
+    ``max_stage_retries``     transient-classed stage retries before the
+                              ladder gives up (each resumes from the
+                              last checkpoint).
+    ``max_replans``           resource-classed replans; replan k excludes
+                              the k cheapest catalogue strategies (and
+                              every strategy the failed attempts chose)
+                              — chunked is never excluded, its C = 1
+                              floor is the last-resort lowering.
+    ``max_remeshes``          topology-classed re-meshes (device loss):
+                              each evacuates to the host tier and
+                              shrinks the mesh onto the survivors.
+    ``max_scaleups``          mid-plan mesh EXPANSIONS (device rejoin),
+                              bounded apart from ``max_remeshes``: an
+                              expansion is an opportunity taken and must
+                              never consume the loss budget a later real
+                              failure needs.
+    ``checkpoint_fraction``   the share of ``exchange_budget()`` the
+                              stage-checkpoint store may retain across
+                              attempts (``cost.price_retained``; 0
+                              disables checkpoints).
+    """
+
+    max_stage_retries: int = 2
+    max_replans: int = 2
+    max_remeshes: int = 1
+    max_scaleups: int = 1
+    checkpoint_fraction: float = 0.25
+
+    def __post_init__(self):
+        if self.max_stage_retries < 0 or self.max_replans < 0 \
+                or self.max_remeshes < 0 or self.max_scaleups < 0:
+            raise CylonError(Status(Code.Invalid,
+                "RecoveryPolicy retry/replan/remesh/scaleup caps must "
+                "be >= 0"))
+        if not 0.0 <= self.checkpoint_fraction <= 1.0:
+            raise CylonError(Status(Code.Invalid,
+                f"checkpoint_fraction must be in [0, 1], got "
+                f"{self.checkpoint_fraction!r}"))
+
+
+_recovery_policy = RecoveryPolicy()
+
+
+def recovery_policy() -> RecoveryPolicy:
+    return _recovery_policy
+
+
+def set_recovery_policy(policy: RecoveryPolicy) -> RecoveryPolicy:
+    """Swap the session recovery policy; returns the previous one (the
+    restore-in-finally idiom of :func:`set_retry_policy`)."""
+    global _recovery_policy
+    if not isinstance(policy, RecoveryPolicy):
+        raise CylonError(Status(Code.Invalid,
+            f"expected a RecoveryPolicy, got {type(policy).__name__}"))
+    prev = _recovery_policy
+    _recovery_policy = policy
+    return prev
+
+
+@dataclass
+class LadderAttempt:
+    """One rung taken: what failed, how it was classed, what the ladder
+    did about it (the attempt log annotates the error and the
+    flight-recorder event when the ladder fails)."""
+
+    klass: str
+    action: str               # retry | replan | remesh | fail
+    error: str                # "<Type>: <message prefix>"
+
+    def as_dict(self) -> dict:
+        return {"class": self.klass, "action": self.action,
+                "error": self.error}
+
+
+class Ladder:
+    """The decision state of one recovery session: bounded counts per
+    arm, an attempt log, and the current demotion level.  The caller
+    owns the loop; :meth:`decide` only classifies and books."""
+
+    def __init__(self, policy: Optional[RecoveryPolicy] = None):
+        self.policy = policy if policy is not None else _recovery_policy
+        self.retries = 0
+        self.replans = 0
+        self.remeshes = 0
+        self.attempts: List[LadderAttempt] = []
+
+    @property
+    def demote_level(self) -> int:
+        return self.replans
+
+    def decide(self, exc: BaseException) -> str:
+        """Class ``exc``, record the attempt, return the action:
+        ``"retry"`` (stage retry from checkpoint), ``"replan"``
+        (re-lower the exchanges demoted one level), ``"remesh"``
+        (evacuate + shrink the mesh onto the survivors), or
+        ``"fail"``."""
+        klass = classify(exc)
+        if klass == TRANSIENT and self.retries < self.policy.max_stage_retries:
+            self.retries += 1
+            action = "retry"
+        elif klass == RESOURCE and self.replans < self.policy.max_replans:
+            self.replans += 1
+            action = "replan"
+        elif klass == TOPOLOGY and self.remeshes < self.policy.max_remeshes:
+            self.remeshes += 1
+            action = "remesh"
+        else:
+            action = "fail"
+        self.attempts.append(LadderAttempt(
+            klass, action, f"{type(exc).__name__}: {str(exc)[:160]}"))
+        return action
+
+    def as_dicts(self) -> List[dict]:
+        return [a.as_dict() for a in self.attempts]
+
+
+# recovery outcomes: the driver notes each healed query into a
+# thread-local sink a per-query collector opens (the serving layer's,
+# which the port does not have yet); without one this is a no-op
+_recovery_notes = threading.local()
+
+
+def note_recovery(outcome: str) -> None:
+    """Record one ladder outcome into the open collector (no-op without
+    one: a single thread-local read)."""
+    sink = getattr(_recovery_notes, "sink", None)
+    if sink is not None:
+        sink.append(outcome)
+
+
+# per-attempt record of the strategies the costed chooser picked
+# (parallel/shuffle._note_choice feeds it): a replan must demote off the
+# lowering that FAILED, not only the cheapest prefix
+_strategy_notes = threading.local()
+
+
+@contextlib.contextmanager
+def collect_strategy_choices():
+    """Open a per-attempt window recording the chooser's strategy
+    picks; yields the set (the recovery driver reads it on failure)."""
+    prev = getattr(_strategy_notes, "sink", None)
+    sink: set = set()
+    _strategy_notes.sink = sink
+    try:
+        yield sink
+    finally:
+        _strategy_notes.sink = prev
+
+
+def note_strategy_choice(strategy: str) -> None:
+    """Record one chooser pick into the open window (no-op without
+    one)."""
+    sink = getattr(_strategy_notes, "sink", None)
+    if sink is not None:
+        sink.add(strategy)
+
+
+_demote = threading.local()
+
+
+def exchange_demotions() -> Tuple[str, ...]:
+    """The catalogue strategies the costed chooser must NOT pick on this
+    thread — empty except inside a replanned recovery attempt
+    (:func:`demoted_exchanges`).  ``parallel/shuffle._choose`` reads it
+    per exchange: a demoted attempt skips the single-shot fast path and
+    hands ``exclude=`` to ``cost.choose``."""
+    return getattr(_demote, "excluded", ())
+
+
+@contextlib.contextmanager
+def demoted_exchanges(level: int, failed: Sequence[str] = ()):
+    """Scope one recovery attempt's demotion: exclude the first
+    ``level`` strategies of the catalogue preference order (single-shot
+    first, then allgather, ...) PLUS ``failed``, the strategies the
+    chooser picked during attempts that then failed resource-class.
+    The chunked lowering is never excluded, so a demoted chooser always
+    has a candidate.  Level 0 with no failed set is a no-op."""
+    from .parallel import cost
+    excluded = tuple(dict.fromkeys(
+        s for s in tuple(cost.STRATEGIES[:max(level, 0)]) + tuple(failed)
+        if s != cost.CHUNKED))
+    if not excluded:
+        yield
+        return
+    prev = getattr(_demote, "excluded", ())
+    _demote.excluded = excluded
+    try:
+        yield
+    finally:
+        _demote.excluded = prev

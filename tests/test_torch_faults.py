@@ -4,7 +4,8 @@ consultations over a few hundred calls, the retry schedules are equal,
 failures fall in the same classes; and the port's own sites — the
 shuffle's count read behind ``compact.read_counts`` and the budget read
 behind ``resilience.budget`` — fire, retry and degrade as the JAX
-package's do."""
+package's do.  Every catalogued point is consulted at its site (the
+recovery driver's and the spill pool's included)."""
 import numpy as np
 import pytest
 import torch
@@ -78,8 +79,10 @@ def _drive(f, seed: int, n: int = 300):
 
 @pytest.mark.parametrize("seed", [0, 7, 123456789])
 def test_fault_plan_fires_like_jax(seed):
-    assert sorted(tfaults.POINTS) == ["compact.read_counts",
-                                      "resilience.budget"]
+    assert sorted(tfaults.POINTS) == [
+        "compact.read_counts", "exec.stage", "mesh.device_joined",
+        "mesh.device_lost", "recover.checkpoint_restore", "recover.replan",
+        "resilience.budget", "spill.stage_in", "spill.stage_out"]
     assert all(tfaults.POINTS[k] == jfaults.POINTS[k]
                for k in tfaults.POINTS)
     got = _drive(tfaults, seed)
@@ -90,10 +93,10 @@ def test_fault_plan_fires_like_jax(seed):
 
 def test_default_plan_and_draws_equal_jax():
     """The keyed draws equal the JAX package's, at the port's points and
-    at one it has no site for (the ``CYLON_CHAOS`` default plan comes
-    with the recovery driver)."""
+    at one it has no site for."""
     tp, jp = tfaults.FaultPlan(3), jfaults.FaultPlan(3)
-    for point in ("compact.read_counts", "resilience.budget", "exec.stage"):
+    for point in ("compact.read_counts", "resilience.budget", "exec.stage",
+                  "io.csv.read"):
         for n in range(1, 50):
             for rule in range(3):
                 assert tp._draw(point, n, rule) == jp._draw(point, n, rule)
@@ -293,12 +296,45 @@ def test_shuffle_count_read_retries_a_transient_fault():
 
 
 def test_fault_points_are_the_ports_sites():
-    """Every point of the port's catalogue is consulted by one shuffle
-    (the count read and the budget read), and no other point is."""
+    """Every point of the port's catalogue is consulted at its site, and
+    no other point is: one shuffle consults the count read and the budget
+    read; a planned groupby adds the executor's stage-boundary points; a
+    spill and its fault-in the two staging points; a resource fault at
+    the second stage the replan trigger and the checkpoint restore."""
+    from cylon_tpu_torch.parallel import dist_groupby, dist_join
+    seen = set()
     plan = tfaults.FaultPlan(0, [])
     with tfaults.active(plan):
         shuffle_table(_table(4), ["k"])
-    assert set(plan._calls) == set(tfaults.POINTS)
+    assert set(plan._calls) == {"compact.read_counts", "resilience.budget"}
+    seen |= set(plan._calls)
+    dt = _table(4)
+    plan = tfaults.FaultPlan(0, [])
+    with tfaults.active(plan):
+        dt.ctx.optimize(lambda t: dist_groupby(t, ["k"], [("v", "sum")]), dt)
+    assert {"exec.stage", "mesh.device_lost",
+            "mesh.device_joined"} <= set(plan._calls)
+    seen |= set(plan._calls)
+    plan = tfaults.FaultPlan(0, [])
+    with tfaults.active(plan):
+        dt.spill()
+        dt.ensure_device()
+    assert set(plan._calls) == {"spill.stage_out", "spill.stage_in"}
+    seen |= set(plan._calls)
+    prev = tconfig.set_broadcast_join_threshold(1)
+    plan = tfaults.FaultPlan(0, [tfaults.FaultRule(
+        "exec.stage", kind="resource", nth=2)])
+    try:
+        with tfaults.active(plan):
+            dt.ctx.optimize(lambda t: dist_groupby(
+                dist_join(t, t, pt.JoinConfig.InnerJoin(0, 0)),
+                ["lt-k"], [("rt-v", "sum")]), dt)
+    finally:
+        tconfig.set_broadcast_join_threshold(prev)
+    assert {"recover.replan",
+            "recover.checkpoint_restore"} <= set(plan._calls)
+    seen |= set(plan._calls)
+    assert seen == set(tfaults.POINTS)
 
 
 def test_shuffle_permanent_count_read_fault_propagates():

@@ -933,3 +933,124 @@ def test_two_thread_fault_in_on_card(card):
         trace.disable_counters()
         trace.reset()
         tpool.clear_pool()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nparts", [3, 7])
+def test_kernel_matches_plain_at_survivor_worlds(card, nparts):
+    """The survivor worlds of a re-mesh (4 → 3, 8 → 7): the kernel's
+    ``% nparts`` equals the plain version's at the join cell's layout
+    ([P*cap] int32 keys of a world-``nparts`` table, padding included),
+    and every part receives rows."""
+    from cylon_tpu_torch.ops.compact import next_bucket
+    n = (1 << 20) + 5
+    cap = next_bucket(-(-n // nparts), minimum=8)
+    rng = np.random.default_rng(nparts)
+    k = torch.from_numpy(rng.integers(0, n, nparts * cap)
+                         .astype(np.int32)).to(card)
+    want = plain_hash.partition_ids(plain_hash.row_hash((k,), (None,)),
+                                    nparts)
+    before = dict(hash_cuda.launches_by_nparts)
+    got = hash_cuda.partition_ids_fused((k,), (None,), nparts)
+    torch.cuda.synchronize()
+    assert hash_cuda.launches_by_nparts.get(nparts, 0) == \
+        before.get(nparts, 0) + 1
+    assert torch.equal(got, want)
+    assert torch.equal(torch.unique(got).cpu(),
+                       torch.arange(nparts, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_remesh_stream_order_under_queued_kernel(card):
+    """The re-mesh goes through the spill pool's staging boundaries: with
+    a long kernel queued on the compute stream and a write to a column
+    queued behind it, the evacuation still reads the written values (the
+    copy stream waits on the compute stream), and the restaged shards —
+    read by a kernel right after the re-mesh returns — equal a host
+    re-block of the pre-loss rows bit for bit."""
+    from cylon_tpu_torch import topology
+    from cylon_tpu_torch.parallel import remesh
+    n = 1 << 20
+    dt, data = _spill_table_on_card(card, n=n, world=4, seed=73)
+    counts = dt.counts_host().astype(np.int64)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda._sleep(200_000_000)      # ~0.1 s of queued device work
+        dt.columns[1].data.add_(1.0)        # queued behind it
+        survivor = topology.mark_lost(dt.ctx, 1)
+        remesh.remesh_table(dt, survivor)
+        # a kernel of the new world reads the restaged blocks at once
+        snaps = [c.data.clone() for c in dt.columns]
+        torch.cuda.synchronize()
+    finally:
+        topology.reset()
+    assert dt.nparts == 3 and dt.ctx is survivor
+    # the pre-loss rows, shard-major, with the queued write applied
+    want = {"k": data["k"], "v0": data["v0"] + np.float32(1.0),
+            "v1": data["v1"], "v2": data["v2"]}
+    sizes = dt.counts_host()
+    assert int(sizes.sum()) == int(counts.sum()) == n
+    assert list(sizes) == [n // 3 + (1 if i < n % 3 else 0)
+                           for i in range(3)]
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    for c in dt.columns:
+        host = c.data.cpu().numpy()
+        for s in range(3):
+            np.testing.assert_array_equal(
+                host[s * dt.cap:s * dt.cap + sizes[s]],
+                want[c.name][offs[s]:offs[s + 1]])
+            assert not host[s * dt.cap + sizes[s]:(s + 1) * dt.cap].any()
+    for c, snap in zip(dt.columns, snaps):
+        assert torch.equal(snap, c.data)
+
+
+@pytest.mark.gpu
+def test_topology_rung_leaves_no_old_world_scan_copy(card):
+    """After a TOPOLOGY rung on the card (a two-stage plan losing a slot,
+    4 → 3), the card's allocated bytes hold the scan tables once, in
+    their survivor layout: the old-world copies, the dropped memo, the
+    failed attempt's intermediates and the old checkpoints are freed."""
+    from cylon_tpu_torch import faults, topology
+    from cylon_tpu_torch.parallel import broadcast, dist_join
+
+    def leaf_bytes(t):
+        return sum(c.data.numel() * c.data.element_size()
+                   + (0 if c.validity is None else c.validity.numel())
+                   for c in t.columns) + t.counts.numel() * 4
+
+    lt, _ = _spill_table_on_card(card, n=1 << 20, seed=74)
+    rt, _ = _spill_table_on_card(card, n=1 << 20, seed=75)
+    ctx = lt.ctx
+    rt = DTable(ctx, rt.columns, rt.cap, rt.counts)   # one context
+    tables = {"l": lt, "r": rt}
+
+    def op(t):
+        j = dist_join(t["l"], t["r"], pt.JoinConfig.InnerJoin(0, 0))
+        return dist_groupby(j, ["lt-k"], [("rt-v0", "sum")])
+
+    prev = tconfig.set_broadcast_join_threshold(1)
+    broadcast.clear_replica_cache()
+    try:
+        want = port_rows(ctx.optimize(op, tables), ordered=False)
+        torch.cuda.synchronize()
+        old = sum(leaf_bytes(t) for t in tables.values())
+        m0 = torch.cuda.memory_allocated(card)
+        fp = faults.FaultPlan(seed=0, rules=[faults.FaultRule(
+            "mesh.device_lost", kind="topology", nth=2, lost=1)])
+        with faults.active(fp):
+            out = ctx.optimize(op, tables)
+        got = sorted(r for shard in port_rows(out) for r in shard)
+        del out
+        torch.cuda.synchronize()
+        torch.empty(1, device=card)        # lets the allocator settle
+        m1 = torch.cuda.memory_allocated(card)
+        new = sum(leaf_bytes(t) for t in tables.values())
+        assert lt.nparts == rt.nparts == 3
+    finally:
+        tconfig.set_broadcast_join_threshold(prev)
+        topology.reset()
+        broadcast.clear_replica_cache()
+    assert m1 - m0 <= new - old + (1 << 20), (m0, m1, old, new)
+    flat = sorted(r for shard in want for r in shard)
+    assert [r[0] for r in got] == [r[0] for r in flat]
+    assert_rows_close(got, flat, [0, 1e-6])

@@ -41,7 +41,10 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.observe.compile, cylon_tpu_torch.observe.flightrec, "
         "cylon_tpu_torch.observe.doctor, cylon_tpu_torch.observe.stats, "
         "cylon_tpu_torch.observe.analyze, cylon_tpu_torch.spill, "
-        "cylon_tpu_torch.spill.pool, cylon_tpu_torch.spill.morsel\n"
+        "cylon_tpu_torch.spill.pool, cylon_tpu_torch.spill.morsel, "
+        "cylon_tpu_torch.parallel.remesh, cylon_tpu_torch.topology, "
+        "cylon_tpu_torch.resilience, cylon_tpu_torch.faults, "
+        "cylon_tpu_torch.plan.executor\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -58,6 +58,7 @@ def _run(base, kw, jctx, jt, tctx, tt):
             cfg.set_device_memory_budget(prev)
             plan.clear_plan_cache()
             pool.clear_pool()
+            tr.disable_counters()   # a later test module starts with them off
         out[name] = res
         out[name + "_stats"] = stats
         out[name + "_counters"] = {k: c.get(k, 0) for k in COUNTERS}

@@ -70,6 +70,8 @@ def _fresh_pools():
         cfg.set_spill_enabled(None)
         cfg.set_device_memory_budget(None)
         cfg.set_exchange_strategy(None)
+    for tr in (ttrace, jtrace):   # counters_both() turns them on
+        tr.disable_counters()
 
 
 def _jctx(dctx, world):
