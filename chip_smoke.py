@@ -94,11 +94,32 @@ scan table once), its rejoin in the next plan (3 → 4), 4 → 3 → 4 within
 one plan, and with recovery switched off (the fault propagates), each
 equal to the fault-free run and the oracle; at SF 10 after the multiway
 phase Q5 and Q21 losing a slot, each equal to its fault-free planned run
-(the tables then move back to world 4).  Every check that fails raises, so the script exits non-zero; without a
+(the tables then move back to world 4).  The ingest phases, after the
+recovery join: the join cell ingested from pyarrow tables with
+``DTable.from_arrow`` (layout, padding and counts against the numpy
+source; the HASH join = the oracle; the ingest GB/s beside the host
+link's H2D rate), per-rank CSV files (4 per side, 1,048,576 rows each,
+under ``build/``) read by ``io.read_csv_many`` into
+``DTable.from_partitions`` (the HASH join = a numpy oracle, ``write_csv``
+of a partition read back equal), an ``append`` of 1,048,576 rows to the
+join cell's right side (the same handle, content epoch 1, the delta
+kept, the HASH join = the oracle of the grown side; the same append of a
+spilled copy drops its pool entry and is bit for bit the resident one),
+the JAX bench's strkey stage (1,200,000 distinct string keys joined
+through the dictionary encoding and through the hash64 lanes, both =
+pandas' merge, the resolved rows equal) and its ingest stage (lineitem
+at SF 0.17 through ``DTable.from_pandas``, the staging arena on and off,
+read back equal), then the partition kernel's chained entry at 17, 24
+and 40 key columns against its plain version and ``dist_union`` /
+``dist_intersect`` / ``dist_subtract`` of two 24-column tables of
+4,194,304 rows against a numpy distinct-row oracle.  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
-on the groupby, TPC-H, redistribution, spill and recovery paths), its time, its plain version's time and
-its bound, and the kernel at nparts 3 on the survivor layout.
+on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
+strkey and wide-key paths), its time, its plain version's time and its
+bound, and the kernel at nparts 3 on the survivor layout; a second
+entry holds the chained launches past 16 key columns with their times
+and bounds at 17, 24 and 40 columns.
 ``--profile`` adds torch.profiler tables of device time by
 kernel (and by input shape) for the world-4 HASH and SORT joins, one
 ``dist_sort``, one ``dist_union``, the default ``orderkey`` groupby, the
@@ -3441,6 +3462,560 @@ def phase_recovery_tpch(ctx, tables, sf: float):
     return launches, at3
 
 
+# ---------------------------------------------------------------------------
+# phases: ingest and the data-model surfaces — Arrow / pandas / per-rank CSV
+# ingest through StagedIngest, hash64 string keys, append with content
+# epochs, and the partition hash past 16 key columns
+# ---------------------------------------------------------------------------
+
+INGEST_SF = 0.17             # the JAX bench's ingest stage: ~1.02M rows
+CSV_RANK_ROWS = 1 << 20      # rows per rank file (cut from the join cell)
+STRKEY_DISTINCT, STRKEY_ROWS = 1_200_000, 2_000_000  # the bench's strkey
+APPEND_ROWS = 1 << 20        # the delta appended to the join cell's side
+WIDE_WIDTHS = (17, 24, 40)   # key columns of the chained kernel's checks
+WIDE_SETOP_ROWS, WIDE_SETOP_WIDTH = 4_194_304, 24
+
+
+def reset_launches() -> None:
+    from cylon_tpu_torch.ops import hash_cuda
+    hash_cuda.launches = 0
+    hash_cuda.launches_chained = 0
+
+
+def read_launches():
+    from cylon_tpu_torch.ops import hash_cuda
+    return hash_cuda.launches, hash_cuda.launches_chained
+
+
+def hash_cfg(lkey=0, rkey=0):
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    return JoinConfig(JoinType.INNER, JoinAlgorithm.HASH, lkey, rkey)
+
+
+def check_layout(label: str, dt, data, null=None) -> None:
+    """A DTable ingested from ``data`` (numpy columns, block-distributed):
+    its sizes, ``cap``, ``_counts_host`` and the counts tensor, every
+    shard's rows equal to its slice of the source, zero padding, and the
+    validity of ``null`` (a mask of the first column) where given."""
+    from cylon_tpu_torch.ops.compact import next_bucket
+
+    n = len(next(iter(data.values())))
+    base, rem = divmod(n, WORLD)
+    sizes = np.array([base + (1 if i < rem else 0) for i in range(WORLD)])
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    cap = next_bucket(max(int(sizes.max()), 1), minimum=8)
+    check(dt.cap == cap, f"{label}: cap {dt.cap} == {cap}")
+    check(list(dt._counts_host) == list(sizes)
+          and dt.counts.cpu().tolist() == list(sizes),
+          f"{label}: counts == the block sizes {list(sizes)}")
+    for c in dt.columns:
+        blocks = c.data.view(WORLD, cap)
+        src = torch.from_numpy(data[c.name]).to(blocks.device)
+        for s in range(WORLD):
+            check(torch.equal(blocks[s, :sizes[s]], src[offs[s]:offs[s + 1]]),
+                  f"{label}: column {c.name} shard {s} == its source slice")
+            check(not bool(blocks[s, sizes[s]:].view(torch.uint8).any()),
+                  f"{label}: column {c.name} shard {s} padding is zero")
+        if c.name == "k" and null is not None:
+            want = torch.from_numpy(~null).to(blocks.device)
+            v = c.validity.view(WORLD, cap)
+            for s in range(WORLD):
+                check(torch.equal(v[s, :sizes[s]], want[offs[s]:offs[s + 1]]),
+                      f"{label}: validity shard {s} == the source's")
+
+
+def phase_lineitem_ingest():
+    """The JAX bench's ingest stage: lineitem from the mirror generator
+    (SF 0.17, seed 5, string columns decoded to Python strings) through
+    ``DTable.from_pandas`` at world 4, the staging arena on then off, best
+    of 2 each, synchronized; MB/s over the 13 four-byte device columns;
+    the table read back through Arrow equals its source column by
+    column."""
+    import pandas as pd
+
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.parallel import DTable
+    from cylon_tpu_torch.parallel import dtable as dtable_mod
+    from cylon_tpu_torch.tpch import datagen_device
+
+    t0 = time.perf_counter()
+    mirror, dicts = datagen_device.generate_mirror(INGEST_SF, seed=5,
+                                                   tables=("lineitem",))
+    src = {c: (dicts[c][v] if c in dicts else v)
+           for c, v in mirror["lineitem"].items()}
+    df = pd.DataFrame(src)
+    gen_s = time.perf_counter() - t0
+    rows = len(df)
+    mb = rows * 13 * 4 / 1e6
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    best = {}
+    try:
+        for arena_on in (True, False):
+            dtable_mod.ARENA_ENABLED = arena_on
+            for _ in range(2):
+                dt, secs = wall(lambda: DTable.from_pandas(ctx, df))
+                best[arena_on] = min(best.get(arena_on, secs), secs)
+                del dt
+    finally:
+        dtable_mod.ARENA_ENABLED = True
+    dt = DTable.from_pandas(ctx, df)
+    at, export_s = wall(lambda: dt.to_table().to_arrow())
+    for name, want in src.items():
+        got = at.column(name).to_numpy(zero_copy_only=False)
+        if want.dtype == object:
+            ok = bool((got == want).all())
+        else:
+            ok = got.dtype == want.dtype and \
+                got.tobytes() == np.ascontiguousarray(want).tobytes()
+        check(ok, f"lineitem ingest: column {name} read back == source")
+    say(f"ingest lineitem from_pandas world={WORLD}", rows=rows,
+        mirror_seconds=f"{gen_s:.3f}", mb=f"{mb:.3f}",
+        seconds_arena=f"{best[True]:.6f}",
+        seconds_no_arena=f"{best[False]:.6f}",
+        ingest_mb_per_sec=f"{mb / best[True]:.3f}",
+        ingest_mb_per_sec_no_arena=f"{mb / best[False]:.3f}",
+        export_seconds=f"{export_s:.6f}", columns=len(src),
+        string_columns=",".join(sorted(dicts)))
+    return {"ingest_mb_per_sec": mb / best[True],
+            "ingest_mb_per_sec_no_arena": mb / best[False], "rows": rows}
+
+
+def phase_join_cell_from_arrow(ldata, rdata, want, link):
+    """The join cell ingested from pyarrow tables with ``DTable.from_arrow``
+    at world 4 (the layout, padding and counts checked against the numpy
+    source), then the HASH join: the oracle's rows and checksums, one
+    kernel launch per side.  The ingest rate beside the host link's
+    measured H2D rate."""
+    import pyarrow as pa
+
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.parallel import DTable, dist_join
+    from cylon_tpu_torch.table import host_columns_from_arrow
+
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    at_l, at_r = pa.table(ldata), pa.table(rdata)
+    DTable.from_arrow(ctx, pa.table({c: v[:4096] for c, v in ldata.items()}))
+    nbytes = sum(v.nbytes for v in ldata.values()) + \
+        sum(v.nbytes for v in rdata.values())
+    (lt, rt), secs = wall(lambda: (DTable.from_arrow(ctx, at_l),
+                                   DTable.from_arrow(ctx, at_r)))
+    # where the ingest's host time goes: the Arrow decode alone
+    _, decode_s = wall(lambda: (host_columns_from_arrow(at_l),
+                                host_columns_from_arrow(at_r)))
+    check_layout("join cell from_arrow left", lt, ldata)
+    check_layout("join cell from_arrow right", rt, rdata)
+    reset_launches()
+    local, join_s = wall(lambda: dist_join(lt, rt, hash_cfg()).to_table())
+    launches, chained = read_launches()
+    check_join("join cell from_arrow", local, want)
+    check(launches == 2 and chained == 0,
+          f"join cell from_arrow: one kernel launch per side (got "
+          f"{launches}, chained {chained})")
+    gbps = nbytes / secs / 1e9
+    say(f"ingest join cell from_arrow world={WORLD}",
+        rows_per_side=len(ldata["k"]), bytes=nbytes,
+        ingest_seconds=f"{secs:.6f}", decode_seconds=f"{decode_s:.6f}",
+        ingest_gbps=f"{gbps:.3f}",
+        host_link_h2d_gbps=f"{link['h2d_gbps']:.3f}",
+        share_of_h2d=f"{gbps / link['h2d_gbps']:.3f}",
+        join_seconds=f"{join_s:.6f}", rows_out=local.num_rows,
+        oracle_rows=want["inner"], kernel_launches=launches)
+    return launches, gbps
+
+
+def np_oracle(kl, kr, vl, vr, krange: int):
+    """``oracle``'s inner-join rows and checksums, in numpy on the host."""
+    def per_key(k, v):
+        cnt = np.bincount(k, minlength=krange)
+        s64 = np.bincount(k, weights=v.astype(np.float64), minlength=krange)
+        bits = np.zeros(krange, np.int64)
+        np.add.at(bits, k, v.view(np.int32).astype(np.int64))
+        return cnt.astype(np.int64), s64, bits
+
+    cl, sl, bl = per_key(kl, vl)
+    cr, sr, br = per_key(kr, vr)
+    return {"inner": int((cl * cr).sum()),
+            "sum_lt_v0": float((sl * cr).sum()),
+            "sum_rt_v0": float((sr * cl).sum()),
+            "bits_lt_v0": int((bl * cr).sum()),
+            "bits_rt_v0": int((br * cl).sum())}
+
+
+def phase_csv_partitions(seed: int):
+    """Per-rank CSV → ``from_partitions`` (reference
+    table_join_dist_test.cpp:87-91): each side written as 4 CSV files of
+    1,048,576 rows (cut from the join cell's size to bound disk and time),
+    read with ``read_csv_many`` (a thread per file), one partition per
+    shard at world 4, then the HASH join = a numpy oracle; ``write_csv``
+    of one partition reads back equal."""
+    import shutil
+    from pathlib import Path
+
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch import io as tio
+    from cylon_tpu_torch.parallel import DTable, dist_join
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_csv"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        rng = np.random.default_rng(seed + 11)
+        n = WORLD * CSV_RANK_ROWS
+        krange = int(KEY_FRAC * n)
+        sides, paths = {}, {}
+        for side in ("l", "r"):
+            data = {"k": rng.integers(0, krange, n, dtype=np.int32)}
+            for j in range(3):
+                data[f"v{j}"] = rng.random(n, dtype=np.float32)
+            sides[side] = data
+            paths[side] = []
+            for r in range(WORLD):
+                p = root / f"{side}_{r}.csv"
+                sl = slice(r * CSV_RANK_ROWS, (r + 1) * CSV_RANK_ROWS)
+                pacsv.write_csv(pa.table({c: v[sl] for c, v in data.items()}),
+                                str(p))
+                paths[side].append(str(p))
+        file_bytes = sum(Path(p).stat().st_size
+                         for ps in paths.values() for p in ps)
+        opts = tio.CSVReadOptions().WithColumnTypes(
+            {"k": pa.int32(), "v0": pa.float32(), "v1": pa.float32(),
+             "v2": pa.float32()})
+        ctx = CylonContext(device=DEVICE, world=WORLD)
+        parts, read_s = wall(lambda: {
+            s: tio.read_csv_many(ctx, paths[s], opts) for s in paths})
+        (lt, rt), build_s = wall(lambda: (
+            DTable.from_partitions(ctx, parts["l"]),
+            DTable.from_partitions(ctx, parts["r"])))
+        for side, dt in (("left", lt), ("right", rt)):
+            check_layout(f"csv from_partitions {side}", dt,
+                         sides[side[0]])
+        want = np_oracle(sides["l"]["k"], sides["r"]["k"], sides["l"]["v0"],
+                         sides["r"]["v0"], krange)
+        reset_launches()
+        local, join_s = wall(lambda: dist_join(lt, rt, hash_cfg()).to_table())
+        launches, chained = read_launches()
+        check_join("csv from_partitions", local, want)
+        check(launches == 2, f"csv from_partitions join: one kernel launch "
+              f"per side (got {launches})")
+        out = root / "partition0.csv"
+        tio.write_csv(lt.partition(0), str(out))
+        back = tio.read_csv(ctx, str(out), opts).to_arrow()
+        for c, v in sides["l"].items():
+            check(back.column(c).to_numpy().tobytes()
+                  == v[:CSV_RANK_ROWS].tobytes(),
+                  f"write_csv of partition 0 round-trips column {c}")
+        say(f"ingest csv from_partitions world={WORLD}", files=2 * WORLD,
+            rows_per_file=CSV_RANK_ROWS, file_bytes=file_bytes,
+            read_seconds=f"{read_s:.6f}",
+            read_mb_per_sec=f"{file_bytes / read_s / 1e6:.3f}",
+            from_partitions_seconds=f"{build_s:.6f}",
+            join_seconds=f"{join_s:.6f}", rows_out=local.num_rows,
+            oracle_rows=want["inner"], kernel_launches=launches)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_strkey():
+    """The JAX bench's strkey stage at its size: 1,200,000 distinct keys,
+    a 2,000,000-row left side drawn with ``default_rng(17)``, the
+    1,200,000-row right side; the HASH join once through the dictionary
+    encoding and once through the hash64 lanes ``(k#h0, k#h1)`` (ingest
+    and join timed apart, the join's first call untimed): both row counts
+    equal pandas' merge, and the hash64 result resolved back to strings
+    equals the dictionary path's sorted ``(k, a, b)`` rows."""
+    import pandas as pd
+
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch import strings as tstr
+    from cylon_tpu_torch.parallel import DTable, dist_join
+
+    t0 = time.perf_counter()
+    pool = np.array([f"user-{i:09x}-{(i * 2654435761) % 997:03d}"
+                     for i in range(STRKEY_DISTINCT)], dtype=object)
+    srng = np.random.default_rng(17)
+    sldf = pd.DataFrame({"k": pool[srng.integers(0, STRKEY_DISTINCT,
+                                                 STRKEY_ROWS)],
+                         "a": srng.random(STRKEY_ROWS, dtype=np.float32)})
+    srdf = pd.DataFrame({"k": pool,
+                         "b": srng.random(STRKEY_DISTINCT, dtype=np.float32)})
+    merge_rows = len(sldf.merge(srdf, on="k", how="inner"))
+    data_s = time.perf_counter() - t0
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    res, launches = {}, {}
+
+    def run(label, make, cfg):
+        (lt, rt), ingest_s = wall(make)
+        dist_join(lt, rt, cfg)   # first call: dictionary merge, CUDA libs
+        reset_launches()
+        out, join_s = wall(lambda: dist_join(lt, rt, cfg))
+        launches[label] = read_launches()
+        check(out.num_rows == merge_rows,
+              f"strkey {label}: rows {out.num_rows} == pandas merge "
+              f"{merge_rows}")
+        res[label] = (out.to_table().to_pandas(), ingest_s, join_s)
+
+    run("dict", lambda: (DTable.from_pandas(ctx, sldf),
+                         DTable.from_pandas(ctx, srdf)), hash_cfg("k", "k"))
+    store = tstr.StringStore()
+
+    def make_hash64():
+        lenc, _ = tstr.encode_frame(sldf, ["k"], store)
+        renc, _ = tstr.encode_frame(srdf, ["k"], store)
+        return DTable.from_pandas(ctx, lenc), DTable.from_pandas(ctx, renc)
+
+    lanes = tstr.key_of("k")
+    run("hash64", make_hash64, hash_cfg(lanes, lanes))
+    check(launches["dict"] == (2, 0) and launches["hash64"] == (2, 0),
+          f"strkey: one kernel launch per side on each path (got "
+          f"{launches})")
+    cols = ["lt-k", "lt-a", "rt-b"]
+    d = res["dict"][0][cols].sort_values(cols).reset_index(drop=True)
+    h = store.resolve_frame(res["hash64"][0])
+    h = h[cols].sort_values(cols).reset_index(drop=True)
+    check(d["lt-k"].astype(object).tolist() == h["lt-k"].tolist()
+          and np.array_equal(d["lt-a"].to_numpy(), h["lt-a"].to_numpy())
+          and np.array_equal(d["rt-b"].to_numpy(), h["rt-b"].to_numpy()),
+          "strkey: the hash64 rows resolved to strings == the dictionary "
+          "path's sorted (k, a, b) rows")
+    say(f"strkey join world={WORLD}", distinct=STRKEY_DISTINCT,
+        left_rows=STRKEY_ROWS, rows_out=merge_rows,
+        data_seconds=f"{data_s:.3f}",
+        strkey_ingest_dict_s=f"{res['dict'][1]:.6f}",
+        strkey_join_dict_ms=f"{res['dict'][2] * 1e3:.3f}",
+        strkey_ingest_hash64_s=f"{res['hash64'][1]:.6f}",
+        strkey_join_hash64_ms=f"{res['hash64'][2] * 1e3:.3f}",
+        kernel_launches_dict=launches["dict"][0],
+        kernel_launches_hash64=launches["hash64"][0],
+        key_columns_hash64=len(lanes))
+    return {k: v[0] for k, v in launches.items()}, {
+        "strkey_ingest_dict_s": res["dict"][1],
+        "strkey_join_dict_ms": res["dict"][2] * 1e3,
+        "strkey_ingest_hash64_s": res["hash64"][1],
+        "strkey_join_hash64_ms": res["hash64"][2] * 1e3}
+
+
+def phase_append(ldata, rdata, seed: int):
+    """The join cell's right side grown in place by a 1,048,576-row delta
+    (the same key range, ``seed + 1``): the same object, content epoch 1,
+    ``delta_for(1)`` the delta, the HASH join = the oracle of the
+    concatenated side; then the same append to a spilled copy (the pool
+    keeps no entry for it, the result bit for bit the resident one's)."""
+    import pyarrow as pa
+
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.parallel import DTable, dist_join
+    from cylon_tpu_torch.spill import pool as tpool
+
+    n = len(rdata["k"])
+    krange = int(KEY_FRAC * n)
+    rng = np.random.default_rng(seed + 1)
+    ddata = {"k": rng.integers(0, krange, APPEND_ROWS, dtype=np.int32)}
+    for j in range(3):
+        ddata[f"v{j}"] = rng.random(APPEND_ROWS, dtype=np.float32)
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    lt = DTable.from_arrow(ctx, pa.table(ldata))
+    rt = DTable.from_arrow(ctx, pa.table(rdata))
+    delta = DTable.from_arrow(ctx, pa.table(ddata))
+    handle = rt
+    _, append_s = wall(lambda: rt.append(delta))
+    check(rt is handle and rt.content_epoch == 1
+          and rt.delta_for(1) is delta and rt.delta_for(0) is None,
+          "append: same object, content epoch 1, delta_for(1) is the delta")
+    grown = {c: np.concatenate([rdata[c], ddata[c]]) for c in rdata}
+    check_layout("append", rt, grown)
+    t = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
+    want = oracle(t(ldata["k"]), t(grown["k"]), t(ldata["v0"]),
+                  t(grown["v0"]), None, None, krange)
+    reset_launches()
+    local, join_s = wall(lambda: dist_join(lt, rt, hash_cfg()).to_table())
+    launches, _ = read_launches()
+    check_join("join after append", local, want)
+    check(launches == 2, f"join after append: one launch per side (got "
+          f"{launches})")
+    del local
+    spilled = DTable.from_arrow(ctx, pa.table(rdata))
+    spilled.spill()
+    sig = spilled._spill_sig
+    check(sig in tpool.get_pool()._entries, "append: the copy is spilled")
+    _, spilled_s = wall(lambda: spilled.append(DTable.from_arrow(
+        ctx, pa.table(ddata))))
+    check(not spilled.is_spilled and sig not in tpool.get_pool()._entries
+          and spilled._spill_sig is None,
+          "append to a spilled table: the pool keeps no entry for it")
+    check(spilled.cap == rt.cap and list(spilled._counts_host)
+          == list(rt._counts_host)
+          and all(torch.equal(a.data, b.data)
+                  for a, b in zip(spilled.columns, rt.columns)),
+          "append to a spilled table == the resident append, bit for bit")
+    say(f"append world={WORLD}", rows_before=n, delta_rows=APPEND_ROWS,
+        rows_after=rt.num_rows, cap=rt.cap, epoch=rt.content_epoch,
+        append_seconds=f"{append_s:.6f}",
+        spilled_append_seconds=f"{spilled_s:.6f}",
+        join_seconds=f"{join_s:.6f}", rows_out=want["inner"],
+        kernel_launches=launches)
+    tpool.clear_pool()
+    return launches, append_s
+
+
+def wide_columns(n: int, width: int, seed: int):
+    """``width`` key columns on the card cycling int32 / float32 / int64,
+    every other one nullable (10% nulls)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dev = torch.device(DEVICE)
+    cols, vals = [], []
+    for j in range(width):
+        if j % 3 == 0:
+            x = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+        elif j % 3 == 1:
+            x = torch.randn(n, generator=g, device=dev)
+        else:
+            x = torch.randint(-2**62, 2**62, (n,), generator=g, device=dev,
+                              dtype=torch.int64)
+        cols.append(x)
+        vals.append(torch.rand(n, generator=g, device=dev) < 0.9
+                    if j % 2 else None)
+    return cols, vals
+
+
+def phase_wide_kernel(rows: int, seed: int):
+    """The chained kernel at 17, 24 and 40 key columns (int32 / float32 /
+    int64, every other one with nulls) against its plain version, bit
+    for bit at 3, 4 and 16 parts; its time at 4 parts beside its bound
+    n·(Σ column bytes + validity bytes + 4) at the card's memory rate."""
+    from cylon_tpu_torch.ops import hash as plain_hash
+    from cylon_tpu_torch.ops import hash_cuda
+
+    cols, vals = wide_columns(rows, max(WIDE_WIDTHS), seed + 40)
+    out = {}
+    for w in WIDE_WIDTHS:
+        c, v = cols[:w], vals[:w]
+        err = 0
+        for nparts in (3, 4, 16):
+            reset_launches()
+            got = hash_cuda.partition_ids_fused(c, v, nparts)
+            launches, chained = read_launches()
+            want = plain_hash.partition_ids(plain_hash.row_hash(c, v), nparts)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            groups = -(-w // hash_cuda.MAX_KEY_COLS)
+            check(err == 0 and launches == chained == groups,
+                  f"chained kernel == plain at {w} columns nparts={nparts} "
+                  f"({launches} launches, {groups} groups)")
+            del got, want
+        ms = cuda_ms(lambda: hash_cuda.partition_ids_fused(c, v, 4), 10)
+        p_ms = cuda_ms(lambda: plain_hash.partition_ids(
+            plain_hash.row_hash(c, v), 4), 2, warmup=1)
+        b_ms = hash_bound_ms(c, v, rows)
+        out[w] = {"rows": rows, "groups": groups, "max_abs_err": err,
+                  "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms}
+        say("chained kernel", columns=w, rows=rows, launches=groups,
+            exact="yes", ms=f"{ms:.4f}", plain_ms=f"{p_ms:.3f}",
+            bound_ms=f"{b_ms:.4f}", share_of_bound=f"{b_ms / ms:.3f}")
+    del cols, vals
+    return out
+
+
+def wide_ids(n: int, seed: int):
+    """Row ids of the two wide set-op tables of ``n`` rows each: A holds
+    distinct ids and 5% repeats of them, B half of its rows from A's ids
+    and half fresh ones.  ``i * odd mod 2^40`` keeps the ids distinct."""
+    rng = np.random.default_rng(seed)
+    rep, half = n // 20, n // 2
+    base = (np.arange(2 * n, dtype=np.int64) * 0x9E3779B1) % (1 << 40)
+    base = base[rng.permutation(len(base))]
+    a_ids = np.concatenate([base[:n - rep], rng.choice(base[:n - rep], rep)])
+    b_ids = np.concatenate([base[:half], base[n:n + n - half]])
+    return rng.permutation(a_ids), rng.permutation(b_ids)
+
+
+def wide_table(ids: np.ndarray, width: int):
+    """``width`` columns as functions of the row id (``c2`` is the id
+    itself, so distinct rows = distinct ids); every third column null
+    where ``id·(j+1) % 11 == 0``."""
+    import pyarrow as pa
+
+    cols = {}
+    for j in range(width):
+        if j == 2:
+            arr, mask = ids, None
+        elif j % 3 == 0:
+            arr = ((ids * (2 * j + 1)) % (1 << 31)).astype(np.int32)
+            mask = (ids * (j + 1)) % 11 == 0
+        elif j % 3 == 1:
+            arr = ((ids * (j + 7)) % 10007).astype(np.float32) / 7
+            mask = None
+        else:
+            arr, mask = (ids * (j + 3)) % (1 << 50), None
+        cols[f"c{j}"] = pa.array(arr, mask=mask)
+    return pa.table(cols)
+
+
+def phase_wide_set_ops(seed: int):
+    """``dist_union`` / ``dist_intersect`` / ``dist_subtract`` at world 4
+    on two 24-column tables of 4,194,304 rows with half their rows shared
+    (ingested with ``from_arrow``): each equal to a numpy distinct-row
+    oracle (the sorted id column, the nulls of every nullable column),
+    every shard holding only rows whose plain hash picks it, 2 chained
+    launches per side."""
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.ops import hash as plain_hash
+    from cylon_tpu_torch.parallel import (DTable, dist_intersect,
+                                          dist_subtract, dist_union)
+
+    a_ids, b_ids = wide_ids(WIDE_SETOP_ROWS, seed + 41)
+    ua, ub = np.unique(a_ids), np.unique(b_ids)
+    want = {"union": np.union1d(ua, ub),
+            "intersect": np.intersect1d(ua, ub, assume_unique=True),
+            "subtract": np.setdiff1d(ua, ub, assume_unique=True)}
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    a = DTable.from_arrow(ctx, wide_table(a_ids, WIDE_SETOP_WIDTH))
+    b = DTable.from_arrow(ctx, wide_table(b_ids, WIDE_SETOP_WIDTH))
+    launches = {}
+    for name, op in (("union", dist_union), ("intersect", dist_intersect),
+                     ("subtract", dist_subtract)):
+        reset_launches()
+        out, secs = wall(lambda: op(a, b))
+        launches[name] = read_launches()
+        counts = out.counts_host()
+        ids = []
+        for s in range(WORLD):
+            cols = tuple(c.data.view(WORLD, out.cap)[s, :int(counts[s])]
+                         for c in out.columns)
+            vs = tuple(None if c.validity is None else
+                       c.validity.view(WORLD, out.cap)[s, :int(counts[s])]
+                       for c in out.columns)
+            pid = plain_hash.partition_ids(plain_hash.row_hash(cols, vs),
+                                           WORLD)
+            check(bool((pid == s).all()),
+                  f"wide dist_{name}: shard {s} holds only its rows")
+            sid = cols[2].cpu().numpy()
+            for j in range(0, WIDE_SETOP_WIDTH, 3):
+                check(np.array_equal(vs[j].cpu().numpy(),
+                                     (sid * (j + 1)) % 11 != 0),
+                      f"wide dist_{name}: nulls of c{j} on shard {s}")
+            ids.append(sid)
+        got = np.sort(np.concatenate(ids))
+        check(np.array_equal(got, want[name]),
+              f"wide dist_{name}: the rows == the distinct-row oracle "
+              f"({len(got)} vs {len(want[name])})")
+        check(launches[name] == (4, 4),
+              f"wide dist_{name}: 2 chained launches per side (got "
+              f"{launches[name]})")
+        say(f"wide dist_{name} world={WORLD}", columns=WIDE_SETOP_WIDTH,
+            rows_a=len(a_ids), rows_b=len(b_ids),
+            rows_out=len(got), oracle_rows=len(want[name]),
+            seconds=f"{secs:.6f}", kernel_launches=launches[name][0],
+            chained_launches=launches[name][1],
+            shard_rows=list(map(int, counts)))
+        del out
+    return {k: v[0] for k, v in launches.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -3492,6 +4067,23 @@ def main() -> int:
     # the recovery driver and the elastic re-mesh on the join cell
     phase_recovery_join(wl, wr, tag="warm-up ")
     launches_recovery, launches_nparts3 = phase_recovery_join(ldata, rdata)
+    # ingest and the data-model surfaces: Arrow and per-rank CSV ingest
+    # into the join, append, hash64 string keys, the bench's ingest stage,
+    # and the partition hash past 16 key columns
+    launches_ingest = {}
+    launches_ingest["join_cell_from_arrow"], ingest_gbps = \
+        phase_join_cell_from_arrow(ldata, rdata, want, link)
+    launches_ingest["csv_from_partitions"] = phase_csv_partitions(args.seed)
+    launches_append, _ = phase_append(ldata, rdata, args.seed)
+    launches_strkey, _ = phase_strkey()
+    phase_lineitem_ingest()
+    wide = phase_wide_kernel(args.rows, args.seed)
+    launches_wide = phase_wide_set_ops(args.seed)
+    check(all(v > 0 for v in launches_ingest.values())
+          and launches_append > 0 and all(launches_strkey.values())
+          and all(launches_wide.values()),
+          "the partition kernel ran on the ingest, append, strkey and "
+          "wide-key paths")
     phase_outer(args.seed)
     phase_hash_partition(ldata)
     phase_dist_sort(ldata, args.seed, args.profile)
@@ -3657,12 +4249,29 @@ def main() -> int:
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
+        "launches_ingest": launches_ingest,
+        "launches_append": launches_append,
+        "launches_strkey": launches_strkey,
+        "launches_wide_setop": launches_wide,
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": hash_bound_ms((k,), (None,), k.shape[0]),
+        "bound_by": "bytes", "library_ms": None}, {
+        # the kernel's chained entry: more than 16 key columns in groups
+        "name": "partition_hash_chained", "route": "cuda",
+        "source": "cylon_tpu_torch/csrc/partition_hash.cu",
+        "replaces": "cylon_tpu/ops/hash_pallas.py:64",
+        "launches": sum(launches_wide.values()),
+        "launches_wide_setop": launches_wide,
+        "widths": {str(w): v for w, v in wide.items()},
+        "max_abs_err": max(v["max_abs_err"] for v in wide.values()),
+        "ms": wide[WIDE_SETOP_WIDTH]["ms"],
+        "plain_ms": wide[WIDE_SETOP_WIDTH]["plain_ms"],
+        "bound_ms": wide[WIDE_SETOP_WIDTH]["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]
     say("host link", d2h_gbps=f"{link['d2h_gbps']:.3f}",
         h2d_gbps=f"{link['h2d_gbps']:.3f}",
+        join_cell_ingest_gbps=f"{ingest_gbps:.3f}",
         bound_gbps_per_direction=f"{HOST_LINK_BYTES_PER_S / 1e9:.0f}")
     say("chip_smoke", wall_seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi_line, flush=True)

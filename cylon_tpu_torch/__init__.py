@@ -9,9 +9,17 @@ plain torch.  The package imports neither JAX nor ``cylon_tpu``.
 
 Layer map:
 
+    table.py, row.py  Table / Column (host copies, with_data) and Row
     compute.py        local join, set ops, sort, select, hash and
                       round-robin partition, merge, groupby
-    parallel/         DTable (with the deferred-select mask), the
+    io/               CSV read (a thread per file) and write, via pyarrow
+    strings.py        hash64 string keys: two int32 lanes per string, the
+                      payloads in a host StringStore
+    native/           host runtime: dictionary encode, murmur3 of byte
+                      strings, the staging arena of the ingest path
+    parallel/         DTable (ingest from Arrow / pandas / partitions
+                      through StagedIngest, append with content epochs,
+                      the deferred-select mask), the
                       all_to_all shuffle, dist_join (SORT and HASH; the
                       broadcast join and the dense FK join),
                       dist_semi_join / dist_anti_join,
@@ -52,6 +60,7 @@ from . import faults
 from .config import JoinAlgorithm, JoinConfig, JoinType
 from .context import CylonContext
 from .dtypes import DataType, Layout, Type
+from .row import Row
 from .status import Code, CylonError, Status
 from .table import Column, Table
 
@@ -61,7 +70,7 @@ __version__ = "0.1.0"
 faults.install_chaos_from_env()
 
 __all__ = [
-    "CylonContext", "Table", "Column", "Status", "Code", "CylonError",
+    "CylonContext", "Table", "Column", "Row", "Status", "Code", "CylonError",
     "DataType", "Type", "Layout", "JoinConfig", "JoinType", "JoinAlgorithm",
     "__version__",
 ]

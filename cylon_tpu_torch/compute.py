@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import replace
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .config import JoinAlgorithm, JoinConfig
@@ -40,8 +41,14 @@ def _gather_columns(tb: Table, indices: torch.Tensor, fill_null: bool,
 
 
 def _slice_columns(cols: List[Column], count: int) -> List[Column]:
+    # slicing keeps a prefix, so the host copies slice along (a full-length
+    # copy must never survive a shape change)
     return [replace(c, data=c.data[:count],
-                    validity=None if c.validity is None else c.validity[:count])
+                    validity=None if c.validity is None else c.validity[:count],
+                    host_data=None if c.host_data is None
+                    else c.host_data[:count],
+                    host_validity=None if c.host_validity is None
+                    else c.host_validity[:count])
             for c in cols]
 
 
@@ -239,11 +246,57 @@ def sort(t: Table, sort_column: Union[int, str], ascending: bool = True) -> Tabl
 def sort_multi(t: Table, sort_columns: Sequence[Union[int, str]],
                ascending=True) -> Table:
     """Stable multi-key local sort; ``ascending`` is one bool or a
-    per-column sequence (ORDER BY mixed ASC/DESC), nulls last per key."""
+    per-column sequence (ORDER BY mixed ASC/DESC), nulls last per key.
+
+    When every column carries its host copy (a table just exported from a
+    DTable, the ORDER-BY-then-return tail of most queries), the sort runs
+    on those copies on the host: the result's host copies ride along, so
+    its export reads nothing back.  The order is ``ops/sort
+    .lexsort_indices``'s exactly (stable, per-key ASC/DESC, nulls last
+    per key)."""
     cols = [t.column(c) for c in sort_columns]
+    if all(c.host_data is not None
+           and (c.validity is None or c.host_validity is not None)
+           for c in t.columns):
+        order = _host_lexsort(cols, ascending)
+        idx = torch.from_numpy(order).to(t.ctx.device)
+        out = []
+        for c in t.columns:
+            data, validity = ops_gather.take(c.data, c.validity, idx,
+                                             fill_null=False)
+            out.append(Column(
+                c.name, c.dtype, data, validity, dictionary=c.dictionary,
+                arrow_type=c.arrow_type,
+                host_data=np.asarray(c.host_data)[order],
+                host_validity=(None if c.validity is None else
+                               np.asarray(c.host_validity, bool)[order])))
+        return Table(t.ctx, out)
     order = ops_sort.lexsort_indices([c.data for c in cols],
                                      [c.validity for c in cols], ascending)
     return Table(t.ctx, _gather_columns(t, order, fill_null=False))
+
+
+def _host_lexsort(cols: Sequence[Column], ascending) -> np.ndarray:
+    """Stable lexsort order of the columns' host copies (int64): per key
+    ASC/DESC, a null flag outranking its key value (nulls last)."""
+    asc = ([ascending] * len(cols) if isinstance(ascending, bool)
+           else list(ascending))
+    flat = []
+    for i, c in reversed(list(enumerate(cols))):
+        k = np.asarray(c.host_data)
+        if not asc[i]:
+            # the order-inverting transform of ops/sort (negation would
+            # wrap INT64_MIN and uint64 values past 2^63)
+            if k.dtype.kind == "i" or k.dtype == np.bool_:
+                k = ~k
+            elif k.dtype.kind == "u":
+                k = np.iinfo(k.dtype).max - k
+            else:
+                k = -k.astype(np.float64)
+        flat.append(k)
+        if c.validity is not None:
+            flat.append(~np.asarray(c.host_validity, bool))
+    return np.lexsort(tuple(flat)).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +318,7 @@ def groupby(t: Table, key_columns: Sequence[Union[int, str]],
             base = t.column(c)
             acols.append(Column(f"{op}_{base.name}", base.dtype,
                                 base.data[:0]))
-        return Table(t.ctx, [replace(k, data=k.data[:0], validity=None)
+        return Table(t.ctx, [k.with_data(k.data[:0], validity=None)
                              for k in kcols] + acols)
     kcols = [t.column(c) for c in key_columns]
     vcols = [t.column(c) for c, _ in aggregations]

@@ -8,7 +8,10 @@
 // null in that column, and combined across columns as `h = 31*h + col_hash`;
 // the output is `h % nparts` as int32.  The plain PyTorch version of the
 // same function is cylon_tpu_torch/ops/hash.py; the wrapper is
-// cylon_tpu_torch/ops/hash_cuda.py.
+// cylon_tpu_torch/ops/hash_cuda.py.  A launch takes at most
+// CYLON_MAX_KEY_COLS columns (the kernel argument holds them by value);
+// the wrapper hashes more columns in groups through the chained entry,
+// which carries the running hash from one group to the next.
 //
 // Words are formed as ops/hash.py `_to_u32_words` does: integers of 4 bytes
 // or fewer are sign- or zero-extended as astype(int32) would (bool -> 0/1,
@@ -133,25 +136,23 @@ __device__ __forceinline__ uint32_t column_hash(const KeyCol& col, int64_t i) {
 }
 
 __global__ void partition_hash_kernel(KeyCols cols, int64_t n,
-                                      uint32_t nparts, int32_t* __restrict__ out) {
+                                      uint32_t nparts,
+                                      const uint32_t* __restrict__ h_in,
+                                      int finalize,
+                                      int32_t* __restrict__ out) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    uint32_t row_h = 0;
+    uint32_t row_h = h_in != nullptr ? h_in[i] : 0u;
     for (int c = 0; c < cols.k; ++c) row_h = row_h * 31u + column_hash(cols.c[c], i);
-    out[i] = (int32_t)(row_h % nparts);
+    out[i] = finalize ? (int32_t)(row_h % nparts) : (int32_t)row_h;
   }
 }
 
-// Launches on `stream` and returns cudaGetLastError() of the launch (0 on
-// success).  The caller has checked k <= CYLON_MAX_KEY_COLS, n > 0,
-// nparts >= 1, and that every pointer is a device pointer to n contiguous
-// elements of the stated dtype.
-extern "C" int cylon_partition_hash(const void* const* data,
-                                    const void* const* valid,
-                                    const int32_t* dtypes, int32_t k,
-                                    int64_t n, int32_t nparts, int32_t* out,
-                                    void* stream) {
+static int launch(const void* const* data, const void* const* valid,
+                  const int32_t* dtypes, int32_t k, int64_t n, int32_t nparts,
+                  const uint32_t* h_in, int finalize, int32_t* out,
+                  void* stream) {
   if (k < 1 || k > CYLON_MAX_KEY_COLS || n <= 0 || nparts < 1)
     return (int)cudaErrorInvalidValue;
   KeyCols cols;
@@ -175,6 +176,37 @@ extern "C" int cylon_partition_hash(const void* const* data,
   if (blocks > max_blocks) blocks = max_blocks;
   partition_hash_kernel<<<(unsigned)blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      cols, n, (uint32_t)nparts, out);
+      cols, n, (uint32_t)nparts, h_in, finalize, out);
   return (int)cudaGetLastError();
+}
+
+// Launches on `stream` and returns cudaGetLastError() of the launch (0 on
+// success).  The caller has checked k <= CYLON_MAX_KEY_COLS, n > 0,
+// nparts >= 1, and that every pointer is a device pointer to n contiguous
+// elements of the stated dtype.
+extern "C" int cylon_partition_hash(const void* const* data,
+                                    const void* const* valid,
+                                    const int32_t* dtypes, int32_t k,
+                                    int64_t n, int32_t nparts, int32_t* out,
+                                    void* stream) {
+  return launch(data, valid, dtypes, k, n, nparts, nullptr, 1, out, stream);
+}
+
+// One group of a row hash over more than CYLON_MAX_KEY_COLS key columns.
+// Each row starts from h_in[i] (the running hash of the groups before;
+// nullptr for the first group) and folds this group's columns in with the
+// same h = 31*h + col_hash.  With finalize == 0 it writes the raw uint32
+// hash (bits in an int32) for the next group; with finalize != 0 it
+// writes h % nparts.  h_in and out must not overlap (the wrapper
+// alternates two buffers).  Groups launched in order on one stream give
+// the single-pass kernel's ids bit for bit.
+extern "C" int cylon_partition_hash_chained(const void* const* data,
+                                            const void* const* valid,
+                                            const int32_t* dtypes, int32_t k,
+                                            int64_t n, int32_t nparts,
+                                            const uint32_t* h_in,
+                                            int32_t finalize, int32_t* out,
+                                            void* stream) {
+  return launch(data, valid, dtypes, k, n, nparts, h_in, finalize, out,
+                stream);
 }

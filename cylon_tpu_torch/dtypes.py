@@ -103,6 +103,14 @@ _NUMPY_OF = {
     Type.DURATION: np.int64,
 }
 
+_INTEGRAL = {
+    Type.BOOL, Type.UINT8, Type.INT8, Type.UINT16, Type.INT16, Type.UINT32,
+    Type.INT32, Type.UINT64, Type.INT64, Type.STRING, Type.BINARY,
+    Type.DATE32, Type.DATE64, Type.TIMESTAMP, Type.TIME32, Type.TIME64,
+    Type.DURATION,
+}
+_FLOATING = {Type.HALF_FLOAT, Type.FLOAT, Type.DOUBLE}
+
 _TORCH_OF_NUMPY = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.uint8): torch.uint8,
@@ -144,6 +152,14 @@ def numpy_dtype(t: Type) -> np.dtype:
 def device_dtype(t: Type) -> torch.dtype:
     """torch dtype used for this logical type's device storage."""
     return _TORCH_OF_NUMPY[numpy_dtype(t)]
+
+
+def is_integral(t: Type) -> bool:
+    return t in _INTEGRAL
+
+
+def is_floating(t: Type) -> bool:
+    return t in _FLOATING
 
 
 def is_dictionary_encoded(t: Type) -> bool:

@@ -80,6 +80,9 @@ POINTS: Dict[str, str] = {
     "compact.read_counts":
         "the blocking per-op host count read (ops/compact._read_counts) "
         "— a failed device→host transfer on a tunneled backend",
+    "io.csv.read":
+        "a CSV file read (io/csv._read_one) — flaky network filesystem / "
+        "object store",
     "resilience.budget":
         "value point: the device memory budget read — a shrinking "
         "mutation simulates allocation pressure mid-query, degrading "
@@ -296,7 +299,8 @@ class FaultPlan:
     @staticmethod
     def default(seed: int = 0) -> "FaultPlan":
         """The ``CYLON_CHAOS`` plan at the port's points: low-probability
-        transient count reads, occasional allocation pressure on the
+        transient count reads and CSV reads, occasional allocation
+        pressure on the
         memory budget, mid-query stage failures (transient and
         resource), host-tier staging faults, one device loss and the
         flap pattern on top.  Every injected class is recoverable — a
@@ -305,6 +309,7 @@ class FaultPlan:
         return FaultPlan(seed, [
             FaultRule("compact.read_counts", kind="transient",
                       probability=0.03),
+            FaultRule("io.csv.read", kind="transient", probability=0.10),
             FaultRule("resilience.budget", kind="value", probability=0.02,
                       mutate=lambda b: max(int(b) // 8, 1 << 20)),
             # mid-query stage failures at the executor's exchange

@@ -10,8 +10,16 @@ interface the first time a CUDA tensor reaches ``partition_ids_fused``, and
 loaded with ctypes; the build goes under ``build/cylon_tpu_torch/`` at the
 root of the checkout.  Importing this module builds nothing.
 
-``launches`` counts kernel launches; CPU calls (the plain version) do not
-count.
+A launch takes at most ``MAX_KEY_COLS`` key columns.  More columns hash
+in groups of ``MAX_KEY_COLS``, launched in order on the current stream
+through the kernel's chained entry: each group starts every row from the
+running hash the group before wrote, and the last group writes the ids.
+The combine ``h = 31*h + col_hash`` chains, so the ids are bit for bit
+the single pass's.  The plain version takes any number of columns.
+
+``launches`` counts kernel launches (a chained call counts each group);
+``launches_chained`` counts the launches made by chained calls.  CPU calls
+(the plain version) count neither.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 from ..status import Code, CylonError, Status
 from . import hash as plain_hash
 
-MAX_KEY_COLS = 16
+MAX_KEY_COLS = 16     # key columns of one launch (csrc CYLON_MAX_KEY_COLS)
 
 # must match the enum in csrc/partition_hash.cu
 _DTYPE_CODE = {
@@ -44,6 +52,7 @@ BUILD_DIR = _PKG.parent / "build" / "cylon_tpu_torch"
 LIBRARY = BUILD_DIR / "libpartition_hash.so"
 
 launches = 0          # kernel launches since the last reset (set it to 0)
+launches_chained = 0  # of those, launches of chained (k > 16) calls
 # the same launches by partition count (clear it with ``launches``)
 launches_by_nparts: dict = {}
 build_log = ""        # nvcc's output (with -Xptxas -v) from this process's build
@@ -106,6 +115,15 @@ def load():
                            ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            chained = lib.cylon_partition_hash_chained
+            chained.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_int32),
+                                ctypes.c_int32, ctypes.c_int64,
+                                ctypes.c_int32, ctypes.c_void_p,
+                                ctypes.c_int32, ctypes.c_void_p,
+                                ctypes.c_void_p]
+            chained.restype = ctypes.c_int
             _lib = lib
             obcompile.record_build("hash_cuda.load", key,
                                    (time.perf_counter() - t0) * 1e3, t0)
@@ -117,10 +135,6 @@ def _check(cols: Sequence[torch.Tensor],
     if not cols or len(cols) != len(validities):
         raise CylonError(Status(Code.Invalid,
             "partition_ids_fused: need one validity (or None) per key column"))
-    if len(cols) > MAX_KEY_COLS:
-        raise CylonError(Status(Code.NotImplemented,
-            f"partition_ids_fused: {len(cols)} key columns "
-            f"(the kernel takes at most {MAX_KEY_COLS})"))
     if int(nparts) < 1:
         raise CylonError(Status(Code.Invalid,
             f"partition_ids_fused: nparts must be >= 1, got {nparts}"))
@@ -145,10 +159,10 @@ def partition_ids_fused(cols: Sequence[torch.Tensor],
                         nparts: int) -> torch.Tensor:
     """``partition_ids(row_hash(cols, validities), nparts)`` as int32[n].
 
-    CPU tensors take the plain version (ops/hash.py).  CUDA tensors launch
-    the kernel on the current stream, or raise.
+    CPU tensors take the plain version (ops/hash.py), for any number of
+    key columns.  CUDA tensors launch the kernel on the current stream
+    (one launch per group of ``MAX_KEY_COLS`` columns), or raise.
     """
-    global launches
     n, dev = _check(cols, validities, nparts)
     if dev.type == "cpu":
         return plain_hash.partition_ids(plain_hash.row_hash(cols, validities),
@@ -168,18 +182,45 @@ def partition_ids_fused(cols: Sequence[torch.Tensor],
         return out
     lib = load()
     k = len(cols)
-    data = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
-    valid = (ctypes.c_void_p * k)(*[0 if v is None else v.data_ptr()
-                                    for v in validities])
-    codes = (ctypes.c_int32 * k)(*[_DTYPE_CODE[c.dtype] for c in cols])
+    groups = [range(g, min(g + MAX_KEY_COLS, k))
+              for g in range(0, k, MAX_KEY_COLS)]
+    # the groups alternate between two buffers so no launch reads the
+    # buffer it writes; the parity puts the last group's write in ``out``
+    spare = (torch.empty(n, dtype=torch.int32, device=dev)
+             if len(groups) > 1 else None)
+    prev = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cylon_partition_hash(data, valid, codes, k, n, int(nparts),
-                                      out.data_ptr(), stream)
-    if rc != 0:
-        raise CylonError(Status(Code.ExecutionError,
-            f"partition-hash kernel launch failed: cudaError {rc}"))
+        for j, grp in enumerate(groups):
+            data = (ctypes.c_void_p * len(grp))(
+                *[cols[c].data_ptr() for c in grp])
+            valid = (ctypes.c_void_p * len(grp))(
+                *[0 if validities[c] is None else validities[c].data_ptr()
+                  for c in grp])
+            codes = (ctypes.c_int32 * len(grp))(
+                *[_DTYPE_CODE[cols[c].dtype] for c in grp])
+            if len(groups) == 1:
+                rc = lib.cylon_partition_hash(data, valid, codes, len(grp),
+                                              n, int(nparts), out.data_ptr(),
+                                              stream)
+            else:
+                dst = out if (len(groups) - 1 - j) % 2 == 0 else spare
+                rc = lib.cylon_partition_hash_chained(
+                    data, valid, codes, len(grp), n, int(nparts),
+                    None if prev is None else prev.data_ptr(),
+                    int(j == len(groups) - 1), dst.data_ptr(), stream)
+                prev = dst
+            if rc != 0:
+                raise CylonError(Status(Code.ExecutionError,
+                    f"partition-hash kernel launch failed: cudaError {rc}"))
+            _count(nparts, chained=len(groups) > 1)
+    return out
+
+
+def _count(nparts: int, chained: bool) -> None:
+    global launches, launches_chained
     launches += 1
+    if chained:
+        launches_chained += 1
     launches_by_nparts[int(nparts)] = \
         launches_by_nparts.get(int(nparts), 0) + 1
-    return out

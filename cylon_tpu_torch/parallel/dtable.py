@@ -15,21 +15,32 @@ The host tier: ``spill()`` moves the leaves to the spill pool
 ``counts`` are properties that fault them back in on first device use.
 Metadata (names, dtypes, row counts) answers host-side without a
 fault-in.
+
+Ingest (``from_arrow`` / ``from_pandas`` / ``from_partitions`` /
+``from_table``) assembles each column's padded ``[P*cap]`` block on the
+host and hands it to ``StagedIngest``: on the card the blocks are built
+in a page-locked staging arena and copied on the copy stream while the
+next column is assembled.  String columns carry ONE host dictionary
+shared by all shards; ``from_partitions`` re-encodes per-partition
+dictionaries onto a merged one.  ``append`` grows a table in place and
+bumps its ``content_epoch``.
 """
 from __future__ import annotations
 
+import threading
+import warnings
 from dataclasses import dataclass, replace
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..context import CylonContext
-from ..dtypes import DataType
+from ..dtypes import DataType, is_dictionary_encoded
 from ..ops import compact as ops_compact
 from ..ops.gather import signed_view
 from ..status import Code, CylonError, Status
-from ..table import Column, Table
+from ..table import Column, Table, host_batch
 
 
 class _SpilledLeaf:
@@ -57,15 +68,18 @@ class DColumn:
     arrow_type: Any = None
 
 
-def _blocks(x: torch.Tensor, sizes: np.ndarray, offs: np.ndarray,
-            cap: int) -> torch.Tensor:
-    """Rows of ``x`` cut at ``offs`` into P zero-padded blocks of ``cap``."""
-    P = len(sizes)
-    out = torch.zeros((P, cap) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    for i in range(P):
-        out[i, :sizes[i]] = x[offs[i]:offs[i + 1]]
-    return out.reshape((P * cap,) + tuple(x.shape[1:]))
+def _block_layout(n: int, Pn: int, cap: Optional[int]):
+    """Sizes, offsets and ``cap`` of a block distribution of ``n`` rows
+    over ``Pn`` shards: shard *i* gets the i-th contiguous slice, the first
+    ``n % Pn`` shards one row more."""
+    base, rem = divmod(n, Pn)
+    sizes = np.array([base + (1 if i < rem else 0) for i in range(Pn)],
+                     np.int32)
+    if cap is None:
+        cap = ops_compact.next_bucket(max(int(sizes.max(initial=0)), 1),
+                                      minimum=8)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    return sizes, offs, cap
 
 
 class DTable:
@@ -97,6 +111,13 @@ class DTable:
         self.pending_mask = pending_mask   # [P*cap] bool or None
         self.pending_cnts = pending_cnts   # [P] survivor counts or None
         self._counts_host: Optional[np.ndarray] = None
+        # the content epoch: bumped by every change of the logical
+        # contents made through the ingest path (append).  _deltas holds
+        # the last few appended batches keyed by the epoch each created,
+        # so a consumer holding an older epoch can fold forward in
+        # O(delta) instead of recomputing
+        self._epoch: int = 0
+        self._deltas: Dict[int, "DTable"] = {}
 
     # -- the host tier -------------------------------------------------------
 
@@ -214,46 +235,159 @@ class DTable:
     @staticmethod
     def from_table(ctx: CylonContext, table: Table, cap: Optional[int] = None
                    ) -> "DTable":
-        """Block-distribute a local table's rows over the P shards, on the
-        device: shard *i* gets the i-th contiguous slice, the first
-        ``n % P`` shards one row more (the JAX package's sizes, offsets
-        and ``cap``)."""
+        """Block-distribute a local table's rows over the P shards: shard
+        *i* gets the i-th contiguous slice, the first ``n % P`` shards one
+        row more.  The columns come to the host (their host copies where
+        they carry them, else one batched read) and go back through
+        ``StagedIngest``, as in the JAX package."""
+        sizes, offs, cap = _block_layout(table.num_rows,
+                                         ctx.get_world_size(), cap)
+        hosts, valids = _host_leaves(table.columns)
+        cols: List[DColumn] = []
+        staged = StagedIngest(ctx)
+        try:
+            for c, hd, hv in zip(table.columns, hosts, valids):
+                cols.append(DColumn(
+                    c.name, c.dtype, staged.put(hd, sizes, offs, cap),
+                    None if hv is None else staged.put(hv, sizes, offs, cap),
+                    c.dictionary, c.arrow_type))
+        finally:
+            staged.finish()
+        return DTable._ingested(ctx, cols, cap, sizes)
+
+    @staticmethod
+    def _ingested(ctx: CylonContext, cols: List[DColumn], cap: int,
+                  sizes: np.ndarray) -> "DTable":
+        out = DTable(ctx, cols, cap, torch.from_numpy(sizes.copy()).to(
+            ctx.device))
+        # ingest knows the per-shard sizes statically: cached, so planners
+        # (the broadcast threshold) never pay a host read here
+        out._counts_host = sizes.copy()
+        return out
+
+    @staticmethod
+    def from_arrow(ctx: CylonContext, atable, cap: Optional[int] = None
+                   ) -> "DTable":
+        """Block-distribute an arrow table directly from host memory (no
+        intermediate single-device Table)."""
+        from ..table import host_columns_from_arrow
+        sizes, offs, cap = _block_layout(atable.num_rows,
+                                         ctx.get_world_size(), cap)
+        cols: List[DColumn] = []
+        staged = StagedIngest(ctx)
+        try:
+            for name, t, npv, mask, dictionary, ftype in \
+                    host_columns_from_arrow(atable):
+                data = staged.put(npv, sizes, offs, cap)
+                validity = (None if mask is None else
+                            staged.put(mask.astype(bool), sizes, offs, cap))
+                cols.append(DColumn(name, DataType(t), data, validity,
+                                    dictionary, ftype))
+        finally:
+            staged.finish()
+        return DTable._ingested(ctx, cols, cap, sizes)
+
+    @staticmethod
+    def from_pandas(ctx: CylonContext, df, cap: Optional[int] = None
+                    ) -> "DTable":
+        import pyarrow as pa
+
+        return DTable.from_arrow(
+            ctx, pa.Table.from_pandas(df, preserve_index=False), cap)
+
+    @staticmethod
+    def from_partitions(ctx: CylonContext, parts: Sequence[Table],
+                        cap: Optional[int] = None) -> "DTable":
+        """Build from one local Table per shard (the per-rank-CSV ingest
+        path: reference examples/bench/table_join_dist_test.cpp:87-91 reads
+        ``csv1_<rank>.csv`` on each rank).  Per-partition dictionaries are
+        re-encoded onto their sorted union."""
         Pn = ctx.get_world_size()
-        n = table.num_rows
-        base, rem = divmod(n, Pn)
-        sizes = np.array([base + (1 if i < rem else 0) for i in range(Pn)],
-                         np.int32)
+        if len(parts) != Pn:
+            raise CylonError(Status(Code.Invalid,
+                f"{len(parts)} partitions for a {Pn}-shard world"))
+        head = parts[0]
+        for p in parts[1:]:
+            head.verify_same_schema(p)
+        sizes = np.array([p.num_rows for p in parts], np.int32)
+        offs = np.concatenate([[0], np.cumsum(sizes)])
         if cap is None:
             cap = ops_compact.next_bucket(max(int(sizes.max(initial=0)), 1),
                                           minimum=8)
-        offs = np.concatenate([[0], np.cumsum(sizes)])
-        cols = [DColumn(c.name, c.dtype,
-                        _blocks(c.data.to(ctx.device), sizes, offs, cap),
-                        None if c.validity is None else
-                        _blocks(c.validity.to(ctx.device), sizes, offs, cap),
-                        c.dictionary, c.arrow_type)
-                for c in table.columns]
-        out = DTable(ctx, cols, cap, torch.from_numpy(sizes).to(ctx.device))
-        out._counts_host = sizes.copy()  # statically known at ingest
-        return out
+        cols: List[DColumn] = []
+        staged = StagedIngest(ctx)
+        try:
+            for j, c0 in enumerate(head.columns):
+                pcols = [p.columns[j] for p in parts]
+                hosts, valids = _host_leaves(pcols)
+                dictionary = None
+                if is_dictionary_encoded(c0.dtype.type):
+                    dicts = [pc.dictionary for pc in pcols]
+                    dictionary = np.unique(np.concatenate(dicts)) if any(
+                        len(d) for d in dicts) else dicts[0]
+                    # an empty-dictionary partition holds only null rows
+                    # (the sorted-encode invariant): zero its codes so
+                    # nothing decodes against the merged dictionary
+                    hosts = [np.searchsorted(dictionary, d)[h].astype(np.int32)
+                             if len(d) else np.zeros_like(h, dtype=np.int32)
+                             for h, d in zip(hosts, dicts)]
+                data = staged.put(np.concatenate(hosts), sizes, offs, cap)
+                validity = None
+                if any(v is not None for v in valids):
+                    validity = staged.put(np.concatenate(
+                        [np.ones(len(h), bool) if v is None else v
+                         for h, v in zip(hosts, valids)]), sizes, offs, cap)
+                cols.append(DColumn(c0.name, c0.dtype, data, validity,
+                                    dictionary, c0.arrow_type))
+        finally:
+            staged.finish()
+        return DTable._ingested(ctx, cols, cap, sizes)
 
     # -- export --------------------------------------------------------------
 
     def _export(self, takes: Sequence[int]) -> Table:
-        """Gather ``takes[i]`` leading rows of each shard as a local Table."""
+        """Gather ``takes[i]`` leading rows of each shard as a local Table.
+
+        Rows are compacted on the device (one gather per column), then
+        every gathered tensor comes to the host in ONE batched transfer;
+        the host copies ride along on the columns, so ``to_arrow`` reads
+        nothing back."""
         self._collapse_pending()
         dev = self.ctx.device
-        idx = torch.cat([i * self.cap + torch.arange(t, device=dev)
-                         for i, t in enumerate(takes)]) if sum(takes) else \
-            torch.zeros(0, dtype=torch.int64, device=dev)
-        cols = []
+        idx_host = np.concatenate(
+            [i * self.cap + np.arange(t, dtype=np.int64)
+             for i, t in enumerate(takes)]) if sum(takes) else \
+            np.empty((0,), np.int64)
+        idx = torch.from_numpy(idx_host).to(dev)
+        pulls = []
         for c in self.columns:
-            data = signed_view(c.data)[idx].view(c.data.dtype)
-            validity = None if c.validity is None else c.validity[idx]
+            pulls.append(signed_view(c.data)[idx].view(c.data.dtype))
+            if c.validity is not None:
+                pulls.append(c.validity[idx])
+        from .. import trace
+        trace.count("host.read")  # one batched export transfer
+        return Table(self.ctx, self._columns_from_host(pulls,
+                                                       host_batch(pulls)))
+
+    def _columns_from_host(self, devs: Sequence[torch.Tensor],
+                           hosts: Sequence[np.ndarray]) -> List[Column]:
+        """Unflatten gathered device tensors and their host copies (data,
+        then validity where nullable, per column) into local Columns that
+        carry their host copies."""
+        cols: List[Column] = []
+        hi = 0
+        for c in self.columns:
+            data, hd = devs[hi], hosts[hi]
+            hi += 1
+            validity, hv = None, None
+            if c.validity is not None:
+                validity, hv = devs[hi], hosts[hi]
+                hi += 1
             cols.append(Column(c.name, c.dtype, data, validity,
                                dictionary=c.dictionary,
-                               arrow_type=c.arrow_type))
-        return Table(self.ctx, cols)
+                               arrow_type=c.arrow_type,
+                               host_data=hd, host_validity=hv))
+        return cols
 
     def to_table(self) -> Table:
         """Gather all shards to one local Table (drops padding)."""
@@ -287,6 +421,65 @@ class DTable:
                      self.pending_cnts)
         out._counts_host = self._counts_host  # same rows, same counts
         return out
+
+    # -- the ingest-delta path ------------------------------------------------
+
+    @property
+    def content_epoch(self) -> int:
+        """Monotone version of this handle's logical contents.  Layout
+        changes (compaction, spill round trips, a re-mesh) do not bump it;
+        only the ingest path (:meth:`append`) does."""
+        return self._epoch
+
+    def delta_for(self, epoch: int) -> Optional["DTable"]:
+        """The appended batch that moved this table TO ``epoch``, while it
+        is still retained (the input of an O(delta) fold)."""
+        return self._deltas.get(epoch)
+
+    # appended batches that stay reachable for folding; a consumer more
+    # epochs behind recomputes (bounded, so a table ingesting forever
+    # does not retain its whole history)
+    _DELTA_KEEP = 8
+
+    def append(self, other: "DTable") -> "DTable":
+        """UNION ALL ``other``'s rows into THIS handle, in place.
+
+        Identity-preserving: every holder of this handle observes the
+        grown table.  The merge round-trips through Arrow (decode, concat,
+        re-ingest), which re-buckets ``cap`` and rebuilds dictionary
+        columns on the sorted union.  A spilled table's pooled host copy
+        describes the old contents and is dropped, and so are replicas
+        cached from the old columns.  The batch is kept under the new
+        content epoch.  Returns ``self``."""
+        import pyarrow as pa
+
+        from . import broadcast
+        self.verify_same_schema(other)
+        spilled_sig = (self._spill_entry.sig
+                       if self._spill_entry is not None else None)
+        merged = pa.concat_tables(
+            [self.to_table().to_arrow(), other.to_table().to_arrow()]
+        ).combine_chunks()
+        grown = DTable.from_arrow(self.ctx, merged)
+        if spilled_sig is not None:
+            from ..spill.pool import get_pool
+            get_pool().drop_entry(spilled_sig)
+        broadcast.forget_replicas_of(self._columns)
+        self._spill_entry = None
+        self._spill_sig = None
+        self._columns = grown._columns
+        self.cap = grown.cap
+        self._counts = grown._counts
+        self.pending_mask = None
+        self.pending_cnts = None
+        self._counts_host = grown._counts_host
+        self._epoch += 1
+        self._deltas[self._epoch] = other
+        for e in sorted(self._deltas):
+            if len(self._deltas) <= self._DELTA_KEEP:
+                break
+            del self._deltas[e]
+        return self
 
     def explain(self, plan=None, *, tables=None, validate: bool = False,
                 analyze: bool = False, optimize: bool = False):
@@ -349,3 +542,141 @@ class DTable:
                          for c in self._columns)
         spilled = ", spilled to host" if self.is_spilled else ""
         return f"DTable[P={self.nparts}, cap={self.cap}{spilled}]({cols})"
+
+
+def _host_leaves(cols: Sequence[Column]):
+    """(host data, host validity or None) per local column: their host
+    copies, every missing one in one batched read."""
+    pulled = iter(host_batch(
+        [c.data for c in cols if c.host_data is None]
+        + [c.validity for c in cols
+           if c.validity is not None and c.host_validity is None]))
+    data = [np.asarray(c.host_data) if c.host_data is not None
+            else next(pulled) for c in cols]
+    valid = [None if c.validity is None else np.asarray(
+        c.host_validity if c.host_validity is not None else next(pulled),
+        bool) for c in cols]
+    return data, valid
+
+
+# ---------------------------------------------------------------------------
+# staged ingest
+# ---------------------------------------------------------------------------
+
+_ARENA_CAP = 256 << 20
+_arena = None
+_arena_lock = threading.Lock()
+# diagnostic switch (the ingest A/B): False stages every column in a
+# one-off block even on the card
+ARENA_ENABLED = True
+
+
+class StagedIngest:
+    """One table's staged host→device transfers through the shared arena.
+
+    Each column's padded ``[P*cap]`` block is assembled in a block
+    bump-allocated from the shared ``StagingArena`` (reference: the role
+    ctx/memory_pool.hpp:25-66 plays on its ingest path) and copied to the
+    device ``non_blocking`` on the copy stream, so a column's transfer
+    overlaps the next column's assembly.  ``finish()`` makes the
+    consumer's stream wait for the copies, blocks ONCE until they have
+    read their host blocks, and only then resets the arena.
+
+    On the CPU a device tensor aliases its numpy block, so a reused block
+    would clobber a live column: the arena engages only for a card (or
+    with ``force_arena``, where each CPU column is copied out of the
+    arena).  The arena has one owner at a time: a second concurrent
+    ingest, a column that does not fit what is left, and any ingest with
+    ``ARENA_ENABLED`` false take one-off blocks (page-locked on a card,
+    so the copy stays asynchronous)."""
+
+    def __init__(self, ctx: CylonContext, force_arena: bool = False):
+        global _arena
+        self._dev = ctx.device
+        self._cuda = self._dev.type == "cuda"
+        self._owns_arena = False
+        self._arena = None
+        if (self._cuda or force_arena) and ARENA_ENABLED:
+            # exclusive ownership: a second concurrent ingest must not
+            # reset the arena under the first one's in-flight copies
+            if _arena_lock.acquire(blocking=False):
+                self._owns_arena = True
+                # a card stages from page-locked memory, the CPU from a
+                # numpy buffer: the arena is made for the device in use
+                if _arena is None or _arena.pinned != self._cuda:
+                    from ..native.runtime import StagingArena
+                    _arena = StagingArena(_ARENA_CAP, device=self._dev)
+                self._arena = _arena
+        self._pending: List[torch.Tensor] = []
+        self._sources: List[torch.Tensor] = []   # host blocks being read
+        self.one_off_blocks = 0   # blocks that did not come from the arena
+        self.done = None          # the copy stream's event (set by finish)
+
+    def _host_block(self, nbytes: int):
+        """(uint8 host tensor of ``nbytes``, whether it is arena memory)."""
+        if self._arena is not None:
+            try:
+                return self._arena.allocate_tensor(nbytes), True
+            except MemoryError:
+                pass
+        self.one_off_blocks += 1
+        if self._cuda:
+            from ..spill.pool import pinned_empty
+            return pinned_empty((nbytes,), torch.uint8, self._dev), False
+        return torch.empty(nbytes, dtype=torch.uint8), False
+
+    def put(self, host: np.ndarray, sizes: np.ndarray, offs: np.ndarray,
+            cap: int) -> torch.Tensor:
+        """Assemble one column's padded shard blocks; start its copy.  The
+        returned device tensor is for use after ``finish()``."""
+        from ..dtypes import _TORCH_OF_NUMPY
+        host = np.asarray(host)
+        Pn = len(sizes)
+        shape = (Pn * cap,) + tuple(host.shape[1:])
+        nbytes = int(np.prod(shape, dtype=np.int64)) * host.dtype.itemsize
+        raw, in_arena = self._host_block(max(nbytes, 1))
+        src = raw[:nbytes].view(_TORCH_OF_NUMPY[host.dtype]).reshape(shape)
+        with warnings.catch_warnings():
+            # zero-copy Arrow buffers are read-only; they are only read
+            warnings.simplefilter("ignore", UserWarning)
+            rows = torch.from_numpy(np.ascontiguousarray(host))
+        for i in range(Pn):
+            # torch's CPU copy runs on the intra-op threads (numpy's on one)
+            src[i * cap:i * cap + sizes[i]].copy_(rows[offs[i]:offs[i + 1]])
+            src[i * cap + sizes[i]:(i + 1) * cap].zero_()
+        if not self._cuda:
+            out = src.clone() if in_arena else src
+            return out.to(self._dev)
+        from ..spill.pool import _copy_stream
+        copy = _copy_stream(self._dev)
+        with torch.cuda.stream(copy):
+            out = torch.empty(shape, dtype=src.dtype, device=self._dev)
+            out.copy_(src, non_blocking=True)
+        self._pending.append(out)
+        self._sources.append(raw)
+        return out
+
+    def finish(self) -> None:
+        """Make the consumer's stream wait for the copies, wait once until
+        they have read the host blocks, then reset and release the arena.
+        Idempotent; callers run it in a ``finally``."""
+        try:
+            if self._cuda and self._pending:
+                from ..spill.pool import _copy_stream
+                done = torch.cuda.Event()
+                done.record(_copy_stream(self._dev))
+                consumer = torch.cuda.current_stream(self._dev)
+                consumer.wait_event(done)
+                for t in self._pending:
+                    t.record_stream(consumer)
+                self.done = done
+                done.synchronize()   # the host blocks have been read
+            if self._arena is not None:
+                self._arena.reset()
+        finally:
+            self._pending = []
+            self._sources = []
+            self._arena = None
+            if self._owns_arena:
+                self._owns_arena = False
+                _arena_lock.release()

@@ -17,6 +17,12 @@ util/copy_arrray.cpp:38-43).
 ``from_columns`` builds a table from numpy arrays with no pyarrow;
 ``from_arrow`` / ``from_pandas`` / ``to_arrow`` / ``to_pandas`` import
 pyarrow (and pandas) only when called.
+
+A column may carry host copies of its data and validity
+(``host_data`` / ``host_validity``) when its producer already holds them
+(Arrow ingest, a DTable export): ``to_arrow`` reads those instead of
+pulling the device tensors back.  Every site that derives a column with
+new contents goes through ``Column.with_data``, which drops the copies.
 """
 from __future__ import annotations
 
@@ -32,6 +38,11 @@ from .dtypes import (DataType, Type, from_arrow_type, is_dictionary_encoded,
 from .status import Code, CylonError, Status
 
 
+# "keep the current value" marker of Column.with_data, compared by
+# identity (the real operands are tensors and arrays)
+_SAME = object()
+
+
 @dataclass
 class Column:
     """One column: logical type + device data (+ validity, + host dictionary).
@@ -45,6 +56,11 @@ class Column:
     validity: Optional[torch.Tensor] = None  # [n] bool; None = all valid
     dictionary: Optional[np.ndarray] = None  # host payload for STRING/BINARY
     arrow_type: Any = None                   # original pyarrow type
+    # host copies of data / validity when the producer already paid the
+    # transfer (ingest, a DTable export): to_arrow reads these instead of
+    # pulling the device tensors back
+    host_data: Optional[np.ndarray] = None
+    host_validity: Optional[np.ndarray] = None
 
     def __post_init__(self):
         if is_dictionary_encoded(self.dtype.type) and self.dictionary is None:
@@ -53,6 +69,32 @@ class Column:
     @property
     def length(self) -> int:
         return int(self.data.shape[0])
+
+    def has_nulls(self) -> bool:
+        return self.validity is not None
+
+    def with_data(self, data, validity=_SAME, dictionary=_SAME) -> "Column":
+        """THE way to derive a column with new contents: the host copies
+        are dropped, so ``to_arrow`` can never export a copy of the old
+        contents (``to_arrow`` also checks this on every export)."""
+        v = self.validity if validity is _SAME else validity
+        d = self.dictionary if dictionary is _SAME else dictionary
+        return replace(self, data=data, validity=v, dictionary=d,
+                       host_data=None, host_validity=None)
+
+
+def host_batch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Host numpy copies of ``tensors`` in ONE batched transfer: on the
+    card every copy is queued ``non_blocking`` into page-locked memory and
+    the host waits once; CPU tensors are read in place."""
+    if not tensors:
+        return []
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.numpy() for t in tensors]
+    hosts = [t.to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(dev).synchronize()
+    return [h.numpy() for h in hosts]
 
 
 def _to_device(npv: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -117,7 +159,10 @@ def host_columns_from_arrow(atable):
     out = []
     for fld, col in zip(atable.schema, atable.columns):
         t = from_arrow_type(fld.type)
-        arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
+        arr = col
+        if isinstance(col, pa.ChunkedArray):
+            # one chunk is used as it is: combine_chunks would copy it
+            arr = col.chunk(0) if col.num_chunks == 1 else col.combine_chunks()
         ftype = fld.type
         if pa.types.is_dictionary(ftype):
             arr = arr.cast(ftype.value_type)
@@ -217,16 +262,32 @@ class Table:
             raise CylonError(Status(Code.KeyError, f"no column {i!r}"))
         return self.columns[i]
 
+    def row(self, i: int):
+        """Typed accessor for one row (reference: row.hpp:22-50)."""
+        from .row import Row
+
+        return Row(self, i)
+
+    def iter_rows(self):
+        for i in range(self.num_rows):
+            yield self.row(i)
+
     # -- construction --------------------------------------------------------
 
     @staticmethod
-    def _from_host(ctx: CylonContext, host_cols) -> "Table":
+    def _from_host(ctx: CylonContext, host_cols, keep_host: bool = False
+                   ) -> "Table":
+        """Host tuples → device columns; ``keep_host`` caches the host
+        values on each column, so an export pulls nothing back."""
         cols = []
         for name, t, npv, mask, dictionary, ftype in host_cols:
             cols.append(Column(
                 name, DataType(t), _to_device(npv, ctx.device),
                 None if mask is None else _to_device(mask, ctx.device),
-                dictionary=dictionary, arrow_type=ftype))
+                dictionary=dictionary, arrow_type=ftype,
+                host_data=np.asarray(npv) if keep_host else None,
+                host_validity=(np.asarray(mask) if keep_host
+                               and mask is not None else None)))
         return Table(ctx, cols)
 
     @staticmethod
@@ -246,7 +307,8 @@ class Table:
         reference: table.cpp (FromArrowTable) + type validation
         arrow/arrow_types.cpp:57-114.
         """
-        return Table._from_host(ctx, host_columns_from_arrow(atable))
+        return Table._from_host(ctx, host_columns_from_arrow(atable),
+                                keep_host=True)
 
     @staticmethod
     def from_pandas(ctx: CylonContext, df) -> "Table":
@@ -257,14 +319,49 @@ class Table:
     # -- export --------------------------------------------------------------
 
     def to_arrow(self):
-        """Device→host; decode dictionaries; reattach nulls."""
+        """Device→host; decode dictionaries; reattach nulls.
+
+        Columns that carry host copies transfer nothing; every column
+        missing one is pulled in ONE batched transfer."""
         import pyarrow as pa
 
-        arrays, names = [], []
         for c in self.columns:
-            host = c.data.cpu().numpy()
-            mask = (None if c.validity is None
-                    else ~c.validity.cpu().numpy().astype(bool))
+            # host-cache staleness guard, always on: a cache may only sit
+            # beside the tensor it was copied from (every contents change
+            # goes through Column.with_data, which drops it); a length
+            # mismatch is the cheap observable of a violation
+            if c.host_data is not None \
+                    and c.host_data.shape[0] != c.length:
+                raise CylonError(Status(Code.ExecutionError,
+                    f"stale host_data cache on column {c.name!r} "
+                    f"({c.host_data.shape[0]} host vs {c.length} device "
+                    "rows) — derive columns via Column.with_data"))
+            if c.host_validity is not None and (
+                    c.validity is None
+                    or c.host_validity.shape[0] != c.length):
+                raise CylonError(Status(Code.ExecutionError,
+                    f"stale host_validity cache on column {c.name!r} — "
+                    "derive columns via Column.with_data"))
+        pulls, slots = [], []
+        for i, c in enumerate(self.columns):
+            if c.host_data is None:
+                pulls.append(c.data)
+                slots.append((i, False))
+            if c.validity is not None and c.host_validity is None:
+                pulls.append(c.validity)
+                slots.append((i, True))
+        got = dict(zip(slots, host_batch(pulls)))
+
+        arrays, names = [], []
+        for i, c in enumerate(self.columns):
+            host = (c.host_data if c.host_data is not None
+                    else got[(i, False)])
+            if c.validity is None:
+                mask = None
+            else:
+                hv = (c.host_validity if c.host_validity is not None
+                      else got[(i, True)])
+                mask = ~np.asarray(hv, dtype=bool)
             if is_dictionary_encoded(c.dtype.type):
                 vals = (c.dictionary[np.clip(host, 0, max(len(c.dictionary) - 1, 0))]
                         if len(c.dictionary)
@@ -280,10 +377,32 @@ class Table:
             names.append(c.name)
         return pa.table(arrays, names=names)
 
+    def _verify_host_caches(self) -> None:
+        """Content check of every host copy against its device tensor
+        (the device is the truth): a copy that disagrees is a contents
+        change that bypassed ``Column.with_data``.  Costs a full pull."""
+        checks = []
+        for c in self.columns:
+            if c.host_data is not None:
+                checks.append((c.name, "host_data", c.host_data, c.data))
+            if c.host_validity is not None:
+                checks.append((c.name, "host_validity", c.host_validity,
+                               c.validity))
+        fresh = host_batch([d for _, _, _, d in checks])
+        for (name, kind, cached, _), dev in zip(checks, fresh):
+            if not np.array_equal(np.asarray(cached), dev):
+                raise CylonError(Status(Code.ExecutionError,
+                    f"{kind} cache on column {name!r} disagrees with the "
+                    "device tensor — a contents change bypassed "
+                    "Column.with_data"))
+
     def to_pandas(self):
         return self.to_arrow().to_pandas()
 
     # -- schema --------------------------------------------------------------
+
+    def schema_types(self) -> List[Type]:
+        return [c.dtype.type for c in self.columns]
 
     def verify_same_schema(self, other: "Table") -> None:
         """Column-count + per-column logical type equality.
@@ -299,6 +418,12 @@ class Table:
                     f"type mismatch {a.name}:{a.dtype.type.name} vs "
                     f"{b.name}:{b.dtype.type.name}"))
 
+    # -- convenience ---------------------------------------------------------
+
+    def project(self, indices: Sequence[Union[int, str]]) -> "Table":
+        """Zero-copy column subset (reference: table_api.cpp:1007-1026)."""
+        return Table(self.ctx, [self.column(i) for i in indices])
+
     def rename(self, names: Sequence[str]) -> "Table":
         return Table(self.ctx, [replace(c, name=n)
                                 for c, n in zip(self.columns, names)])
@@ -306,6 +431,20 @@ class Table:
     def rename_column(self, old: str, new: str) -> "Table":
         return self.rename([new if c.name == old else c.name
                             for c in self.columns])
+
+    def to_string(self, row1: int = 0, row2: Optional[int] = None,
+                  col1: int = 0, col2: Optional[int] = None) -> str:
+        """A window of the table, formatted (reference: table_api.cpp
+        PrintToOStream, the stringify behind Print / WriteCSV)."""
+        df = self.to_pandas()
+        row2 = df.shape[0] if row2 is None else row2
+        col2 = df.shape[1] if col2 is None else col2
+        return df.iloc[row1:row2, col1:col2].to_string(index=False)
+
+    def show(self, row1: int = 0, row2: Optional[int] = None,
+             col1: int = 0, col2: Optional[int] = None) -> None:
+        """Print a window of the table (reference: table_api.cpp Print*)."""
+        print(self.to_string(row1, row2, col1, col2))
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.dtype.type.name}" for c in self.columns)
@@ -347,8 +486,8 @@ def unify_dictionaries(a: Column, b: Column) -> Tuple[Column, Column]:
     if got is None:
         return a, b
     merged, map_a, map_b = got
-    return (replace(a, data=remap_codes(a.data, map_a), dictionary=merged),
-            replace(b, data=remap_codes(b.data, map_b), dictionary=merged))
+    return (a.with_data(remap_codes(a.data, map_a), dictionary=merged),
+            b.with_data(remap_codes(b.data, map_b), dictionary=merged))
 
 
 def unify_tables(left: Table, right: Table,

@@ -80,7 +80,8 @@ def _drive(f, seed: int, n: int = 300):
 @pytest.mark.parametrize("seed", [0, 7, 123456789])
 def test_fault_plan_fires_like_jax(seed):
     assert sorted(tfaults.POINTS) == [
-        "compact.read_counts", "exec.stage", "mesh.device_joined",
+        "compact.read_counts", "exec.stage", "io.csv.read",
+        "mesh.device_joined",
         "mesh.device_lost", "recover.checkpoint_restore", "recover.replan",
         "resilience.budget", "spill.stage_in", "spill.stage_out"]
     assert all(tfaults.POINTS[k] == jfaults.POINTS[k]
@@ -295,14 +296,23 @@ def test_shuffle_count_read_retries_a_transient_fault():
         sorted(r for s in want for r in s)
 
 
-def test_fault_points_are_the_ports_sites():
+def test_fault_points_are_the_ports_sites(tmp_path):
     """Every point of the port's catalogue is consulted at its site, and
     no other point is: one shuffle consults the count read and the budget
     read; a planned groupby adds the executor's stage-boundary points; a
     spill and its fault-in the two staging points; a resource fault at
-    the second stage the replan trigger and the checkpoint restore."""
+    the second stage the replan trigger and the checkpoint restore; a CSV
+    read its own point."""
+    from cylon_tpu_torch import io as tio
     from cylon_tpu_torch.parallel import dist_groupby, dist_join
     seen = set()
+    path = tmp_path / "t.csv"
+    path.write_text("a,b\n1,2\n")
+    plan = tfaults.FaultPlan(0, [])
+    with tfaults.active(plan):
+        tio.read_csv(pt.CylonContext(device="cpu"), str(path))
+    assert set(plan._calls) == {"io.csv.read"}
+    seen |= set(plan._calls)
     plan = tfaults.FaultPlan(0, [])
     with tfaults.active(plan):
         shuffle_table(_table(4), ["k"])

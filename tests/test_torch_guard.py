@@ -44,7 +44,9 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.spill.pool, cylon_tpu_torch.spill.morsel, "
         "cylon_tpu_torch.parallel.remesh, cylon_tpu_torch.topology, "
         "cylon_tpu_torch.resilience, cylon_tpu_torch.faults, "
-        "cylon_tpu_torch.plan.executor\n"
+        "cylon_tpu_torch.plan.executor, cylon_tpu_torch.row, "
+        "cylon_tpu_torch.strings, cylon_tpu_torch.io, "
+        "cylon_tpu_torch.io.csv, cylon_tpu_torch.native.runtime\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

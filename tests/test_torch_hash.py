@@ -97,8 +97,10 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(CylonError):
         hash_cuda.partition_ids_fused((a, torch.zeros(7, dtype=torch.int32)),
                                       (None, None), 4)
-    with pytest.raises(CylonError):
-        hash_cuda.partition_ids_fused((a,) * 17, (None,) * 17, 4)
+    # more than 16 key columns is no bad input: the plain path takes any k
+    wide = (torch.arange(8, dtype=torch.int32),) * 17
+    assert torch.equal(hash_cuda.partition_ids_fused(wide, (None,) * 17, 4),
+                       th.partition_ids(th.row_hash(wide, (None,) * 17), 4))
     with pytest.raises(CylonError):
         hash_cuda.partition_ids_fused((a,), (torch.ones(8, dtype=torch.int8),), 4)
     with pytest.raises(CylonError):

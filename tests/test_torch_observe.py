@@ -432,8 +432,9 @@ def test_nvcc_build_is_a_build_event(monkeypatch):
     class _Fn:
         argtypes = restype = None
 
-    class _Lib:
+    class _Lib:   # the library's two entries
         cylon_partition_hash = _Fn()
+        cylon_partition_hash_chained = _Fn()
 
     monkeypatch.setattr(hash_cuda, "_lib", None)
     monkeypatch.setattr(hash_cuda, "build", lambda: "libstub.so")
