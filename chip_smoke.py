@@ -112,11 +112,24 @@ at SF 0.17 through ``DTable.from_pandas``, the staging arena on and off,
 read back equal), then the partition kernel's chained entry at 17, 24
 and 40 key columns against its plain version and ``dist_union`` /
 ``dist_intersect`` / ``dist_subtract`` of two 24-column tables of
-4,194,304 rows against a numpy distinct-row oracle.  Every check that fails raises, so the script exits non-zero; without a
+4,194,304 rows against a numpy distinct-row oracle.  The serving
+phases, right after the TPC-H oracles at SF 10: the JAX bench's serve
+stage through ``serve.ServeSession`` (8 client threads, one per query
+of ``SERVE_MIX``, 2 submissions each into 8 ms windows, every result
+exported with ``to_pandas()`` on the async lane and equal to the eager
+result; the OpenMetrics endpoint started from ``config.metrics_port``
+0 and scraped once), with the view store on and then off; the bench's
+mixed read/write stage (a 16,777,216-row fact table, one writer
+appending 128-row deltas every 50 ms through ``session.ingest`` while 8
+readers repeat a shuffle + groupby for 10 s; the last read, a fold
+after one more append and a recompute with the views off each equal to
+a numpy oracle); and two replicas at world 2 over disjoint slot ranges
+of the card behind a ``FleetRouter`` (affinity, then failover after a
+drain; each result equal to numpy).  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
-strkey and wide-key paths), its time, its plain version's time and its
+strkey, wide-key and serving paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -1404,8 +1417,13 @@ def same_result(q: str, a, b, what: str = "world 1 and world 4") -> str:
     within ``_rtol``.  Rows compare in order; if only the order differs,
     the rows (identified by their non-float columns) must match and the
     answer says so."""
-    ca, cb = _cols(a), _cols(b)
-    check(list(ca) == list(cb) and a.num_rows == b.num_rows,
+    return same_columns(q, _cols(a), _cols(b), a.num_rows, b.num_rows, what)
+
+
+def same_columns(q: str, ca, cb, na: int, nb: int, what: str) -> str:
+    """``same_result`` on host columns (name → numpy array) of ``na`` and
+    ``nb`` rows."""
+    check(list(ca) == list(cb) and na == nb,
           f"{q}: {what} give the same columns and row count")
 
     def equal(pa_, pb_):
@@ -1418,7 +1436,7 @@ def same_result(q: str, a, b, what: str = "world 1 and world 4") -> str:
                 return False
         return True
 
-    n = a.num_rows
+    n = na
     if equal(np.arange(n), np.arange(n)):
         return "ordered"
     keys = [c for c in ca if ca[c].dtype.kind != "f"]
@@ -4016,6 +4034,384 @@ def phase_wide_set_ops(seed: int):
     return {k: v[0] for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# the serving layer: the JAX bench's serve stage and mixed read/write stage,
+# and a fleet of two replicas on one card
+# ---------------------------------------------------------------------------
+
+SERVE_MIX = ("q1", "q6", "q3", "q12", "q14", "q19", "q5", "q10")
+SERVE_REPS = 2                # submissions per client
+SERVE_WINDOW_MS = 8.0         # the bench's batch window
+MIXED_ROWS = 1 << 24          # the mixed stage's base fact table
+MIXED_KEYS = 64               # k uniform in [0, 64)
+MIXED_SECONDS = 10.0
+MIXED_READERS = 8
+MIXED_DELTA_ROWS = 128        # rows of one appended batch
+MIXED_WRITE_PERIOD_S = 0.05
+MIXED_REL_TOL = 1e-9          # of a group's sum of |v|
+FLEET_WORLD = 2               # shards of each replica
+
+
+def frame_cols(df):
+    """A served pandas frame's columns on the host, comparable with
+    ``_cols`` of a Table (strings and booleans as objects)."""
+    import pandas as pd
+    return {c: (df[c].to_numpy() if pd.api.types.is_numeric_dtype(df[c])
+                and not pd.api.types.is_bool_dtype(df[c])
+                else df[c].astype(object).to_numpy()) for c in df.columns}
+
+
+def window_priced_bytes(handles) -> int:
+    """The largest admission price one batch window admitted (the handles
+    admitted together share one ``admitted_at`` stamp)."""
+    by = {}
+    for h in handles:
+        by[h.admitted_at] = by.get(h.admitted_at, 0) + (h.priced_bytes or 0)
+    return max(by.values(), default=0)
+
+
+def scrape(port: int) -> str:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        return resp.read().decode("utf-8")
+
+
+def phase_serve_tpch(ctx, tables, results, sf: float):
+    """The JAX bench's serve stage on the SF-10 tables at world 4: one
+    client thread per query of ``SERVE_MIX``, ``SERVE_REPS`` submissions
+    each into 8 ms batch windows, every result exported with
+    ``to_pandas()`` on the async lane; once with the view store on and
+    once with it off.  Every served frame equals the eager result of its
+    query; the OpenMetrics endpoint (started by the session from
+    ``config.metrics_port`` 0, an ephemeral loopback port) is scraped
+    once during the stage and carries the ``serve_`` families.  Returns
+    the partition-kernel launches of each run."""
+    import threading
+
+    from cylon_tpu_torch import config, trace
+    from cylon_tpu_torch.observe import exporter
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.serve import ServeSession, price_query
+    from cylon_tpu_torch.tpch import QUERIES
+
+    prev_port = config.set_metrics_port(0)
+    launches = {}
+    try:
+        for views in (True, False):
+            label = "views_on" if views else "views_off"
+            broadcast.clear_replica_cache()
+            trace.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            handles, hlock = [], threading.Lock()
+            with ServeSession(ctx, tables=tables,
+                              batch_window_ms=SERVE_WINDOW_MS,
+                              views=views) as srv:
+                port = exporter.port()
+                check(port is not None,
+                      "serve: the session started the metrics endpoint")
+
+                def client(q):
+                    qfn = QUERIES[q]
+                    for _ in range(SERVE_REPS):
+                        h = srv.submit(lambda t, qfn=qfn: qfn(ctx, t),
+                                       label=q,
+                                       export=lambda r: r.to_pandas())
+                        with hlock:
+                            handles.append(h)
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=client, args=(q,))
+                           for q in SERVE_MIX]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                body = scrape(port)
+                frames = [(h.label, h.result(timeout=600)) for h in handles]
+                wall_s = time.perf_counter() - t0
+                st = srv.stats()
+                budget = srv._budget()
+            n_launch = read_launches()[0]
+            launches[label] = n_launch
+            peak = torch.cuda.max_memory_allocated()
+            check(st["completed"] == len(SERVE_MIX) * SERVE_REPS
+                  and st["failed"] == 0,
+                  f"serve {label}: every query completed")
+            orders = {}
+            for q, df in frames:
+                orders[q] = same_columns(
+                    q, frame_cols(df), _cols(results[q]), len(df),
+                    results[q].num_rows, f"serve {label}: served and eager")
+            check("cylon_serve_batch_window_ms " in body
+                  and "cylon_serve_queue_depth " in body,
+                  f"serve {label}: the scrape carries the serve_ families")
+            if not views:
+                check(n_launch > 0, "serve views_off: the partition kernel "
+                      "ran on the served path")
+            priced = window_priced_bytes(handles)
+            say(f"serve tpch sf={sf} world={WORLD} {label}",
+                queries=len(handles), clients=len(SERVE_MIX),
+                seconds=f"{wall_s:.6f}", qps=f"{len(handles) / wall_s:.3f}",
+                p50_ms=f"{st['p50_ms']:.3f}", p99_ms=f"{st['p99_ms']:.3f}",
+                subplan_shared=st["subplan_shared"],
+                deferred=st["deferred"], batches=st["batches"],
+                view_hits=st["view_hits"], view_folds=st["view_folds"],
+                slo_violations=st["slo_violations"],
+                window_priced_bytes=priced,
+                query_price_max=max(price_query({n: t}) for n, t in
+                                    tables.items()),
+                admission_budget_per_shard=budget,
+                max_memory_allocated=peak,
+                peak_over_priced=f"{peak / max(priced, 1):.3f}",
+                kernel_launches=n_launch,
+                equal_to_eager=len(frames),
+                unordered=sum(v != "ordered" for v in orders.values()),
+                scrape_bytes=len(body))
+    finally:
+        exporter.stop()
+        config.set_metrics_port(prev_port)
+    return launches
+
+
+def mixed_read(t):
+    """The mixed stage's read: ``shuffle_table`` by ``k``, then sum and
+    count of ``v`` per key (foldable: the view folds appends)."""
+    from cylon_tpu_torch.parallel import dist_groupby, shuffle_table
+    return dist_groupby(shuffle_table(t["fact"], ["k"]), ["k"],
+                        [("v", "sum"), ("v", "count")])
+
+
+def check_mixed(label: str, table, ks, vs) -> None:
+    """A mixed-stage read against numpy over the base and every delta:
+    keys and counts exact, each sum within ``MIXED_REL_TOL`` of its
+    group's sum of |v|."""
+    cols = _cols(table)
+    order = np.argsort(cols["k"])
+    k = cols["k"][order]
+    want_n = np.zeros(MIXED_KEYS, np.int64)
+    want_s = np.zeros(MIXED_KEYS)
+    want_a = np.zeros(MIXED_KEYS)
+    for kk, vv in zip(ks, vs):
+        want_n += np.bincount(kk, minlength=MIXED_KEYS)
+        want_s += np.bincount(kk, weights=vv, minlength=MIXED_KEYS)
+        want_a += np.bincount(kk, weights=np.abs(vv), minlength=MIXED_KEYS)
+    keys = np.nonzero(want_n)[0]
+    check(np.array_equal(k, keys), f"{label}: the keys")
+    check(np.array_equal(cols["count_v"][order], want_n[keys]),
+          f"{label}: the counts, exactly")
+    err = np.abs(cols["sum_v"][order] - want_s[keys])
+    check(bool(np.all(err <= MIXED_REL_TOL * want_a[keys])),
+          f"{label}: the sums within {MIXED_REL_TOL} of the sum of |v| "
+          f"(max err {float(err.max()):.3e})")
+
+
+def phase_serve_mixed(seed: int):
+    """The JAX bench's mixed read/write stage at a real size: a base fact
+    of ``MIXED_ROWS`` rows (``k`` int64 in [0, 64), ``v`` float64) at
+    world 4; one writer appends ``MIXED_DELTA_ROWS``-row deltas every
+    50 ms through ``session.ingest`` while ``MIXED_READERS`` readers
+    repeat ``mixed_read`` (exported to the host) for ``MIXED_SECONDS``.
+    After the writer stops, one more append and one more read, equal to
+    the numpy oracle of base + every delta; then one more append, its
+    fold's latency against a recompute's through a session with the
+    views off (both equal the oracle).  Returns the partition-kernel launches of the stage."""
+    import threading
+
+    import pandas as pd
+
+    from cylon_tpu_torch import CylonContext, trace
+    from cylon_tpu_torch.parallel import DTable
+    from cylon_tpu_torch.serve import ServeSession, percentile
+
+    rng = np.random.default_rng(seed + 11)
+    ks = [rng.integers(0, MIXED_KEYS, MIXED_ROWS, dtype=np.int64)]
+    vs = [rng.standard_normal(MIXED_ROWS)]
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    fact, ingest_s = wall(lambda: DTable.from_pandas(
+        ctx, pd.DataFrame({"k": ks[0], "v": vs[0]})))
+    wrng = np.random.default_rng(seed + 12)
+
+    def delta():
+        k = wrng.integers(0, MIXED_KEYS, MIXED_DELTA_ROWS, dtype=np.int64)
+        v = wrng.standard_normal(MIXED_DELTA_ROWS)
+        ks.append(k)
+        vs.append(v)
+        return DTable.from_pandas(ctx, pd.DataFrame({"k": k, "v": v}))
+
+    def export(r):
+        return r.to_table()
+
+    trace.reset()
+    reset_launches()
+    lat, views, stale, errors = [], [], [], []
+    mlock = threading.Lock()
+    with ServeSession(ctx, tables={"fact": fact},
+                      batch_window_ms=4.0) as srv:
+        stop_at = time.monotonic() + MIXED_SECONDS
+
+        def reader(i):
+            while time.monotonic() < stop_at:
+                try:
+                    h = srv.submit(mixed_read, label=f"mixed-r{i}",
+                                   export=export)
+                    h.result(timeout=600)
+                except Exception as e:  # reported and checked below
+                    with mlock:
+                        errors.append(f"reader {i}: {type(e).__name__}: {e}")
+                    return
+                with mlock:
+                    lat.append(h.latency_ms)
+                    views.append(h.view)
+
+        def writer():
+            while time.monotonic() < stop_at:
+                try:
+                    h = srv.ingest("fact", delta())
+                    h.result(timeout=600)
+                except Exception as e:  # reported and checked below
+                    with mlock:
+                        errors.append(f"writer: {type(e).__name__}: {e}")
+                    return
+                with mlock:
+                    stale.append(h.latency_ms)
+                time.sleep(MIXED_WRITE_PERIOD_S)
+
+        t0 = time.perf_counter()
+        threads = ([threading.Thread(target=reader, args=(i,))
+                    for i in range(MIXED_READERS)]
+                   + [threading.Thread(target=writer)])
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall_s = time.perf_counter() - t0
+        check(not errors, f"mixed: no client error ({errors[:2]})")
+        # one more append first: the final read, alone in its window,
+        # folds it or (after an invalidation) recomputes and retains a
+        # foldable view, so the next append must fold
+        srv.ingest("fact", delta()).result(timeout=600)
+        final = srv.submit(mixed_read, label="mixed-final", export=export)
+        check_mixed("mixed final read", final.result(timeout=600), ks, vs)
+        st = srv.stats()
+        srv.ingest("fact", delta()).result(timeout=600)
+        fold = srv.submit(mixed_read, label="mixed-fold", export=export)
+        check_mixed("mixed fold", fold.result(timeout=600), ks, vs)
+    n_launch = read_launches()[0]
+    with ServeSession(ctx, tables={"fact": fact}, batch_window_ms=0.0,
+                      views=False) as cold:
+        rec = cold.submit(mixed_read, label="mixed-recompute", export=export)
+        check_mixed("mixed recompute", rec.result(timeout=600), ks, vs)
+    check(fold.view == "fold", f"mixed: the read after an append folds "
+          f"(got {fold.view})")
+    served = sum(v in ("hit", "fold") for v in views)
+    ratio = served / max(len(views), 1)
+    check(ratio > 0, "mixed: reads served by a view hit or fold")
+    check(n_launch > 0, "mixed: the partition kernel ran on the stage")
+    lat_sorted, stale_sorted = sorted(lat), sorted(stale)
+    say(f"serve mixed world={WORLD}", rows=MIXED_ROWS,
+        ingest_seconds=f"{ingest_s:.6f}", seconds=f"{wall_s:.6f}",
+        readers=MIXED_READERS, reads=len(lat), appends=len(stale),
+        qps=f"{len(lat) / wall_s:.3f}", hit_fold_ratio=f"{ratio:.3f}",
+        view_hits=st["view_hits"], view_folds=st["view_folds"],
+        view_invalidations=st["view_invalidations"],
+        p99_ms=f"{percentile(lat_sorted, 99):.3f}",
+        staleness_p95_ms=f"{percentile(stale_sorted, 95):.3f}",
+        fold_latency_ms=f"{fold.latency_ms:.3f}",
+        fold_execute_ms=f"{fold.execute_ms:.3f}",
+        recompute_latency_ms=f"{rec.latency_ms:.3f}",
+        recompute_execute_ms=f"{rec.execute_ms:.3f}",
+        kernel_launches=n_launch)
+    return n_launch
+
+
+def fleet_read(t):
+    """The fleet's query: sum and count of ``v0`` per join-cell key."""
+    from cylon_tpu_torch.parallel import dist_groupby
+    return dist_groupby(t["side"], ["k"], [("v0", "sum"), ("v0", "count")])
+
+
+def check_fleet(label: str, table, k, v) -> None:
+    """A fleet result against numpy: keys and counts exact, float32 sums
+    within ``F32_RTOL`` of the float64 sums."""
+    cols = _cols(table)
+    order = np.argsort(cols["k"])
+    n = np.bincount(k)
+    keys = np.nonzero(n)[0]
+    check(np.array_equal(cols["k"][order], keys)
+          and np.array_equal(cols["count_v0"][order], n[keys]),
+          f"{label}: the keys and counts")
+    want = np.bincount(k, weights=v.astype(np.float64))[keys]
+    check(_close(cols["sum_v0"][order], want, F32_RTOL),
+          f"{label}: the sums")
+
+
+def phase_serve_fleet(ldata):
+    """Two replicas on one card, each a session at world 2 over a disjoint
+    slot range (``CylonContext(first_slot=...)``) holding the join cell's
+    left side: the same groupby submitted twice through a
+    ``FleetRouter`` (the second routed by affinity to the first's
+    replica), then that replica drained and the query failing over to
+    the other; every result equals numpy.  Returns the partition-kernel
+    launches."""
+    from cylon_tpu_torch import CylonContext, topology, trace
+    from cylon_tpu_torch.parallel import DTable
+    from cylon_tpu_torch.serve import FleetRouter, ServeSession
+
+    ctxs = [CylonContext(device=DEVICE, world=FLEET_WORLD, first_slot=s)
+            for s in (0, FLEET_WORLD)]
+    check(not set(topology.slots(ctxs[0])) & set(topology.slots(ctxs[1])),
+          "fleet: the replicas' slot ranges are disjoint")
+    sessions = [ServeSession(c, tables={"side": DTable.from_table(
+        c, to_table(c, ldata, None))}, batch_window_ms=0.0, name=n)
+        for c, n in zip(ctxs, ("rep-a", "rep-b"))]
+    trace.reset()
+    reset_launches()
+    placed, secs, views = [], [], []
+    try:
+        router = FleetRouter(sessions)
+        for label in ("first", "affinity"):
+            h = router.submit(fleet_read, label=label,
+                              export=lambda r: r.to_table())
+            check_fleet(f"fleet {label}", h.result(timeout=600),
+                        ldata["k"], ldata["v0"])
+            secs.append(h.latency_ms / 1e3)
+            views.append(h.view)
+            placed.append(router.replica_of(fleet_read))
+        drained = router.drain(placed[0])
+        h = router.submit(fleet_read, label="failover",
+                          export=lambda r: r.to_table())
+        check_fleet("fleet failover", h.result(timeout=600),
+                    ldata["k"], ldata["v0"])
+        secs.append(h.latency_ms / 1e3)
+        views.append(h.view)
+        placed.append(router.replica_of(fleet_read))
+        c = trace.counters()
+    finally:
+        for s in sessions:
+            s.close()
+    n_launch = read_launches()[0]
+    check(placed[0] == placed[1] and placed[2] != placed[0],
+          f"fleet: affinity, then failover after the drain ({placed})")
+    check(c.get("serve.router_affinity_hits", 0) >= 1
+          and c.get("serve.router_failovers", 0) == 1
+          and c.get("serve.router_routed", 0) == 3,
+          "fleet: the router's counters")
+    check(drained["completed"] >= 2 and drained["failed"] == 0,
+          "fleet: the drained replica finished its work")
+    check(n_launch > 0, "fleet: the partition kernel ran")
+    say(f"serve fleet replicas=2 world={FLEET_WORLD}",
+        rows=len(ldata["k"]), placements=",".join(placed),
+        latency_seconds=",".join(f"{x:.6f}" for x in secs),
+        views=",".join(str(v) for v in views),
+        affinity_hits=c.get("serve.router_affinity_hits", 0),
+        failovers=c.get("serve.router_failovers", 0),
+        kernel_launches=n_launch, shared_card="yes")
+    return n_launch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -4143,6 +4539,21 @@ def main() -> int:
     phase_tpch_oracles(tables, results, args.tpch_sf)
     check(sum(launches_tpch.values()) > 0,
           "tpch: the partition kernel ran in at least one query")
+    # the serving layer: the bench's serve stage on these tables (views on
+    # and off), its mixed read/write stage, and a two-replica fleet
+    # (the kernel at the groupby shape timed on each side of them: the
+    # serving threads are joined, so the times must agree)
+    gb_key = dt.column("orderkey").data
+    gb_around = [cuda_ms(lambda: hash_cuda.partition_ids_fused(
+        (gb_key,), (None,), 4), 20)]
+    launches_serve = phase_serve_tpch(tctx, tables, results, args.tpch_sf)
+    launches_serve["mixed"] = phase_serve_mixed(args.seed)
+    launches_serve["fleet"] = phase_serve_fleet(ldata)
+    gb_around.append(cuda_ms(lambda: hash_cuda.partition_ids_fused(
+        (gb_key,), (None,), 4), 20))
+    say("kernel at the groupby shape around the serving phases",
+        before_ms=f"{gb_around[0]:.4f}", after_ms=f"{gb_around[1]:.4f}")
+    del gb_key
     launches_analyze_tpch = phase_tpch_analyze(tctx, tables, args.tpch_sf,
                                                results, times)
     phase_trace_export()
@@ -4248,11 +4659,13 @@ def main() -> int:
         "launches_recovery_nparts3": launches_nparts3,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
-                          "plain_ms": gb_plain_ms, "bound_ms": gb_bound},
+                          "plain_ms": gb_plain_ms, "bound_ms": gb_bound,
+                          "ms_around_serving": gb_around},
         "launches_ingest": launches_ingest,
         "launches_append": launches_append,
         "launches_strkey": launches_strkey,
         "launches_wide_setop": launches_wide,
+        "launches_serve": launches_serve,
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": hash_bound_ms((k,), (None,), k.shape[0]),

@@ -29,6 +29,11 @@ Layer map:
                       dist_groupby (pre-aggregation, broadcast and shuffle
                       combine, dense keys) / dist_aggregate;
                       broadcast.py: replicate_table + replica cache
+    serve/            multi-query serving: the admission queue and batch
+                      windows, cross-query subplan sharing, the async
+                      export lane, the circuit breaker and load shedding,
+                      materialized views with O(delta) folds, and the
+                      fleet router over disjoint slot ranges
     plan/             the logical planner behind ``ctx.optimize``: lazy
                       capture (ir), rewrite rules, lowering + plan cache
                       and the recovery driver (executor)
@@ -39,7 +44,9 @@ Layer map:
     logging.py        glog-style lines, ``vlog``, ``warn_once``
     observe/          metrics catalogue + registry, histograms, ordered
                       locks, devmem, build events, the run-stats store,
-                      the flight recorder + doctor, EXPLAIN ANALYZE
+                      the flight recorder + doctor, EXPLAIN ANALYZE,
+                      the OpenMetrics exporter and event log, the
+                      time-series sampler
     tpch/             the TPC-H generator (on the device, with a numpy
                       mirror) and all 22 queries
     ops/              hash (plain + CUDA), compaction, gathers, join, sort,
@@ -52,8 +59,8 @@ Layer map:
                       recovery ladder's decisions and exchange demotions
     topology.py       the survivor-context registry (device loss and
                       rejoin) and the (slow, fast) mesh split
-    context.py        CylonContext: device, world, communicator, optimize,
-                      analyze
+    context.py        CylonContext: device, world (from ``first_slot``),
+                      communicator, optimize, analyze
 """
 
 from . import faults

@@ -528,6 +528,83 @@ def set_remesh_cooldown_ms(ms: Optional[int]) -> Optional[int]:
     return prev
 
 
+# ---------------------------------------------------------------------------
+# the live telemetry plane (observe/exporter.py): the OpenMetrics endpoint
+# port and the JSON-lines event log.  Default OFF: a library must not
+# open sockets or write files unasked.  Explicit setter > env > disabled;
+# the exporter reads them when a serving session starts.
+# ---------------------------------------------------------------------------
+
+_metrics_port: Optional[int] = None      # None -> env-resolved
+_metrics_port_set = False                # explicit None must beat env
+
+_event_log_path: Optional[str] = None    # None -> env-resolved
+_event_log_path_set = False
+
+
+def metrics_port() -> Optional[int]:
+    """The OpenMetrics endpoint port (explicit knob, else
+    ``CYLON_METRICS_PORT``); ``None`` when the endpoint is disabled.
+    Port 0 means ephemeral: the OS picks one."""
+    if _metrics_port_set:
+        return _metrics_port
+    env = os.environ.get("CYLON_METRICS_PORT", "")
+    if not env:
+        return None
+    try:
+        n = int(env)
+    except ValueError:
+        raise CylonError(Status(Code.Invalid,
+            f"CYLON_METRICS_PORT must be an int port, "
+            f"got {env!r}")) from None
+    if not 0 <= n <= 65535:
+        raise CylonError(Status(Code.Invalid,
+            f"CYLON_METRICS_PORT must be in [0, 65535], got {n}"))
+    return n
+
+
+def set_metrics_port(port: Optional[int]) -> Optional[int]:
+    """Set the OpenMetrics endpoint port (0 = ephemeral; ``None``
+    restores env resolution); returns the previous EXPLICIT setting.
+    Takes effect at the next exporter start, not on a live server."""
+    global _metrics_port, _metrics_port_set
+    if port is not None:
+        if isinstance(port, bool) or not isinstance(port, int):
+            raise CylonError(Status(Code.Invalid,
+                "metrics port must be an int in [0, 65535] or None to "
+                f"restore defaults, got {type(port).__name__} {port!r}"))
+        if not 0 <= port <= 65535:
+            raise CylonError(Status(Code.Invalid,
+                f"metrics port must be in [0, 65535], got {port}"))
+    prev = _metrics_port if _metrics_port_set else None
+    _metrics_port = port
+    _metrics_port_set = port is not None
+    return prev
+
+
+def event_log_path() -> Optional[str]:
+    """The JSON-lines event log path (explicit knob, else
+    ``CYLON_EVENT_LOG``); ``None`` when event logging is disabled."""
+    if _event_log_path_set:
+        return _event_log_path
+    return os.environ.get("CYLON_EVENT_LOG") or None
+
+
+def set_event_log_path(path: Optional[str]) -> Optional[str]:
+    """Set the event-log path (``None`` restores env resolution);
+    returns the previous EXPLICIT setting.  Takes effect at the next
+    event-log start."""
+    global _event_log_path, _event_log_path_set
+    if path is not None and not isinstance(path, str):
+        raise CylonError(Status(Code.Invalid,
+            "event log path must be a str or None to restore defaults, "
+            f"got {type(path).__name__} {path!r}"))
+    prev = _event_log_path if _event_log_path_set else None
+    _event_log_path = path
+    _event_log_path_set = path is not None
+    return prev
+
+
 class JoinType(enum.Enum):
     INNER = "inner"
     LEFT = "left"

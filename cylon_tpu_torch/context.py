@@ -123,11 +123,18 @@ class CylonContext:
     it never falls back to the CPU.  ``device="cpu"`` asks for the CPU
     explicitly (the tests do).  ``world=P`` keeps P row shards on that
     device.  ``config`` is an optional dict seeding the string config map.
+
+    ``first_slot=s`` places the context's shards on the slots ``s ..
+    s + P − 1`` of its device (``topology.slots``): the counterpart of
+    the JAX package's ``CylonContext({"devices": subset})``, so two
+    contexts over disjoint slot ranges are disjoint replicas of one
+    card (a serving fleet, ``serve.FleetRouter``).  They share the
+    card's memory.
     """
 
     def __init__(self, config: Optional[Dict[str, str]] = None,
                  device: Union[str, torch.device, None] = None,
-                 world: int = 1):
+                 world: int = 1, first_slot: int = 0):
         if config is not None and not isinstance(config, dict):
             raise CylonError(Status(Code.Invalid,
                                     f"unknown config {config!r}"))
@@ -141,15 +148,21 @@ class CylonContext:
                 "on the CPU"))
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if int(first_slot) < 0:
+            raise CylonError(Status(Code.Invalid,
+                f"first_slot must be >= 0, got {first_slot}"))
         self._device = dev
+        self._first_slot = int(first_slot)
         self._comm = LocalCommunicator(int(world), dev)
         self._config: Dict[str, str] = dict(config or {})
 
     def with_world(self, world: int) -> "CylonContext":
         """A context on the same device with ``world`` shards and a copy
-        of this one's config map: the survivor (or grown) context of an
-        elastic re-mesh (``topology.mark_lost`` / ``mark_joined``)."""
-        return CylonContext(dict(self._config), self._device, world)
+        of this one's config map, starting at the same slot: the
+        survivor (or grown) context of an elastic re-mesh
+        (``topology.mark_lost`` / ``mark_joined``)."""
+        return CylonContext(dict(self._config), self._device, world,
+                            self._first_slot)
 
     def get_rank(self) -> int:
         """Lowest rank this process drives (all of them: 0)."""
@@ -198,6 +211,13 @@ class CylonContext:
     def comm(self) -> LocalCommunicator:
         return self._comm
 
+    @property
+    def first_slot(self) -> int:
+        """The first of this context's shard slots on its device."""
+        return self._first_slot
+
     def __repr__(self) -> str:
+        slot = (f", first_slot={self._first_slot}" if self._first_slot
+                else "")
         return (f"CylonContext(world={self.get_world_size()}, "
-                f"device={self._device})")
+                f"device={self._device}{slot})")

@@ -104,6 +104,14 @@ POINTS: Dict[str, str] = {
         "the escalation ladder's replan trigger — a failure here means "
         "the degraded re-lowering itself could not be set up, and the "
         "ladder fails the query with the annotated bundle",
+    "serve.breaker_probe":
+        "the circuit breaker's half-open probe admission "
+        "(serve/session.py) — a failure re-opens the breaker for "
+        "another cooldown instead of restoring service",
+    "matview.fold":
+        "the materialized-view store's delta fold (serve/matview.py) — "
+        "a failure mid-merge must degrade the view to invalidate + "
+        "full recompute, never a stale or half-folded answer",
     # the host tier: the spill pool's two staging boundaries.  Failures
     # here are classed onto the RESOURCE arm of the escalation ladder,
     # transient kind included (an injected PERMANENT stays permanent)

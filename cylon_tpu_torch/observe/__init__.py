@@ -25,14 +25,18 @@ package is the subsystem underneath and above it:
   * **flightrec** / **doctor**: the flight recorder's bounded event ring
     and crash bundles, and ``python -m cylon_tpu_torch.observe.doctor``.
 
-The JAX package's ``exporter`` (the OpenMetrics endpoint and event log)
-and ``timeseries`` (the sustained-load sampler) read the serving layer,
-which the port does not have yet.
+  * **exporter**: the live telemetry plane's export surface, an
+    OpenMetrics endpoint on loopback (``CYLON_METRICS_PORT``) and the
+    rotating JSON-lines event log (``CYLON_EVENT_LOG``); a scrape reads
+    host counters only, never the card.
+  * **timeseries**: :class:`TimeSeriesSampler`, the bounded ring-buffer
+    sampler over the registry and a serving session, with its SLO
+    anomaly alerts.
 """
 from __future__ import annotations
 
-from . import (compile, devmem, flightrec, histogram, locks,  # noqa: F401
-               stats)
+from . import (compile, devmem, exporter, flightrec,  # noqa: F401
+               histogram, locks, stats, timeseries)
 from .analyze import analyze
 from .compile import kernel_factory
 from .export import export_chrome_trace
@@ -42,6 +46,7 @@ from .metrics import (COUNTER, GAUGE, HISTOGRAM, METRICS, REGISTRY,
                       WATERMARK, MetricSpec, MetricsRegistry,
                       counter_delta, exchange_count, row_bytes)
 from .stats import STORE as STATS_STORE
+from .timeseries import TimeSeriesSampler
 
 __all__ = [
     "COUNTER", "WATERMARK", "GAUGE", "HISTOGRAM", "MetricSpec",
@@ -49,5 +54,6 @@ __all__ = [
     "analyze", "exchange_count", "counter_delta", "row_bytes",
     "STATS_STORE", "stats", "compile", "devmem", "flightrec",
     "kernel_factory", "locks", "OrderedLock", "LockOrderViolation",
-    "Histogram", "histogram",
+    "Histogram", "histogram", "exporter", "timeseries",
+    "TimeSeriesSampler",
 ]

@@ -29,7 +29,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 __all__ = ["note", "events", "dropped", "clear", "bundle", "dump",
-           "maybe_dump_on_error", "config_fingerprint",
+           "maybe_dump_on_error", "set_tap", "config_fingerprint",
            "CAPACITY", "MAX_AUTO_DUMPS", "LAST_K_QUERIES"]
 
 CAPACITY = int(os.environ.get("CYLON_FLIGHTREC_CAP", "256"))
@@ -43,6 +43,9 @@ _auto_dumps = 0
 _dump_seq = 0   # monotone per process: two back-to-back dumps (two
 #                 failures in one batch window) must never collide on
 #                 a wall-clock-derived filename and clobber each other
+_tap = None     # the event tap (observe/exporter.py's JSON-lines event
+#                 log); called OUTSIDE _lock, so a tap that notes or
+#                 logs cannot deadlock the ring
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +62,22 @@ def note(kind: str, **payload) -> None:
         if len(_ring) == _ring.maxlen:
             _dropped += 1
         _ring.append(ev)
+    tap = _tap
+    if tap is not None:
+        try:
+            tap(ev)
+        except Exception:  # a broken tap must not take down the recorder
+            pass
+
+
+def set_tap(fn) -> Optional[Any]:
+    """Install (``fn``) or clear (``None``) the event tap: a callable
+    handed every noted event dict right after it enters the ring,
+    outside the ring lock (the exporter's event log installs one).
+    Returns the previous tap; tap exceptions are swallowed."""
+    global _tap
+    prev, _tap = _tap, fn
+    return prev
 
 
 def events() -> List[Dict[str, Any]]:

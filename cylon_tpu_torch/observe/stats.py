@@ -294,6 +294,19 @@ class StatsStore:
 
     # -- reads -----------------------------------------------------------------
 
+    def set_replica(self, digest: str, replica: str) -> None:
+        """Record which serving replica served ``digest``: the
+        plan-cache affinity hint the fleet router reads
+        (serve/router.py).  Unlike ``set_label`` this CREATES the record
+        when absent, so affinity sticks from a fingerprint's first
+        routing, before any run was recorded under it."""
+        with self._lock:
+            self._ensure_loaded_locked()
+            rec = self._records.setdefault(digest, {"runs": 0})
+            rec["replica"] = replica
+            self._dirty = True
+            self._flush_maybe_locked()
+
     def get(self, digest: str) -> Optional[Dict[str, Any]]:
         with self._lock:
             self._ensure_loaded_locked()

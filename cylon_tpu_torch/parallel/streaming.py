@@ -193,13 +193,18 @@ class HostPipeline:
     """
 
     def __init__(self, workers: int = 1, depth: int = 16,
-                 name: str = "host-pipeline") -> None:
+                 name: str = "host-pipeline",
+                 device: Optional[torch.device] = None) -> None:
         if workers < 1 or depth < 1:
             raise CylonError(Status(Code.Invalid,
                 f"HostPipeline needs workers >= 1 and depth >= 1, got "
                 f"workers={workers} depth={depth}"))
         self._q: "_queue.Queue" = _queue.Queue(maxsize=depth)
         self._closed = False
+        # a new thread's current CUDA device is device 0: each worker
+        # makes the pipeline's device current before it runs any task
+        self._device = (torch.device(device) if device is not None
+                        else None)
         # orders submit's check-then-put against close's set-closed: a
         # task enqueued behind close()'s stop sentinels would never run
         self._lock = threading.Lock()
@@ -210,14 +215,20 @@ class HostPipeline:
             t.start()
 
     def _run(self) -> None:
+        if self._device is not None and self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
         while True:
             item = self._q.get()
             if item is None:
                 self._q.task_done()
                 return
-            task, fn = item
+            task, fn, trace_id = item
             try:
-                task._value = fn()
+                # the task's query trace id (if any) stamps the worker's
+                # span onto that query's track
+                with trace.trace_context(trace_id):
+                    with trace.span("serve.export"):
+                        task._value = fn()
             except BaseException as e:  # delivered to the wait()ing caller
                 task._error = e
             finally:
@@ -227,15 +238,18 @@ class HostPipeline:
             # keep the last one (a device table) alive
             del item, task, fn
 
-    def submit(self, fn: Callable[[], Any]) -> HostTask:
+    def submit(self, fn: Callable[[], Any],
+               trace_id: Optional[str] = None) -> HostTask:
         """Queue ``fn`` for a worker and return its ``HostTask``; blocks
-        while ``depth`` tasks wait (the workers keep draining)."""
+        while ``depth`` tasks wait (the workers keep draining).
+        ``trace_id`` stamps the worker-side span onto that query's
+        lifecycle track."""
         task = HostTask()
         with self._lock:
             if self._closed:
                 raise CylonError(Status(Code.Invalid,
                                         "HostPipeline is closed"))
-            self._q.put((task, fn))
+            self._q.put((task, fn, trace_id))
         return task
 
     def drain(self) -> None:

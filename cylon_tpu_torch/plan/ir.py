@@ -829,13 +829,16 @@ class Builder:
     Installed on the instrument hook via :func:`capture`; thread-local,
     like the rest of the plan_check capture state."""
 
-    def __init__(self, ctx):
+    def __init__(self, ctx, exec_memo: Optional[Dict[Any, Any]] = None):
         self.ctx = ctx
         self.memo: Dict[int, Any] = {}        # id(Node) -> concrete result
         self._memo_pins: List[Node] = []      # keep memo'd nodes alive
         # content-addressed execution memo (plan/executor.py): a subplan
-        # shared by two materialization boundaries executes once per run
-        self.exec_memo: Dict[Any, Any] = {}
+        # shared by two materialization boundaries executes once per run.
+        # The serving layer passes a BATCH-scoped memo, so a subplan
+        # shared ACROSS the queries of one batch window executes once
+        self.exec_memo: Dict[Any, Any] = \
+            {} if exec_memo is None else exec_memo
         self._scans: Dict[int, Node] = {}     # id(DTable) -> scan node
         self._scan_pins: List[Any] = []
         self.stats: Dict[str, Any] = {

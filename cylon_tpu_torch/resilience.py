@@ -45,8 +45,13 @@ resource failure replans (the chooser runs under
 which :func:`collect_strategy_choices` recorded), a topology failure
 re-meshes onto the survivors, and anything else, or an exhausted arm,
 fails with the attempt log attached.  :func:`note_recovery` hands
-outcomes to a per-query collector; the serving layer that opens one is
-not in the port yet, so without a collector it is a no-op.
+outcomes to the per-query collector the serving layer opens
+(:func:`collect_recoveries`); without one it is a no-op.
+
+**Attribution.**  :func:`counter_scope` fills a dict with the counter
+deltas of the enclosed block: the serving dispatcher wraps each query's
+execution in one, so a batch's global counter stream decomposes into
+per-query slices.
 """
 from __future__ import annotations
 
@@ -64,11 +69,29 @@ from .status import Code, CylonError, Status
 
 __all__ = [
     "RetryPolicy", "retry_policy", "set_retry_policy", "retry_call",
-    "exchange_budget", "classify", "TRANSIENT", "RESOURCE", "PERMANENT",
-    "TOPOLOGY", "RecoveryPolicy", "recovery_policy", "set_recovery_policy",
-    "LadderAttempt", "Ladder", "note_recovery", "note_strategy_choice",
+    "exchange_budget", "counter_scope", "classify", "TRANSIENT",
+    "RESOURCE", "PERMANENT", "TOPOLOGY", "RecoveryPolicy",
+    "recovery_policy", "set_recovery_policy", "LadderAttempt", "Ladder",
+    "collect_recoveries", "note_recovery", "note_strategy_choice",
     "collect_strategy_choices", "exchange_demotions", "demoted_exchanges",
 ]
+
+
+@contextlib.contextmanager
+def counter_scope(out: dict):
+    """Per-query attribution window: fills ``out`` with the merged
+    counter deltas of the enclosed block (counters subtract; watermarks
+    report the block's new peak when it moved).  The serving dispatcher
+    executes admitted queries serially, so their windows do not overlap
+    and attribution is exact; an overlapping window (an async export
+    tail) is charged every shared bump."""
+    from . import trace
+    before = trace.counters()
+    try:
+        yield out
+    finally:
+        from .observe.metrics import counter_delta
+        out.update(counter_delta(before, trace.counters()))
 
 
 @dataclass(frozen=True)
@@ -408,10 +431,23 @@ class Ladder:
         return [a.as_dict() for a in self.attempts]
 
 
-# recovery outcomes: the driver notes each healed query into a
-# thread-local sink a per-query collector opens (the serving layer's,
-# which the port does not have yet); without one this is a no-op
+# recovery outcomes: the serving layer's stats() self-account
+# independently of the counter registry, so the driver notes each healed
+# query into a thread-local sink the dispatcher opens around the query
 _recovery_notes = threading.local()
+
+
+@contextlib.contextmanager
+def collect_recoveries():
+    """Open a per-query recovery-outcome window; yields the list the
+    driver appends outcome strings (``"recovered"``) into."""
+    prev = getattr(_recovery_notes, "sink", None)
+    sink: List[str] = []
+    _recovery_notes.sink = sink
+    try:
+        yield sink
+    finally:
+        _recovery_notes.sink = prev
 
 
 def note_recovery(outcome: str) -> None:

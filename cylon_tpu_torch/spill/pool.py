@@ -407,6 +407,52 @@ class SpillPool:
             dt._spill_entry = None
             trace.count("spill.faultins")
 
+    # -- retained materialized views (serve/matview.py) ----------------------
+
+    def retain_view(self, dt) -> Optional[int]:
+        """Stage a materialized view's leaves into an UNPINNED entry
+        (LRU-evictable cache sharing the one host budget with every
+        spilled table) and return its signature.  A view is pure cache:
+        over-budget retention, or an injected ``spill.stage_out`` fault,
+        DECLINES (returns None) instead of raising.  An already spilled
+        table reuses its pooled entry."""
+        with self._lock:
+            if dt._spill_entry is not None:
+                return dt._spill_entry.sig
+            dt._collapse_pending()
+            counts = np.asarray(dt.counts_host()).copy()
+            cols = dt._columns
+            flat = _flat_leaves(cols)
+            need = sum(int(lf.numel()) * lf.element_size() for lf in flat)
+            if self._pinned_bytes_locked() + need > host_memory_budget():
+                return None
+            try:
+                self._admit_locked(need)
+                hosts = iter(stage_out_arrays(flat))
+            except CylonError:
+                return None
+            leaves = tuple((next(hosts),
+                            None if c.validity is None else next(hosts))
+                           for c in cols)
+            entry = _Entry(next(_sig_counter), leaves, counts, dt.cap)
+            entry.pinned = False
+            self._entries[entry.sig] = entry
+            trace.count_max("spill.host_bytes_peak",
+                            self._total_bytes_locked())
+            return entry.sig
+
+    def view_entry(self, sig: int) -> Optional[_Entry]:
+        """LRU-touch lookup of a retained view's entry: None once the
+        budget's eviction reclaimed it (the view store recomputes).  The
+        returned entry keeps its host blocks alive for as long as the
+        caller holds it, eviction or not."""
+        with self._lock:
+            e = self._entries.get(sig)
+            if e is not None:
+                self._entries.pop(sig)
+                self._entries[sig] = e
+            return e
+
     def drop_entry(self, sig: int) -> None:
         """Forget one pooled entry by signature."""
         with self._lock:

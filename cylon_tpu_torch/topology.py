@@ -59,10 +59,12 @@ _epoch = 0
 
 
 def slots(ctx) -> Tuple:
-    """The shard slots of ``ctx``'s world, ``((device, 0), ...)``: what
-    the JAX package's ``ctx.devices`` is to its roster."""
+    """The shard slots of ``ctx``'s world, ``((device, s), ...)`` from
+    its first slot on: what the JAX package's ``ctx.devices`` is to its
+    roster."""
     dev = str(ctx.device)
-    return tuple((dev, i) for i in range(ctx.get_world_size()))
+    s0 = ctx.first_slot
+    return tuple((dev, s0 + i) for i in range(ctx.get_world_size()))
 
 
 def effective(ctx):

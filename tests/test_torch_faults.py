@@ -81,9 +81,10 @@ def _drive(f, seed: int, n: int = 300):
 def test_fault_plan_fires_like_jax(seed):
     assert sorted(tfaults.POINTS) == [
         "compact.read_counts", "exec.stage", "io.csv.read",
-        "mesh.device_joined",
+        "matview.fold", "mesh.device_joined",
         "mesh.device_lost", "recover.checkpoint_restore", "recover.replan",
-        "resilience.budget", "spill.stage_in", "spill.stage_out"]
+        "resilience.budget", "serve.breaker_probe", "spill.stage_in",
+        "spill.stage_out"]
     assert all(tfaults.POINTS[k] == jfaults.POINTS[k]
                for k in tfaults.POINTS)
     got = _drive(tfaults, seed)
@@ -344,7 +345,44 @@ def test_fault_points_are_the_ports_sites(tmp_path):
     assert {"recover.replan",
             "recover.checkpoint_restore"} <= set(plan._calls)
     seen |= set(plan._calls)
+    seen |= _serving_sites(dt)
     assert seen == set(tfaults.POINTS)
+
+
+def _serving_sites(dt):
+    """The serving layer's two points at their sites: a half-open
+    breaker probe consults ``serve.breaker_probe``; a view folding an
+    appended delta consults ``matview.fold``."""
+    import time
+
+    from cylon_tpu_torch.parallel import dist_groupby
+    from cylon_tpu_torch.serve import ServeSession
+
+    def poison(t):
+        raise CylonError(pt.Status(Code.ExecutionError, "poison"))
+
+    def agg(t):
+        return dist_groupby(shuffle_table(t["fact"], ["k"]), ["k"],
+                            [("v", "sum")])
+    seen = set()
+    with ServeSession(dt.ctx, tables={"fact": dt}, batch_window_ms=0.0,
+                      breaker_threshold=1, breaker_cooldown_s=0.01) as s:
+        with pytest.raises(CylonError):
+            s.submit(poison).result(60)
+        time.sleep(0.02)
+        plan = tfaults.FaultPlan(0, [])
+        with tfaults.active(plan):
+            s.submit(poison)._event.wait(60)
+        assert "serve.breaker_probe" in plan._calls
+        seen |= set(plan._calls)
+        s.submit(agg).result(60)
+        s.ingest("fact", _table(4)).result(60)
+        plan = tfaults.FaultPlan(0, [])
+        with tfaults.active(plan):
+            assert s.submit(agg).result(60) is not None
+        assert "matview.fold" in plan._calls
+        seen |= set(plan._calls)
+    return seen
 
 
 def test_shuffle_permanent_count_read_fault_propagates():

@@ -1054,3 +1054,139 @@ def test_topology_rung_leaves_no_old_world_scan_copy(card):
     flat = sorted(r for shard in want for r in shard)
     assert [r[0] for r in got] == [r[0] for r in flat]
     assert_rows_close(got, flat, [0, 1e-6])
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card
+# ---------------------------------------------------------------------------
+
+def _serve_fact(card, n=1 << 20, seed=81):
+    import pandas as pd
+    rng = np.random.default_rng(seed)
+    ctx = pt.CylonContext(device=card, world=4)
+    df = pd.DataFrame({"k": rng.integers(0, 1000, n).astype(np.int64),
+                       "v": rng.standard_normal(n)})
+    return ctx, DTable.from_pandas(ctx, df)
+
+
+def _serve_q(t):
+    from cylon_tpu_torch.parallel import shuffle_table
+    return dist_groupby(shuffle_table(t["fact"], ["k"]), ["k"],
+                        [("v", "sum"), ("v", "count")])
+
+
+def _sorted_rows(table):
+    return sorted(port_rows(table), key=repr)
+
+
+@pytest.mark.gpu
+def test_served_query_exported_on_worker_matches_direct_on_card(card):
+    """A query submitted from a client thread runs on the dispatcher and
+    is exported on a pipeline worker (which made the card current): the
+    rows equal the same query run directly."""
+    import threading
+
+    from cylon_tpu_torch.serve import ServeSession
+    ctx, dt = _serve_fact(card)
+    want = _sorted_rows(_serve_q({"fact": dt}).to_table())
+    seen = {}
+
+    def export(r):
+        seen["device"] = torch.cuda.current_device()
+        seen["thread"] = threading.current_thread().name
+        return r.to_table()
+
+    box = []
+    with ServeSession(ctx, tables={"fact": dt}, batch_window_ms=2.0,
+                      views=False) as s:
+        th = threading.Thread(target=lambda: box.append(
+            s.submit(_serve_q, export=export, label="client")))
+        th.start()
+        th.join()
+        got = _sorted_rows(box[0].result(timeout=300))
+        st = s.stats()
+    assert seen["device"] == ctx.device.index
+    assert seen["thread"].startswith("serve-export")
+    assert st["exports_async"] == 1 and st["completed"] == 1
+    assert_rows_close(got, want, [0, 1e-12, 0])
+
+
+@pytest.mark.gpu
+def test_pinned_view_hit_waits_on_the_copy_event_on_card(card):
+    """A clean view hit pinned on the dispatcher is staged in on a
+    pipeline worker while 0.1 s of work is queued on the dispatcher's
+    stream and on the copy stream ahead of the stage-in: the exported
+    rows equal the recompute (the export waits on the copy's event), and
+    the pool entry dropped while the copy is in flight does not corrupt
+    it."""
+    import time
+
+    from cylon_tpu_torch.serve import ServeSession
+    from cylon_tpu_torch.spill import pool as tpool
+    ctx, dt = _serve_fact(card, seed=82)
+    want = _sorted_rows(_serve_q({"fact": dt}).to_table())
+    tpool.clear_pool()
+    try:
+        with ServeSession(ctx, tables={"fact": dt}, batch_window_ms=2.0,
+                          pipelined=True) as s:
+            s.submit(_serve_q, label="warm").result(timeout=300)
+            assert s.holds_view(_serve_q)
+            torch.cuda.synchronize(card)
+            torch.cuda._sleep(200_000_000)   # ~0.1 s on the dispatcher's
+            with torch.cuda.stream(tpool._copy_stream(card)):
+                torch.cuda._sleep(200_000_000)   # ...and the copy stream
+            h = s.submit(_serve_q, export=lambda r: r.to_table(),
+                         label="hit")
+            # once the worker took the pinned entry (its copies queue
+            # behind the copy stream's sleep), evict the view's blocks
+            # and reuse page-locked memory of their size
+            deadline = time.time() + 60
+            while (h.status != "running" or s._views._pinned) \
+                    and not h.done() and time.time() < deadline:
+                time.sleep(0.0005)
+            nbytes = 0
+            for sig in list(tpool.get_pool()._entries):
+                e = tpool.get_pool()._entries[sig]
+                nbytes = max(nbytes, e.nbytes)
+                tpool.get_pool().drop_entry(sig)
+            junk = [torch.full((max(nbytes // 8, 1),), 7.0,
+                               dtype=torch.float64, pin_memory=True)
+                    for _ in range(4)]
+            got = _sorted_rows(h.result(timeout=300))
+            del junk
+            st = s.stats()
+        assert h.view == "hit" and st["view_hits"] == 1
+        assert_rows_close(got, want, [0, 1e-12, 0])
+    finally:
+        tpool.clear_pool()
+
+
+@pytest.mark.gpu
+def test_scrape_returns_while_device_work_in_flight_on_card(card):
+    """An OpenMetrics scrape reads host counters only: it returns while
+    0.1 s of device work is still queued, and adds no device sync."""
+    import time
+    import urllib.request
+
+    from cylon_tpu_torch.observe import exporter
+    trace.enable_counters()
+    try:
+        trace.count("serve.completed", 2)
+        port = exporter.start(0)
+        torch.cuda.synchronize(card)
+        done = torch.cuda.Event()
+        torch.cuda._sleep(400_000_000)       # ~0.2 s of queued device work
+        done.record()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            body = resp.read().decode("utf-8")
+        scrape_s = time.perf_counter() - t0
+        in_flight = not done.query()
+        torch.cuda.synchronize(card)
+    finally:
+        exporter.stop()
+        trace.disable_counters()
+        trace.reset()
+    assert "cylon_serve_completed_total 2" in body
+    assert in_flight, f"the device work finished first ({scrape_s:.3f} s)"

@@ -46,7 +46,11 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.resilience, cylon_tpu_torch.faults, "
         "cylon_tpu_torch.plan.executor, cylon_tpu_torch.row, "
         "cylon_tpu_torch.strings, cylon_tpu_torch.io, "
-        "cylon_tpu_torch.io.csv, cylon_tpu_torch.native.runtime\n"
+        "cylon_tpu_torch.io.csv, cylon_tpu_torch.native.runtime, "
+        "cylon_tpu_torch.serve, cylon_tpu_torch.serve.session, "
+        "cylon_tpu_torch.serve.admission, cylon_tpu_torch.serve.matview, "
+        "cylon_tpu_torch.serve.router, cylon_tpu_torch.observe.exporter, "
+        "cylon_tpu_torch.observe.timeseries\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
