@@ -125,11 +125,27 @@ readers repeat a shuffle + groupby for 10 s; the last read, a fold
 after one more append and a recompute with the views off each equal to
 a numpy oracle); and two replicas at world 2 over disjoint slot ranges
 of the card behind a ``FleetRouter`` (affinity, then failover after a
-drain; each result equal to numpy).  Every check that fails raises, so the script exits non-zero; without a
+drain; each result equal to numpy).  The pipeline phases (the JAX
+bench's TPC-H form), right after the TPC-H oracles at SF 10:
+``plan_check.validate`` of every query with nation and region concrete,
+eager and planned (``plan.run``), each launching no kernel, reading
+nothing on the host, allocating nothing on the card and leaving the size
+hints and the replica cache unchanged (one line each: nodes, seconds,
+result schema); then every query under ``run_pipeline`` after a warm-up,
+beside an eager run on the same warm hints (seconds, ``host.read``,
+replays, launches; each result equal to the TPC-H phase's eager result
+in order, fewer host reads wherever the eager run reads more than
+twice), Q5 and Q21 with their first hints quartered at the
+``compact.hint`` fault point (the region replays; results unchanged),
+and one static ``DTable.explain`` report (Q5); and after the morsel join
+the join cell's world-4 HASH join under ``run_pipeline`` (= the oracle,
+fewer host reads than eager, 2 launches) and again with the budget one
+byte under the hinted single-shot exchange (the flush invalidates, the
+replay runs the degraded lowering, = the oracle).  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
-strkey, wide-key and serving paths), its time, its plain version's time and its
+strkey, wide-key, serving and pipeline paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -4412,6 +4428,271 @@ def phase_serve_fleet(ldata):
     return n_launch
 
 
+# ---------------------------------------------------------------------------
+# the abstract plan check and the deferred pipeline (the bench's TPC-H form)
+# ---------------------------------------------------------------------------
+
+PIPELINE_UNDERSIZE_QUERIES = ("q5", "q21")  # the exchange-heavy ones
+PIPELINE_UNDERSIZE_LIMIT = 4  # hints quartered per run (compact.hint)
+PIPELINE_WARMUPS = 3  # pipeline warm-ups at most before the timed run
+
+
+def runtime_state():
+    """What a plan check must leave as it found it: the size hints, the
+    degraded shuffle signatures and the replica cache (entries by key and
+    identity; the plan cache may record plans, it holds no data)."""
+    from cylon_tpu_torch.parallel import broadcast, dist_ops, shuffle
+    return (dict(dist_ops._capacity_hints), dict(dist_ops._group_cap_hints),
+            dict(dist_ops._select_cap_hints), dict(shuffle._block_hints),
+            set(shuffle._chunked_keys),
+            {k: id(v) for k, v in broadcast._replica_cache.items()})
+
+
+def phase_plan_check(ctx, tables, sf: float):
+    """(a) ``plan_check.validate(q, tables, concrete=("nation",
+    "region"))`` of every query in its eager form and its planned form
+    (``plan.run``), as the JAX bench pre-flights each query: the
+    abstract run launches no kernel, makes no host read, allocates
+    nothing on the card (``max_memory_allocated`` after a reset stays at
+    the allocated bytes) and leaves the hints and the replica cache as
+    they were.  One line each: nodes, seconds, the result schema.
+    Returns the total plan-check seconds per form."""
+    from cylon_tpu_torch import plan as planner
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch.analysis import plan_check
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.tpch import QUERIES
+
+    total = {"eager": 0.0, "planned": 0.0}
+    for q in QUERIES:
+        forms = {
+            "eager": lambda t, q=q: QUERIES[q](ctx, t),
+            "planned": lambda t, q=q: planner.run(
+                ctx, lambda tt: QUERIES[q](ctx, tt), t)}
+        for form, qform in forms.items():
+            label = f"plan check {q} {form} sf={sf} world={WORLD}"
+            before = runtime_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            hash_cuda.launches = 0
+            trace.reset()
+            t0 = time.perf_counter()
+            rep = plan_check.validate(qform, tables,
+                                      concrete=("nation", "region"))
+            secs = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            reads = trace.counters().get("host.read", 0)
+            total[form] += secs
+            check(rep.ok and len(rep.nodes) > 0, f"{label}: VALID ({rep})")
+            check(hash_cuda.launches == 0,
+                  f"{label}: no kernel launch ({hash_cuda.launches})")
+            check(reads == 0, f"{label}: no host read ({reads})")
+            check(peak == base, f"{label}: nothing allocated on the card "
+                  f"(peak {peak} B, allocated {base} B)")
+            check(runtime_state() == before,
+                  f"{label}: the hints and the replica cache unchanged")
+            say(label, nodes=len(rep.nodes), seconds=f"{secs:.6f}",
+                boundary=rep.boundary or "none", host_reads=reads,
+                kernel_launches=hash_cuda.launches,
+                card_bytes_allocated=peak - base,
+                result=repr(rep.result))
+    say(f"plan check sf={sf} world={WORLD}", queries=len(QUERIES),
+        eager_seconds=f"{total['eager']:.6f}",
+        planned_seconds=f"{total['planned']:.6f}")
+    return total
+
+
+def undersized_hints(fn, seen: list):
+    """``fn()``, appending to ``seen`` every size hint that a count found
+    too small (``key[:3]:hint->need``, the key's first fields naming the
+    operator signature): what a replay or a redo was for."""
+    from cylon_tpu_torch.ops import compact
+    orig = compact.update_size_hint
+
+    def spy(hints, key, need, shrink_after=3):
+        cur = compact.hint_value(hints, key)
+        if cur is not None and any(n > h for n, h in zip(need, cur)):
+            seen.append(f"{key[:3]}:{cur}->{tuple(need)}".replace(" ", ""))
+        orig(hints, key, need, shrink_after)
+
+    compact.update_size_hint = spy
+    try:
+        return fn()
+    finally:
+        compact.update_size_hint = orig
+
+
+def pipeline_run(fn):
+    """(result, seconds, counters, kernel launches) of ``fn()`` with the
+    counters and the launch count reset first."""
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch.ops import hash_cuda
+    trace.reset()
+    hash_cuda.launches = 0
+    out, secs = wall(fn)
+    return out, secs, trace.counters(), hash_cuda.launches
+
+
+def phase_tpch_pipeline(ctx, tables, sf: float, eager):
+    """(b) Every query under ``run_pipeline`` as the JAX bench times it
+    (warm-ups, at most ``PIPELINE_WARMUPS``, until one needs no replay,
+    then the timed run), beside an eager run on warm hints: the result
+    equals the eager result of the TPC-H phase, in order; one line each
+    with seconds, ``host.read``, ``pipeline.replays`` and kernel launches
+    of both (and, where the timed run still replayed, the hints that
+    were found too small).  (c) Q5 and Q21 under a ``compact.hint`` rule
+    that quarters the first hints (``faults.undersize_hint``): the region
+    replays, results unchanged.  Returns the pipeline's kernel launches
+    per query."""
+    from cylon_tpu_torch import faults
+    from cylon_tpu_torch.parallel import broadcast, run_pipeline
+    from cylon_tpu_torch.tpch import QUERIES
+
+    launches, fewer, multi = {}, [], []
+    tot = {"eager_s": 0.0, "pipe_s": 0.0, "eager_reads": 0, "pipe_reads": 0}
+    for q in QUERIES:
+        run = lambda q=q: QUERIES[q](ctx, tables)  # noqa: E731
+        label = f"tpch pipeline {q} sf={sf} world={WORLD}"
+        broadcast.clear_replica_cache()
+        e_out, e_s, e_c, e_n = pipeline_run(run)
+        # warm-up until an attempt needs no replay: the hints also hold
+        # what the planned forms of earlier phases observed under the
+        # same signatures, and the first runs here may grow or shrink them
+        warm = []
+        for _ in range(PIPELINE_WARMUPS):
+            warm.append(pipeline_run(lambda: run_pipeline(run))[2].get(
+                "pipeline.replays", 0))
+            if warm[-1] == 0:
+                break
+        causes = []
+        p_out, p_s, p_c, p_n = pipeline_run(
+            lambda: undersized_hints(lambda: run_pipeline(run), causes))
+        same_ordered(f"{label} eager", e_out, eager[q])
+        same_ordered(label, p_out, eager[q])
+        e_r, p_r = e_c.get("host.read", 0), p_c.get("host.read", 0)
+        replays = p_c.get("pipeline.replays", 0)
+        check(p_r <= e_r * (1 + replays),
+              f"{label}: host reads {p_r} <= eager {e_r} per attempt")
+        if e_r > 2 and not replays:  # >1 optimistic site, no replay
+            multi.append(q)
+            check(p_r < e_r, f"{label}: fewer host reads ({p_r} vs {e_r})")
+        if p_r < e_r:
+            fewer.append(q)
+        launches[q] = p_n
+        tot["eager_s"] += e_s
+        tot["pipe_s"] += p_s
+        tot["eager_reads"] += e_r
+        tot["pipe_reads"] += p_r
+        say(label, seconds=f"{p_s:.6f}", eager_seconds=f"{e_s:.6f}",
+            host_reads=p_r, eager_host_reads=e_r, replays=replays,
+            warmup_replays=",".join(map(str, warm)),
+            kernel_launches=p_n, eager_kernel_launches=e_n,
+            **({"undersized": repr(";".join(causes))} if causes else {}))
+    say(f"tpch pipeline sf={sf} world={WORLD}", queries=len(QUERIES),
+        total_seconds=f"{tot['pipe_s']:.6f}",
+        total_eager_seconds=f"{tot['eager_s']:.6f}",
+        host_reads=tot["pipe_reads"], eager_host_reads=tot["eager_reads"],
+        fewer_reads=len(fewer), multi_site=len(multi),
+        kernel_launches=sum(launches.values()))
+    # (c) forced undersize
+    for q in PIPELINE_UNDERSIZE_QUERIES:
+        run = lambda q=q: QUERIES[q](ctx, tables)  # noqa: E731
+        label = f"tpch pipeline undersized {q} sf={sf} world={WORLD}"
+        plan = faults.FaultPlan(0, [faults.FaultRule(
+            "compact.hint", kind="value", probability=1.0,
+            mutate=faults.undersize_hint, limit=PIPELINE_UNDERSIZE_LIMIT)])
+        with faults.active(plan):
+            out, secs, c, n = pipeline_run(lambda: run_pipeline(run))
+        same_ordered(label, out, eager[q])
+        check(plan.injected >= 1 and c.get("pipeline.replays", 0) >= 1,
+              f"{label}: an undersized hint replayed ({plan.injected} "
+              f"injected, {c.get('pipeline.replays', 0)} replays)")
+        launches[f"{q}_undersized"] = n
+        say(label, seconds=f"{secs:.6f}", hints_quartered=plan.injected,
+            replays=c.get("pipeline.replays", 0),
+            fallback_plain=c.get("pipeline.fallback_plain", 0),
+            host_reads=c.get("host.read", 0), kernel_launches=n)
+    return launches
+
+
+def phase_join_pipeline(ldata, rdata, want):
+    """(d) The join cell's world-4 HASH join under ``run_pipeline``
+    against eager (seconds, ``host.read``, 2 launches, = the oracle);
+    then with the per-shard budget one byte under the hinted single-shot
+    exchange's price: the flush finds the correctly sized exchange over
+    budget and invalidates, the replay takes the degraded lowering, and
+    the join still equals the oracle.  Returns the launches."""
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.observe import row_bytes
+    from cylon_tpu_torch.parallel import (cost, dist_ops, run_pipeline,
+                                          shuffle)
+
+    lt, rt = join_sides(ldata, rdata)
+    n = len(ldata["k"])
+    label = f"join pipeline rows={n} world={WORLD}"
+    hash_join(lt, rt)  # seeds the hints
+    local, e_s, e_c, e_n = pipeline_run(lambda: hash_join(lt, rt))
+    check_join(f"{label} eager", local, want)
+    run_pipeline(lambda: hash_join(lt, rt))
+    local, p_s, p_c, p_n = pipeline_run(
+        lambda: run_pipeline(lambda: hash_join(lt, rt)))
+    check_join(label, local, want)
+    check(p_n == 2, f"{label}: 2 kernel launches (got {p_n})")
+    check(p_c.get("host.read", 0) < e_c.get("host.read", 0),
+          f"{label}: fewer host reads than eager")
+    say(label, seconds=f"{p_s:.6f}", eager_seconds=f"{e_s:.6f}",
+        host_reads=p_c.get("host.read", 0),
+        eager_host_reads=e_c.get("host.read", 0),
+        replays=p_c.get("pipeline.replays", 0), kernel_launches=p_n,
+        eager_kernel_launches=e_n)
+    del local
+    # over budget inside the flush: the hints are warm and single-shot
+    pid = dist_ops._hash_pids(lt, [0])
+    counts = shuffle._counts(lt.ctx.comm, pid).cpu().numpy().astype(np.int64)
+    del pid
+    leaves = [lf for c in lt.columns for lf in (c.data, c.validity)
+              if lf is not None]
+    ss = cost.price_single_shot(WORLD, *cost.exchange_sizes(counts)[:2],
+                                row_bytes(leaves)).peak_bytes
+    label = f"join pipeline over budget={ss - 1} rows={n} world={WORLD}"
+    prev = config.set_device_memory_budget(ss - 1)
+    try:
+        shuffle.clear_chunk_state()
+        local, o_s, o_c, o_n = pipeline_run(
+            lambda: run_pipeline(lambda: hash_join(lt, rt)))
+        degraded = sorted(shuffle._chunked_keys)
+    finally:
+        config.set_device_memory_budget(prev)
+        shuffle.clear_chunk_state()
+    check_join(label, local, want)
+    check(o_c.get("pipeline.replays", 0) >= 1,
+          f"{label}: the flush invalidated and the region replayed")
+    check(o_c.get("shuffle.strategy.downgrades", 0) >= 1 and degraded,
+          f"{label}: the replay took the degraded lowering")
+    check(o_n == 2 * (1 + o_c.get("pipeline.replays", 0)),
+          f"{label}: 2 kernel launches per attempt (got {o_n})")
+    say(label, seconds=f"{o_s:.6f}", replays=o_c["pipeline.replays"],
+        downgrades=o_c["shuffle.strategy.downgrades"],
+        strategies=",".join(f"{k.split('.')[-1]}:{v}" for k, v in
+                            sorted(o_c.items())
+                            if k.startswith("shuffle.strategy.")),
+        host_reads=o_c.get("host.read", 0), kernel_launches=o_n)
+    return {"join": p_n, "join_over_budget": o_n}
+
+
+def phase_explain_report(ctx, tables):
+    """(e) One static ``DTable.explain(plan)`` report (Q5, eager form)."""
+    from cylon_tpu_torch.tpch import QUERIES
+    rep = tables["lineitem"].explain(lambda t: QUERIES["q5"](ctx, t),
+                                     tables=tables,
+                                     concrete=("nation", "region"))
+    check(rep.ok and not rep.analyzed, "explain(q5): a VALID static report")
+    say("explain q5", nodes=len(rep.nodes))
+    print(str(rep), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -4457,6 +4738,7 @@ def main() -> int:
     phase_staged_spill(wl, wr, wwant, tag="warm-up ")
     link = phase_spill_roundtrip(ldata)
     launches_spill = {"morsel_join": phase_morsel_join(ldata, rdata, want)}
+    launches_join_pipeline = phase_join_pipeline(ldata, rdata, want)
     staged = phase_staged_spill(ldata, rdata, want)
     launches_spill["staged_spill_shuffle"] = staged["shuffle"]
     launches_spill["staged_spill_join"] = staged["join"]
@@ -4539,6 +4821,12 @@ def main() -> int:
     phase_tpch_oracles(tables, results, args.tpch_sf)
     check(sum(launches_tpch.values()) > 0,
           "tpch: the partition kernel ran in at least one query")
+    # the JAX bench's TPC-H form: the abstract plan check of every query
+    # (eager and planned), then each query under run_pipeline
+    plan_check_s = phase_plan_check(tctx, tables, args.tpch_sf)
+    launches_pipeline = phase_tpch_pipeline(tctx, tables, args.tpch_sf,
+                                            results)
+    phase_explain_report(tctx, tables)
     # the serving layer: the bench's serve stage on these tables (views on
     # and off), its mixed read/write stage, and a two-replica fleet
     # (the kernel at the groupby shape timed on each side of them: the
@@ -4666,6 +4954,10 @@ def main() -> int:
         "launches_strkey": launches_strkey,
         "launches_wide_setop": launches_wide,
         "launches_serve": launches_serve,
+        "launches_pipeline": dict(launches_pipeline,
+                                  **launches_join_pipeline),
+        "plan_check_launches": 0,
+        "plan_check_seconds": plan_check_s,
         "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": hash_bound_ms((k,), (None,), k.shape[0]),

@@ -164,6 +164,15 @@ class CylonContext:
         return CylonContext(dict(self._config), self._device, world,
                             self._first_slot)
 
+    def with_device(self, device: Union[str, torch.device]
+                    ) -> "CylonContext":
+        """A context with this one's world, first slot and a copy of its
+        config map on ``device``: the ``meta`` view over which an
+        abstract plan run (``analysis/plan_check``) rebuilds its tables,
+        so every allocation the plan makes lands on the meta device."""
+        return CylonContext(dict(self._config), device,
+                            self.get_world_size(), self._first_slot)
+
     def get_rank(self) -> int:
         """Lowest rank this process drives (all of them: 0)."""
         return 0

@@ -30,15 +30,16 @@ same points in the same order as in the JAX package.
 Every fire bumps the ``fault.injected`` counter and the plan's own
 ``injected`` tally (visible without counters enabled).
 
-The catalogue holds the points the port has sites for: the shuffle's
-count read (``compact.read_counts``), the budget read
+The catalogue holds the points the port has sites for: the blocking
+count read (``compact.read_counts``), the deferred region's batched
+flush (``compact.flush``), the optimistic size-hint lookup
+(``compact.hint``, mutated by :func:`undersize_hint`), the budget read
 (``resilience.budget``), the spill pool's two staging boundaries
-(``spill.*``), and the recovery driver's seams in the plan executor
-(``exec.stage``, ``recover.*``, ``mesh.*``).  The JAX package's other
-points (``io.*``, ``serve.*``, ``matview.fold``, ``compact.hint`` /
-``compact.flush``) come with the sites that consult them.  A rule may
-still name any point: the draws are keyed by the name, so a plan decides
-the same consultations as in the JAX package.
+(``spill.*``), the serving layer's (``serve.*``, ``matview.fold``), the
+CSV reader's (``io.csv.read``) and the recovery driver's seams in the
+plan executor (``exec.stage``, ``recover.*``, ``mesh.*``).  A rule may
+name any point: the draws are keyed by the name, so a plan decides the
+same consultations as in the JAX package.
 
 ``CYLON_CHAOS=<seed>`` installs ``FaultPlan.default(seed)`` when the
 package is imported (:func:`install_chaos_from_env`): every recoverable
@@ -66,7 +67,7 @@ __all__ = [
     "POINTS", "FaultError", "TransientFault", "ResourceFault",
     "PermanentFault", "TopologyFault", "FaultRule", "FaultPlan",
     "install", "uninstall", "active", "plan", "check", "perturb",
-    "poll", "install_chaos_from_env",
+    "poll", "undersize_hint", "install_chaos_from_env",
 ]
 
 # ---------------------------------------------------------------------------
@@ -80,6 +81,12 @@ POINTS: Dict[str, str] = {
     "compact.read_counts":
         "the blocking per-op host count read (ops/compact._read_counts) "
         "— a failed device→host transfer on a tunneled backend",
+    "compact.flush":
+        "the ONE batched device_get resolving a deferred region's queued "
+        "validations (ops/compact.flush_pending_with)",
+    "compact.hint":
+        "value point: the optimistic-dispatch size-hint lookup — an "
+        "undersized mutation forces the validation/replay machinery",
     "io.csv.read":
         "a CSV file read (io/csv._read_one) — flaky network filesystem / "
         "object store",
@@ -210,6 +217,18 @@ class TopologyFault(FaultError):
 # plans and rules
 # ---------------------------------------------------------------------------
 
+def undersize_hint(hint: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The default ``compact.hint`` mutation: quarter every size-class
+    component (floored at the smallest bucket, so the perturbed sizes
+    stay inside the bucket vocabulary).  An undersized hint is always
+    SAFE — validation detects it and redoes or replays — which is the
+    point: this exercises the recovery machinery, not correctness."""
+    from .ops.compact import next_bucket
+
+    return tuple(next_bucket(max(int(h) // 4, 1), minimum=8)
+                 for h in hint)
+
+
 @dataclass
 class FaultRule:
     """One trigger: WHERE (a point name or fnmatch pattern), WHAT
@@ -307,8 +326,8 @@ class FaultPlan:
     @staticmethod
     def default(seed: int = 0) -> "FaultPlan":
         """The ``CYLON_CHAOS`` plan at the port's points: low-probability
-        transient count reads and CSV reads, occasional allocation
-        pressure on the
+        transient count reads, flushes and CSV reads, occasional
+        forced-undersized hints, occasional allocation pressure on the
         memory budget, mid-query stage failures (transient and
         resource), host-tier staging faults, one device loss and the
         flap pattern on top.  Every injected class is recoverable — a
@@ -317,7 +336,10 @@ class FaultPlan:
         return FaultPlan(seed, [
             FaultRule("compact.read_counts", kind="transient",
                       probability=0.03),
+            FaultRule("compact.flush", kind="transient", probability=0.03),
             FaultRule("io.csv.read", kind="transient", probability=0.10),
+            FaultRule("compact.hint", kind="value", probability=0.05,
+                      mutate=undersize_hint),
             FaultRule("resilience.budget", kind="value", probability=0.02,
                       mutate=lambda b: max(int(b) // 8, 1 << 20)),
             # mid-query stage failures at the executor's exchange

@@ -220,6 +220,12 @@ class _KernelHandle:
         if not _observing():
             return self._fn(*args, **kwargs)
         try:
+            leaves = _flatten((args, kwargs), [])
+            if any(isinstance(lf, torch.Tensor) and lf.device.type == "meta"
+                   for lf in leaves):
+                # abstract plan run: nothing builds on the device, so the
+                # call is not charged as a build
+                return self._fn(*args, **kwargs)
             sig = _signature(args, kwargs)
             seen = sig in self._seen
         except TypeError:

@@ -47,7 +47,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..dtypes import extreme_value
-from .compact import compact_indices
+from .compact import bincount, compact_indices
 from .join import _ordered, sorted_key_structure
 
 SUM, COUNT, MEAN, MIN, MAX = "sum", "count", "mean", "min", "max"
@@ -369,21 +369,18 @@ def dense_group_structure(key: torch.Tensor, key_validity, row_valid,
                        base // stride if stride > 1 else base, R + 1)
     if null_rows is not None:
         slot = torch.where(null_rows, R, slot)
-    counts = torch.bincount(slot, minlength=R + 2)[:R + 1].to(torch.int32)
+    counts = bincount(slot, R + 2)[:R + 1].to(torch.int32)
     ngroups = torch.sum(counts > 0).to(torch.int32)
     return slot, counts, ngroups, overflow
 
 
 def _slot_runs(slot: torch.Tensor):
-    """Rows stably sorted by slot: ``(perm, run start flags, run end
-    positions mask, slot of each sorted row)`` for the deterministic
-    per-slot float and min/max reductions."""
+    """Rows stably sorted by slot: ``(perm, run start flags)`` for the
+    deterministic per-slot float and min/max reductions."""
     perm = torch.sort(slot.to(torch.int32), stable=True).indices
     s = slot[perm]
     one = torch.ones(1, dtype=torch.bool, device=slot.device)
-    first = torch.cat([one, s[1:] != s[:-1]])
-    last = torch.cat([s[1:] != s[:-1], one])
-    return perm, first, last, s
+    return perm, torch.cat([one, s[1:] != s[:-1]])
 
 
 def dense_groupby_aggregate(slot: torch.Tensor, counts: torch.Tensor,
@@ -434,19 +431,24 @@ def dense_groupby_aggregate(slot: torch.Tensor, counts: torch.Tensor,
         return out.index_add_(0, slot, vals)[:R1]
 
     runs = None
+    # slot k's run ends at row cumsum(counts)[k] − 1 of the slot-sorted
+    # rows (the dropped rows, slot R1, sort last): one gather of [R1]
+    # results, with no boolean indexing (no host sync; meta tensors of an
+    # abstract plan run pass)
+    run_end = torch.clamp(torch.cumsum(counts.to(_IDT), 0) - 1, min=0)
 
     def run_reduce(vals: torch.Tensor, op, fill: torch.Tensor
                    ) -> torch.Tensor:
         # per-slot reduction over the rows sorted by slot (deterministic);
         # ``fill`` (0-d) stands in every slot without rows
         nonlocal runs
+        if slot.shape[0] == 0:
+            return fill.reshape(1).repeat(R1)
         if runs is None:
             runs = _slot_runs(slot)
-        perm, first, last, s = runs
+        perm, first = runs
         scanned = _seg_scan(vals[perm], first, op)
-        out = fill.reshape(1).repeat(R1 + 1)
-        out[s[last]] = scanned[last]
-        return out[:R1]
+        return torch.where(counts > 0, scanned[run_end], fill)
 
     outs, out_valids = [], []
     cnt_cache: dict = {}

@@ -161,13 +161,15 @@ def partition_ids_fused(cols: Sequence[torch.Tensor],
 
     CPU tensors take the plain version (ops/hash.py), for any number of
     key columns.  CUDA tensors launch the kernel on the current stream
-    (one launch per group of ``MAX_KEY_COLS`` columns), or raise.
+    (one launch per group of ``MAX_KEY_COLS`` columns), or raise.  Meta
+    tensors (an abstract plan run) get the kernel's checks and a meta
+    result, with no launch.
     """
     n, dev = _check(cols, validities, nparts)
     if dev.type == "cpu":
         return plain_hash.partition_ids(plain_hash.row_hash(cols, validities),
                                         nparts)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise CylonError(Status(Code.NotImplemented,
             f"partition_ids_fused: no kernel for device {dev}"))
     for c, v in zip(cols, validities):
@@ -177,6 +179,11 @@ def partition_ids_fused(cols: Sequence[torch.Tensor],
         if not c.is_contiguous() or (v is not None and not v.is_contiguous()):
             raise CylonError(Status(Code.Invalid,
                 "partition_ids_fused: key columns must be contiguous"))
+    if dev.type == "meta":
+        # an abstract plan run (analysis/plan_check): the kernel's
+        # contract is checked above and its result's shape and dtype
+        # returned — nothing launches and ``launches`` stays as it is
+        return torch.empty(n, dtype=torch.int32, device=dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out

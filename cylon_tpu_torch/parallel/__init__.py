@@ -1,4 +1,5 @@
 """Distributed tables and operators over the context's P row shards."""
+from ..ops.compact import run_pipeline
 from .broadcast import clear_replica_cache, replicate_table
 from .dist_ops import (dist_aggregate, dist_anti_join, dist_groupby,
                        dist_groupby_fused, dist_groupby_sketch, dist_head,
@@ -17,4 +18,4 @@ __all__ = ["DTable", "DColumn", "dist_join", "dist_join_streaming",
            "dist_select", "dist_project", "dist_with_column",
            "dist_groupby", "dist_groupby_fused", "dist_groupby_sketch",
            "dist_aggregate", "replicate_table", "clear_replica_cache",
-           "HostPipeline", "HostTask"]
+           "HostPipeline", "HostTask", "run_pipeline"]

@@ -33,6 +33,7 @@ import torch
 
 from .. import resilience, trace
 from ..analysis import plan_check
+from ..analysis._abstract import is_abstract
 from ..config import broadcast_join_threshold
 from ..observe.locks import OrderedLock
 from ..observe.metrics import row_bytes
@@ -143,13 +144,19 @@ def replicate_table(dt: DTable, mode: str = ALL,
     volume, rows × (P − 1) × row width, as ``broadcast.rows_sent`` /
     ``broadcast.bytes_sent``; the groupby's combine gather
     (``span_name="groupby.broadcast_gather"``) also adds the bytes to
-    ``groupby.bytes_moved``."""
+    ``groupby.bytes_moved``.  An abstract table (meta leaves, a plan
+    check) is neither cached nor counted."""
     global gathers
     if dt.pending_mask is not None:
         raise ValueError("replicate_table: collapse the pending mask first")
     if mode not in (ALL, HEAD):
         raise ValueError(f"replicate_table: unknown mode {mode!r}")
     plan_check.note("replicate_table", dt, mode=mode)
+    # an abstract plan run (meta leaves): the replica of a meta table is
+    # meta — caching it would hand a later real run tensors without data
+    # — and it moves zero bytes, like every other exchange path there
+    abstract = any(is_abstract(c.data) for c in dt.columns)
+    cache = cache and not abstract
     key = _cache_key(dt, mode) if cache else None
     if cache:
         with _replica_lock:
@@ -159,17 +166,18 @@ def replicate_table(dt: DTable, mode: str = ALL,
             plan_check.annotate(decision="replica-cache hit")
             return hit[2]
     plan_check.annotate(decision="gather")
-    gathers += 1
     P, cap = dt.nparts, dt.cap
     ch = dt._counts_host
     total_bound = int(ch.sum()) if ch is not None else P * cap
     outcap = ops_compact.next_bucket(max(total_bound, 1), minimum=8)
-    moved = total_bound * max(P - 1, 0)
-    moved_bytes = moved * row_bytes(_leaves(dt))
-    trace.count("broadcast.rows_sent", moved)
-    trace.count("broadcast.bytes_sent", moved_bytes)
-    if span_name == "groupby.broadcast_gather":
-        trace.count("groupby.bytes_moved", moved_bytes)
+    if not abstract:
+        gathers += 1
+        moved = total_bound * max(P - 1, 0)
+        moved_bytes = moved * row_bytes(_leaves(dt))
+        trace.count("broadcast.rows_sent", moved)
+        trace.count("broadcast.bytes_sent", moved_bytes)
+        if span_name == "groupby.broadcast_gather":
+            trace.count("groupby.bytes_moved", moved_bytes)
     with trace.span_sync(span_name) as sp:
         trace.count(span_name)  # the counter mirrors the span name
         rep = _gather(dt, mode, outcap)

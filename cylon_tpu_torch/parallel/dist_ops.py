@@ -48,6 +48,7 @@ import torch
 
 from .. import trace
 from ..analysis import plan_check
+from ..analysis._abstract import is_abstract
 from ..compute import _agg_output_type
 from ..config import (JoinAlgorithm, JoinConfig, JoinType,
                       broadcast_join_threshold)
@@ -75,6 +76,45 @@ from .shuffle import shuffle_leaves
 HASH_LOCAL_KERNEL = "sort"
 
 _SAMPLES_PER_SHARD = 64  # sample-sort oversampling factor
+
+# The optimistic count protocol's size hints (ops/compact.py): the last
+# bucketed output capacity per operator signature, so the next call of
+# the same signature dispatches its phase 2 before the host has read the
+# counts.  ``_capacity_hints``: the join (size-class caps + join kind);
+# ``_group_cap_hints``: the groupby (keyed by the ``where`` predicate
+# object too, so it is bounded — a fresh lambda per call would otherwise
+# grow it and pin the closures forever); ``_select_cap_hints``: the row
+# filters (select, semi / anti join), bounded the same way.
+_capacity_hints: dict = {}
+_group_cap_hints: dict = {}
+_select_cap_hints: dict = {}
+_GROUP_HINTS_MAX = 256
+
+
+def _bounded(hints: dict) -> dict:
+    """``hints`` with its oldest entries dropped past ``_GROUP_HINTS_MAX``
+    (insertion order: FIFO)."""
+    while len(hints) > _GROUP_HINTS_MAX:
+        hints.pop(next(iter(hints)))
+    return hints
+
+
+def _size_class(per_shard: np.ndarray) -> Tuple[int]:
+    """The optimistic protocol's ``need`` for one output block: the
+    largest per-shard count, bucketed (``next_bucket``, at least 8)."""
+    return (ops_compact.next_bucket(max(int(per_shard.max(initial=0)), 1),
+                                    minimum=8),)
+
+
+def clear_size_hints() -> None:
+    """Forget every optimistic size hint of the distributed operators
+    and the shuffle (test isolation; the next call of each signature
+    waits for its counts)."""
+    from . import shuffle
+    _capacity_hints.clear()
+    _group_cap_hints.clear()
+    _select_cap_hints.clear()
+    shuffle._block_hints.clear()
 
 # Strategy taken by each distributed join / semi-join call since the last
 # ``decisions.clear()``: "join.broadcast", "join.shuffle", "join.local",
@@ -306,9 +346,10 @@ def _join_copartitioned(lsh: DTable, rsh: DTable, li_keys: Sequence[int],
                         ri_keys: Sequence[int], how: str, alg: str) -> DTable:
     """Masked local join of already co-partitioned sides, shard by shard.
 
-    Phase 1 builds every shard's plan and output count; the host reads the
-    counts (all-gathered) and sizes one capacity for all shards; phase 2
-    expands each plan and gathers the output columns into it.
+    Phase 1 builds every shard's plan and output count; phase 2 expands
+    each plan and gathers the output columns into one capacity for all
+    shards, sized from the all-gathered counts through the optimistic
+    count protocol (``_capacity_hints``, per join signature).
     """
     if alg == "hash" and HASH_LOCAL_KERNEL == "sort":
         alg = "sort"  # the retired rank kernel; see HASH_LOCAL_KERNEL
@@ -337,12 +378,12 @@ def _join_copartitioned(lsh: DTable, rsh: DTable, li_keys: Sequence[int],
             totals.append(ops_join.plan_total(plan, how, l_count=lc,
                                               r_count=rc))
 
-    louts, routs, counts = [], [], []
-    with trace.span_sync("join.gather") as sp:
-        per_shard = ops_compact.read_host(
-            ctx.comm.all_gather(torch.stack(totals)))
-        capacity = ops_compact.next_bucket(
-            max(int(per_shard.max(initial=0)), 1), minimum=8)
+    cnts = ctx.comm.all_gather(torch.stack(totals))
+    hint_key = (str(ctx.device), lcap, rcap, how, alg)
+
+    def dispatch(sizes):
+        capacity = sizes[0]
+        louts, routs, counts = [], [], []
         for s, plan in enumerate(plans):
             lc, rc = lsh.counts[s], rsh.counts[s]
             li, ri, cnt = ops_join.plan_indices(plan, how, capacity,
@@ -354,9 +395,17 @@ def _join_copartitioned(lsh: DTable, rsh: DTable, li_keys: Sequence[int],
                 [(_shard(c.data, s, rcap), _shard(c.validity, s, rcap))
                  for c in rsh.columns], ri, fill_null=fill_right))
             counts.append(cnt)
+        return louts, routs, counts
+
+    with trace.span_sync("join.gather") as sp:
+        (louts, routs, counts), used, per_shard = \
+            ops_compact.optimistic_dispatch(_capacity_hints, hint_key,
+                                            dispatch, cnts, _size_class)
+        capacity = used[0]
         plans.clear()
         sp.sync((louts, routs))
-    trace.count("join.out_rows", int(per_shard.sum()))
+    if per_shard is not None:  # None ⇒ deferred validation
+        trace.count("join.out_rows", int(per_shard.sum()))
 
     cols = [DColumn("lt-" + c.name, c.dtype, *_stacked(louts, k),
                     c.dictionary, c.arrow_type)
@@ -399,7 +448,8 @@ def _fk_probe(left: DTable, right: DTable, lkc: DColumn, rkc: DColumn,
     right rows into a key→row map over [lo, hi] per shard, ONE gather of
     the probe keys.  Returns (matched [P*cap_l], right row within its
     shard or −1, per-shard [matched, right out of range, right duplicate,
-    right null] counts on the host).  The three violation counts do not
+    right null] counts, all-gathered on the device).  The three violation
+    counts do not
     depend on which of several duplicate writes wins the scatter: a
     duplicate is a valid right key whose slot holds another row."""
     P = left.nparts
@@ -431,9 +481,7 @@ def _fk_probe(left: DTable, right: DTable, lkc: DColumn, rkc: DColumn,
         (r_nonnull & ~r_in).view(P, cap_r).sum(1),
         r_ok.view(P, cap_r).sum(1) - occupied,
         (rvalid & ~r_nonnull).view(P, cap_r).sum(1)], 1)
-    per_shard = ops_compact.read_host(
-        left.ctx.comm.all_gather(stats.to(torch.int64)))
-    return matched, ri, per_shard
+    return matched, ri, left.ctx.comm.all_gather(stats.to(torch.int64))
 
 
 def _fk_violations(per_shard: np.ndarray) -> None:
@@ -526,14 +574,29 @@ def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
         plan_check.annotate(decision="fk-dense", reason="world=1")
     lmask = left.pending_mask if how == "inner" else None
     with trace.span("join.count"):
-        matched, ri, per_shard = _fk_probe(left, right, lkc, rkc, lo, hi,
-                                           stride, lmask)
-    _fk_violations(per_shard)
+        matched, ri, stats = _fk_probe(left, right, lkc, rkc, lo, hi,
+                                       stride, lmask)
     ctx = left.ctx
+    dev = str(ctx.device)
     if how == "left":
-        # the probe side stays in place: every valid left row emits once
-        with trace.span("join.gather"):
-            routs = _fk_rgather(right, ri, left.cap, fill=True)
+        # the probe side stays in place: every valid left row emits once,
+        # so the capacity is static and the count protocol only carries
+        # the contract check (its hint is seeded, so inside a deferred
+        # region the check queues with the region's other validations)
+        hint_key = ("fkleft", dev, left.cap, right.cap, lo, hi, stride)
+        if not is_abstract(stats):  # a plan run leaves the hints alone
+            _capacity_hints.setdefault(hint_key, ((1,), 0))
+
+        def dispatch(sizes):
+            with trace.span("join.gather"):
+                return _fk_rgather(right, ri, left.cap, fill=True)
+
+        def post(per_shard):
+            _fk_violations(per_shard)
+            return (1,)
+
+        routs, _, _ = ops_compact.optimistic_dispatch(
+            _capacity_hints, hint_key, dispatch, stats, post)
         cols = [DColumn("lt-" + c.name, c.dtype, c.data, c.validity,
                         c.dictionary, c.arrow_type) for c in left.columns]
         cols += [DColumn("rt-" + c.name, c.dtype, d, v, c.dictionary,
@@ -550,7 +613,15 @@ def _try_fk_join(left: DTable, right: DTable, config: JoinConfig,
     aug_cols.append(DColumn("__fk_ri", DataType(Type.INT32),
                             ri.to(torch.int32), None))
     aug = DTable(ctx, aug_cols, left.cap, left.counts)
-    out = _compact_survivors(aug, matched, per_shard[:, 0], "join.gather")
+
+    def post(per_shard):
+        _fk_violations(per_shard)
+        return _size_class(per_shard[:, 0])
+
+    hint_key = ("fkinner", dev, left.cap, right.cap, lo, hi, stride,
+                len(aug_cols), lmask is not None)
+    out = _compact_survivors(aug, matched, stats, hint_key, "join.gather",
+                             post=post)
     with trace.span("join.gather"):
         routs = _fk_rgather(right, out.columns[-1].data, out.cap,
                             fill=False)
@@ -1139,18 +1210,21 @@ def _shard_counts(dt: DTable, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _compact_survivors(dt: DTable, mask: torch.Tensor, cnts: torch.Tensor,
-                       span_name: str = "select.gather") -> DTable:
-    """Shared tail of the row filters: compact the rows ``mask`` keeps
-    into a block bucketed to the largest per-shard survivor count
-    (``cnts``: a device tensor the host reads, or host counts already
-    read), under the span ``span_name``."""
+                       hint_key, span_name: str = "select.gather",
+                       post=None) -> DTable:
+    """Shared tail of the row filters (select, semi / anti join, the FK
+    join's inner compaction, a deferred select's collapse): compact the
+    rows ``mask`` keeps into a block bucketed to the largest per-shard
+    survivor count, through the optimistic count protocol
+    (``_select_cap_hints`` under ``hint_key``), under the span
+    ``span_name``.  ``cnts`` is the all-gathered per-shard survivor count
+    tensor; a custom ``post`` may validate extra per-shard fields riding
+    it (the dense semi-join's overflow, the FK join's contract)."""
     cap = dt.cap
-    outs, counts = [], []
-    with trace.span_sync(span_name) as sp:
-        per_shard = (cnts if isinstance(cnts, np.ndarray)
-                     else ops_compact.read_host(cnts))
-        outcap = ops_compact.next_bucket(
-            max(int(per_shard.max(initial=0)), 1), minimum=8)
+
+    def dispatch(sizes):
+        outcap = sizes[0]
+        outs, counts = [], []
         for s in range(dt.ctx.get_world_size()):
             idx, count = ops_compact.mask_to_indices(_shard(mask, s, cap),
                                                      outcap)
@@ -1158,6 +1232,13 @@ def _compact_survivors(dt: DTable, mask: torch.Tensor, cnts: torch.Tensor,
                 [(_shard(c.data, s, cap), _shard(c.validity, s, cap))
                  for c in dt.columns], idx, fill_null=False))
             counts.append(count)
+        return outs, counts
+
+    with trace.span_sync(span_name) as sp:
+        (outs, counts), used, _ = ops_compact.optimistic_dispatch(
+            _bounded(_select_cap_hints), hint_key, dispatch, cnts,
+            post or _size_class)
+        outcap = used[0]
         sp.sync(outs)
     cols = [DColumn(c.name, c.dtype, *_stacked(outs, k), c.dictionary,
                     c.arrow_type)
@@ -1187,7 +1268,10 @@ def dist_select(dt: DTable, predicate, params=(), compact: bool = True
     if not compact:
         return DTable(dt.ctx, dt.columns, dt.cap, dt.counts,
                       pending_mask=mask, pending_cnts=cnts)
-    return _compact_survivors(dt, mask, cnts)
+    names = tuple(c.name for c in dt.columns)
+    return _compact_survivors(
+        dt, mask, cnts, ("sel", str(dt.ctx.device), dt.cap, names, predicate),
+        "select.gather")
 
 
 @plan_check.instrument
@@ -1237,7 +1321,7 @@ def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
     masks fold into each side's valid rows.  Null == null as in the sort
     kernel: a null left key matches iff its shard's right side has a null
     key.  Returns (keep mask, per-shard [survivors, out-of-range keys of
-    either side] on the host)."""
+    either side], all-gathered on the device)."""
     P = left.nparts
     dev = lkc.data.device
     R = -(-(hi - lo + 1) // stride)
@@ -1265,13 +1349,14 @@ def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
         hit = hit | ((lvalid & ~l_nonnull) & r_null[l_shard])
     keep = (lvalid & ~hit) if anti else hit
     stats = torch.stack([keep.view(P, cap_l).sum(1), overflow], 1)
-    return keep, ops_compact.read_host(left.ctx.comm.all_gather(stats))
+    return keep, left.ctx.comm.all_gather(stats)
 
 
 def _semi_mask_sorted(left: DTable, right: DTable, li_keys, ri_keys,
                       anti: bool):
     """Keep-mask of the sort-path semi/anti probe (``ops.join.semi_mask``
-    per shard) and the per-shard survivor counts on the host."""
+    per shard) and the per-shard survivor counts, all-gathered on the
+    device."""
     P = left.nparts
     lcap, rcap = left.cap, right.cap
     keeps = []
@@ -1288,7 +1373,7 @@ def _semi_mask_sorted(left: DTable, right: DTable, li_keys, ri_keys,
             present = (torch.arange(lcap, device=lc.device) < lc) & ~present
         keeps.append(present)  # semi_mask is False on padding rows
     keep = torch.cat(keeps)
-    return keep, ops_compact.read_host(_shard_counts(left, keep))
+    return keep, _shard_counts(left, keep)
 
 
 def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
@@ -1362,27 +1447,37 @@ def _dist_semi_or_anti(left: DTable, right: DTable, left_on, right_on,
             else:
                 left = _shuffle_masked(left, _hash_pids(left, li_keys))
                 right = _shuffle_masked(right, _hash_pids(right, ri_keys))
+    dev = str(left.ctx.device)
     if use_dense:
         lo, hi = int(dense_key_range[0]), int(dense_key_range[1])
+        hint_key = ("semid", dev, left.cap, right.cap, lo, hi, anti, stride,
+                    left.pending_mask is not None,
+                    right.pending_mask is not None)
         with trace.span("semijoin.mask"):
-            mask, per_shard = _semi_mask_dense(
+            mask, stats = _semi_mask_dense(
                 left, right, left.columns[li_keys[0]],
                 right.columns[ri_keys[0]], lo, hi, anti, stride)
-        bad = int(per_shard[:, 1].sum())
-        if bad > 0:
-            raise CylonError(Status(Code.Invalid,
-                f"semi-join dense_key_range ({lo}, {hi}) violated: {bad} "
-                "keys outside it"))
-        return _compact_survivors(left, mask, per_shard[:, 0],
-                                  "semijoin.gather")
+
+        def post(per_shard):
+            bad = int(per_shard[:, 1].sum())
+            if bad > 0:
+                raise CylonError(Status(Code.Invalid,
+                    f"semi-join dense_key_range ({lo}, {hi}) violated: "
+                    f"{bad} keys outside it"))
+            return _size_class(per_shard[:, 0])
+
+        return _compact_survivors(left, mask, stats, hint_key,
+                                  "semijoin.gather", post=post)
     # the sort-path probe has no mask operand: compact a deferred select
     # first (world > 1 already folded it into the routing)
     left._collapse_pending()
     right._collapse_pending()
     with trace.span("semijoin.mask"):
-        mask, per_shard = _semi_mask_sorted(left, right, li_keys, ri_keys,
-                                            anti)
-    return _compact_survivors(left, mask, per_shard, "semijoin.gather")
+        mask, cnts = _semi_mask_sorted(left, right, li_keys, ri_keys, anti)
+    return _compact_survivors(
+        left, mask, cnts,
+        ("semi", dev, left.cap, right.cap, tuple(li_keys), anti),
+        "semijoin.gather")
 
 
 @plan_check.instrument
@@ -1529,10 +1624,11 @@ def _groupby_output(dt: DTable, sh: DTable, key_ids, aggregations, outs,
 
 
 def _groupby_sorted(dt: DTable, sh: DTable, key_ids, uniq_ids, slot_map,
-                    aggs, aggregations, pmask) -> DTable:
+                    aggs, aggregations, pmask, where=None) -> DTable:
     """The sort path per shard: phase 1 sorts (values carried) and counts
-    groups; the host reads the all-gathered counts and sizes one output
-    block; phase 2 aggregates into it and gathers the keys."""
+    groups; phase 2 aggregates into one output block for all shards,
+    sized from the all-gathered group counts through the optimistic
+    count protocol (``_group_cap_hints``), and gathers the keys."""
     P = dt.ctx.get_world_size()
     phase1 = []
     with trace.span("groupby.count"):
@@ -1547,11 +1643,15 @@ def _groupby_sorted(dt: DTable, sh: DTable, key_ids, uniq_ids, slot_map,
             phase1.append((st, kl, vl))
         ngs = dt.ctx.comm.all_gather(torch.stack(
             [ops_groupby.num_groups_of(st) for st, _, _ in phase1]))
-    outs, counts = [], []
-    with trace.span_sync("groupby.local") as sp:
-        out_cap = ops_compact.next_bucket(
-            max(int(ops_compact.read_host(ngs).max(initial=0)), 1),
-            minimum=8)
+    # key-column identity and the filter decide the group count, so they
+    # belong in the hint key — two different groupbys sharing one hint
+    # would mis-hint each other into redundant redispatches / replays
+    hint_key = (str(dt.ctx.device), sh.cap, aggs, tuple(key_ids), where,
+                pmask is not None)
+
+    def dispatch(sizes):
+        out_cap = sizes[0]
+        outs, counts = [], []
         for st, kl, vl in phase1:
             ucols, uvals = ops_groupby.carry_unpack(st[3],
                                                     tuple(v for _, v in vl))
@@ -1564,6 +1664,13 @@ def _groupby_sorted(dt: DTable, sh: DTable, key_ids, uniq_ids, slot_map,
             outs.append(ops_gather.take_many(kl, key_idx, fill_null=False)
                         + list(zip(aouts, avals)))
             counts.append(ng)
+        return outs, counts
+
+    with trace.span_sync("groupby.local") as sp:
+        (outs, counts), used, _ = ops_compact.optimistic_dispatch(
+            _bounded(_group_cap_hints), hint_key, dispatch, ngs,
+            _size_class)
+        out_cap = used[0]
         phase1.clear()
         sp.sync([o[len(key_ids):] for o in outs])  # the aggregates
     return _groupby_output(dt, sh, key_ids, aggregations, outs, counts,
@@ -1585,11 +1692,12 @@ def _mod_pids(dt: DTable, key_id: int, lo: int, nparts: int) -> torch.Tensor:
 
 def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
                    aggs, aggregations, dense, pmask,
-                   emit_empty: bool) -> DTable:
+                   emit_empty: bool, where=None) -> DTable:
     """The direct-address path (``dense_key_range``): phase 1 slots and
     slot counts per shard, plus each shard's [groups, out-of-range rows];
-    a range violation raises; phase 2 reduces per slot and rebuilds the
-    keys."""
+    phase 2 reduces per slot and rebuilds the keys, sized through the
+    optimistic count protocol, whose validation also raises on a range
+    violation."""
     lo, hi, stride = dense
     P = dt.ctx.get_world_size()
     kc = sh.columns[key_id]
@@ -1602,20 +1710,23 @@ def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
             phase1.append((slot, counts))
             stats.append(torch.stack([ng, ov]))
         stats = dt.ctx.comm.all_gather(torch.stack(stats))
-    outs, counts = [], []
-    with trace.span_sync("groupby.local") as sp:
-        per_shard = ops_compact.read_host(stats)
-        bad = int(per_shard[:, 1].sum())
-        if bad > 0:
-            raise CylonError(Status(Code.Invalid,
-                f"dense_key_range ({lo}, {hi}) violated: {bad} rows carry "
-                "keys outside it"))
-        out_cap = ops_compact.next_bucket(
-            max(int(per_shard[:, 0].max()), 1), minimum=8)
-        if emit_empty:
-            # every slot of the range emits, occupied or not
-            out_cap = max(out_cap, ops_compact.next_bucket(
-                -(-(hi - lo + 1) // stride) + 1, minimum=8))
+    hint_key = (str(dt.ctx.device), sh.cap, aggs,
+                ("dense", key_id, lo, hi, stride), where, pmask is not None,
+                emit_empty)
+    hints = _bounded(_group_cap_hints)
+    floor = None
+    if emit_empty:
+        # every slot of the range emits, occupied or not: the group count
+        # is R/stride (+1 null) by construction, so the first dispatch
+        # can be sized exactly
+        floor = ops_compact.next_bucket(-(-(hi - lo + 1) // stride) + 1,
+                                        minimum=8)
+        if not is_abstract(stats):  # a plan run leaves the hints alone
+            hints.setdefault(hint_key, ((floor,), 0))
+
+    def dispatch(sizes):
+        out_cap = sizes[0]
+        outs, counts = [], []
         for s, (slot, cnts) in enumerate(phase1):
             vl = _leaf_pairs(sh, uniq_ids, s)
             kd, kv, aouts, avals, ng = ops_groupby.dense_groupby_aggregate(
@@ -1625,6 +1736,28 @@ def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
                 phase=s if stride > 1 else 0, emit_empty=emit_empty, hi=hi)
             outs.append([(kd, kv)] + list(zip(aouts, avals)))
             counts.append(ng)
+        return outs, counts
+
+    def post(per_shard):
+        bad = int(per_shard[:, 1].sum())
+        if bad > 0:
+            raise CylonError(Status(Code.Invalid,
+                f"dense_key_range ({lo}, {hi}) violated: {bad} rows carry "
+                "keys outside it"))
+        need, = _size_class(per_shard[:, 0])
+        if floor is not None:
+            # emit_empty's capacity is STRUCTURAL (every slot emits),
+            # while per_shard counts only the occupied groups: reporting
+            # the occupancy would let the shrink-slow policy walk the
+            # hint below the slot count, and an under-floor dispatch
+            # truncates the emitted range silently
+            need = max(need, floor)
+        return (need,)
+
+    with trace.span_sync("groupby.local") as sp:
+        (outs, counts), used, _ = ops_compact.optimistic_dispatch(
+            hints, hint_key, dispatch, stats, post)
+        out_cap = used[0]
         phase1.clear()
         sp.sync([o[1:] for o in outs])  # the aggregates
     return _groupby_output(dt, sh, [key_id], aggregations, outs, counts,
@@ -1725,9 +1858,9 @@ def dist_groupby(dt: DTable, key_columns: Sequence[Union[int, str]],
             sh = _shuffle_by_pids(_cleared(dt), pid, owner="groupby")
     if dense is not None:
         return _groupby_dense(dt, sh, key_ids[0], uniq_ids, slot_map, aggs,
-                              aggregations, dense, pmask, emit_empty)
+                              aggregations, dense, pmask, emit_empty, where)
     return _groupby_sorted(dt, sh, key_ids, uniq_ids, slot_map, aggs,
-                           aggregations, pmask)
+                           aggregations, pmask, where)
 
 
 def _groupby_decision(world: int, pre_aggregate: bool, explicit: bool,
@@ -2108,14 +2241,16 @@ def _fused_psum_groupby(dt: DTable, key_ids: List[int], aggregations,
              "isum" for ci, op in partial]
     # wire accounting, as the JAX package prices it: the all_reduce
     # combines [R+1, lanes] packs (8-byte lanes plus the rows-per-group
-    # lane) replicated to the other P − 1 shards
+    # lane) replicated to the other P − 1 shards (an abstract plan run
+    # moves zero bytes, like every other exchange path)
     trace.count("groupby.psum_combine")
     plan_check.annotate(node, decision="psum-combine", reason=reason)
-    moved = (R + 1) * (dt.ctx.get_world_size() - 1)
-    moved_bytes = moved * 8 * (1 + len(lanes))
-    trace.count("broadcast.rows_sent", moved)
-    trace.count("broadcast.bytes_sent", moved_bytes)
-    trace.count("groupby.bytes_moved", moved_bytes)
+    if not any(is_abstract(dt.columns[i].data) for i in key_ids):
+        moved = (R + 1) * (dt.ctx.get_world_size() - 1)
+        moved_bytes = moved * 8 * (1 + len(lanes))
+        trace.count("broadcast.rows_sent", moved)
+        trace.count("broadcast.bytes_sent", moved_bytes)
+        trace.count("groupby.bytes_moved", moved_bytes)
     out_cap = ops_compact.next_bucket(R, minimum=8)
     pmask = _effective_mask(dt, where)
     with trace.span_sync("groupby.psum_combine") as sp:

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..analysis._abstract import is_abstract
 from ..context import CylonContext
 from ..dtypes import DataType, is_dictionary_encoded
 from ..ops import compact as ops_compact
@@ -175,7 +176,9 @@ class DTable:
         from . import dist_ops  # runtime import: dist_ops imports this module
         mask, cnts = self.pending_mask, self.pending_cnts
         self.pending_mask = self.pending_cnts = None
-        out = dist_ops._compact_survivors(self, mask, cnts)
+        out = dist_ops._compact_survivors(
+            self, mask, cnts,
+            ("pmat", str(self.ctx.device), self.cap, self.num_columns))
         self.columns = out.columns
         self.cap = out.cap
         self.counts = out.counts
@@ -198,10 +201,22 @@ class DTable:
 
     def counts_host(self) -> np.ndarray:
         """Per-shard valid row counts on the host (one read, then cached;
-        a spilled table answers from the counts cached at its spill)."""
+        a spilled table answers from the counts cached at its spill).
+        Inside a deferred region the read rides the region's batched
+        flush (queued validations first; an undersized one aborts for
+        replay instead of materializing poisoned counts)."""
         self._collapse_pending()
-        if self._counts_host is None:
-            self._counts_host = ops_compact.read_host(self.counts)
+        if self._counts_host is not None:
+            return self._counts_host
+        if is_abstract(self._counts):
+            # abstract plan run: the counts of a derived table are data-
+            # dependent by definition — a plan that needs them on the
+            # host is a plan that cannot be checked without executing
+            raise CylonError(Status(Code.ExecutionError,
+                "plan_check: host row counts of a derived table are "
+                "data-dependent (only ingest-cached counts are known "
+                "at plan time)"))
+        self._counts_host = ops_compact.read_host(self.counts)
         return self._counts_host
 
     @property
@@ -349,25 +364,60 @@ class DTable:
         """Gather ``takes[i]`` leading rows of each shard as a local Table.
 
         Rows are compacted on the device (one gather per column), then
-        every gathered tensor comes to the host in ONE batched transfer;
+        every gathered tensor comes to the host in ONE batched transfer
+        (inside a deferred region, the same read as the region's flush);
         the host copies ride along on the columns, so ``to_arrow`` reads
-        nothing back."""
+        nothing back.  On an abstract table the gathered meta tensors
+        ARE the export: an abstract local Table, no transfer
+        (``Table.to_arrow`` marks the plan boundary)."""
         self._collapse_pending()
         dev = self.ctx.device
-        idx_host = np.concatenate(
-            [i * self.cap + np.arange(t, dtype=np.int64)
-             for i, t in enumerate(takes)]) if sum(takes) else \
-            np.empty((0,), np.int64)
-        idx = torch.from_numpy(idx_host).to(dev)
+        abstract = self._is_abstract()
+        if abstract:
+            idx = torch.empty((int(sum(takes)),), dtype=torch.int64,
+                              device=dev)
+        else:
+            idx_host = np.concatenate(
+                [i * self.cap + np.arange(t, dtype=np.int64)
+                 for i, t in enumerate(takes)]) if sum(takes) else \
+                np.empty((0,), np.int64)
+            idx = torch.from_numpy(idx_host).to(dev)
         pulls = []
         for c in self.columns:
             pulls.append(signed_view(c.data)[idx].view(c.data.dtype))
             if c.validity is not None:
                 pulls.append(c.validity[idx])
-        from .. import trace
-        trace.count("host.read")  # one batched export transfer
-        return Table(self.ctx, self._columns_from_host(pulls,
-                                                       host_batch(pulls)))
+        if abstract:
+            cols: List[Column] = []
+            hi = 0
+            for c in self.columns:
+                d = pulls[hi]
+                hi += 1
+                v = None
+                if c.validity is not None:
+                    v = pulls[hi]
+                    hi += 1
+                cols.append(Column(c.name, c.dtype, d, v,
+                                   dictionary=c.dictionary,
+                                   arrow_type=c.arrow_type))
+            return Table(self.ctx, cols)
+        if ops_compact.deferred_mode():
+            ok, hosts = ops_compact.flush_pending_with(pulls)
+            if not ok:
+                # inside a failed deferred attempt: abort for replay
+                # rather than hand truncated rows to the caller
+                ops_compact._abort_if_poisoned()
+        else:
+            from .. import trace
+            trace.count("host.read")  # one batched export transfer
+            hosts = host_batch(pulls)
+        return Table(self.ctx, self._columns_from_host(pulls, hosts))
+
+    def _is_abstract(self) -> bool:
+        """Whether this table's leaves are meta tensors (an abstract plan
+        run, ``analysis/plan_check``)."""
+        return is_abstract(self._counts) or any(
+            is_abstract(c.data) for c in self._columns)
 
     def _columns_from_host(self, devs: Sequence[torch.Tensor],
                            hosts: Sequence[np.ndarray]) -> List[Column]:
@@ -390,7 +440,12 @@ class DTable:
         return cols
 
     def to_table(self) -> Table:
-        """Gather all shards to one local Table (drops padding)."""
+        """Gather all shards to one local Table (drops padding).  On an
+        abstract table the export gathers the capacity bound (row counts
+        are data-dependent; shapes are what the plan check checks)."""
+        if self._is_abstract():
+            self._collapse_pending()
+            return self._export([self.cap] * self.nparts)
         return self._export([int(c) for c in self.counts_host()])
 
     def head(self, n: int) -> Table:
@@ -401,6 +456,10 @@ class DTable:
         saves a TPU round trip and returns the same rows)."""
         self._collapse_pending()
         n_eff = min(int(n), self.nparts * self.cap)
+        if self._is_abstract() and n_eff > 0:
+            # abstract plan run: per-shard takes are data-dependent —
+            # export the capacity bound instead
+            return self._export([min(n_eff, self.cap)] * self.nparts)
         takes, remaining = [], max(n_eff, 0)
         for c in self.counts_host():
             t = min(int(c), remaining)
@@ -482,7 +541,8 @@ class DTable:
         return self
 
     def explain(self, plan=None, *, tables=None, validate: bool = False,
-                analyze: bool = False, optimize: bool = False):
+                analyze: bool = False, optimize: bool = False,
+                concrete: Sequence[str] = ()):
         """Describe, check or measure a plan.
 
         ``dt.explain()`` returns a structural summary of the table itself;
@@ -501,8 +561,16 @@ class DTable:
         ``optimizer=…`` annotations, the plan-cache traffic in
         ``totals["optimizer"]``).
 
-        The static form, ``dt.explain(plan)`` without ``analyze``
-        (abstract interpretation of the plan), is not ported yet."""
+        ``dt.explain(plan, tables=..., validate=..., concrete=...)``
+        without ``analyze`` is the static form: the plan is abstract-
+        interpreted over meta tensors (``analysis.plan_check.explain``) —
+        every operator's shapes and dtypes are checked, no row moves, no
+        count is read and no kernel launches — and the returned
+        ``PlanReport`` lists the operators and the result schema;
+        ``validate=True`` raises ``PlanValidationError`` on a plan bug.
+        ``concrete`` names tables of ``tables`` whose values the plan
+        reads at build time (the TPC-H queries' nation and region
+        lookups); it does not apply to an analyze run."""
         from ..analysis import plan_check
         if plan is None:
             if analyze:
@@ -521,11 +589,6 @@ class DTable:
             spilled = ", spilled to host" if self.is_spilled else ""
             return (f"DTable[{rows} over {self.nparts} shards, "
                     f"cap={self.cap}{mask}{spilled}]({cols})")
-        if not analyze:
-            raise CylonError(Status(Code.NotImplemented,
-                "explain(plan) without analyze=True is the abstract plan "
-                "checker, not ported yet (ROADMAP A11b); pass "
-                "analyze=True to run and measure the plan"))
         target = tables if tables is not None else self
         op = plan
         if optimize:
@@ -534,14 +597,22 @@ class DTable:
 
             def op(tgt, _plan=plan, _ctx=ctx):  # noqa: F811 — optimized form
                 return planner.run(_ctx, _plan, tgt)
-        from .. import observe
-        return observe.analyze(op, target)
+        if analyze:
+            from .. import observe
+            return observe.analyze(op, target)
+        return plan_check.explain(op, target, validate=validate,
+                                  concrete=concrete)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.dtype.type.name}"
                          for c in self._columns)
         spilled = ", spilled to host" if self.is_spilled else ""
-        return f"DTable[P={self.nparts}, cap={self.cap}{spilled}]({cols})"
+        # an abstract table (a plan run) says so: a repr (a user print, a
+        # debugger, an error formatter) must never read counts
+        rows = ("abstract rows, " if self._counts_host is None
+                and is_abstract(self._counts) else "")
+        return (f"DTable[{rows}P={self.nparts}, cap={self.cap}{spilled}]"
+                f"({cols})")
 
 
 def _host_leaves(cols: Sequence[Column]):

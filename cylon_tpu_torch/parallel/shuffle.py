@@ -9,13 +9,18 @@ through the context's communicator (``all_to_all``, ``all_gather``,
 split):
 
   1. counts    per-shard ``bincount`` of the target ids → ``[P_src, P_dst]``
-               (gathered to every rank), read by the host once
-               (``ops/compact.read_counts``: the ``compact.read_counts``
-               fault point under the session retry policy);
+               (gathered to every rank), read by the host through the
+               optimistic count protocol (``ops/compact``): with a size
+               hint for the shuffle's signature the single-shot exchange
+               is dispatched at the hinted sizes while the counts travel
+               (inside ``run_pipeline`` the read joins the region's one
+               batched flush), and redone if they were too small;
   2. choice    the costed chooser (``parallel/cost.py``) prices the
                candidate lowerings from the count matrix against
                ``resilience.exchange_budget()`` and picks the cheapest
-               that fits; single-shot wins whenever it fits;
+               that fits; single-shot wins whenever it fits; a signature
+               that degraded waits for its counts and re-chooses every
+               call until single-shot fits again;
   3. exchange  the chosen lowering:
 
      ``single-shot``   per shard: rows grouped by target (stable sort),
@@ -52,10 +57,13 @@ import torch
 
 from .. import trace
 from ..analysis import plan_check
+from ..analysis._abstract import is_abstract
 from ..observe import devmem
+from ..observe.locks import OrderedLock
 from ..observe.metrics import row_bytes
+from ..ops import compact as ops_compact
 from ..ops import gather as ops_gather
-from ..ops.compact import next_bucket, read_counts
+from ..ops.compact import bincount, next_bucket, read_counts
 from . import cost
 
 # warn-once keys this module has used (skew, budget floor), so
@@ -64,15 +72,77 @@ _warned: set = set()
 _warned_lock = threading.Lock()
 
 
+# Last (send block, receive capacity) per shuffle signature — lets the next
+# same-shaped shuffle dispatch the exchange before the host has read the
+# count matrix (the count read then overlaps device work).  Validated after
+# the fact; an undersized hint re-runs at the true sizes
+# (ops/compact.optimistic_dispatch).
+_block_hints: dict = {}
+
+# The costed chooser's degraded-signature state: shuffle signatures whose
+# last sized exchange chose a NON-single-shot lowering.  These skip the
+# optimistic dispatch entirely — waiting on the count matrix is the price
+# of not allocating an over-budget exchange — and re-run the chooser per
+# call until single-shot prices back under budget (then they
+# self-promote).  Lock-guarded: the serving layer runs exchanges from its
+# dispatcher thread while clients submit; membership reads stay lock-free
+# (a stale read costs one optimistic dispatch or one count wait, never
+# correctness).
+_chunked_keys: set = set()
+_chunk_lock = OrderedLock("shuffle.chunk_state")
+
+# The contract: this module's writes to the chooser's signature state hold
+# _chunk_lock.  The hint UPDATE inside ops_compact.optimistic_dispatch
+# (update_size_hint on the dict passed to it) is deliberately lock-free: a
+# lost grow/shrink race costs at most one redone dispatch — hints are
+# validated against the true counts every call — and serializing it would
+# put a lock acquisition on the optimistic hot path for no correctness
+# gain.
+GUARDED_STATE = {"_chunked_keys": "_chunk_lock",
+                 "_block_hints": "_chunk_lock"}
+
+
 def clear_chunk_state() -> None:
-    """Forget the shuffle's per-signature state: the skew and
-    budget-floor warnings already given (test isolation)."""
+    """Forget the shuffle's per-signature chooser state: which signatures
+    are degraded, and the skew and budget-floor warnings already given
+    (test isolation).  The size hints stay (``_block_hints.clear()``)."""
     from .. import logging as glog
+    with _chunk_lock:
+        _chunked_keys.clear()
     with _warned_lock:
         keys = list(_warned)
         _warned.clear()
     for key in keys:
         glog.reset_warn_once(key)
+
+
+def _mark_degraded(sig) -> None:
+    with _chunk_lock:
+        _chunked_keys.add(sig)
+
+
+def _mark_promoted(sig, reseed=None) -> None:
+    """Lift a signature's degrade; ``reseed`` re-records its single-shot
+    size hint under the same lock hold."""
+    with _chunk_lock:
+        _chunked_keys.discard(sig)
+        if reseed is not None:
+            _block_hints[sig] = (reseed, 0)
+
+
+class _OverBudget(Exception):
+    """Raised by the count protocol's post() when the chooser picks a
+    non-single-shot lowering — carries the (already read) count matrix
+    and the priced choice, so shuffle_leaves runs the degraded lowering
+    without a second host read or a re-choose.  Internal control flow,
+    never user-visible."""
+
+    def __init__(self, counts, need, choice, reason):
+        super().__init__(f"exchange degraded to {choice.strategy}")
+        self.counts = counts
+        self.need = need
+        self.choice = choice
+        self.reason = reason
 
 
 def _warn_once(key, msg: str, *args) -> None:
@@ -133,7 +203,7 @@ def _counts(comm, pid: torch.Tensor) -> torch.Tensor:
     P = comm.world
     cap = pid.shape[0] // P
     flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device, P + 1)
-    cnt = torch.bincount(flat, minlength=P * (P + 1)).view(P, P + 1)[:, :P]
+    cnt = bincount(flat, P * (P + 1)).view(P, P + 1)[:, :P]
     return comm.all_gather(cnt.to(torch.int32))
 
 
@@ -145,7 +215,7 @@ def _send_plan(pid: torch.Tensor, P: int, T: int):
     cap = pid.shape[0] // P
     flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device, T + 1)
     order = torch.sort(flat, stable=True).indices                     # [P*cap]
-    cnt = torch.bincount(flat, minlength=P * (T + 1)).view(P, T + 1)[:, :T]
+    cnt = bincount(flat, P * (T + 1)).view(P, T + 1)[:, :T]
     return order, cnt
 
 
@@ -257,7 +327,7 @@ def _allgather_exchange(comm, pid: torch.Tensor,
     # each receiver's rows of the gathered block, in gathered order: a
     # stable sort by target lists every receiver's rows contiguously
     order = torch.sort(gpid, stable=True).indices
-    cnt = torch.bincount(gpid, minlength=P + 1)[:P]
+    cnt = bincount(gpid, P + 1)[:P]
     offs = torch.cumsum(cnt, 0) - cnt
     jj = torch.arange(outcap, device=dev)
     vidx = order[torch.clamp(offs[:, None] + jj, max=P * cap - 1)]
@@ -646,8 +716,8 @@ def _watchdog_dispatch(point: str, thunk, device):
 def _devmem_before(ctx):
     """Pre-exchange device-memory snapshot (observe.devmem), taken only
     under an active plan capture (EXPLAIN ANALYZE): production exchanges
-    pay nothing."""
-    if not plan_check.capturing():
+    pay nothing, nor does an abstract plan run."""
+    if not plan_check.capturing() or ctx.device.type == "meta":
         return None
     return devmem.snapshot(ctx.device)
 
@@ -1007,17 +1077,31 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     (int32 ``[P*cap]``; padding rows carry P and are dropped).  A leaf with
     trailing dimensions (``[P*cap, M]`` sketch state) moves by row.
 
-    The count matrix is read once; the rows that leave their shard are
-    counted (``_account``); the costed chooser picks the lowering under
-    ``resilience.exchange_budget(ctx.device)`` (a feasible single-shot
-    keeps the fast path: the one ``all_to_all``); the chosen lowering
-    runs.  ``owner="groupby"`` attributes the bytes to
-    ``groupby.bytes_moved``; ``combine`` — the ``(key_slots, val_slots)``
-    leaf spec of a partial-group table (``dist_ops._combine_leaf_spec``)
-    — lets the chunked and hierarchical lowerings fold rounds by key.
-    Spans: ``shuffle.counts`` (the count matrix) and ``shuffle.exchange``
-    (the host read and the single-shot exchange; a degraded lowering
-    runs in a ``shuffle.exchange`` span of its own).
+    The count matrix goes through the optimistic count protocol
+    (``ops/compact.optimistic_dispatch``) under the shuffle signature
+    ``(device, P, rows)``: with a size hint the single-shot exchange is
+    dispatched at the hinted (block, outcap) while the counts travel to
+    the host, and redone if undersized; inside ``run_pipeline`` its
+    validation is deferred to the region's one batched read.  The count
+    matrix's ``post`` counts the rows that leave their shard
+    (``_account``) and runs the costed chooser under
+    ``resilience.exchange_budget(ctx.device)``: a feasible single-shot
+    keeps the fast path; a non-single-shot choice marks the signature
+    degraded and runs the chosen lowering (inside a deferred flush the
+    flush is invalidated instead, and the replay takes the degraded
+    branch).  A degraded signature (or a demoted recovery attempt,
+    ``resilience.exchange_demotions``) skips the optimism, waits for the
+    counts and re-chooses every call, self-promoting back to single-shot
+    once it fits.  An abstract plan run (meta tensors) prices from zeroed
+    counts and never degrades.
+
+    ``owner="groupby"`` attributes the bytes to ``groupby.bytes_moved``;
+    ``combine`` — the ``(key_slots, val_slots)`` leaf spec of a
+    partial-group table (``dist_ops._combine_leaf_spec``) — lets the
+    chunked and hierarchical lowerings fold rounds by key.  Spans:
+    ``shuffle.counts`` (the count matrix) and ``shuffle.exchange`` (the
+    count read and the single-shot exchange; a degraded lowering runs in
+    a ``shuffle.exchange`` span of its own).
 
     Returns ``(new_leaves [P*outcap], counts [P], outcap)``.
     """
@@ -1030,28 +1114,119 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     sig = (str(ctx.device), Pn, pid.shape[0])
     with trace.span("shuffle.counts"):
         cnt_dev = _counts(comm, pid)
-    budget = resilience.exchange_budget(ctx.device)
+    # an abstract plan run prices from zeroed counts and must never
+    # degrade: the budget guardrail is a runtime concern
+    budget = None if is_abstract(pid) \
+        else resilience.exchange_budget(ctx.device)
     cap = pid.shape[0] // max(Pn, 1)
-    dm0 = _devmem_before(ctx)
-    with trace.span_sync("shuffle.exchange") as sp:
-        counts = read_counts(cnt_dev)  # the one host read
+
+    def dispatch(sizes):
+        return _watchdog_dispatch(
+            "shuffle.exchange",
+            lambda: _exchange(comm, pid, leaves, sizes[0], sizes[1]),
+            ctx.device)
+
+    def post(counts):
+        # exchange-volume accounting lives HERE, not after the dispatch:
+        # post() sees the count matrix in immediate mode AND at the
+        # deferred flush, so a pipeline tallies the rows and bytes a
+        # blocking run would
         _account(counts, rbytes, combine, owner, split=split)
         block, outcap, per_recv = cost.exchange_sizes(counts)
         _warn_skew(Pn, sig, per_recv, outcap)
+        need = (block, outcap)
+        if budget is None:
+            # abstract plan run: static pricing from zeroed counts —
+            # never degrades; the annotation keeps the strategy surface
+            # visible in the static EXPLAIN
+            plan_check.annotate_append(
+                "exchange", "single-shot (static: priced from zeroed "
+                            "counts; re-chosen per execution)")
+            return need
+        # the costed chooser: a non-single-shot choice aborts the
+        # optimistic dispatch instead of allocating it.  In immediate
+        # mode the raise carries the choice out.  Inside a deferred
+        # flush, raising would corrupt the batch walk: the hinted
+        # dispatch already RAN (its output is valid — hints are sizes,
+        # and over budget is not undersized), so mark the signature,
+        # fail the flush, and let the replay re-enter through the
+        # degraded branch below (which re-chooses)
         choice, reason, _ = _choose(Pn, cap, counts, rbytes, budget,
                                     combine, ctx=ctx)
         if choice.strategy == cost.SINGLE_SHOT:
             _note_choice(choice, reason, nparts=Pn)
-            newcounts, outs = _watchdog_dispatch(
-                "shuffle.exchange",
-                lambda: _exchange(comm, pid, leaves, block, outcap),
-                ctx.device)
+            return need
+        _mark_degraded(sig)
+        if ops_compact.in_flush():
+            ops_compact.invalidate_flush()
+        else:
+            # drop the stale optimism before aborting the dispatch (in
+            # the flush path update_size_hint re-records need right after
+            # post() returns; the _chunked_keys gate is what keeps an
+            # over-budget hint from being dispatched, and promotion
+            # overwrites it)
+            with _chunk_lock:
+                _block_hints.pop(sig, None)
+            raise _OverBudget(np.asarray(counts).copy(), need, choice,
+                              reason)
+        return need
+
+    if (sig in _chunked_keys or resilience.exchange_demotions()) \
+            and budget is not None:
+        # degraded steady state — or a demoted recovery attempt (the
+        # replanned re-execution must not re-dispatch the single-shot
+        # exchange that just failed): skip the optimistic dispatch (its
+        # single-shot exchange is what blew the budget), wait for the
+        # counts — riding the region's batched read in deferred mode —
+        # and re-choose: the chooser picks a degraded lowering again or
+        # self-promotes the signature back to single-shot
+        counts = read_counts(cnt_dev)
+        _account(counts, rbytes, combine, owner, split=split)
+        block, outcap, per_recv = cost.exchange_sizes(counts)
+        _warn_skew(Pn, sig, per_recv, outcap)
+        need = (block, outcap)
+        choice, reason, _ = _choose(Pn, cap, counts, rbytes, budget,
+                                    combine, ctx=ctx)
+        _note_choice(choice, reason, nparts=Pn)
+        if choice.strategy == cost.SINGLE_SHOT:
+            # this call prices back under budget (the data shrank):
+            # promote to the single-shot path and reseed the optimism
+            # for the NEXT same-signature call
+            _mark_promoted(sig, reseed=need)
+            trace.count_max("shuffle.exchange_bytes_peak",
+                            choice.peak_bytes)
+            dm0 = _devmem_before(ctx)
+            with trace.span_sync("shuffle.exchange") as sp:
+                newcounts, outs = dispatch(need)
+                sp.sync(outs)
+            _note_exchange_ms(ctx, choice, dm0)
+            return outs, newcounts, outcap
+        return _degraded(ctx, pid, leaves, counts, rbytes, budget, outcap,
+                         choice, combine)
+
+    try:
+        dm0 = _devmem_before(ctx)
+        with trace.span_sync("shuffle.exchange") as sp:
+            (newcounts, outs), used, _ = ops_compact.optimistic_dispatch(
+                _block_hints, sig, dispatch, cnt_dev, post)
             sp.sync(outs)
-    if choice.strategy == cost.SINGLE_SHOT:
-        trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
-        _note_exchange_ms(ctx, choice, dm0)
-        return outs, newcounts, outcap
-    _note_choice(choice, reason, nparts=Pn)
+    except _OverBudget as ob:
+        # the hinted dispatch (if any) was launched before the counts came
+        # back — its result is discarded; the chosen degraded lowering
+        # recovers from the counts the exception carries
+        _note_choice(ob.choice, ob.reason, nparts=Pn)
+        return _degraded(ctx, pid, leaves, ob.counts, rbytes, budget,
+                         ob.need[1], ob.choice, combine)
+    if budget is not None:
+        price = cost.price_single_shot(Pn, used[0], used[1], rbytes)
+        trace.count_max("shuffle.exchange_bytes_peak", price.peak_bytes)
+        _note_exchange_ms(ctx, price, dm0)
+    return outs, newcounts, used[1]
+
+
+def _degraded(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
+              budget: int, outcap: int, choice, combine):
+    """Run the non-single-shot lowering ``choice`` picked."""
     if choice.strategy == cost.CHUNKED:
         return _chunked_exchange(ctx, pid, leaves, counts, rbytes, budget,
                                  outcap, combine, plan=choice.sizes,

@@ -833,9 +833,18 @@ def _execute_recovering(builder, opt_root: Node, pre_nodes: List[Node],
                                stages=ir.stage_count(opt_root))
             return out
         except BaseException as e:
-            if isinstance(e, (KeyboardInterrupt, SystemExit,
+            from ..analysis._abstract import PlanExportReached
+            from ..ops.compact import ReplayNeeded
+            if isinstance(e, (PlanExportReached, ReplayNeeded,
+                              KeyboardInterrupt, SystemExit,
                               GeneratorExit)):
-                raise   # interpreter shutdown is never a recovery outcome
+                # control flow, not failure: PlanExportReached means the
+                # abstract run REACHED its export boundary (a success
+                # signal, even after an engaged ladder healed an earlier
+                # attempt); ReplayNeeded is run_pipeline's replay of an
+                # undersized optimistic dispatch; interpreter shutdown is
+                # never a recovery outcome
+                raise
             if isinstance(e, _MeshExpansion):
                 # the scale-up arm: an opportunity taken, not a rung —
                 # the ladder never sees it

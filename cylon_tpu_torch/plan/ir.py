@@ -541,6 +541,15 @@ class LogicalTable:
         else:
             self.__dict__["_host_cols"] = cols
 
+    @property
+    def _concrete(self):
+        """A scan of a table an abstract plan run keeps ``concrete``: the
+        real table behind it, whose values plan-time host probes read
+        (``analysis.plan_check.concrete_source``)."""
+        if self._node.op == "scan":
+            return getattr(self._node.runtime["dtable"], "_concrete", None)
+        return None
+
     # -- materialization boundaries ------------------------------------------
 
     def materialize(self):

@@ -322,9 +322,14 @@ class Table:
         """Device→host; decode dictionaries; reattach nulls.
 
         Columns that carry host copies transfer nothing; every column
-        missing one is pulled in ONE batched transfer."""
+        missing one is pulled in ONE batched transfer.  On meta columns
+        (an abstract plan run, ``analysis/plan_check``) this is the
+        host-export boundary: it raises ``PlanExportReached`` — the
+        distributed plan above has been checked, and what follows is host
+        post-processing."""
         import pyarrow as pa
 
+        self.require_host("Table.to_arrow")
         for c in self.columns:
             # host-cache staleness guard, always on: a cache may only sit
             # beside the tensor it was copied from (every contents change
@@ -398,6 +403,16 @@ class Table:
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()
+
+    def require_host(self, where: str) -> None:
+        """Raise ``PlanExportReached`` at ``where`` when this table's
+        columns are meta tensors (an abstract plan run): every host read
+        of a local Table's values passes here first."""
+        from .analysis._abstract import PlanExportReached, is_abstract
+        if any(is_abstract(c.data) for c in self.columns):
+            raise PlanExportReached(
+                where, [(c.name, c.dtype.type.name, c.length)
+                        for c in self.columns])
 
     # -- schema --------------------------------------------------------------
 

@@ -294,11 +294,19 @@ def _dict_codes_where(dt: DTable, column: str, test) -> tuple:
 
 def _host_cols(t: Tables, name: str) -> Dict[str, np.ndarray]:
     """A small dimension table (nation, region) on the host as {column:
-    numpy values}, strings decoded; cached on the DTable instance."""
-    dt = t[name]
+    numpy values}, strings decoded; cached on the DTable instance.
+
+    Inside an abstract plan run (``analysis/plan_check``) a table kept
+    ``concrete`` answers from its real rows — name → key lookups over
+    25-row tables are plan-time constants — and an abstract one reaches
+    the host-export boundary (``PlanExportReached``), as its export
+    would."""
+    from ..analysis import plan_check
+    dt = plan_check.concrete_source(t[name])
     cols = getattr(dt, "_host_cols_cache", None)
     if cols is None:
         tb = dt.to_table()
+        tb.require_host("Table.to_arrow")
         cols = {}
         for c in tb.columns:
             v = c.data.cpu().numpy()
@@ -564,6 +572,7 @@ def q7(ctx, t: Tables, nation1: str = "FRANCE",
     full = dist_with_column(full, "volume", _revenue, Type.DOUBLE)
     g = dist_groupby(full, ["s_nationkey", "c_nationkey", "l_year"],
                      [("volume", "sum")]).to_table()
+    g.require_host("Table.to_arrow")  # the host tail starts here
     supp_n = _nation_names(t, g.column("s_nationkey").data.cpu().numpy())
     cust_n = _nation_names(t, g.column("c_nationkey").data.cpu().numpy())
     year = g.column("l_year").data.cpu().numpy().astype(np.int32)
@@ -615,6 +624,7 @@ def q8(ctx, t: Tables, nation: str = "BRAZIL", region: str = "AMERICA",
                             Type.DOUBLE)
     g = dist_groupby(full, ["o_year"], [("nation_vol", "sum"),
                                         ("volume", "sum")]).to_table()
+    g.require_host("Table.to_arrow")  # the host tail starts here
     year = g.column("o_year").data.cpu().numpy().astype(np.int32)
     share = (g.column("sum_nation_vol").data.cpu().numpy().astype(np.float64)
              / g.column("sum_volume").data.cpu().numpy().astype(np.float64))

@@ -91,8 +91,14 @@ def hard_sync(tree) -> None:
     Each barrier is observable: it bumps the ``trace.sync`` counter (on
     the CPU too, where there is nothing to wait for, so the tests can
     count barriers) and, while tracing is on and the tree holds a
-    non-empty tensor, charges a nested ``sync`` span for the wait."""
-    all_leaves = _tensor_leaves(tree, [])
+    non-empty tensor, charges a nested ``sync`` span for the wait.
+    Meta tensors (an abstract plan run, ``analysis/plan_check``) have
+    nothing to wait for: they are dropped, and a tree of nothing else
+    neither syncs nor counts."""
+    every = _tensor_leaves(tree, [])
+    all_leaves = [x for x in every if x.device.type != "meta"]
+    if every and not all_leaves:
+        return
     leaves = [x for x in all_leaves if x.numel()]
     count("trace.sync")
     if not leaves or not _enabled:

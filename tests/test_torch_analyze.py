@@ -186,8 +186,10 @@ def test_report_renders_and_explain_surfaces():
     broken = TDTable(tctx, tf.columns, tf.cap, tf.counts.to(torch.int64))
     with pytest.raises(CylonError, match="counts dtype"):
         broken.explain(validate=True)
-    with pytest.raises(CylonError, match="not ported"):
-        tf.explain(lambda t: t)
+    # without analyze: the static form, an abstract run of the plan
+    static = tf.explain(lambda t: t)
+    assert static.ok and not static.analyzed
+    assert static.result.startswith("DTable(")
     with pytest.raises(CylonError, match="needs a plan"):
         tf.explain(analyze=True)
 

@@ -29,8 +29,11 @@ def jax_trace_shim(monkeypatch):
     earlier call of the same shape.  It clears the JAX shuffle's
     degraded-signature state (``shuffle.clear_chunk_state``) and resets
     its forced exchange strategy and mesh shape before and after the
-    test.  JAX is imported here, not at module level: the card-only
-    tests import this module on a machine without JAX."""
+    test.  The port's optimistic size hints and degraded-signature state
+    are cleared as well, before and after, so both packages size this
+    test's first call of every signature from its own counts.  JAX is
+    imported here, not at module level: the card-only tests import this
+    module on a machine without JAX."""
     import jax
     from jax._src import core as jcore
 
@@ -44,6 +47,7 @@ def jax_trace_shim(monkeypatch):
         shuffle.clear_chunk_state()
         jconfig.set_exchange_strategy(None)
         jconfig.set_mesh_shape(None)
+        clear_port_hints()
 
     shuffle._block_hints.clear()
     dist_ops._capacity_hints.clear()
@@ -54,6 +58,15 @@ def jax_trace_shim(monkeypatch):
     reset_exchange()
     yield
     reset_exchange()
+
+
+def clear_port_hints():
+    """Forget the port's optimistic size hints (join, groupby, select and
+    shuffle) and its degraded shuffle signatures."""
+    from cylon_tpu_torch.parallel import dist_ops as tdops
+    from cylon_tpu_torch.parallel import shuffle as tshuffle
+    tdops.clear_size_hints()
+    tshuffle.clear_chunk_state()
 
 
 def port_table_from_jax(table, device="cpu"):

@@ -20,7 +20,8 @@ from cylon_tpu_torch import faults as tfaults
 from cylon_tpu_torch import resilience as tres
 from cylon_tpu_torch import topology as ttopo
 from cylon_tpu_torch import trace
-from cylon_tpu_torch.parallel import DTable, shuffle_table
+from cylon_tpu_torch.parallel import DTable, run_pipeline, shuffle_table
+from cylon_tpu_torch.parallel import dist_ops as tdops
 from cylon_tpu_torch.status import Code, CylonError
 
 
@@ -80,7 +81,8 @@ def _drive(f, seed: int, n: int = 300):
 @pytest.mark.parametrize("seed", [0, 7, 123456789])
 def test_fault_plan_fires_like_jax(seed):
     assert sorted(tfaults.POINTS) == [
-        "compact.read_counts", "exec.stage", "io.csv.read",
+        "compact.flush", "compact.hint", "compact.read_counts",
+        "exec.stage", "io.csv.read",
         "matview.fold", "mesh.device_joined",
         "mesh.device_lost", "recover.checkpoint_restore", "recover.replan",
         "resilience.budget", "serve.breaker_probe", "spill.stage_in",
@@ -300,7 +302,9 @@ def test_shuffle_count_read_retries_a_transient_fault():
 def test_fault_points_are_the_ports_sites(tmp_path):
     """Every point of the port's catalogue is consulted at its site, and
     no other point is: one shuffle consults the count read and the budget
-    read; a planned groupby adds the executor's stage-boundary points; a
+    read; the same shuffle again under run_pipeline, its size hint now
+    seeded, the hint lookup and the region's batched flush instead of the
+    count read; a planned groupby adds the executor's stage-boundary points; a
     spill and its fault-in the two staging points; a resource fault at
     the second stage the replan trigger and the checkpoint restore; a CSV
     read its own point."""
@@ -314,10 +318,17 @@ def test_fault_points_are_the_ports_sites(tmp_path):
         tio.read_csv(pt.CylonContext(device="cpu"), str(path))
     assert set(plan._calls) == {"io.csv.read"}
     seen |= set(plan._calls)
+    tdops.clear_size_hints()
     plan = tfaults.FaultPlan(0, [])
     with tfaults.active(plan):
         shuffle_table(_table(4), ["k"])
     assert set(plan._calls) == {"compact.read_counts", "resilience.budget"}
+    seen |= set(plan._calls)
+    plan = tfaults.FaultPlan(0, [])
+    with tfaults.active(plan):
+        run_pipeline(lambda: shuffle_table(_table(4), ["k"]).to_table())
+    assert set(plan._calls) == {"compact.hint", "compact.flush",
+                                "resilience.budget"}
     seen |= set(plan._calls)
     dt = _table(4)
     plan = tfaults.FaultPlan(0, [])

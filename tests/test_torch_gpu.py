@@ -2,9 +2,10 @@
 plain version, and the distributed join (HASH and SORT, broadcast and
 dense FK), semi / anti joins, sort, set ops, groupby (every path), select,
 scalar aggregate and the TPC-H generator on CUDA tensors against the same
-calls on the CPU, and every TPC-H query through the planner against its
-eager run on the card.  Every test here needs a CUDA device (``gpu`` marker) and
-skips itself without one.  This file imports no JAX, so it also runs where
+calls on the CPU, every TPC-H query through the planner against its eager
+run on the card, the kernel wrapper's meta arm, and the abstract plan
+check and ``run_pipeline`` on two TPC-H queries.  Every test here needs a
+CUDA device (``gpu`` marker) and skips itself without one.  This file imports no JAX, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
@@ -1190,3 +1191,75 @@ def test_scrape_returns_while_device_work_in_flight_on_card(card):
         trace.reset()
     assert "cylon_serve_completed_total 2" in body
     assert in_flight, f"the device work finished first ({scrape_s:.3f} s)"
+
+
+# -- the abstract plan check and the deferred pipeline -------------------------
+
+@pytest.mark.gpu
+def test_kernel_meta_arm_launches_nothing_on_card(card):
+    """Meta key columns (an abstract plan run) get the kernel's checks and
+    a meta int32 result, launch nothing and allocate nothing on the card;
+    the same columns on the card still launch the kernel."""
+    n = 1 << 20
+    cols = [torch.empty(n, dtype=torch.int64, device="meta")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = hash_cuda.launches
+    out = hash_cuda.partition_ids_fused(cols, [None], 4)
+    assert out.device.type == "meta" and out.dtype == torch.int32
+    assert hash_cuda.launches == before
+    assert torch.cuda.max_memory_allocated() == base
+    real = torch.arange(n, device=card)
+    got = hash_cuda.partition_ids_fused([real], [None], 4)
+    assert hash_cuda.launches == before + 1
+    want = plain_hash.partition_ids(plain_hash.row_hash((real.cpu(),),
+                                                        (None,)), 4)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_plan_check_and_pipeline_on_card(card_tpch):
+    """Q5 and Q21 on the card: the abstract check launches nothing, reads
+    nothing and allocates nothing; under run_pipeline (warm hints) each
+    equals its eager run in order with fewer host reads, and the
+    partition kernel's launches equal the eager run's."""
+    from cylon_tpu_torch.analysis import plan_check
+    from cylon_tpu_torch.parallel import run_pipeline
+    ctx, tables = card_tpch
+    trace.enable_counters()
+    try:
+        for q in ("q5", "q21"):
+            op = lambda t, q=q: tpch_queries.QUERIES[q](ctx, t)  # noqa: E731
+            eager = op(tables)  # warms the hints and the dimension probes
+            trace.reset()
+            launches = hash_cuda.launches
+            eager = op(tables)
+            eager_reads = trace.counters().get("host.read", 0)
+            eager_launches = hash_cuda.launches - launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            trace.reset()
+            launches = hash_cuda.launches
+            rep = plan_check.validate(op, tables,
+                                      concrete=("nation", "region"))
+            torch.cuda.synchronize()
+            assert rep.ok and rep.nodes
+            assert hash_cuda.launches == launches
+            assert trace.counters().get("host.read", 0) == 0
+            assert torch.cuda.max_memory_allocated() == base
+            run_pipeline(lambda: op(tables))
+            trace.reset()
+            launches = hash_cuda.launches
+            got = run_pipeline(lambda: op(tables))
+            c = trace.counters()
+            assert c.get("pipeline.replays", 0) == 0
+            assert c.get("host.read", 0) < eager_reads
+            assert hash_cuda.launches - launches == eager_launches
+            assert_rows_close(port_rows(got, ordered=True),
+                              port_rows(eager, ordered=True),
+                              float_rtols(got, f64=1e-9))
+    finally:
+        trace.disable_counters()
+        trace.reset()

@@ -35,8 +35,8 @@ from cylon_tpu_torch.parallel import broadcast as tbroadcast
 from cylon_tpu_torch.parallel import dist_ops as tdist_ops
 from cylon_tpu_torch.tpch import queries as tqueries
 
-from test_torch_common import (assert_rows_close, float_rtols, jax_rows,
-                               port_rows, schema)
+from test_torch_common import (assert_rows_close, clear_port_hints,
+                               float_rtols, jax_rows, port_rows, schema)
 
 SCALE = 0.002
 SEED = 7
@@ -70,6 +70,7 @@ def _clear_jax_state():
     dist_ops._select_cap_hints.clear()
     dist_ops._select_cache.clear()
     broadcast.clear_replica_cache()
+    clear_port_hints()
 
 
 def _sweep(names, run_one, scale=SCALE, seed=SEED, worlds=WORLDS):
