@@ -3497,6 +3497,308 @@ def phase_recovery_tpch(ctx, tables, sf: float):
 
 
 # ---------------------------------------------------------------------------
+# phase: the multi-process communicator (torch.distributed behind the
+# context's collectives)
+# ---------------------------------------------------------------------------
+
+MP_WARM_ROWS = 4096
+MP_CHILD_ROWS = 1 << 20      # rows a side of the 2-process run on one card
+MP_A2A_BYTES = 1 << 28       # payload of the all_to_all rate measurement
+MP_CHILD_WAIT_S = 120        # each child's wait (then both are killed)
+MP_BACKEND = "nccl"          # the one-process phase's backend
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mp_ops(strategy_shapes=LOWERINGS):
+    """(label, op, forced strategy, mesh shape) of the phase: a HASH and a
+    SORT ``dist_join`` and ``shuffle_table`` on the join cell, the
+    ``orderkey`` groupby on the lineitem cell, then ``shuffle_table``
+    under each lowering forced."""
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import dist_groupby, dist_join, shuffle_table
+
+    ops = [("dist_join hash",
+            lambda s: dist_join(s["l"], s["r"], JoinConfig(
+                JoinType.INNER, JoinAlgorithm.HASH, 0, 0,
+                broadcast_threshold=0)), None, None),
+           ("dist_join sort",
+            lambda s: dist_join(s["l"], s["r"], JoinConfig(
+                JoinType.INNER, JoinAlgorithm.SORT, 0, 0,
+                broadcast_threshold=0)), None, None),
+           ("shuffle_table k", lambda s: shuffle_table(s["l"], ["k"]),
+            None, None),
+           ("dist_groupby orderkey",
+            lambda s: dist_groupby(s["li"], ["orderkey"], HC_AGGS),
+            None, None)]
+    for strategy, shape in strategy_shapes:
+        ops.append((f"shuffle_table k {strategy}",
+                    lambda s: shuffle_table(s["l"], ["k"]), strategy, shape))
+    return ops
+
+
+def mp_sides(ctx, ldata, rdata, li, li_null):
+    from cylon_tpu_torch import Table
+    from cylon_tpu_torch.parallel import DTable
+
+    t = Table.from_columns(ctx, li)
+    t.column("price").validity = torch.from_numpy(~li_null).to(ctx.device)
+    return {"l": DTable.from_table(ctx, to_table(ctx, ldata, None)),
+            "r": DTable.from_table(ctx, to_table(ctx, rdata, None)),
+            "li": DTable.from_table(ctx, t)}
+
+
+def mp_row_hashes(dt):
+    """Per local shard, its rows' 64-bit hashes in row order: every
+    column's 4-byte words (and its validity) mixed, whatever the width."""
+    n = dt.nlocal * dt.cap
+    h = torch.zeros(n, dtype=torch.int64, device=DEVICE)
+    for c in dt.columns:
+        for x in (c.data, c.validity):
+            if x is None:
+                continue
+            if x.element_size() < 4:
+                x = x.to(torch.int32)
+            words = x.contiguous().view(torch.int32).view(n, -1).long()
+            for j in range(words.shape[1]):
+                h = (h ^ (words[:, j] & 0xFFFFFFFF)) * MIX
+                h = h ^ ((h >> 29) & 0x7FFFFFFFF)
+    counts = [int(v) for v in dt.counts.cpu()]
+    return [h[s * dt.cap:s * dt.cap + k] for s, k in enumerate(counts)]
+
+
+def mp_run(op, sides, strategy, shape):
+    """``op(sides)`` from cleared size hints under the forced strategy
+    and mesh shape: (result, seconds, kernel launches); a forced strategy
+    must be the one that ran."""
+    from cylon_tpu_torch import config, trace
+    from cylon_tpu_torch.parallel import dist_ops
+
+    dist_ops.clear_size_hints()
+    config.set_exchange_strategy(strategy)
+    config.set_mesh_shape(shape)
+    counting = trace.counters_enabled()
+    trace.enable_counters()
+    trace.reset()
+    try:
+        reset_launches()
+        out, secs = wall(lambda: op(sides))
+        ran = trace.counters()
+        if strategy is not None:
+            check(ran.get(f"shuffle.strategy.{strategy.replace('-', '_')}",
+                          0) >= 1, f"multiprocess: ran {strategy} ({ran})")
+        return out, secs, read_launches()[0]
+    finally:
+        config.set_exchange_strategy(None)
+        config.set_mesh_shape(None)
+        if not counting:
+            trace.disable_counters()
+
+
+def a2a_gbps(comm, nbytes: int) -> tuple:
+    """(ms, GB/s) of one ``all_to_all`` of an ``[L, P, …]`` int32 block
+    of ``nbytes`` (every byte read once and written once by the
+    exchange), CUDA events."""
+    L, P = comm.local, comm.world
+    x = torch.randint(0, 1 << 30, (L, P, nbytes // (4 * L * P)),
+                      dtype=torch.int32, device=DEVICE)
+    ms = cuda_ms(lambda: comm.all_to_all(x), 10)
+    return ms, x.numel() * 4 / (ms * 1e-3) / 1e9
+
+
+def phase_multiprocess(ldata, rdata, want, li, li_null):
+    """One process driving 4 local ranks through ``CylonContext.
+    InitMultiHost`` over NCCL: every op of ``mp_ops`` on the join and
+    lineitem cells equals the single-process world 4 shard for shard
+    (each shard's rows in order), the HASH join also equals the oracle
+    and launches the partition kernel twice; one line each with the
+    seconds beside the single-process world's.  Then the NCCL
+    ``all_to_all`` rate beside ``LocalCommunicator``'s.  Returns the
+    kernel launches per op."""
+    from cylon_tpu_torch import CylonContext
+
+    ctx = CylonContext.InitMultiHost(
+        f"tcp://127.0.0.1:{free_port()}", 1, 0, world=WORLD, device=DEVICE,
+        backend=MP_BACKEND, timeout=600)
+    try:
+        check(ctx.comm.backend == MP_BACKEND
+              and ctx.get_world_size() == WORLD
+              and ctx.local_ranks() == list(range(WORLD))
+              and ctx.get_neighbours() == [] and ctx.is_distributed(),
+              "multiprocess: the NCCL context's controller API")
+        sim = CylonContext(device=DEVICE, world=WORLD)
+        ops = mp_ops()
+        rng = np.random.default_rng(1)
+        wl, wr = make_side(rng, MP_WARM_ROWS)[0], make_side(rng, MP_WARM_ROWS)[0]
+        wli, wnull = make_lineitem(rng, MP_WARM_ROWS)
+        for c in (ctx, sim):  # first use of each library kernel
+            s = mp_sides(c, wl, wr, wli, wnull)
+            for _, op, strategy, shape in ops:
+                mp_run(op, s, strategy, shape)
+        got_sides = mp_sides(ctx, ldata, rdata, li, li_null)
+        sim_sides = mp_sides(sim, ldata, rdata, li, li_null)
+        launches = {}
+        for label, op, strategy, shape in ops:
+            got, secs, n = mp_run(op, got_sides, strategy, shape)
+            ref, ref_secs, ref_n = mp_run(op, sim_sides, strategy, shape)
+            same = got.cap == ref.cap and all(
+                torch.equal(a, b) for a, b in zip(mp_row_hashes(got),
+                                                  mp_row_hashes(ref)))
+            check(same, f"multiprocess {label}: shards == the single-process "
+                        "world's, in order")
+            if label == "dist_join hash":
+                check_join(f"multiprocess {label}", got.to_table(), want)
+                check(n == 2, f"multiprocess {label}: 2 launches ({n})")
+            launches[label] = n
+            say(f"multiprocess {label}", backend=MP_BACKEND, processes=1,
+                world=WORLD, rows=got.num_rows, seconds=f"{secs:.6f}",
+                single_process_seconds=f"{ref_secs:.6f}", launches=n,
+                single_process_launches=ref_n, cap=got.cap)
+            del got, ref
+        del got_sides, sim_sides
+        ms, gbps = a2a_gbps(ctx.comm, MP_A2A_BYTES)
+        lms, lgbps = a2a_gbps(sim.comm, MP_A2A_BYTES)
+        say("multiprocess all_to_all", backend=MP_BACKEND, world=WORLD,
+            bytes=MP_A2A_BYTES, ms=f"{ms:.4f}", gbps=f"{gbps:.1f}",
+            local_communicator_ms=f"{lms:.4f}",
+            local_communicator_gbps=f"{lgbps:.1f}")
+    finally:
+        ctx.finalize()
+    return launches
+
+
+def mp_child(argv) -> int:
+    """One of two processes on the one card (``--mp-child PROC BACKEND
+    INIT OUT``): 2 local ranks each, a world of 4; the HASH join and
+    ``shuffle_table`` of a ``MP_CHILD_ROWS`` cell; per local shard the
+    row count and an order-sensitive digest of its row hashes, as JSON in
+    ``OUT``."""
+    proc, backend, init, out = int(argv[0]), argv[1], argv[2], argv[3]
+    from cylon_tpu_torch import CylonContext
+
+    ctx = CylonContext.InitMultiHost(init, 2, proc, world=2, device=DEVICE,
+                                     backend=backend, timeout=60)
+    res = {}
+    try:
+        res = mp_digests(ctx)
+    finally:
+        ctx.finalize()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def shard_digests(dt):
+    """Per local shard: [rows, Σ (low word of row hash i) · (i + 1),
+    cap] of this process's blocks (``mp_row_hashes``)."""
+    out = []
+    for r in mp_row_hashes(dt):
+        w = torch.arange(1, r.shape[0] + 1, device=DEVICE)
+        out.append([r.shape[0], int(((r & 0xFFFFFFFF) * w).sum()), dt.cap])
+    return out
+
+
+def mp_digests(ctx):
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import DTable, dist_join, shuffle_table
+
+    rng = np.random.default_rng(7)
+    ldata, rdata = make_side(rng, MP_CHILD_ROWS)[0], \
+        make_side(rng, MP_CHILD_ROWS)[0]
+    lt = DTable.from_table(ctx, to_table(ctx, ldata, None))
+    rt = DTable.from_table(ctx, to_table(ctx, rdata, None))
+    t0 = time.perf_counter()
+    j = dist_join(lt, rt, JoinConfig(JoinType.INNER, JoinAlgorithm.HASH, 0,
+                                     0, broadcast_threshold=0))
+    sh = shuffle_table(lt, ["k"])
+    torch.cuda.synchronize()
+    return {"join": shard_digests(j), "shuffle": shard_digests(sh),
+            "seconds": time.perf_counter() - t0}
+
+
+def child_error(log: str) -> str:
+    """The line of a failed child's output that says why."""
+    lines = [ln.strip() for ln in (log or "").splitlines() if ln.strip()]
+    for pat in ("Duplicate GPU", "invalid usage", "ncclInvalidUsage",
+                "Error:", "error:"):
+        hit = [ln for ln in lines if pat in ln and not
+               ln.endswith("Last error:")]
+        if hit:
+            return hit[-1][:240]
+    return lines[-1][:240] if lines else ""
+
+
+def phase_multiprocess_two(tmp: str):
+    """Two processes on the one card, 2 local ranks each, for each
+    backend: NCCL (which refuses two ranks on one device in most
+    versions; the error is recorded) and gloo on the CUDA tensors (an
+    explicit backend choice: gloo stages them through host memory for
+    the collectives it has).  Both pairs start together.  A backend that
+    runs must equal the single-process world 4 shard for shard; one that
+    does not is recorded.  Returns {backend: outcome}."""
+    import os
+    from cylon_tpu_torch import CylonContext
+
+    sim = mp_digests(CylonContext(device=DEVICE, world=WORLD))
+    os.makedirs(tmp, exist_ok=True)
+    runs = {}
+    t0 = time.perf_counter()
+    for backend in ("nccl", "gloo"):
+        init = f"tcp://127.0.0.1:{free_port()}"
+        outs = [os.path.join(tmp, f"mp_{backend}_{p}.json") for p in range(2)]
+        for o in outs:
+            if os.path.exists(o):
+                os.remove(o)
+        runs[backend] = (outs, [subprocess.Popen(
+            [sys.executable, __file__, "--mp-child", str(p), backend, init,
+             outs[p]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for p in range(2)])
+    outcome = {}
+    try:
+        for backend, (outs, procs) in runs.items():
+            logs, rcs = [], []
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=MP_CHILD_WAIT_S)[0])
+                    rcs.append(p.returncode)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    logs.append(p.communicate()[0] + "\ntimed out")
+                    rcs.append(None)
+            secs = time.perf_counter() - t0
+            if rcs == [0, 0]:
+                got = [json.load(open(o)) for o in outs]
+                for key in ("join", "shuffle"):
+                    check(got[0][key] + got[1][key] == sim[key],
+                          f"multiprocess 2 processes {backend} {key}: "
+                          "shards == the single-process world 4's")
+                outcome[backend] = "ran, equal to the single-process world"
+                say("multiprocess 2 processes on one card", backend=backend,
+                    result="ran", seconds=f"{secs:.1f}",
+                    child_seconds="/".join(f"{g['seconds']:.3f}"
+                                           for g in got),
+                    single_process_seconds=f"{sim['seconds']:.3f}")
+            else:
+                err = next((e for e in map(child_error, logs) if e), "")
+                outcome[backend] = f"refused: {err or rcs}"
+                say("multiprocess 2 processes on one card", backend=backend,
+                    result="refused", rcs=rcs, seconds=f"{secs:.1f}",
+                    error=repr(err))
+    finally:
+        for _, procs in runs.values():   # stop every child we started
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return outcome
+
+
+# ---------------------------------------------------------------------------
 # phases: ingest and the data-model surfaces — Arrow / pandas / per-rank CSV
 # ingest through StagedIngest, hash64 string keys, append with content
 # epochs, and the partition hash past 16 key columns
@@ -4700,11 +5002,17 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tpch-sf", type=float, default=10.0)
     ap.add_argument("--tpch-check-sf", type=float, default=1.0)
+    ap.add_argument("--mp-child", nargs=4,
+                    metavar=("PROC", "BACKEND", "INIT", "OUT"),
+                    help="one of the two processes of the multi-process "
+                         "phase (started by the script itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    if args.mp_child:
+        return mp_child(args.mp_child)
     # fails outside a checkout of the repository
     from cylon_tpu_torch.ops import hash as plain_hash
     from cylon_tpu_torch.ops import hash_cuda
@@ -4786,6 +5094,10 @@ def main() -> int:
     launches_q1, _ = phase_q1(dt, li, li_null, args.profile)
     launches_q6, _ = phase_q6(dt, li, li_null)
     del wdt
+    # the multi-process communicator: one process of 4 local ranks over
+    # NCCL on the join and lineitem cells, then two processes on the card
+    launches_mp = phase_multiprocess(ldata, rdata, want, li, li_null)
+    mp_two = phase_multiprocess_two("build")
 
     # TPC-H: one run of every query at a small scale first (the first use
     # of each CUDA library kernel), then the timed run at --tpch-sf
@@ -4945,6 +5257,8 @@ def main() -> int:
         "launches_spill": launches_spill,
         "launches_recovery": launches_recovery,
         "launches_recovery_nparts3": launches_nparts3,
+        "launches_multiprocess": launches_mp,
+        "multiprocess_two_processes_one_card": mp_two,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
                           "plain_ms": gb_plain_ms, "bound_ms": gb_bound,

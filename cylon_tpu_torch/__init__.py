@@ -60,7 +60,9 @@ Layer map:
     topology.py       the survivor-context registry (device loss and
                       rejoin) and the (slow, fast) mesh split
     context.py        CylonContext: device, world (from ``first_slot``),
-                      communicator, optimize, analyze
+                      communicator (one process, or a torch.distributed
+                      group through ``InitMultiHost``), the controller
+                      API, optimize, analyze
 """
 
 from . import faults

@@ -471,6 +471,8 @@ def explain(op: Callable, *args, validate: bool = False,
     plan-shape invariants, and any failure raises
     :class:`PlanValidationError` naming the op.
     """
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("plan_check")
     report = PlanReport()
     # save/restore, not set/clear: a plan callable may itself call
     # explain/validate (pre-flighting a sub-plan), and clearing would

@@ -174,6 +174,8 @@ def analyze(op, *args, **kwargs):
     back with ``ok=False`` and ``error`` set, keeping the nodes measured
     before the failure.
     """
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("EXPLAIN ANALYZE")
     from .. import trace
     from ..analysis import plan_check
 

@@ -127,10 +127,11 @@ METRICS: Dict[str, MetricSpec] = _specs(
      "exchange_count"),
     ("shuffle.rows_sent", COUNTER, "rows",
      "rows that left their home shard in shuffle exchanges "
-     "(off-diagonal of the count matrix)"),
+     "(off-diagonal of the count matrix), sent by THIS process's ranks "
+     "(every rank with one process)"),
     ("shuffle.bytes_sent", COUNTER, "bytes",
-     "payload bytes of shuffle.rows_sent (leaf dtypes x rows; "
-     "validity lanes count 1 byte/row)"),
+     "payload bytes of shuffle.rows_sent, this process's senders "
+     "(leaf dtypes x rows; validity lanes count 1 byte/row)"),
     ("broadcast.rows_sent", COUNTER, "rows",
      "rows x (P-1) replicated by broadcast gathers (each shard's rows "
      "travel to every other shard)"),
@@ -194,7 +195,8 @@ METRICS: Dict[str, MetricSpec] = _specs(
      "split; flat meshes tally nothing)"),
     ("shuffle.bytes_sent_slow", COUNTER, "bytes",
      "priced wire bytes crossing the slow axis for chosen lowerings "
-     "(StrategyPrice.slow_wire_bytes x P) — the number the hierarchy "
+     "(StrategyPrice.slow_wire_bytes x this process's ranks) — the "
+     "number the hierarchy "
      "smoke and benchdiff's scaling_*_wire_bytes_slow gates compare"),
     ("groupby.axis_precombine", COUNTER, "exchanges",
      "hierarchical combine exchanges that ran the fast-axis-local "

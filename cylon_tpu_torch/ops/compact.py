@@ -36,6 +36,14 @@ Every read that cannot be optimistic (:func:`read_host`,
 region, and aborts for replay when that flush finds an undersized
 dispatch: a count computed downstream of truncated data must never size
 anything.
+
+In a world that spans processes every count tensor handed to these
+reads is REPLICATED (all-gathered by the communicator: the shuffle's
+count matrix, the operators' per-shard counts, ``DTable.counts_host``),
+so every process sizes, chooses a lowering and replays alike; a size
+decided from one process's shards alone would leave the next collective
+waiting for a peer that chose otherwise.  ``run_pipeline`` refuses
+there (not ported across processes yet).
 """
 from __future__ import annotations
 
@@ -454,6 +462,8 @@ def run_pipeline(fn, max_attempts: int = 3):
     the plain (per-op validated) run — a pipeline that replays on every
     call would otherwise be invisible.
     """
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("run_pipeline")
     from .. import trace
     for _ in range(max_attempts):
         try:

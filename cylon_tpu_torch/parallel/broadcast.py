@@ -124,8 +124,9 @@ def forget_replicas_of(columns) -> None:
 def _cache_key(dt: DTable, mode: str) -> Tuple:
     # names and dictionary identity belong in the key: a rename or a
     # dictionary swap shares the device tensors and must not hit a
-    # replica built under the old metadata
-    return (id(dt.ctx), mode, dt.cap,
+    # replica built under the old metadata; so does the process group (a
+    # replica holds the rows of every process of its world)
+    return (id(dt.ctx), dt.ctx.comm.group_key, mode, dt.cap,
             tuple((c.name, id(c.data), id(c.validity), id(c.dictionary))
                   for c in dt.columns))
 
@@ -194,9 +195,10 @@ def replicate_table(dt: DTable, mode: str = ALL,
 
 
 def _gather(dt: DTable, mode: str, outcap: int) -> DTable:
-    """The replica of ``dt`` as a DTable of capacity ``outcap``."""
+    """The replica of ``dt`` as a DTable of capacity ``outcap``: every
+    local shard of every process holds the rows of all P shards."""
     comm = dt.ctx.comm
-    P, cap = dt.nparts, dt.cap
+    P, L, cap = dt.nparts, dt.nlocal, dt.cap
     gcnts = comm.all_gather(dt.counts)                                # [P]
     valid = (torch.arange(cap, device=gcnts.device)[None, :]
              < gcnts[:, None]).reshape(-1)
@@ -205,18 +207,20 @@ def _gather(dt: DTable, mode: str, outcap: int) -> DTable:
     keep = torch.arange(outcap, device=gcnts.device) < total
 
     def gather(leaf: torch.Tensor) -> torch.Tensor:
-        g = comm.all_gather(signed_view(leaf).view(P, cap)).reshape(-1)
+        g = comm.all_gather(signed_view(leaf).view(L, cap)).reshape(-1)
         block = torch.where(keep, g[idx], 0).to(g.dtype)
-        return block.repeat(P).view(leaf.dtype)      # one copy per shard
+        return block.repeat(L).view(leaf.dtype)      # one copy per shard
 
     cols = [DColumn(c.name, c.dtype, gather(c.data),
                     None if c.validity is None else gather(c.validity),
                     c.dictionary, c.arrow_type)
             for c in dt.columns]
     if mode == HEAD:
-        counts = torch.cat([total.reshape(1),
-                            torch.zeros(P - 1, dtype=torch.int32,
-                                        device=total.device)])
+        # global rank 0 owns the rows: the first local shard of the
+        # first process
+        counts = torch.zeros(L, dtype=torch.int32, device=total.device)
+        if comm.first_rank == 0:
+            counts[0] = total
     else:
-        counts = total.reshape(1).repeat(P)
+        counts = total.reshape(1).repeat(L)
     return DTable(dt.ctx, cols, outcap, counts)

@@ -52,6 +52,7 @@ from ..analysis._abstract import is_abstract
 from ..compute import _agg_output_type
 from ..config import (JoinAlgorithm, JoinConfig, JoinType,
                       broadcast_join_threshold)
+from ..context import refuse_multiprocess
 from ..dtypes import (DataType, Type, device_dtype, extreme_value,
                       is_dictionary_encoded)
 from ..observe.metrics import row_bytes
@@ -357,14 +358,14 @@ def _join_copartitioned(lsh: DTable, rsh: DTable, li_keys: Sequence[int],
         raise CylonError(Status(Code.NotImplemented,
             f"dist_join: local kernel {alg!r} is not ported"))
     ctx = lsh.ctx
-    P = ctx.get_world_size()
+    L = ctx.get_local_world_size()
     lcap, rcap = lsh.cap, rsh.cap
     fill_left = how in ("right", "full_outer")
     fill_right = how in ("left", "full_outer")
 
     plans, totals = [], []
     with trace.span("join.count"):
-        for s in range(P):
+        for s in range(L):
             lc, rc = lsh.counts[s], rsh.counts[s]
             plan = ops_join.sort_join_plan(
                 tuple(_shard(lsh.columns[i].data, s, lcap) for i in li_keys),
@@ -446,13 +447,13 @@ def _fk_probe(left: DTable, right: DTable, lkc: DColumn, rkc: DColumn,
               lo: int, hi: int, stride: int, lmask=None):
     """Dense-unique-key join probe, all shards at once: ONE scatter of the
     right rows into a key→row map over [lo, hi] per shard, ONE gather of
-    the probe keys.  Returns (matched [P*cap_l], right row within its
+    the probe keys.  Returns (matched [L*cap_l], right row within its
     shard or −1, per-shard [matched, right out of range, right duplicate,
     right null] counts, all-gathered on the device).  The three violation
     counts do not
     depend on which of several duplicate writes wins the scatter: a
     duplicate is a valid right key whose slot holds another row."""
-    P = left.nparts
+    L = left.nlocal
     dev = lkc.data.device
     R = -(-(hi - lo + 1) // stride)
     cap_l, cap_r = left.cap, right.cap
@@ -466,21 +467,21 @@ def _fk_probe(left: DTable, right: DTable, lkc: DColumn, rkc: DColumn,
         r_base = torch.div(r_base, stride, rounding_mode="floor")
         l_base = torch.div(l_base, stride, rounding_mode="floor")
     r_ok = r_nonnull & r_in
-    r_shard = _shard_ids(P, cap_r, dev)
-    slot = torch.where(r_ok, r_shard * R + r_base.long(), P * R)
-    rows = torch.arange(cap_r, dtype=torch.int32, device=dev).repeat(P)
-    amap = ops_compact.scatter_drop(P * R, slot, rows, fill=-1)
-    occupied = (amap >= 0).view(P, R).sum(1)
-    l_slot = (_shard_ids(P, cap_l, dev) * R
+    r_shard = _shard_ids(L, cap_r, dev)
+    slot = torch.where(r_ok, r_shard * R + r_base.long(), L * R)
+    rows = torch.arange(cap_r, dtype=torch.int32, device=dev).repeat(L)
+    amap = ops_compact.scatter_drop(L * R, slot, rows, fill=-1)
+    occupied = (amap >= 0).view(L, R).sum(1)
+    l_slot = (_shard_ids(L, cap_l, dev) * R
               + torch.clamp(l_base, 0, R - 1).long())
     m = amap[l_slot]
     matched = l_nonnull & l_in & (m >= 0)
     ri = torch.where(matched, m, -1)
     stats = torch.stack([
-        matched.view(P, cap_l).sum(1),
-        (r_nonnull & ~r_in).view(P, cap_r).sum(1),
-        r_ok.view(P, cap_r).sum(1) - occupied,
-        (rvalid & ~r_nonnull).view(P, cap_r).sum(1)], 1)
+        matched.view(L, cap_l).sum(1),
+        (r_nonnull & ~r_in).view(L, cap_r).sum(1),
+        r_ok.view(L, cap_r).sum(1) - occupied,
+        (rvalid & ~r_nonnull).view(L, cap_r).sum(1)], 1)
     return matched, ri, left.ctx.comm.all_gather(stats.to(torch.int64))
 
 
@@ -500,8 +501,8 @@ def _fk_rgather(right: DTable, ri: torch.Tensor, cap_out: int,
                 fill: bool):
     """Right-side output columns at per-output right rows ``ri`` (index
     within the row's shard; −1 ⇒ null when ``fill``)."""
-    P = right.nparts
-    flat = _shard_ids(P, cap_out, ri.device) * right.cap + \
+    L = right.nlocal
+    flat = _shard_ids(L, cap_out, ri.device) * right.cap + \
         torch.clamp(ri.long(), 0, right.cap - 1)
     if fill:
         flat = torch.where(ri >= 0, flat, -1)
@@ -802,6 +803,7 @@ def dist_multiway_join(fact: DTable, dims: Sequence[DTable],
     Each probe's label ("broadcast", "broadcast-fact", "shuffle", or
     "local" at world 1) is counted in ``decisions`` as
     ``multiway.<label>``."""
+    refuse_multiprocess("dist_multiway_join", fact.ctx)
     edges = _multiway_edges(edges)
     if not edges or len(edges) != len(dims):
         raise CylonError(Status(Code.Invalid,
@@ -888,10 +890,10 @@ def _dist_set_op(a: DTable, b: DTable, op: str) -> DTable:
             bsh = _shuffle_by_pids(b, _hash_pids(b, range(b.num_columns)))
     has_validity = [ca.validity is not None or cb.validity is not None
                     for ca, cb in zip(ash.columns, bsh.columns)]
-    P = a.ctx.get_world_size()
+    L = a.nlocal
     outs, counts = [], []
     with trace.span_sync("setop.local") as sp:
-        for s in range(P):
+        for s in range(L):
             got, cnt = _setop_shard(
                 [(_shard(c.data, s, ash.cap), _shard(c.validity, s, ash.cap))
                  for c in ash.columns],
@@ -930,7 +932,7 @@ def dist_subtract(a: DTable, b: DTable) -> DTable:
 
 def _sample(dt: DTable, key_i: int, nsamples: int, ascending: bool):
     """Per shard: ``nsamples`` evenly spaced order statistics of the
-    non-null valid rows, and a per-sample validity flag; ``[P, nsamples]``
+    non-null valid rows, and a per-sample validity flag; ``[L, nsamples]``
     each.  The JAX package's ``_sample_fn`` rule, unchanged:
     ``q = arange(ns)·max(nn, 1) // ns`` and ``ok = arange(ns) < nn``, where
     ``nn`` counts the shard's non-null valid rows.
@@ -940,21 +942,21 @@ def _sample(dt: DTable, key_i: int, nsamples: int, ascending: bool):
     shards at once, by key and then by "not a sampled row", put each
     shard's non-null valid rows first in the same order.
     """
-    P, cap = dt.ctx.get_world_size(), dt.cap
+    L, cap = dt.nlocal, dt.cap
     c = dt.columns[key_i]
     rows = _row_mask(dt)
     if c.validity is not None:
         rows = rows & c.validity
-    rows = rows.view(P, cap)
-    nn = rows.sum(1)                                                   # [P]
+    rows = rows.view(L, cap)
+    nn = rows.sum(1)                                                   # [L]
     key = ops_join._ordered(c.data if ascending else ops_sort._invert(c.data))
-    order = torch.sort(key.view(P, cap), dim=1, stable=True).indices
+    order = torch.sort(key.view(L, cap), dim=1, stable=True).indices
     rest = (~rows).gather(1, order).to(torch.uint8)
     order = order.gather(1, torch.sort(rest, dim=1, stable=True).indices)
     ar = torch.arange(nsamples, device=nn.device)
     q = (ar[None, :] * torch.clamp(nn, min=1)[:, None]) // nsamples
     pick = order.gather(1, q.clamp(0, cap - 1))
-    data = ops_gather.signed_view(c.data).view(P, cap)
+    data = ops_gather.signed_view(c.data).view(L, cap)
     vals = data.gather(1, pick).view(c.data.dtype)
     return vals, ar[None, :] < nn[:, None]
 
@@ -1040,11 +1042,11 @@ def _sort_shards(sh: DTable, key_ids: Sequence[int],
     """Per shard, a masked multi-key sort of the block, then one gather
     of every column: the JAX package's ``_local_sort_fn`` /
     ``_local_sort_multi_fn`` (one key orders the same either way)."""
-    P, cap = sh.ctx.get_world_size(), sh.cap
+    L, cap = sh.nlocal, sh.cap
     keys = [sh.columns[i] for i in key_ids]
     outs = []
     with trace.span_sync("sort.local") as sp:
-        for s in range(P):
+        for s in range(L):
             order = ops_sort.lexsort_indices_masked(
                 [_shard(c.data, s, cap) for c in keys],
                 [_shard(c.validity, s, cap) for c in keys], sh.counts[s],
@@ -1203,10 +1205,10 @@ def _effective_mask(dt: DTable, where):
 
 
 def _shard_counts(dt: DTable, mask: torch.Tensor) -> torch.Tensor:
-    """Per-shard True counts of a [P*cap] mask, gathered to every rank."""
-    P = dt.ctx.get_world_size()
+    """Per-shard True counts of a [L*cap] mask, gathered to every rank."""
+    L = dt.nlocal
     return dt.ctx.comm.all_gather(
-        mask.reshape(P, dt.cap).sum(1).to(torch.int32))
+        mask.reshape(L, dt.cap).sum(1).to(torch.int32))
 
 
 def _compact_survivors(dt: DTable, mask: torch.Tensor, cnts: torch.Tensor,
@@ -1225,7 +1227,7 @@ def _compact_survivors(dt: DTable, mask: torch.Tensor, cnts: torch.Tensor,
     def dispatch(sizes):
         outcap = sizes[0]
         outs, counts = [], []
-        for s in range(dt.ctx.get_world_size()):
+        for s in range(dt.nlocal):
             idx, count = ops_compact.mask_to_indices(_shard(mask, s, cap),
                                                      outcap)
             outs.append(ops_gather.take_many(
@@ -1322,7 +1324,7 @@ def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
     kernel: a null left key matches iff its shard's right side has a null
     key.  Returns (keep mask, per-shard [survivors, out-of-range keys of
     either side], all-gathered on the device)."""
-    P = left.nparts
+    L = left.nlocal
     dev = lkc.data.device
     R = -(-(hi - lo + 1) // stride)
     cap_l, cap_r = left.cap, right.cap
@@ -1330,25 +1332,25 @@ def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
     rvalid, r_nonnull = _valid_rows(right, rkc, right.pending_mask)
     r_in = (rkc.data >= lo) & (rkc.data <= hi)
     l_in = (lkc.data >= lo) & (lkc.data <= hi)
-    overflow = ((r_nonnull & ~r_in).view(P, cap_r).sum(1)
-                + (l_nonnull & ~l_in).view(P, cap_l).sum(1))
+    overflow = ((r_nonnull & ~r_in).view(L, cap_r).sum(1)
+                + (l_nonnull & ~l_in).view(L, cap_l).sum(1))
     r_base = _dense_base(rkc.data, lo)
     l_base = _dense_base(lkc.data, lo)
     if stride > 1:
         r_base = torch.div(r_base, stride, rounding_mode="floor")
         l_base = torch.div(l_base, stride, rounding_mode="floor")
     slot = torch.where(r_nonnull & r_in,
-                       _shard_ids(P, cap_r, dev) * R + r_base.long(), P * R)
-    present = torch.zeros(P * R + 1, dtype=torch.bool, device=dev)
+                       _shard_ids(L, cap_r, dev) * R + r_base.long(), L * R)
+    present = torch.zeros(L * R + 1, dtype=torch.bool, device=dev)
     present[slot] = True  # duplicates all write True: no race to lose
-    l_shard = _shard_ids(P, cap_l, dev)
+    l_shard = _shard_ids(L, cap_l, dev)
     hit = l_nonnull & l_in & present[
         l_shard * R + torch.clamp(l_base, 0, R - 1).long()]
     if lkc.validity is not None or rkc.validity is not None:
-        r_null = (rvalid & ~r_nonnull).view(P, cap_r).any(1)       # [P]
+        r_null = (rvalid & ~r_nonnull).view(L, cap_r).any(1)       # [L]
         hit = hit | ((lvalid & ~l_nonnull) & r_null[l_shard])
     keep = (lvalid & ~hit) if anti else hit
-    stats = torch.stack([keep.view(P, cap_l).sum(1), overflow], 1)
+    stats = torch.stack([keep.view(L, cap_l).sum(1), overflow], 1)
     return keep, left.ctx.comm.all_gather(stats)
 
 
@@ -1357,10 +1359,10 @@ def _semi_mask_sorted(left: DTable, right: DTable, li_keys, ri_keys,
     """Keep-mask of the sort-path semi/anti probe (``ops.join.semi_mask``
     per shard) and the per-shard survivor counts, all-gathered on the
     device."""
-    P = left.nparts
+    L = left.nlocal
     lcap, rcap = left.cap, right.cap
     keeps = []
-    for s in range(P):
+    for s in range(L):
         lc = left.counts[s]
         present = ops_join.semi_mask(
             tuple(_shard(left.columns[i].data, s, lcap) for i in li_keys),
@@ -1548,7 +1550,7 @@ def dist_aggregate(dt: DTable,
 def _aggregate_columns(dt: DTable, aggregations, where) -> List[Column]:
     """``dist_aggregate``'s one-row output columns."""
     comm = dt.ctx.comm
-    P, cap = dt.ctx.get_world_size(), dt.cap
+    L, cap = dt.nlocal, dt.cap
     pmask = _effective_mask(dt, where)
     base = pmask if pmask is not None else _row_mask(dt)
     cols = []
@@ -1556,12 +1558,12 @@ def _aggregate_columns(dt: DTable, aggregations, where) -> List[Column]:
         c = dt.columns[dt.column_index(cref)]
         d = c.data
         m = base if c.validity is None else (base & c.validity)
-        cnt = comm.all_gather(m.reshape(P, cap).sum(1).to(torch.int32)).sum()
+        cnt = comm.all_gather(m.reshape(L, cap).sum(1).to(torch.int32)).sum()
         if op in ("sum", "mean"):
             acc = d.to(torch.int64) if _is_integer(d.dtype) else d
             z = torch.where(m, acc, torch.zeros((), dtype=acc.dtype,
                                                 device=acc.device))
-            s = comm.all_gather(z.reshape(P, cap).sum(1)).sum()
+            s = comm.all_gather(z.reshape(L, cap).sum(1)).sum()
         if op == "sum":
             val = s
         elif op == "count":
@@ -1575,7 +1577,7 @@ def _aggregate_columns(dt: DTable, aggregations, where) -> List[Column]:
             fill = torch.tensor(extreme_value(d.dtype, largest=(op == "min")),
                                 dtype=d.dtype, device=d.device)
             folded = torch.where(m, ops_join._ordered(d),
-                                 ops_join._ordered(fill)).reshape(P, cap)
+                                 ops_join._ordered(fill)).reshape(L, cap)
             local = folded.amin(1) if op == "min" else folded.amax(1)
             g = comm.all_gather(local)
             val = ops_groupby._from_ordered(
@@ -1629,10 +1631,10 @@ def _groupby_sorted(dt: DTable, sh: DTable, key_ids, uniq_ids, slot_map,
     groups; phase 2 aggregates into one output block for all shards,
     sized from the all-gathered group counts through the optimistic
     count protocol (``_group_cap_hints``), and gathers the keys."""
-    P = dt.ctx.get_world_size()
+    L = dt.nlocal
     phase1 = []
     with trace.span("groupby.count"):
-        for s in range(P):
+        for s in range(L):
             kl = _leaf_pairs(sh, key_ids, s)
             vl = _leaf_pairs(sh, uniq_ids, s)
             st = ops_groupby.group_structure(
@@ -1699,11 +1701,12 @@ def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
     optimistic count protocol, whose validation also raises on a range
     violation."""
     lo, hi, stride = dense
-    P = dt.ctx.get_world_size()
+    L = dt.nlocal
+    r0 = dt.ctx.get_rank()
     kc = sh.columns[key_id]
     phase1, stats = [], []
     with trace.span("groupby.count"):
-        for s in range(P):
+        for s in range(L):
             slot, counts, ng, ov = ops_groupby.dense_group_structure(
                 _shard(kc.data, s, sh.cap), _shard(kc.validity, s, sh.cap),
                 _shard_rows(sh, pmask, s), lo, hi, stride=stride)
@@ -1733,7 +1736,8 @@ def _groupby_dense(dt: DTable, sh: DTable, key_id: int, uniq_ids, slot_map,
                 slot, cnts, tuple(vl[j][0] for j in slot_map),
                 tuple(vl[j][1] for j in slot_map), aggs, out_cap, lo,
                 kc.data.dtype, kc.validity is not None, stride=stride,
-                phase=s if stride > 1 else 0, emit_empty=emit_empty, hi=hi)
+                phase=r0 + s if stride > 1 else 0, emit_empty=emit_empty,
+                hi=hi)
             outs.append([(kd, kv)] + list(zip(aouts, avals)))
             counts.append(ng)
         return outs, counts
@@ -2306,6 +2310,7 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
     resident dense hint) streams through the morsel scan
     (``spill.morsel.morsel_groupby``), row-identical to the resident
     path."""
+    refuse_multiprocess("dist_groupby_fused", dt.ctx)
     if mode not in ("psum", "pre-aggregate", "shuffle"):
         raise CylonError(Status(Code.Invalid,
             f"dist_groupby_fused: unknown mode {mode!r}"))
@@ -2668,6 +2673,7 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
     priorities seed from the morsel's row offset, so they equal the
     resident run's) and merges them into the accumulator morsel by
     morsel: it holds one state row per group seen so far."""
+    refuse_multiprocess("dist_groupby_sketch", dt.ctx)
     node = plan_check.note("dist_groupby_sketch", dt,
                            keys=tuple(key_columns),
                            aggs=tuple(op for _, op in aggregations))

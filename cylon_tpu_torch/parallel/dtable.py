@@ -1,9 +1,14 @@
 """Distributed Table: columns as P fixed-capacity row shards.
 
 Mirror of ``cylon_tpu/parallel/dtable.py``, with the same layout: each
-column is ONE flat tensor of shape ``[P * cap]`` on the context's device —
-shard *i* holds rows ``[i*cap, i*cap + counts[i])``; the rest of its block
-is zero padding.  ``counts`` is an int32 ``[P]`` tensor on the device.
+column is ONE flat tensor of shape ``[L * cap]`` on the context's device,
+one block per LOCAL rank (``L = P`` with one process) — local shard *i*
+holds rows ``[i*cap, i*cap + counts[i])``; the rest of its block is zero
+padding.  ``counts`` is an int32 ``[L]`` tensor on the device.  ``cap`` is
+the same in every process of a world that spans processes; host reads of
+the counts (``counts_host``, ``num_rows``) and the exports are GLOBAL and
+the same in every process, as the JAX package's replicated counts and
+export are.
 
 The reference has no separate distributed-table type: an ``arrow::Table``
 per rank *is* the partition (reference: cpp/src/cylon/table.hpp:39-278).
@@ -189,7 +194,14 @@ class DTable:
 
     @property
     def nparts(self) -> int:
+        """P, the shards of the whole world."""
         return self.ctx.get_world_size()
+
+    @property
+    def nlocal(self) -> int:
+        """L, the shards this process holds (the leading axis of its
+        leaves and counts)."""
+        return self.ctx.get_local_world_size()
 
     @property
     def num_columns(self) -> int:
@@ -200,8 +212,10 @@ class DTable:
         return [c.name for c in self._columns]
 
     def counts_host(self) -> np.ndarray:
-        """Per-shard valid row counts on the host (one read, then cached;
-        a spilled table answers from the counts cached at its spill).
+        """Per-shard valid row counts of all P shards on the host (one
+        read, then cached; a spilled table answers from the counts cached
+        at its spill).  Across processes the counts are all-gathered
+        first, so every process reads the same ``[P]``.
         Inside a deferred region the read rides the region's batched
         flush (queued validations first; an undersized one aborts for
         replay instead of materializing poisoned counts)."""
@@ -216,7 +230,10 @@ class DTable:
                 "plan_check: host row counts of a derived table are "
                 "data-dependent (only ingest-cached counts are known "
                 "at plan time)"))
-        self._counts_host = ops_compact.read_host(self.counts)
+        cnt = self.counts
+        if self.ctx.get_process_count() > 1:
+            cnt = self.ctx.comm.all_gather(cnt)
+        self._counts_host = ops_compact.read_host(cnt)
         return self._counts_host
 
     @property
@@ -254,17 +271,21 @@ class DTable:
         *i* gets the i-th contiguous slice, the first ``n % P`` shards one
         row more.  The columns come to the host (their host copies where
         they carry them, else one batched read) and go back through
-        ``StagedIngest``, as in the JAX package."""
+        ``StagedIngest``, as in the JAX package.  Across processes every
+        process passes the same table (SPMD inputs) and keeps the slices
+        of its own ranks."""
         sizes, offs, cap = _block_layout(table.num_rows,
                                          ctx.get_world_size(), cap)
+        lsizes, loffs = _local_slice(ctx, sizes, offs)
         hosts, valids = _host_leaves(table.columns)
         cols: List[DColumn] = []
         staged = StagedIngest(ctx)
         try:
             for c, hd, hv in zip(table.columns, hosts, valids):
                 cols.append(DColumn(
-                    c.name, c.dtype, staged.put(hd, sizes, offs, cap),
-                    None if hv is None else staged.put(hv, sizes, offs, cap),
+                    c.name, c.dtype, staged.put(hd, lsizes, loffs, cap),
+                    None if hv is None else staged.put(hv, lsizes, loffs,
+                                                       cap),
                     c.dictionary, c.arrow_type))
         finally:
             staged.finish()
@@ -273,7 +294,10 @@ class DTable:
     @staticmethod
     def _ingested(ctx: CylonContext, cols: List[DColumn], cap: int,
                   sizes: np.ndarray) -> "DTable":
-        out = DTable(ctx, cols, cap, torch.from_numpy(sizes.copy()).to(
+        """The ingested table; ``sizes`` are all P shards' row counts."""
+        r0 = ctx.get_rank()
+        local = sizes[r0:r0 + ctx.get_local_world_size()]
+        out = DTable(ctx, cols, cap, torch.from_numpy(local.copy()).to(
             ctx.device))
         # ingest knows the per-shard sizes statically: cached, so planners
         # (the broadcast threshold) never pay a host read here
@@ -284,18 +308,21 @@ class DTable:
     def from_arrow(ctx: CylonContext, atable, cap: Optional[int] = None
                    ) -> "DTable":
         """Block-distribute an arrow table directly from host memory (no
-        intermediate single-device Table)."""
+        intermediate single-device Table).  Across processes: the same
+        table in every process, each keeping its own ranks' slices."""
         from ..table import host_columns_from_arrow
         sizes, offs, cap = _block_layout(atable.num_rows,
                                          ctx.get_world_size(), cap)
+        sizes_l, offs_l = _local_slice(ctx, sizes, offs)
         cols: List[DColumn] = []
         staged = StagedIngest(ctx)
         try:
             for name, t, npv, mask, dictionary, ftype in \
                     host_columns_from_arrow(atable):
-                data = staged.put(npv, sizes, offs, cap)
+                data = staged.put(npv, sizes_l, offs_l, cap)
                 validity = (None if mask is None else
-                            staged.put(mask.astype(bool), sizes, offs, cap))
+                            staged.put(mask.astype(bool), sizes_l, offs_l,
+                                       cap))
                 cols.append(DColumn(name, DataType(t), data, validity,
                                     dictionary, ftype))
         finally:
@@ -316,16 +343,29 @@ class DTable:
         """Build from one local Table per shard (the per-rank-CSV ingest
         path: reference examples/bench/table_join_dist_test.cpp:87-91 reads
         ``csv1_<rank>.csv`` on each rank).  Per-partition dictionaries are
-        re-encoded onto their sorted union."""
-        Pn = ctx.get_world_size()
-        if len(parts) != Pn:
+        re-encoded onto their sorted union.  Across processes each process
+        passes the partitions of its OWN ranks; the row counts, ``cap``
+        (the largest partition's bucket) and the dictionary union are
+        agreed through one host all-gather."""
+        Ln = ctx.get_local_world_size()
+        if len(parts) != Ln:
             raise CylonError(Status(Code.Invalid,
-                f"{len(parts)} partitions for a {Pn}-shard world"))
+                f"{len(parts)} partitions for {Ln} local shards of a "
+                f"{ctx.get_world_size()}-shard world"))
         head = parts[0]
         for p in parts[1:]:
             head.verify_same_schema(p)
-        sizes = np.array([p.num_rows for p in parts], np.int32)
-        offs = np.concatenate([[0], np.cumsum(sizes)])
+        lsizes = np.array([p.num_rows for p in parts], np.int32)
+        offs = np.concatenate([[0], np.cumsum(lsizes)])
+        dict_cols = [j for j, c0 in enumerate(head.columns)
+                     if is_dictionary_encoded(c0.dtype.type)]
+        agreed = ctx.comm.all_gather_object(
+            (lsizes, {j: [p.columns[j].dictionary for p in parts]
+                      for j in dict_cols},
+             [j for j in range(head.num_columns)
+              if any(p.columns[j].validity is not None for p in parts)]))
+        nullable = {j for a in agreed for j in a[2]}
+        sizes = np.concatenate([a[0] for a in agreed]).astype(np.int32)
         if cap is None:
             cap = ops_compact.next_bucket(max(int(sizes.max(initial=0)), 1),
                                           minimum=8)
@@ -338,20 +378,21 @@ class DTable:
                 dictionary = None
                 if is_dictionary_encoded(c0.dtype.type):
                     dicts = [pc.dictionary for pc in pcols]
-                    dictionary = np.unique(np.concatenate(dicts)) if any(
-                        len(d) for d in dicts) else dicts[0]
+                    every = [d for a in agreed for d in a[1][j]]
+                    dictionary = np.unique(np.concatenate(every)) if any(
+                        len(d) for d in every) else every[0]
                     # an empty-dictionary partition holds only null rows
                     # (the sorted-encode invariant): zero its codes so
                     # nothing decodes against the merged dictionary
                     hosts = [np.searchsorted(dictionary, d)[h].astype(np.int32)
                              if len(d) else np.zeros_like(h, dtype=np.int32)
                              for h, d in zip(hosts, dicts)]
-                data = staged.put(np.concatenate(hosts), sizes, offs, cap)
+                data = staged.put(np.concatenate(hosts), lsizes, offs, cap)
                 validity = None
-                if any(v is not None for v in valids):
+                if j in nullable:
                     validity = staged.put(np.concatenate(
                         [np.ones(len(h), bool) if v is None else v
-                         for h, v in zip(hosts, valids)]), sizes, offs, cap)
+                         for h, v in zip(hosts, valids)]), lsizes, offs, cap)
                 cols.append(DColumn(c0.name, c0.dtype, data, validity,
                                     dictionary, c0.arrow_type))
         finally:
@@ -361,7 +402,8 @@ class DTable:
     # -- export --------------------------------------------------------------
 
     def _export(self, takes: Sequence[int]) -> Table:
-        """Gather ``takes[i]`` leading rows of each shard as a local Table.
+        """Gather ``takes[i]`` leading rows of each of the P shards as a
+        local Table (the same in every process).
 
         Rows are compacted on the device (one gather per column), then
         every gathered tensor comes to the host in ONE batched transfer
@@ -373,6 +415,7 @@ class DTable:
         self._collapse_pending()
         dev = self.ctx.device
         abstract = self._is_abstract()
+        leaf = self._global_leaf if sum(takes) else (lambda x: x)
         if abstract:
             idx = torch.empty((int(sum(takes)),), dtype=torch.int64,
                               device=dev)
@@ -384,9 +427,9 @@ class DTable:
             idx = torch.from_numpy(idx_host).to(dev)
         pulls = []
         for c in self.columns:
-            pulls.append(signed_view(c.data)[idx].view(c.data.dtype))
+            pulls.append(signed_view(leaf(c.data))[idx].view(c.data.dtype))
             if c.validity is not None:
-                pulls.append(c.validity[idx])
+                pulls.append(leaf(c.validity)[idx])
         if abstract:
             cols: List[Column] = []
             hi = 0
@@ -412,6 +455,18 @@ class DTable:
             trace.count("host.read")  # one batched export transfer
             hosts = host_batch(pulls)
         return Table(self.ctx, self._columns_from_host(pulls, hosts))
+
+    def _global_leaf(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` ([L*cap] local blocks) as the ``[P*cap]`` blocks of every
+        rank: an all-gather across processes (the export gives every
+        process the global rows, as the JAX package's does), ``x``
+        itself with one process."""
+        comm = self.ctx.comm
+        if comm.nproc == 1:
+            return x
+        tail = tuple(x.shape[1:])
+        return comm.all_gather(x.view((comm.local, self.cap) + tail)
+                               ).reshape((comm.world * self.cap,) + tail)
 
     def _is_abstract(self) -> bool:
         """Whether this table's leaves are meta tensors (an abstract plan
@@ -613,6 +668,12 @@ class DTable:
                 and is_abstract(self._counts) else "")
         return (f"DTable[{rows}P={self.nparts}, cap={self.cap}{spilled}]"
                 f"({cols})")
+
+
+def _local_slice(ctx: CylonContext, sizes: np.ndarray, offs: np.ndarray):
+    """The block layout's sizes and offsets of this process's ranks."""
+    r0, L = ctx.get_rank(), ctx.get_local_world_size()
+    return sizes[r0:r0 + L], offs[r0:r0 + L + 1]
 
 
 def _host_leaves(cols: Sequence[Column]):

@@ -141,6 +141,8 @@ def remesh_table(dt, new_ctx) -> int:
     multiset is preserved exactly, and the re-block is deterministic:
     shard-major row order, balanced blocks (the first ``total % P′``
     shards hold one row more)."""
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("parallel.remesh", dt.ctx)
     from ..analysis import plan_check
     from ..spill import pool as spill_pool
     if dt.ctx is new_ctx:

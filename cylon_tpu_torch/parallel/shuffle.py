@@ -2,14 +2,17 @@
 
 Mirror of ``cylon_tpu/parallel/shuffle.py`` (reference:
 cpp/src/cylon/table_api.cpp:214-297 Shuffle — HashPartition + split +
-AllToAll + concat).  Every phase runs batched over the P shards of a
-DTable's flat ``[P*cap]`` leaves, and reaches the other ranks only
-through the context's communicator (``all_to_all``, ``all_gather``,
-``ppermute``, the last two also group-local over a ``(slow, fast)``
-split):
+AllToAll + concat).  Every phase runs batched over the L local shards of
+a DTable's flat ``[L*cap]`` leaves (``L = P`` with one process), and
+reaches the other ranks only through the context's communicator
+(``all_to_all``, ``all_gather``, ``ppermute``, the first and last also
+group-local over a ``(slow, fast)`` split).  Source axes are the L local
+ranks, target axes the P ranks of the world; anything indexed by rank id
+uses the GLOBAL rank ``first_rank + l``:
 
   1. counts    per-shard ``bincount`` of the target ids → ``[P_src, P_dst]``
-               (gathered to every rank), read by the host through the
+               (gathered to every rank of every process, so every
+               process sizes and chooses alike), read by the host through the
                optimistic count protocol (``ops/compact``): with a size
                hint for the shuffle's signature the single-shot exchange
                is dispatched at the hinted sizes while the counts travel
@@ -156,10 +159,10 @@ def _warn_once(key, msg: str, *args) -> None:
 # batched building blocks
 # ---------------------------------------------------------------------------
 
-def _shard_offsets(P: int, cap: int, device, bins: int) -> torch.Tensor:
-    """[P*cap] shard id of every flat row, times ``bins`` (bincount bins
-    per shard)."""
-    return torch.arange(P, device=device).repeat_interleave(cap) * bins
+def _shard_offsets(L: int, cap: int, device, bins: int) -> torch.Tensor:
+    """[L*cap] local shard id of every flat row, times ``bins`` (bincount
+    bins per shard)."""
+    return torch.arange(L, device=device).repeat_interleave(cap) * bins
 
 
 def _compact_rows(mask: torch.Tensor, size: int):
@@ -174,11 +177,11 @@ def _compact_rows(mask: torch.Tensor, size: int):
     return idx[:, :size], mask.sum(1)
 
 
-def _gather_rows(M: torch.Tensor, P: int, idx: torch.Tensor) -> torch.Tensor:
-    """M [P*n, C], idx [P, k] (per-shard row positions) → [P, k, C]."""
-    n = M.shape[0] // P
-    base = (torch.arange(P, device=M.device) * n)[:, None]
-    return M[(base + idx).reshape(-1)].view(P, idx.shape[1], M.shape[1])
+def _gather_rows(M: torch.Tensor, L: int, idx: torch.Tensor) -> torch.Tensor:
+    """M [L*n, C], idx [L, k] (per-shard row positions) → [L, k, C]."""
+    n = M.shape[0] // L
+    base = (torch.arange(L, device=M.device) * n)[:, None]
+    return M[(base + idx).reshape(-1)].view(L, idx.shape[1], M.shape[1])
 
 
 def _scatter_rows(acc: torch.Tensor, slots: torch.Tensor,
@@ -199,66 +202,67 @@ def _where_rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _counts(comm, pid: torch.Tensor) -> torch.Tensor:
-    """pid [P*cap] → counts [P_src, P_dst] int32; pid P (padding) dropped."""
-    P = comm.world
-    cap = pid.shape[0] // P
-    flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device, P + 1)
-    cnt = bincount(flat, P * (P + 1)).view(P, P + 1)[:, :P]
+    """pid [L*cap] → counts [P_src, P_dst] int32, all-gathered; pid P
+    (padding) dropped."""
+    P, L = comm.world, comm.local
+    cap = pid.shape[0] // L
+    flat = pid.to(torch.int64) + _shard_offsets(L, cap, pid.device, P + 1)
+    cnt = bincount(flat, L * (P + 1)).view(L, P + 1)[:, :P]
     return comm.all_gather(cnt.to(torch.int32))
 
 
-def _send_plan(pid: torch.Tensor, P: int, T: int):
-    """pid [P*cap] → (order [P*cap], cnt [P, T]): a stable sort by
+def _send_plan(pid: torch.Tensor, L: int, T: int):
+    """pid [L*cap] → (order [L*cap], cnt [L, T]): a stable sort by
     (shard, target) — each shard's rows grouped by target, in row order
     within a target (argsort per shard, batched) — and the per-cell
     counts; target ``T`` (padding) dropped."""
-    cap = pid.shape[0] // P
-    flat = pid.to(torch.int64) + _shard_offsets(P, cap, pid.device, T + 1)
-    order = torch.sort(flat, stable=True).indices                     # [P*cap]
-    cnt = bincount(flat, P * (T + 1)).view(P, T + 1)[:, :T]
+    cap = pid.shape[0] // L
+    flat = pid.to(torch.int64) + _shard_offsets(L, cap, pid.device, T + 1)
+    order = torch.sort(flat, stable=True).indices                     # [L*cap]
+    cnt = bincount(flat, L * (T + 1)).view(L, T + 1)[:, :T]
     return order, cnt
 
 
 def _exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
               block: int, outcap: int, split=None, plan=None,
               start: int = 0, take: Optional[int] = None):
-    """Group-by-target, all_to_all, compact.  Returns (counts [P] int32,
-    new leaves [P*outcap]).  With ``split`` = (slow, fast) the targets
+    """Group-by-target, all_to_all, compact.  Returns (counts [L] int32,
+    new leaves [L*outcap]).  With ``split`` = (slow, fast) the targets
     are fast coordinates (``fast`` = drop) and the all_to_all runs
     inside each slow group: the first stage of the hierarchical
     exchange.  With ``plan`` (``_send_plan`` of ``pid``) and ``take``
     only the rank slice [start, start + take) of every (sender, target)
     cell moves: one chunked round, every round cut from the one sort."""
-    P = comm.world
-    T = P if split is None else int(split[1])      # targets per shard
+    L = comm.local
+    T = comm.world if split is None else int(split[1])  # targets per shard
     a2a = ({} if split is None else {"split": split, "axis": "fast"})
     dev = pid.device
-    cap = pid.shape[0] // P
-    shard_base = torch.arange(P, device=dev) * cap                    # [P]
-    order, cnt = _send_plan(pid, P, T) if plan is None else plan
-    offs = torch.cumsum(cnt, 1) - cnt                                 # [P, T]
+    cap = pid.shape[0] // L
+    shard_base = torch.arange(L, device=dev) * cap                    # [L]
+    order, cnt = _send_plan(pid, L, T) if plan is None else plan
+    offs = torch.cumsum(cnt, 1) - cnt                                 # [L, T]
     if take is not None:
         offs = offs + start
         cnt = torch.clamp(cnt - start, 0, take)
     jj = torch.arange(block, device=dev)
-    gather_pos = torch.clamp(offs[:, :, None] + jj, 0, cap - 1)       # [P,T,blk]
+    gather_pos = torch.clamp(offs[:, :, None] + jj, 0, cap - 1)       # [L,T,blk]
     send_idx = order[(shard_base[:, None, None] + gather_pos).reshape(-1)]
-    valid_send = (jj < cnt[:, :, None]).reshape(-1)                  # [P*T*blk]
+    valid_send = (jj < cnt[:, :, None]).reshape(-1)                  # [L*T*blk]
 
     # the 8-int header of mpi_channel.cpp, as one exchange of counts
-    rcnt = comm.all_to_all(cnt, **a2a)                                # [P, T_src]
-    recv_valid = (jj < rcnt[:, :, None]).reshape(P, T * block)
+    rcnt = comm.all_to_all(cnt, **a2a)                                # [L, T_src]
+    recv_valid = (jj < rcnt[:, :, None]).reshape(L, T * block)
     vidx, _ = _compact_rows(recv_valid, outcap)
-    vidx = vidx + (torch.arange(P, device=dev) * (T * block))[:, None]
-    newcount = rcnt.sum(1).to(torch.int32)                            # [P]
+    vidx = vidx + (torch.arange(L, device=dev) * (T * block))[:, None]
+    newcount = rcnt.sum(1).to(torch.int32)                            # [L]
     keep = (torch.arange(outcap, device=dev) < newcount[:, None]).reshape(-1)
 
     outs: List[torch.Tensor] = [None] * len(leaves)
     for M, positions, dtypes in ops_gather.pack_columns(leaves):
         C = M.shape[1]
-        S = torch.where(valid_send[:, None], M[send_idx], 0)          # [P*T*blk, C]
-        R = comm.all_to_all(S.view(P, T, block, C), **a2a)           # [P, T_src, blk, C]
-        got = R.view(P * T * block, C)[vidx.reshape(-1)]              # [P*outcap, C]
+        S = torch.where(valid_send[:, None], M[send_idx], 0)          # [L*T*blk, C]
+        R = comm.all_to_all(S.view(L, T, block, C), **a2a)           # [L, T_src, blk, C]
+        got = R.view(L * T * block, C)[vidx.reshape(-1)]              # [L*outcap, C]
         got = torch.where(keep[:, None], got, 0)
         for col, p in zip(ops_gather.unpack_columns(got, dtypes), positions):
             outs[p] = col
@@ -272,17 +276,19 @@ def _ring_exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     and landing it after the rows already received.  With ``split`` the
     ring runs along the slow axis (``pid`` holds slow coordinates, the
     slow extent = drop): the second stage of the hierarchical exchange.
-    Returns (counts [P] int32, new leaves [P*outcap])."""
-    P = comm.world
+    ``me`` is each local shard's GLOBAL rank (or its slow coordinate).
+    Returns (counts [L] int32, new leaves [L*outcap])."""
+    L = comm.local
     dev = pid.device
+    ranks = comm.first_rank + torch.arange(L, device=dev)
     if split is None:
-        T, me, perm = P, torch.arange(P, device=dev), {}
+        T, me, perm = comm.world, ranks, {}
     else:
         T = int(split[0])
-        me = torch.arange(P, device=dev) // int(split[1])
+        me = ranks // int(split[1])
         perm = {"split": split, "axis": "slow"}
-    cap = pid.shape[0] // P
-    pid2 = pid.view(P, cap).to(torch.int64)
+    cap = pid.shape[0] // L
+    pid2 = pid.view(L, cap).to(torch.int64)
     iota = torch.arange(block, device=dev)
     groups = ops_gather.pack_columns(leaves)
     # round 0 (no wire): own rows compact straight into the result
@@ -290,9 +296,9 @@ def _ring_exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     keep0 = torch.arange(outcap, device=dev) < total[:, None]
     accs = []
     for M, _, _ in groups:
-        acc = torch.zeros((P, outcap + 1, M.shape[1]), dtype=M.dtype,
+        acc = torch.zeros((L, outcap + 1, M.shape[1]), dtype=M.dtype,
                           device=dev)
-        acc[:, :outcap] = _where_rows(keep0, _gather_rows(M, P, vidx0))
+        acc[:, :outcap] = _where_rows(keep0, _gather_rows(M, L, vidx0))
         accs.append(acc)
     for r in range(1, T):
         sel = pid2 == ((me + r) % T)[:, None]
@@ -303,13 +309,13 @@ def _ring_exchange(comm, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
         slots = torch.where(rvalid, total[:, None] + iota, outcap)
         slots = torch.clamp(slots, max=outcap)
         for (M, _, _), acc in zip(groups, accs):
-            S = _where_rows(valid, _gather_rows(M, P, idx))
+            S = _where_rows(valid, _gather_rows(M, L, idx))
             R = _where_rows(rvalid, comm.ppermute(S, r, **perm))
             _scatter_rows(acc, slots, R)
         total = total + rcnt
     outs: List[torch.Tensor] = [None] * len(leaves)
     for (_, positions, dtypes), acc in zip(groups, accs):
-        A = acc[:, :outcap].reshape(P * outcap, acc.shape[2])
+        A = acc[:, :outcap].reshape(L * outcap, acc.shape[2])
         for col, p in zip(ops_gather.unpack_columns(A, dtypes), positions):
             outs[p] = col
     return total.to(torch.int32), outs
@@ -320,21 +326,23 @@ def _allgather_exchange(comm, pid: torch.Tensor,
     """Replicate-and-filter: every shard's block gathered to every shard
     (pid lane included), each shard keeping the rows targeted at it in
     gathered order, which is sender order."""
-    P = comm.world
+    P, L, r0 = comm.world, comm.local, comm.first_rank
     dev = pid.device
-    cap = pid.shape[0] // P
-    gpid = comm.all_gather(pid.view(P, cap)).reshape(-1).to(torch.int64)
+    cap = pid.shape[0] // L
+    gpid = comm.all_gather(pid.view(L, cap)).reshape(-1).to(torch.int64)
     # each receiver's rows of the gathered block, in gathered order: a
     # stable sort by target lists every receiver's rows contiguously
     order = torch.sort(gpid, stable=True).indices
-    cnt = bincount(gpid, P + 1)[:P]
-    offs = torch.cumsum(cnt, 0) - cnt
+    cnt_all = bincount(gpid, P + 1)[:P]
+    # this process's receivers
+    offs = (torch.cumsum(cnt_all, 0) - cnt_all)[r0:r0 + L]
+    cnt = cnt_all[r0:r0 + L]
     jj = torch.arange(outcap, device=dev)
     vidx = order[torch.clamp(offs[:, None] + jj, max=P * cap - 1)]
     keep = (jj < cnt[:, None]).reshape(-1)
     outs: List[torch.Tensor] = [None] * len(leaves)
     for M, positions, dtypes in ops_gather.pack_columns(leaves):
-        G = comm.all_gather(M.view(P, cap, M.shape[1])).reshape(P * cap, -1)
+        G = comm.all_gather(M.view(L, cap, M.shape[1])).reshape(P * cap, -1)
         got = torch.where(keep[:, None], G[vidx.reshape(-1)], 0)
         for col, p in zip(ops_gather.unpack_columns(got, dtypes), positions):
             outs[p] = col
@@ -446,10 +454,13 @@ class _RoundFold:
     result is assembled into the flat ``[P*cap]`` leaves at the end, each
     shard's block freed as it is copied."""
 
-    def __init__(self, Pn: int, counts: np.ndarray, rounds: int, C: int,
+    def __init__(self, comm, counts: np.ndarray, rounds: int, C: int,
                  outcap_k: int, outcap_total: int, rbytes: int,
                  priced: int, combine=None):
-        self.Pn, self.counts, self.rounds, self.C = Pn, counts, rounds, C
+        # Pn: the local shards the fold runs over; the count matrix and
+        # the group counts that size it are global (replicated)
+        self.comm, self.Pn = comm, comm.local
+        self.counts, self.rounds, self.C = counts, rounds, C
         self.outcap_k, self.outcap_total = outcap_k, outcap_total
         self.rbytes, self.priced, self.combine = rbytes, priced, combine
         self.acc = self.acc_cnt = None
@@ -496,7 +507,7 @@ class _RoundFold:
         trace.count_max("shuffle.exchange_bytes_peak",
                         self.priced + (prev_cap + out_cap) * self.rbytes)
         if k + 1 < self.rounds:
-            self.acc_groups = read_counts(self.acc_cnt)
+            self.acc_groups = read_counts(self.comm.all_gather(self.acc_cnt))
 
     def done(self):
         """(flat result leaves, counts [P], capacity)."""
@@ -518,13 +529,13 @@ class _RoundFold:
         return outs, self.acc_cnt, cap
 
 
-def _cell_rank(pid: torch.Tensor, P: int) -> torch.Tensor:
-    """[P*cap] int32 rank of every row within its (shard, target) cell, in
+def _cell_rank(pid: torch.Tensor, L: int, P: int) -> torch.Tensor:
+    """[L*cap] int32 rank of every row within its (shard, target) cell, in
     row order, without sorting the pid lane: one masked cumsum per
-    target."""
-    cap = pid.shape[0] // P
-    pid2 = pid.view(P, cap)
-    rank = torch.zeros((P, cap), dtype=torch.int32, device=pid.device)
+    target (P of them)."""
+    cap = pid.shape[0] // L
+    pid2 = pid.view(L, cap)
+    rank = torch.zeros((L, cap), dtype=torch.int32, device=pid.device)
     for t in range(P):
         m = pid2 == t
         rank = torch.where(m, torch.cumsum(m, 1, dtype=torch.int32) - 1, rank)
@@ -532,27 +543,27 @@ def _cell_rank(pid: torch.Tensor, P: int) -> torch.Tensor:
     return rank.view(-1)
 
 
-def _rank_morsel(pid: torch.Tensor, leaves, rank: torch.Tensor, P: int,
-                 lo: int, hi: int, mcap: int):
+def _rank_morsel(pid: torch.Tensor, leaves, rank: torch.Tensor, L: int,
+                 P: int, lo: int, hi: int, mcap: int):
     """The rows of rank ``[lo, hi)`` in their (shard, target) cells, moved
-    to the front of per-shard ``[mcap]`` blocks in row order (padding: pid
-    ``P``, zero leaves): one chunked round's morsel, which the single-shot
-    ``_exchange`` then sends as that round.  Returns (pid [P*mcap],
-    leaves)."""
-    cap = pid.shape[0] // P
+    to the front of the L local shards' ``[mcap]`` blocks in row order
+    (padding: pid ``P``, zero leaves): one chunked round's morsel, which
+    the single-shot ``_exchange`` then sends as that round.  Returns (pid
+    [L*mcap], leaves)."""
+    cap = pid.shape[0] // L
     dev = pid.device
     src = torch.nonzero((pid < P) & (rank >= lo) & (rank < hi)).squeeze(1)
     shard = torch.div(src, cap, rounding_mode="floor")
-    n = torch.bincount(shard, minlength=P)
+    n = torch.bincount(shard, minlength=L)
     start = torch.cumsum(n, 0) - n
     dst = shard * mcap + (torch.arange(src.shape[0], device=dev)
                           - start[shard])
     del shard, n, start
-    pid_m = torch.full((P * mcap,), P, dtype=pid.dtype, device=dev)
+    pid_m = torch.full((L * mcap,), P, dtype=pid.dtype, device=dev)
     pid_m[dst] = pid[src]
     out = []
     for lf in leaves:
-        m = torch.zeros((P * mcap,) + tuple(lf.shape[1:]), dtype=lf.dtype,
+        m = torch.zeros((L * mcap,) + tuple(lf.shape[1:]), dtype=lf.dtype,
                         device=dev)
         m[dst] = lf[src]
         out.append(m)
@@ -564,27 +575,32 @@ def _rank_morsel(pid: torch.Tensor, leaves, rank: torch.Tensor, P: int,
 # ---------------------------------------------------------------------------
 
 def _account(counts: np.ndarray, rbytes: int, combine=None,
-             owner: str = "", split=None) -> None:
-    """Exchange-volume accounting: the count matrix's off-diagonal as
-    ``shuffle.rows_sent`` / ``shuffle.bytes_sent`` (``owner="groupby"``
-    also ``groupby.bytes_moved``); a partial-group payload (``combine``)
+             owner: str = "", split=None, mine=None) -> None:
+    """Exchange-volume accounting of THIS process's senders (``mine`` =
+    ``(first_rank, L)``, every rank with one process): the rows of the
+    count matrix's off-diagonal they send as ``shuffle.rows_sent`` /
+    ``shuffle.bytes_sent`` (``owner="groupby"`` also
+    ``groupby.bytes_moved``); a partial-group payload (``combine``)
     counts every partial row as ``groupby.partials_rows``; otherwise,
     under a non-trivial ``(slow, fast)`` split, the rows crossing slow
     groups as ``shuffle.rows_sent_slow``."""
-    moved = int(counts.sum() - np.trace(counts))
+    c = np.asarray(counts)
+    r0, L = mine if mine is not None else (0, c.shape[0])
+    sent = c[r0:r0 + L]
+    moved = int(sent.sum() - np.trace(c[r0:r0 + L, r0:r0 + L]))
     trace.count("shuffle.rows_sent", moved)
     trace.count("shuffle.bytes_sent", moved * rbytes)
     if owner == "groupby":
         trace.count("groupby.bytes_moved", moved * rbytes)
     if combine is not None:
-        trace.count("groupby.partials_rows", int(counts.sum()))
+        trace.count("groupby.partials_rows", int(sent.sum()))
     elif split is not None:
         slow, fast = split
-        c = np.asarray(counts)
         if slow > 1 and fast > 1 and c.shape[0] == slow * fast:
             slow_of = np.arange(slow * fast) // fast
             cross = slow_of[:, None] != slow_of[None, :]
-            trace.count("shuffle.rows_sent_slow", int(c[cross].sum()))
+            trace.count("shuffle.rows_sent_slow",
+                        int(c[r0:r0 + L][cross[r0:r0 + L]].sum()))
 
 
 def _axis_split_of(ctx):
@@ -630,6 +646,10 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
     forced = exchange_strategy()
     split = _axis_split_of(ctx) if ctx is not None else None
     exclude = resilience.exchange_demotions()
+    # the host tier stages one process's blocks: across processes the
+    # chooser leaves it out, and says so in the decision's reason
+    procs = ctx.get_process_count() if ctx is not None else 1
+    spill_ok = spill_enabled() and procs == 1
     if forced is None and not exclude:
         # fast path: a feasible single-shot wins the (rounds, wire,
         # catalogue) order outright
@@ -640,8 +660,13 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
             return ss, f"{ss.describe()} <= budget {budget} B", True
     cands = cost.enumerate_strategies(Pn, cap, counts, rbytes, budget,
                                       staged_ok=combine is None,
-                                      spill_ok=spill_enabled(), split=split)
-    return cost.choose(cands, budget, forced, exclude=exclude)
+                                      spill_ok=spill_ok, split=split)
+    choice, reason, feasible = cost.choose(cands, budget, forced,
+                                           exclude=exclude)
+    if procs > 1 and spill_enabled():
+        reason = (f"{cost.STAGED_SPILL} excluded: the process "
+                  f"communicator spans {procs} processes; {reason}")
+    return choice, reason, feasible
 
 
 def _note_choice(choice, reason: str, nparts=None) -> None:
@@ -780,8 +805,8 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
     group so far, sized exactly from the previous fold's group count
     (one host read per round), so it grows with the groups, not the
     rows received."""
-    comm, Pn = ctx.comm, ctx.get_world_size()
-    cap = pid.shape[0] // Pn
+    comm, Pn, L = ctx.comm, ctx.get_world_size(), ctx.get_local_world_size()
+    cap = pid.shape[0] // L
     rounds, C, block, outcap_k = (plan if plan is not None else
                                   cost.chunk_plan(Pn, counts, rbytes, budget))
     trace.count("shuffle.chunked")
@@ -798,14 +823,14 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
         degraded=f"chunked shuffle: {rounds} rounds of <= {C} rows/cell "
                  f"({priced_k} B/round vs {budget} B budget)")
     dm0 = _devmem_before(ctx)
-    fold = _RoundFold(Pn, counts, rounds, C, outcap_k, outcap_total, rbytes,
+    fold = _RoundFold(comm, counts, rounds, C, outcap_k, outcap_total, rbytes,
                       priced_k, combine)
     with trace.span_sync("shuffle.exchange") as sp:
         if combine is None:
             # one sort for every round: round k moves the rank slice
             # [k·C, (k+1)·C) of each (sender, target) cell, a contiguous
             # run of the sorted cell
-            plan_k = _send_plan(pid, Pn, Pn)
+            plan_k = _send_plan(pid, L, Pn)
             round_k = lambda k: _exchange(  # noqa: E731
                 comm, pid, leaves, block, outcap_k, plan=plan_k,
                 start=k * C, take=C)
@@ -814,12 +839,12 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
             # rounds are cut from one int32 rank lane instead of a full
             # sort of the pid lane, each round's rows moved to a
             # morsel-sized block first
-            rank = _cell_rank(pid, Pn)
+            rank = _cell_rank(pid, L, Pn)
             mcap = next_bucket(max(min(Pn * C, cap), 1), minimum=8)
 
             def round_k(k):
-                pid_m, leaves_m = _rank_morsel(pid, leaves, rank, Pn, k * C,
-                                               (k + 1) * C, mcap)
+                pid_m, leaves_m = _rank_morsel(pid, leaves, rank, L, Pn,
+                                               k * C, (k + 1) * C, mcap)
                 return _exchange(comm, pid_m, leaves_m, block, outcap_k)
         for k in range(rounds):
             cnt_k, outs_k = _watchdog_dispatch(
@@ -877,8 +902,10 @@ def _staged_spill_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
     gather and host→device copy run on a ``HostPipeline`` worker while
     morsel k's exchange runs; the consumer's stream waits on each
     morsel's copy event."""
+    from ..context import refuse_multiprocess
     from ..spill import pool as spill_pool
     from .streaming import HostPipeline
+    refuse_multiprocess("the staged-spill exchange", ctx)
     comm, Pn = ctx.comm, ctx.get_world_size()
     rounds, C, block, outcap_k = choice.sizes
     trace.count("spill.exchanges")
@@ -929,7 +956,7 @@ def _staged_spill_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
             return staged
 
         dm0 = _devmem_before(ctx)
-        fold = _RoundFold(Pn, counts, rounds, C, outcap_k, outcap_total,
+        fold = _RoundFold(comm, counts, rounds, C, outcap_k, outcap_total,
                           rbytes, choice.peak_bytes, combine)
         pipe = HostPipeline(name="spill-exchange")
         with trace.span_sync("shuffle.exchange") as sp:
@@ -966,7 +993,7 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
     first stage's landing by (keys, pid) BEFORE the slow axis, and each
     slow round's received cell into the accumulator, so the slow edge
     carries per-group partials only (``groupby.axis_precombine_rows``)."""
-    comm, Pn = ctx.comm, ctx.get_world_size()
+    comm, Pn, L = ctx.comm, ctx.get_world_size(), ctx.get_local_world_size()
     S, F, block1, outcap1, block2, _outcap_ss = choice.sizes
     split = (S, F)
     dev = pid.device
@@ -980,7 +1007,7 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
                     comm, tf, list(leaves) + [pid], block1, outcap1,
                     split=split), dev)
             pid_idx = len(leaves)
-            landed = outs1[pid_idx].view(Pn, outcap1).to(torch.int64)
+            landed = outs1[pid_idx].view(L, outcap1).to(torch.int64)
             valid1 = torch.arange(outcap1, device=dev) < cnt1[:, None]
             if combine is None:
                 pid2 = torch.where(valid1 & (landed < Pn), landed // F,
@@ -996,11 +1023,11 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
             key_slots, val_slots = combine
             spec2 = (tuple(key_slots) + ((pid_idx, None),),
                      tuple(val_slots))
-            ngc, comb = _fold_combine(spec2, Pn, [(cnt1, outs1)], outcap1)
+            ngc, comb = _fold_combine(spec2, L, [(cnt1, outs1)], outcap1)
             trace.count("shuffle.fold_combined")
-            cpid = comb[pid_idx].view(Pn, outcap1).to(torch.int64)
+            cpid = comb[pid_idx].view(L, outcap1).to(torch.int64)
             cvalid = torch.arange(outcap1, device=dev) < ngc[:, None]
-            ts = torch.where(cvalid & (cpid < Pn), cpid // F, S)  # [P, cap]
+            ts = torch.where(cvalid & (cpid < Pn), cpid // F, S)  # [L, cap]
             c2 = torch.stack([(ts == s).sum(1) for s in range(S)], 1)
             c2c = read_counts(comm.all_gather(c2.to(torch.int32)))
             slow_of = np.arange(Pn) // F
@@ -1015,7 +1042,7 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
                 minimum=8)
             block_x = next_bucket(max(int(cross.max(initial=0)), 1),
                                   minimum=8)
-            me = torch.arange(Pn, device=dev) // F
+            me = (comm.first_rank + torch.arange(L, device=dev)) // F
             per_recv = np.zeros((Pn,), np.int64)
             acc = acc_cnt = None
             acc_cap = 0
@@ -1031,7 +1058,7 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
                         comm, ts, comb, me, S, rr, blk, split), dev)
                 parts = ([(rcnt, cells)] if acc is None
                          else [(acc_cnt, acc), (rcnt, cells)])
-                acc_cnt, acc = _fold_combine(spec2, Pn, parts, out_cap)
+                acc_cnt, acc = _fold_combine(spec2, L, parts, out_cap)
                 trace.count("shuffle.fold_combined")
                 trace.count_max("shuffle.exchange_bytes_peak",
                                 choice.peak_bytes
@@ -1047,8 +1074,8 @@ def _slow_cell(comm, ts, leaves, me, S: int, r: int, block: int, split):
     """One slow-ring round of the hierarchical COMBINE path: each shard
     compacts its rows bound for slow group (me + r) % S into a [block]
     cell and (r > 0) permutes it r hops along the slow axis.  Returns
-    (received count [P], received leaves [P*block])."""
-    P = comm.world
+    (received count [L], received leaves [L*block])."""
+    L = comm.local
     dev = ts.device
     idx, cnt = _compact_rows(ts == ((me + r) % S)[:, None], block)
     valid = torch.arange(block, device=dev) < cnt[:, None]
@@ -1057,10 +1084,10 @@ def _slow_cell(comm, ts, leaves, me, S: int, r: int, block: int, split):
     rvalid = torch.arange(block, device=dev) < rcnt[:, None]
     outs: List[torch.Tensor] = [None] * len(leaves)
     for M, positions, dtypes in ops_gather.pack_columns(leaves):
-        C = _where_rows(valid, _gather_rows(M, P, idx))
+        C = _where_rows(valid, _gather_rows(M, L, idx))
         if r:
             C = _where_rows(rvalid, comm.ppermute(C, r, **perm))
-        C = C.reshape(P * block, M.shape[1])
+        C = C.reshape(L * block, M.shape[1])
         for col, p in zip(ops_gather.unpack_columns(C, dtypes), positions):
             outs[p] = col
     return rcnt.to(torch.int32), outs
@@ -1118,7 +1145,8 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     # degrade: the budget guardrail is a runtime concern
     budget = None if is_abstract(pid) \
         else resilience.exchange_budget(ctx.device)
-    cap = pid.shape[0] // max(Pn, 1)
+    cap = pid.shape[0] // max(comm.local, 1)
+    mine = (comm.first_rank, comm.local)
 
     def dispatch(sizes):
         return _watchdog_dispatch(
@@ -1131,7 +1159,7 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
         # post() sees the count matrix in immediate mode AND at the
         # deferred flush, so a pipeline tallies the rows and bytes a
         # blocking run would
-        _account(counts, rbytes, combine, owner, split=split)
+        _account(counts, rbytes, combine, owner, split=split, mine=mine)
         block, outcap, per_recv = cost.exchange_sizes(counts)
         _warn_skew(Pn, sig, per_recv, outcap)
         need = (block, outcap)
@@ -1154,7 +1182,7 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
         choice, reason, _ = _choose(Pn, cap, counts, rbytes, budget,
                                     combine, ctx=ctx)
         if choice.strategy == cost.SINGLE_SHOT:
-            _note_choice(choice, reason, nparts=Pn)
+            _note_choice(choice, reason, nparts=comm.local)
             return need
         _mark_degraded(sig)
         if ops_compact.in_flush():
@@ -1181,13 +1209,13 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
         # and re-choose: the chooser picks a degraded lowering again or
         # self-promotes the signature back to single-shot
         counts = read_counts(cnt_dev)
-        _account(counts, rbytes, combine, owner, split=split)
+        _account(counts, rbytes, combine, owner, split=split, mine=mine)
         block, outcap, per_recv = cost.exchange_sizes(counts)
         _warn_skew(Pn, sig, per_recv, outcap)
         need = (block, outcap)
         choice, reason, _ = _choose(Pn, cap, counts, rbytes, budget,
                                     combine, ctx=ctx)
-        _note_choice(choice, reason, nparts=Pn)
+        _note_choice(choice, reason, nparts=comm.local)
         if choice.strategy == cost.SINGLE_SHOT:
             # this call prices back under budget (the data shrank):
             # promote to the single-shot path and reseed the optimism
@@ -1214,7 +1242,7 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
         # the hinted dispatch (if any) was launched before the counts came
         # back — its result is discarded; the chosen degraded lowering
         # recovers from the counts the exception carries
-        _note_choice(ob.choice, ob.reason, nparts=Pn)
+        _note_choice(ob.choice, ob.reason, nparts=comm.local)
         return _degraded(ctx, pid, leaves, ob.counts, rbytes, budget,
                          ob.need[1], ob.choice, combine)
     if budget is not None:

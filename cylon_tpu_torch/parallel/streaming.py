@@ -121,6 +121,8 @@ def dist_join_streaming(left: DTable, right: DTable, config: JoinConfig,
     side of an INNER / LEFT join streams from the spill pool through the
     morsel scan instead (``spill.morsel.morsel_join``): the first leaf
     read here would otherwise fault the whole block back in."""
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("dist_join_streaming", left.ctx)
     if left.is_spilled and config.join_type.value in ("inner", "left") \
             and not right.is_spilled:
         from ..spill import morsel as spill_morsel

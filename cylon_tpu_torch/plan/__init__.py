@@ -44,6 +44,8 @@ def run(ctx, op, tables=None):
     tables still on the old world are migrated first
     (``parallel.remesh.ensure_current``), before pricing reads their
     layout."""
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("the planner", ctx)
     from .. import topology
     if tables is not None:
         from ..parallel.remesh import ensure_current

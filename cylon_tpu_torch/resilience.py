@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import random
+import re
 import threading
 import time
 from dataclasses import dataclass
@@ -266,6 +267,31 @@ PERMANENT = "permanent"
 TOPOLOGY = "topology"
 
 
+# what a process group says when a peer is gone: gloo's "Connection
+# closed by peer" / "Connection reset", NCCL's aborted communicator or
+# watchdog timeout, a broken pipe or a timed-out rank
+_PEER_LOSS = re.compile(
+    r"closed by peer|connection (?:closed|reset|refused)|broken pipe"
+    r"|(?:peer|rank|process)\b.{0,80}\b(?:lost|closed|abort\w*|exited"
+    r"|gone|died|timed out)"
+    r"|(?:nccl|gloo|process ?group|collective|communicator|watchdog)\b"
+    r".{0,120}\b(?:abort\w*|timed out|timeout|closed|lost)", re.I)
+
+
+def _peer_lost(exc: BaseException) -> bool:
+    """Whether ``exc`` reports a lost peer of a process group."""
+    if isinstance(exc, torch.OutOfMemoryError):
+        return False
+    try:
+        from torch.distributed import DistBackendError, DistNetworkError
+    except ImportError:  # a torch built without torch.distributed
+        return False
+    if isinstance(exc, (DistBackendError, DistNetworkError)):
+        return True
+    return isinstance(exc, RuntimeError) and not isinstance(exc, CylonError) \
+        and _PEER_LOSS.search(str(exc)) is not None
+
+
 def classify(exc: BaseException) -> str:
     """Sort one failure into the ladder's classes.
 
@@ -283,13 +309,18 @@ def classify(exc: BaseException) -> str:
     allocation.
 
     ``topology`` — an injected :class:`faults.TopologyFault` (a device
-    lost mid-query): the answer is evacuate and re-mesh.
+    lost mid-query), or a peer process lost under the process
+    communicator: a ``torch.distributed`` backend / network error, or a
+    ``RuntimeError`` from the process group naming a lost, closed,
+    aborted or timed-out peer (the counterpart of the JAX package's rule
+    for a lost / unavailable / halted device).  The answer is evacuate
+    and re-mesh.
 
     ``permanent`` — everything else, :class:`faults.PermanentFault`
     included."""
     if isinstance(exc, faults.PermanentFault):
         return PERMANENT
-    if isinstance(exc, faults.TopologyFault):
+    if isinstance(exc, faults.TopologyFault) or _peer_lost(exc):
         return TOPOLOGY
     if isinstance(exc, faults.FaultError) \
             and getattr(exc, "point", "").startswith("spill."):

@@ -69,6 +69,8 @@ class FleetRouter:
     """
 
     def __init__(self, sessions: List[ServeSession]) -> None:
+        from ..context import refuse_multiprocess
+        refuse_multiprocess("serve.FleetRouter")
         if not sessions:
             raise CylonError(Status(Code.Invalid,
                 "FleetRouter needs at least one ServeSession"))

@@ -605,6 +605,8 @@ class ServeSession:
                  tail_window: int = 128,
                  views: Optional[bool] = None,
                  pipelined: Optional[bool] = None) -> None:
+        from ..context import refuse_multiprocess
+        refuse_multiprocess("serve.ServeSession", ctx)
         if batch_window_ms < 0:
             raise CylonError(Status(Code.Invalid,
                 f"batch_window_ms must be >= 0, got {batch_window_ms}"))

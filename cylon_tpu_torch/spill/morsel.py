@@ -189,6 +189,8 @@ def morsel_groupby(dt, key_columns, aggregations, where=None,
     morsels × local partial aggregation, partials folded by key, one final
     partial exchange + combine (the fused aggregation's tail).  The result
     is row-identical to the resident ``dist_groupby_fused``."""
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("the morsel scan (spill)", dt.ctx)
     from ..parallel import dist_ops
     from ..parallel.streaming import _concat_compact
     key_ids = [dt.column_index(c) for c in key_columns]
@@ -256,6 +258,8 @@ def morsel_join(left, right, config, morsels: Optional[int] = None,
     unmatched only against ALL left morsels, which no single morsel can
     decide, so RIGHT / FULL_OUTER fault the left side in and run the
     resident join."""
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("the morsel scan (spill)", left.ctx)
     from ..parallel import dist_ops
     from ..parallel.streaming import _concat_compact
     how = config.join_type.value

@@ -521,6 +521,8 @@ def clear_pool() -> None:
 
 
 def spill_table(dt) -> None:
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("the host tier (DTable.spill)", dt.ctx)
     if not spill_enabled():
         raise CylonError(Status(Code.Invalid,
             "spill is disabled (CYLON_SPILL=0 / "

@@ -58,11 +58,19 @@ _last_change: Dict[Tuple, float] = {}
 _epoch = 0
 
 
+def _refuse(ctx, what: str) -> None:
+    from .context import refuse_multiprocess
+    refuse_multiprocess(what, ctx)
+
+
 def slots(ctx) -> Tuple:
     """The shard slots of ``ctx``'s world, ``((device, s), ...)`` from
     its first slot on: what the JAX package's ``ctx.devices`` is to its
-    roster."""
+    roster.  Across processes, the slots of this process's own ranks,
+    numbered by global rank (the JAX package's addressable devices)."""
     dev = str(ctx.device)
+    if ctx.get_process_count() > 1:
+        return tuple((dev, r) for r in ctx.local_ranks())
     s0 = ctx.first_slot
     return tuple((dev, s0 + i) for i in range(ctx.get_world_size()))
 
@@ -135,6 +143,7 @@ def mark_lost(ctx, lost: int = 1):
     from .logging import warning as _warn
     from .observe import flightrec
     global _epoch
+    _refuse(ctx, "a shard loss re-mesh (topology.mark_lost)")
     with _lock:
         cur = effective(ctx)
         world = cur.get_world_size()
@@ -181,6 +190,7 @@ def mark_joined(ctx, joined: int = 1):
     from .logging import warning as _warn
     from .observe import flightrec
     global _epoch
+    _refuse(ctx, "a rejoin re-mesh (topology.mark_joined)")
     joined_eff = max(int(joined), 0)
     with _lock:
         cur = effective(ctx)
@@ -235,8 +245,11 @@ def axis_split(ctx) -> Tuple[int, int]:
     """The ``(slow, fast)`` factorization of ``ctx``'s world.
 
     Resolution: explicit ``config.set_mesh_shape`` / ``CYLON_MESH_SHAPE``
-    first, else the flat ``(1, world)`` (one process holds every shard,
-    so there is no host grouping to read).  A configured shape that does
+    first, else the process grouping ``(nproc, L)`` of a world that spans
+    processes (the JAX package's ``process_index`` grouping: the slow
+    stage of a hierarchical exchange is then the cross-process one), else
+    the flat ``(1, world)`` (one process holds every shard, so there is
+    no host grouping to read).  A configured shape that does
     not tile the world keeps its FAST extent when that still divides,
     and otherwise degrades to flat.  Always a valid factorization of the
     world size, so a re-mesh onto survivors re-prices the hierarchy."""
@@ -246,6 +259,9 @@ def axis_split(ctx) -> Tuple[int, int]:
         return (1, 1)
     shape = config.mesh_shape()
     if shape is None:
+        nproc = ctx.get_process_count()
+        if nproc > 1:
+            return (nproc, world // nproc)
         return (1, world)
     slow, fast = shape
     if slow * fast == world:

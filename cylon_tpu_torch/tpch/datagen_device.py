@@ -499,6 +499,8 @@ def generate_device(ctx, scale: float, seed: int = 42):
     large ones are computed there (row ids → formulas, in place in their
     padded blocks); nation and region (25 and 5 rows) are ingested from
     the host."""
+    from ..context import refuse_multiprocess
+    refuse_multiprocess("the TPC-H generator", ctx)
     from ..parallel.dtable import DTable
     from ..table import Table
     dev, world = ctx.device, ctx.get_world_size()

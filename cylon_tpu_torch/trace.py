@@ -30,7 +30,11 @@ the structured equivalent, under the JAX package's names:
 
 Enable with ``CYLON_TRACE=1`` in the environment or ``trace.enable()``;
 ``enable_counters()`` records counters without span timing (and without
-span syncs).
+span syncs).  In a world that spans processes (``CylonContext.
+InitMultiHost``) every process keeps its own spans and counters: a span
+times this process's part of a collective (which includes its wait for
+the others), and the shuffle's volume counters count this process's
+senders.
 """
 from __future__ import annotations
 

@@ -1263,3 +1263,58 @@ def test_plan_check_and_pipeline_on_card(card_tpch):
     finally:
         trace.disable_counters()
         trace.reset()
+
+
+def _nccl_context(tmp_path, world):
+    return pt.CylonContext.InitMultiHost(f"file://{tmp_path}/store", 1, 0,
+                                         world=world, device="cuda",
+                                         backend="nccl", timeout=120)
+
+
+@pytest.mark.gpu
+def test_process_communicator_nccl_equals_local_on_card(card, tmp_path):
+    """One process of 4 local ranks over NCCL: every collective of the
+    process communicator (``all_to_all``, ``all_gather``, ``all_reduce``,
+    ``ppermute``, and the group-local forms at the split ``(1, 4)``)
+    equals ``LocalCommunicator``'s on the same CUDA tensor."""
+    import torch_multiprocess_worker as W
+    from cylon_tpu_torch.context import LocalCommunicator
+    ctx = _nccl_context(tmp_path, 4)
+    try:
+        assert ctx.comm.backend == "nccl"
+        x = W.global_block(4).to(card)
+        got = W.collectives(ctx.comm, x, (1, 4))
+        want = W.collectives(LocalCommunicator(4, card), x, (1, 4))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    finally:
+        ctx.finalize()
+
+
+@pytest.mark.gpu
+def test_process_communicator_operators_on_card(card, tmp_path):
+    """The distributed operators over the NCCL context (1 process × 4
+    local ranks) give the single-process world 4's shards on the card."""
+    import torch_multiprocess_worker as W
+    ctx = _nccl_context(tmp_path, 4)
+    try:
+        sim = pt.CylonContext(device="cuda", world=4)
+        data = W.inputs(4)
+        got_env = W.Env(pt, ctx, ctx, data)
+        want_env = W.Env(pt, sim, sim, data)
+        for name in ("shuffle", "join_hash_inner", "join_sort_full_outer",
+                     "sort_desc", "union", "groupby_default",
+                     "lowering_ring", "lowering_allgather", "export"):
+            W.clear_hints(pt)
+            got = W.SCENARIOS[name](got_env)
+            W.clear_hints(pt)
+            want = W.SCENARIOS[name](want_env)
+            if name == "export":
+                assert got == want
+                continue
+            assert port_rows(got, ordered=True) == \
+                port_rows(want, ordered=True), name
+            assert got.cap == want.cap, name
+    finally:
+        ctx.finalize()

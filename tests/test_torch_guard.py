@@ -90,6 +90,31 @@ def test_context_rejects_bad_world_and_config():
         pt.CylonContext("mpi", device="cpu")
 
 
+def test_init_multihost_without_a_card_raises(monkeypatch, tmp_path):
+    """``InitMultiHost`` never falls back to the CPU: with no card and no
+    ``device="cpu"`` it raises before it joins any process group."""
+    import torch.distributed as dist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(pt.CylonError):
+        pt.CylonContext.InitMultiHost(f"file://{tmp_path}/store", 1, 0,
+                                      world=2)
+    assert not dist.is_initialized()
+
+
+def test_local_communicator_is_one_process():
+    """A single-process context: ``local == world``, ``first_rank == 0``,
+    one process, every rank its own."""
+    ctx = pt.CylonContext(device="cpu", world=4)
+    comm = ctx.comm
+    assert (comm.local, comm.world, comm.first_rank, comm.nproc) == \
+        (4, 4, 0, 1)
+    assert ctx.get_rank() == 0 and ctx.get_local_world_size() == 4
+    assert ctx.local_ranks() == [0, 1, 2, 3]
+    assert ctx.get_neighbours() == []
+    assert ctx.get_neighbours(include_self=True) == [0, 1, 2, 3]
+    assert ctx.get_process_count() == 1
+
+
 def test_local_communicator_transposes_and_gathers():
     comm = pt.CylonContext(device="cpu", world=3).comm
     x = torch.arange(3 * 3 * 2).view(3, 3, 2)
@@ -110,3 +135,4 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+

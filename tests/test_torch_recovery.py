@@ -75,11 +75,30 @@ def jctx_of(dctx, world):
         {"backend": "tpu", "devices": dctx.devices[:world]})
 
 
+def _close_leaked_sessions(timeout_s: float = 30.0) -> None:
+    """Close serving sessions (either package's) that an earlier test
+    module left open, say one that failed before its ``close()``: their
+    dispatchers poll the topology registry, and a loss injected here
+    would make them migrate their own tables into this test's
+    ``recover.*`` counters.  Each close is bounded."""
+    import threading
+    for th in threading.enumerate():
+        owner = getattr(getattr(th, "_target", None), "__self__", None)
+        close = getattr(owner, "close", None)
+        if not (th.name.endswith("-dispatch") and callable(close)):
+            continue
+        closer = threading.Thread(target=close, daemon=True)
+        closer.start()
+        closer.join(timeout_s)
+
+
 @pytest.fixture(autouse=True)
 def _clean_state():
     """Counters on in both packages and every module-level lever the
     ladder pulls (fault plans, recovery policy and switch, topology
-    registry, budgets, plan caches) reset after each test."""
+    registry, budgets, plan caches) reset after each test; serving
+    sessions leaked by an earlier module closed first."""
+    _close_leaked_sessions()
     for tr in (ttrace, jtrace):
         tr.enable_counters()
         tr.reset()
