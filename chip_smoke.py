@@ -141,11 +141,23 @@ and one static ``DTable.explain`` report (Q5); and after the morsel join
 the join cell's world-4 HASH join under ``run_pipeline`` (= the oracle,
 fewer host reads than eager, 2 launches) and again with the budget one
 byte under the hinted single-shot exchange (the flush invalidates, the
-replay runs the degraded lowering, = the oracle).  Every check that fails raises, so the script exits non-zero; without a
+replay runs the degraded lowering, = the oracle).  The multi-process
+TPC-H phase, after the static EXPLAIN report: the same SF-10 tables
+generated through ``CylonContext.InitMultiHost`` (one process of 4
+local ranks over NCCL) equal the TPC-H phase's shard for shard; the 22
+queries eager (each = its eager result in order, the same partition-
+kernel launches, its seconds beside the single-process seconds) and
+through ``ctx.optimize`` (miss, then hit), ``plan_check.validate`` of
+each (0 launches, host reads, card bytes and calls into the
+communicator), each under ``run_pipeline``, and ``ctx.analyze`` of Q5
+(node rows = the single-process report's); then Q1, Q5, Q9 streaming,
+Q21 and Q5 planned at SF 0.05 in two processes of 2 local ranks on the
+card over gloo (``--mp-tpch-child``), each = the single-process world
+4's.  Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
-strkey, wide-key, serving and pipeline paths), its time, its plain version's time and its
+strkey, wide-key, serving, pipeline and multi-process paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -3799,6 +3811,318 @@ def phase_multiprocess_two(tmp: str):
 
 
 # ---------------------------------------------------------------------------
+# phase: TPC-H and the planner across processes — the generator, the 22
+# queries eager and planned, the plan check, run_pipeline and EXPLAIN
+# ANALYZE through the process communicator over NCCL, then two processes
+# of 2 local ranks each on the card over gloo
+# ---------------------------------------------------------------------------
+
+MP_TPCH_WARM_SF = 0.05       # the NCCL context's first use of each path
+MP_TPCH_CHILD_SF = 0.05      # the two-process run (gloo stages every
+                             # collective through host memory)
+MP_TPCH_CHILD_QUERIES = (("q1", {}), ("q5", {}),
+                         ("q9", {"streaming_chunks": 3}), ("q21", {}))
+MP_TPCH_CHILD_WAIT_S = 300
+
+
+def result_json(t):
+    """A result Table's columns as ``{name: [numpy dtype, values]}``
+    (strings decoded)."""
+    return {c: [str(v.dtype), [str(x) for x in v] if v.dtype == object
+                else v.tolist()] for c, v in _cols(t).items()}
+
+
+def same_json(label: str, got: dict, want: dict) -> None:
+    """Two ``result_json`` frames: the same columns, types and rows in
+    order, keys and integers exact, floats within ``_rtol``."""
+    check([(c, d) for c, (d, _) in got.items()]
+          == [(c, d) for c, (d, _) in want.items()],
+          f"{label}: the same columns and types")
+    for c, (dtype, values) in want.items():
+        y = np.asarray(values, dtype=None if dtype == "object" else dtype)
+        x = np.asarray(got[c][1], dtype=y.dtype)
+        ok = (_close(x, y, _rtol(c, y)) if y.dtype.kind == "f"
+              else np.array_equal(x, y))
+        check(ok, f"{label}: column {c} equal, in order")
+
+
+def mp_tpch_results(ctx, seed: int):
+    """The two-process run's queries at ``MP_TPCH_CHILD_SF`` on ``ctx``:
+    Q1, Q5, Q9 with ``streaming_chunks=3`` and Q21 eager, and Q5 through
+    ``ctx.optimize``; ``{name: result_json, "seconds": s}``."""
+    from cylon_tpu_torch.tpch import QUERIES, generate_device
+
+    tables = generate_device(ctx, MP_TPCH_CHILD_SF, seed=seed)
+    out = {}
+    t0 = time.perf_counter()
+    for q, kw in MP_TPCH_CHILD_QUERIES:
+        name = q + ("_streaming" if kw else "")
+        out[name] = result_json(QUERIES[q](ctx, tables, **kw))
+    out["q5_planned"] = result_json(ctx.optimize(
+        lambda t: QUERIES["q5"](ctx, t), tables))
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mp_tpch_child(argv) -> int:
+    """One of two processes on the one card (``--mp-tpch-child PROC SEED
+    INIT OUT``): 2 local ranks each over gloo, a world of 4;
+    ``mp_tpch_results`` as JSON in ``OUT``."""
+    proc, seed, init, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    from cylon_tpu_torch import CylonContext
+
+    ctx = CylonContext.InitMultiHost(init, 2, proc, world=2, device=DEVICE,
+                                     backend="gloo", timeout=120)
+    try:
+        res = mp_tpch_results(ctx, seed)
+    finally:
+        ctx.finalize()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mp_tpch_two(tmp: str, seed: int):
+    """Two processes of 2 local ranks each on the one card over gloo: Q1,
+    Q5, Q9 streaming and Q21 eager and Q5 planned at
+    ``MP_TPCH_CHILD_SF``, each equal to the single-process world 4's in
+    every process.  Returns the children's seconds."""
+    import os
+    from cylon_tpu_torch import CylonContext
+
+    sim = mp_tpch_results(CylonContext(device=DEVICE, world=WORLD), seed)
+    os.makedirs(tmp, exist_ok=True)
+    init = f"tcp://127.0.0.1:{free_port()}"
+    outs = [os.path.join(tmp, f"mp_tpch_{p}.json") for p in range(2)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--mp-tpch-child", str(p), str(seed),
+         init, outs[p]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for p in range(2)]
+    try:
+        logs, rcs = [], []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=MP_TPCH_CHILD_WAIT_S)[0])
+                rcs.append(p.returncode)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\ntimed out")
+                rcs.append(None)
+    finally:
+        for p in procs:   # stop every child we started
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    check(rcs == [0, 0], "multiprocess tpch 2 processes gloo: both ran "
+          f"({rcs}: {next((e for e in map(child_error, logs) if e), '')})")
+    got = [json.load(open(o)) for o in outs]
+    for proc, g in enumerate(got):
+        for name in sim:
+            if name != "seconds":
+                same_json(f"multiprocess tpch 2 processes gloo {name} "
+                          f"process {proc} == world 4", g[name], sim[name])
+    say("multiprocess tpch 2 processes on one card", backend="gloo",
+        sf=MP_TPCH_CHILD_SF, queries=",".join(n for n in sim
+                                              if n != "seconds"),
+        seconds=f"{secs:.1f}",
+        child_seconds="/".join(f"{g['seconds']:.3f}" for g in got),
+        single_process_seconds=f"{sim['seconds']:.3f}")
+    return [g["seconds"] for g in got]
+
+
+def analyze_rows(rep):
+    return [(n.op, n.runtime["rows_in"], n.runtime["rows_out"])
+            for n in rep.nodes]
+
+
+def phase_multiprocess_tpch(sim_ctx, sim_tables, sf: float, seed: int,
+                            eager, eager_times, launches_eager,
+                            launches_planned):
+    """TPC-H through ``CylonContext.InitMultiHost(world=4)``, one process
+    of 4 local ranks over NCCL, against the single-process world 4 of
+    the TPC-H phase (``sim_ctx`` / ``sim_tables``, its ``eager`` results
+    and times, its partition-kernel launches eager and planned):
+
+    * ``generate_device`` at ``sf``: every table shard for shard (counts,
+      ``cap`` and the row hashes of every column, in order);
+    * the 22 queries eager (each = the eager result in order, the same
+      launches; seconds beside the single-process seconds), then through
+      ``ctx.optimize`` twice (a plan-cache miss, then a hit; each = the
+      eager result; the hit pass's launches = the single-process hit
+      pass's);
+    * ``plan_check.validate`` of every query: 0 launches, 0 host reads, 0
+      card bytes and 0 calls into the communicator;
+    * ``run_pipeline`` of every query twice (= eager; ``host.read`` and
+      ``pipeline.replays``);
+    * ``ctx.analyze`` of Q5: node rows = the single-process report's;
+
+    then two processes of 2 local ranks on the card over gloo at
+    ``MP_TPCH_CHILD_SF`` (``mp_tpch_two``).  The NCCL context's tables
+    are freed at the end.  Returns the launches per form and query."""
+    from cylon_tpu_torch import CylonContext, plan, trace
+    from cylon_tpu_torch.analysis import plan_check
+    from cylon_tpu_torch.ops import compact, hash_cuda
+    from cylon_tpu_torch.parallel import broadcast
+    from cylon_tpu_torch.tpch import QUERIES, generate_device
+
+    ctx = CylonContext.InitMultiHost(
+        f"tcp://127.0.0.1:{free_port()}", 1, 0, world=WORLD, device=DEVICE,
+        backend=MP_BACKEND, timeout=600)
+    launches = {"eager": {}, "planned": {}, "pipeline": {}, "plan_check": 0}
+    try:
+        check(ctx.comm.backend == MP_BACKEND
+              and ctx.get_process_count() == 1
+              and ctx.get_local_world_size() == WORLD,
+              "multiprocess tpch: one process of 4 local ranks over "
+              f"{MP_BACKEND}")
+        # the first use of every query's path on the NCCL context
+        wt = generate_device(ctx, MP_TPCH_WARM_SF, seed=seed)
+        for q in QUERIES:
+            QUERIES[q](ctx, wt)
+        del wt
+        broadcast.clear_replica_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tables, gsecs = wall(lambda: generate_device(ctx, sf, seed=seed))
+        for name, dt in tables.items():
+            ref = sim_tables[name]
+            same = (dt.cap == ref.cap and list(dt.counts_host())
+                    == list(ref.counts_host()) and all(
+                        torch.equal(a, b) for a, b in
+                        zip(mp_row_hashes(dt), mp_row_hashes(ref))))
+            check(same, f"multiprocess tpch generate {name}: shards == the "
+                        "single-process world 4's, in order")
+        say(f"multiprocess tpch generate sf={sf}", backend=MP_BACKEND,
+            processes=1, world=WORLD, seconds=f"{gsecs:.6f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            tables=len(tables))
+        calls0 = ctx.comm.calls
+        times = {}
+        for q in QUERIES:
+            c0 = ctx.comm.calls
+            out, secs, peak, n, taken, _ = run_query(q, ctx, tables)
+            same_ordered(f"multiprocess tpch {q} == world 4", out, eager[q])
+            check(n == launches_eager[q], f"multiprocess tpch {q}: "
+                  f"{launches_eager[q]} launches, as in one process ({n})")
+            launches["eager"][q], times[q] = n, secs
+            say(f"multiprocess tpch {q} sf={sf}", backend=MP_BACKEND,
+                seconds=f"{secs:.6f}",
+                single_process_seconds=f"{eager_times[q]:.6f}",
+                ratio=f"{secs / eager_times[q]:.3f}", rows=out.num_rows,
+                peak_gib=f"{peak:.2f}", kernel_launches=n,
+                communicator_calls=ctx.comm.calls - c0,
+                decisions=",".join(f"{k}:{v}" for k, v in
+                                   sorted(taken.items())) or "none")
+            del out
+        check(ctx.comm.calls > calls0, "multiprocess tpch: the queries "
+              "went through the process communicator")
+        say(f"multiprocess tpch sf={sf}", backend=MP_BACKEND,
+            total_seconds=f"{sum(times.values()):.6f}",
+            single_process_total_seconds=f"{sum(eager_times.values()):.6f}",
+            kernel_launches=sum(launches["eager"].values()),
+            single_process_launches=sum(launches_eager.values()),
+            communicator_calls=ctx.comm.calls - calls0)
+        plan.clear_plan_cache()
+        runs = {p: {q: run_query(q, ctx, tables, planned=True)
+                    for q in QUERIES} for p in ("miss", "hit")}
+        hits = 0
+        for q in QUERIES:
+            miss, hit = runs["miss"][q], runs["hit"][q]
+            check(miss[5].get("plan.cache_miss", 0) >= 1
+                  and hit[5].get("plan.cache_miss", 0) == 0
+                  and hit[5].get("plan.cache_hit", 0) >= 1,
+                  f"multiprocess tpch planner {q}: a miss, then a hit")
+            same_ordered(f"multiprocess tpch planner {q} (miss) == eager",
+                         miss[0], eager[q])
+            same_ordered(f"multiprocess tpch planner {q} (hit) == eager",
+                         hit[0], eager[q])
+            check(hit[3] == launches_planned[q],
+                  f"multiprocess tpch planner {q}: {launches_planned[q]} "
+                  f"launches, as in one process ({hit[3]})")
+            launches["planned"][q] = hit[3]
+            hits += hit[5].get("plan.cache_hit", 0)
+        say(f"multiprocess tpch planner sf={sf}", backend=MP_BACKEND,
+            total_miss_seconds=f"{sum(r[1] for r in runs['miss'].values()):.6f}",
+            total_hit_seconds=f"{sum(r[1] for r in runs['hit'].values()):.6f}",
+            plan_cache_hits=hits,
+            kernel_launches=sum(launches["planned"].values()),
+            single_process_launches=sum(launches_planned.values()))
+        del runs
+        pc_secs, pc_calls = 0.0, 0
+        for q in QUERIES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            hash_cuda.launches = 0
+            trace.reset()
+            c0 = ctx.comm.calls
+            rep, secs = wall(lambda: plan_check.validate(
+                lambda t: QUERIES[q](ctx, t), tables,
+                concrete=("nation", "region")))
+            calls = ctx.comm.calls - c0
+            reads = trace.counters().get("host.read", 0)
+            card = torch.cuda.max_memory_allocated() - base
+            label = f"multiprocess plan check {q}"
+            check(rep.ok and len(rep.nodes) > 0, f"{label}: VALID ({rep})")
+            check((hash_cuda.launches, reads, card, calls) == (0, 0, 0, 0),
+                  f"{label}: 0 launches, host reads, card bytes and "
+                  f"communicator calls ({hash_cuda.launches}, {reads}, "
+                  f"{card}, {calls})")
+            pc_secs += secs
+            pc_calls += calls
+        say(f"multiprocess plan check sf={sf}", backend=MP_BACKEND,
+            queries=len(QUERIES), seconds=f"{pc_secs:.6f}",
+            kernel_launches=0, host_reads=0, card_bytes=0,
+            communicator_calls=pc_calls)
+        pipe = {"host.read": 0, "pipeline.replays": 0, "seconds": 0.0}
+        for q in QUERIES:
+            fn = lambda q=q: QUERIES[q](ctx, tables)  # noqa: E731
+            compact.run_pipeline(fn)   # warm hints
+            out, secs, cnt, n = pipeline_run(
+                lambda: compact.run_pipeline(fn))
+            same_ordered(f"multiprocess tpch pipeline {q} == eager", out,
+                         eager[q])
+            launches["pipeline"][q] = n
+            for k in ("host.read", "pipeline.replays"):
+                pipe[k] += cnt.get(k, 0)
+            pipe["seconds"] += secs
+            say(f"multiprocess tpch pipeline {q} sf={sf}",
+                backend=MP_BACKEND, seconds=f"{secs:.6f}",
+                host_read=cnt.get("host.read", 0),
+                replays=cnt.get("pipeline.replays", 0), kernel_launches=n)
+            del out
+        say(f"multiprocess tpch pipeline sf={sf}", backend=MP_BACKEND,
+            seconds=f"{pipe['seconds']:.6f}", host_read=pipe["host.read"],
+            replays=pipe["pipeline.replays"],
+            kernel_launches=sum(launches["pipeline"].values()))
+        q5 = lambda c: (lambda t: QUERIES["q5"](c, t))  # noqa: E731
+        rep = ctx.analyze(q5(ctx), tables)
+        ref = sim_ctx.analyze(q5(sim_ctx), sim_tables)
+        check(rep.ok and ref.ok, "multiprocess tpch analyze q5: both ran")
+        check(analyze_rows(rep) == analyze_rows(ref),
+              "multiprocess tpch analyze q5: node rows == the "
+              "single-process report's")
+        same_ordered("multiprocess tpch analyze q5 == eager", rep.output,
+                     eager["q5"])
+        say(f"multiprocess tpch analyze q5 sf={sf}", backend=MP_BACKEND,
+            nodes=len(rep.nodes), ms=f"{rep.totals['ms']:.3f}",
+            single_process_ms=f"{ref.totals['ms']:.3f}",
+            bytes_moved=rep.totals["bytes_moved"],
+            processes=rep.totals["processes"])
+        del tables, rep, ref
+        broadcast.clear_replica_cache()
+    finally:
+        ctx.finalize()
+    launches["two_processes_gloo_seconds"] = mp_tpch_two("build", seed)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases: ingest and the data-model surfaces — Arrow / pandas / per-rank CSV
 # ingest through StagedIngest, hash64 string keys, append with content
 # epochs, and the partition hash past 16 key columns
@@ -5006,6 +5330,10 @@ def main() -> int:
                     metavar=("PROC", "BACKEND", "INIT", "OUT"),
                     help="one of the two processes of the multi-process "
                          "phase (started by the script itself)")
+    ap.add_argument("--mp-tpch-child", nargs=4,
+                    metavar=("PROC", "SEED", "INIT", "OUT"),
+                    help="one of the two processes of the multi-process "
+                         "TPC-H phase (started by the script itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5013,6 +5341,8 @@ def main() -> int:
         return 2
     if args.mp_child:
         return mp_child(args.mp_child)
+    if args.mp_tpch_child:
+        return mp_tpch_child(args.mp_tpch_child)
     # fails outside a checkout of the repository
     from cylon_tpu_torch.ops import hash as plain_hash
     from cylon_tpu_torch.ops import hash_cuda
@@ -5139,6 +5469,12 @@ def main() -> int:
     launches_pipeline = phase_tpch_pipeline(tctx, tables, args.tpch_sf,
                                             results)
     phase_explain_report(tctx, tables)
+    # TPC-H and the planner across processes: the same queries through
+    # one process of 4 local ranks over NCCL, then two processes on the
+    # card over gloo
+    launches_mp_tpch = phase_multiprocess_tpch(
+        tctx, tables, args.tpch_sf, args.seed, results, times,
+        launches_tpch, launches_planner)
     # the serving layer: the bench's serve stage on these tables (views on
     # and off), its mixed read/write stage, and a two-replica fleet
     # (the kernel at the groupby shape timed on each side of them: the
@@ -5258,6 +5594,7 @@ def main() -> int:
         "launches_recovery": launches_recovery,
         "launches_recovery_nparts3": launches_nparts3,
         "launches_multiprocess": launches_mp,
+        "launches_multiprocess_tpch": launches_mp_tpch,
         "multiprocess_two_processes_one_card": mp_two,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,

@@ -156,9 +156,13 @@ class PlanReport:
 
     def _str_analyzed(self) -> str:
         t = self.totals
+        # across processes each process reports its own senders' bytes
+        # beside the world's rows
+        who = (f" by this process's senders (1 of {t['processes']})"
+               if t.get("processes", 1) > 1 else "")
         head = (f"EXPLAIN ANALYZE: {len(self.nodes)} distributed op(s), "
                 f"{t.get('ms', 0.0):.1f} ms, "
-                f"{_fmt_bytes(t.get('bytes_moved', 0))} moved, "
+                f"{_fmt_bytes(t.get('bytes_moved', 0))} moved{who}, "
                 f"{t.get('syncs', 0)} syncs")
         if t.get("compiles", 0):
             head += (f", {t.get('compile_ms', 0.0):.1f} ms compiling "
@@ -346,7 +350,8 @@ def _check_table(op: str, dt) -> None:
     def bug(msg: str) -> None:
         raise CylonError(Status(Code.Invalid, f"plan_check[{op}]: {msg}"))
 
-    cap, nparts = dt.cap, dt.nparts
+    # the leaves hold this process's L shards (L = P with one process)
+    cap, nparts = dt.cap, dt.nlocal
     if tuple(dt.counts.shape) != (nparts,):
         bug(f"counts shape {tuple(dt.counts.shape)} != ({nparts},)")
     if dt.counts.dtype != torch.int32:
@@ -470,9 +475,13 @@ def explain(op: Callable, *args, validate: bool = False,
     operator's input tables are also checked against the engine's
     plan-shape invariants, and any failure raises
     :class:`PlanValidationError` naming the op.
+
+    Across processes each process checks the plan on its own meta view
+    (``with_device("meta")`` keeps the process split): the run makes no
+    collective, so it never waits on another process.  Host probes of
+    ``concrete`` tables read their replicated values (every process
+    holds the same global rows of an ingested table).
     """
-    from ..context import refuse_multiprocess
-    refuse_multiprocess("plan_check")
     report = PlanReport()
     # save/restore, not set/clear: a plan callable may itself call
     # explain/validate (pre-flighting a sub-plan), and clearing would

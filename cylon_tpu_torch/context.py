@@ -202,6 +202,10 @@ class ProcessCommunicator:
         self.device = device
         self.backend = str(dist.get_backend())
         self._local = LocalCommunicator(self.local, device)
+        # calls into torch.distributed so far (collectives, point-to-point
+        # batches, barriers): what shows that an abstract plan run moved
+        # nothing between processes
+        self.calls = 0
 
     @property
     def group_key(self) -> Tuple:
@@ -232,6 +236,7 @@ class ProcessCommunicator:
         what process ``q`` sent here."""
         b = _bytes(send)
         out = torch.empty_like(b)
+        self.calls += 1
         self._dist.all_to_all_single(out, b)
         return _unbytes(out, send.dtype, send.shape)
 
@@ -242,6 +247,7 @@ class ProcessCommunicator:
                           device=b.device)
         fn = getattr(self._dist, "all_gather_single", None) or \
             self._dist.all_gather_into_tensor
+        self.calls += 1
         fn(out, b)
         return _unbytes(out, x.dtype, (self.nproc,) + tuple(x.shape))
 
@@ -257,6 +263,7 @@ class ProcessCommunicator:
         for q, b in bufs.items():
             ops.append(self._dist.P2POp(self._dist.irecv, b, q))
         if ops:
+            self.calls += 1
             for w in self._dist.batch_isend_irecv(ops):
                 w.wait()
         for q, t in recvs.items():
@@ -354,20 +361,107 @@ class ProcessCommunicator:
                 f"all_reduce wants [{self.local}, ...], got "
                 f"{tuple(x.shape)}"))
         s = x.sum(0)
+        self.calls += 1
         self._dist.all_reduce(s)
         return s
 
     def all_gather_object(self, obj) -> list:
         out = [None] * self.nproc
+        self.calls += 1
         self._dist.all_gather_object(out, obj)
         return out
 
+    def abort(self) -> None:
+        """Tear the process group down after a failure that this process
+        alone may have seen: every peer's pending or next collective then
+        fails at once (a closed connection, C5's TOPOLOGY) instead of
+        waiting for the group's timeout.  No collective runs here
+        afterwards."""
+        if self._dist.is_initialized():
+            self._dist.destroy_process_group()
+
     def barrier(self) -> None:
+        self.calls += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             self._dist.barrier(device_ids=[self.device.index])
         else:
             self._dist.barrier()
+
+
+class AbstractCommunicator:
+    """The communicator of the meta view of a world that spans processes
+    (``CylonContext.with_device("meta")``, the abstract plan run of
+    ``analysis/plan_check``): the process split ``(nproc, L)`` and the
+    global ranks of the real communicator, and collectives that return
+    meta tensors of the shapes :class:`ProcessCommunicator`'s return.
+    It never calls ``torch.distributed``: an abstract run in one process
+    neither waits on nor moves anything to another."""
+
+    backend = "abstract"
+
+    def __init__(self, comm, device: torch.device):
+        self.nproc, self.proc = comm.nproc, comm.proc
+        self.local, self.world = comm.local, comm.world
+        self.first_rank = comm.first_rank
+        self.device = device
+        self._key = ("abstract",) + tuple(comm.group_key)
+
+    @property
+    def group_key(self) -> Tuple:
+        return self._key
+
+    def _want(self, what: str, x: torch.Tensor, lead) -> None:
+        LocalCommunicator._want(self, what, x, lead)
+
+    def _split(self, split, axis) -> Tuple[int, int]:
+        return ProcessCommunicator._split(self, split, axis)
+
+    @staticmethod
+    def _meta(shape, x: torch.Tensor) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=x.dtype, device="meta")
+
+    def all_to_all(self, x: torch.Tensor, split=None,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        if split is None:
+            self._want("all_to_all", x, (self.local, self.world))
+        else:
+            slow, fast = self._split(split, axis)
+            self._want("all_to_all", x,
+                       (self.local, fast if axis == "fast" else slow))
+        return self._meta(x.shape, x)
+
+    def all_gather(self, x: torch.Tensor, split=None,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        self._want("all_gather", x, (self.local,))
+        tail = tuple(x.shape[1:])
+        if split is None:
+            return self._meta((self.world,) + tail, x)
+        slow, fast = self._split(split, axis)
+        return self._meta((self.local, fast if axis == "fast" else slow)
+                          + tail, x)
+
+    def ppermute(self, x: torch.Tensor, shift: int, split=None,
+                 axis: Optional[str] = None) -> torch.Tensor:
+        self._want("ppermute", x, (self.local,))
+        if split is not None:
+            self._split(split, axis)
+        return self._meta(x.shape, x)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 0 or x.shape[0] != self.local:
+            raise CylonError(Status(Code.Invalid,
+                f"all_reduce wants [{self.local}, ...], got "
+                f"{tuple(x.shape)}"))
+        return self._meta(x.shape[1:], x)
+
+    def all_gather_object(self, obj) -> list:
+        raise CylonError(Status(Code.ExecutionError,
+            "plan_check: host objects of the other processes are not "
+            "known to an abstract plan run (it makes no collective)"))
+
+    def barrier(self) -> None:
+        return None
 
 
 def _resolve_device(device) -> torch.device:
@@ -383,9 +477,9 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-# the live multi-process contexts of this process (entry points that take
-# no context — run_pipeline, plan_check, EXPLAIN ANALYZE — refuse while
-# one is live)
+# the live multi-process contexts of this process (an entry point that
+# takes no context — the serving fleet's router — refuses while one is
+# live)
 _process_contexts: "weakref.WeakSet" = weakref.WeakSet()
 
 
@@ -549,10 +643,26 @@ class CylonContext:
         config map on ``device``: the ``meta`` view over which an
         abstract plan run (``analysis/plan_check``) rebuilds its tables,
         so every allocation the plan makes lands on the meta device.
-        One process only."""
-        refuse_multiprocess("a device view (with_device)", self)
-        return CylonContext(dict(self._config), device,
-                            self.get_world_size(), self._first_slot)
+
+        Across processes only the meta view exists: it keeps the process
+        split ``(nproc, L)`` and the global rank, and its
+        :class:`AbstractCommunicator` returns meta tensors of the shapes
+        the real collectives return without calling
+        ``torch.distributed``."""
+        if self._comm.nproc == 1:
+            return CylonContext(dict(self._config), device,
+                                self.get_world_size(), self._first_slot)
+        dev = torch.device(device)
+        if dev.type != "meta":
+            raise CylonError(Status(Code.NotImplemented,
+                f"a device view (with_device({str(dev)!r})) does not run "
+                f"over the process communicator (a world of "
+                f"{self._comm.nproc} processes); only the meta view does"))
+        view = CylonContext(dict(self._config), dev, self._comm.local,
+                            self._first_slot)
+        view._comm = AbstractCommunicator(self._comm, dev)
+        view._distributed = True
+        return view
 
     def get_rank(self) -> int:
         """Lowest rank this process drives: ``process_id · L`` (0 in a
@@ -622,9 +732,10 @@ class CylonContext:
         and executed via the compiled-plan cache, so a repeated query
         skips the rewrite.  Returns the query's concrete result.
         ``CYLON_OPTIMIZER=0`` (or ``config.set_optimizer_enabled(False)``)
-        makes this a plain eager call.  One process only."""
+        makes this a plain eager call.  Across processes every process
+        calls it with the same plan (SPMD): the rules read global counts,
+        so every process rewrites the plan alike."""
         from . import plan
-        refuse_multiprocess("the planner (ctx.optimize)", self)
         return plan.optimize(self, op, tables)
 
     def analyze(self, op, tables=None):
@@ -633,9 +744,9 @@ class CylonContext:
         operator instrumented; returns the runtime-annotated
         ``PlanReport`` (``report.output`` is the result).  The
         context-level spelling of ``DTable.explain(op, tables=...,
-        analyze=True)``.  One process only."""
+        analyze=True)``.  Across processes every process runs it (SPMD);
+        node rows are global, node bytes this process's senders'."""
         from . import observe
-        refuse_multiprocess("EXPLAIN ANALYZE (ctx.analyze)", self)
         if tables is None:
             return observe.analyze(op)
         return observe.analyze(op, tables)

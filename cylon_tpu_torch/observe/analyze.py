@@ -42,6 +42,17 @@ def _bytes_of(counters: Dict[str, int]) -> int:
     return sum(counters.get(k, 0) for k in _BYTE_COUNTERS)
 
 
+def _world_sum(dt) -> int:
+    """The rows of every shard of the world of ``dt``: across processes
+    the local counts are all-gathered first (every process peeks the same
+    tables in the same order, so every process enters the gather), and
+    the node's rows are global."""
+    cnts = dt.counts
+    if dt.ctx.get_process_count() > 1:
+        cnts = dt.ctx.comm.all_gather(cnts)
+    return int(cnts.sum())
+
+
 def _peek_rows(x) -> Optional[int]:
     """Global row count of a DTable / local Table WITHOUT mutating it:
     no pending-mask collapse, no ``_counts_host`` caching."""
@@ -52,12 +63,13 @@ def _peek_rows(x) -> Optional[int]:
 
     if isinstance(x, DTable):
         if x.pending_mask is not None:
-            # the deferred select's per-shard survivor counts
+            # the deferred select's survivor counts, already all P
+            # shards' (all-gathered by the select)
             return int(x.pending_cnts.sum())
         ch = x._counts_host
         if ch is not None:
             return int(np.asarray(ch).sum())
-        return int(x.counts.sum())
+        return _world_sum(x)
     if isinstance(x, Table):
         return x.num_rows
     return None
@@ -153,6 +165,20 @@ class _AnalyzeState:
         }
 
 
+def _processes(args, kwargs) -> int:
+    """The process count of the world the plan's tables live in (1 when
+    it takes none)."""
+    from ..parallel.dtable import DTable
+    flat = list(args) + list(kwargs.values())
+    for a in flat:
+        vals = (a.values() if isinstance(a, dict) else
+                a if isinstance(a, (list, tuple)) else (a,))
+        for v in vals:
+            if isinstance(v, DTable):
+                return v.ctx.get_process_count()
+    return 1
+
+
 def analyze(op, *args, **kwargs):
     """EXPLAIN ANALYZE: run ``op(*args, **kwargs)`` (the real query,
     once) with tracing on and every distributed operator instrumented;
@@ -173,9 +199,13 @@ def analyze(op, *args, **kwargs):
     A failing plan does NOT raise: the partially annotated report comes
     back with ``ok=False`` and ``error`` set, keeping the nodes measured
     before the failure.
+
+    Across processes every process runs the plan (SPMD) and gets its own
+    report: node rows (``rows_in`` / ``rows_out``) are GLOBAL and equal in
+    every process; ``bytes_moved`` and the counters count THIS process's
+    senders, as ``shuffle.bytes_sent`` does, and the wall-clock is this
+    process's.  ``totals["processes"]`` says which kind of report it is.
     """
-    from ..context import refuse_multiprocess
-    refuse_multiprocess("EXPLAIN ANALYZE")
     from .. import trace
     from ..analysis import plan_check
 
@@ -191,6 +221,7 @@ def analyze(op, *args, **kwargs):
     t0 = time.perf_counter()
     digests = []
     cevents = []
+    nproc = _processes(args, kwargs)
     try:
         with _stats.collect_digests() as digests, \
                 _compile.attribute_compiles() as cevents:
@@ -226,6 +257,7 @@ def analyze(op, *args, **kwargs):
             "compile_ms": round(sum(e["compile_ms"] for e in cevents), 3),
             "counters": counters,
             "phase_ms": trace.phase_totals(),
+            "processes": nproc,
         }
         if counters.get("plan.cache_hit", 0) \
                 or counters.get("plan.cache_miss", 0):

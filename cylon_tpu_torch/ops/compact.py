@@ -42,8 +42,7 @@ reads is REPLICATED (all-gathered by the communicator: the shuffle's
 count matrix, the operators' per-shard counts, ``DTable.counts_host``),
 so every process sizes, chooses a lowering and replays alike; a size
 decided from one process's shards alone would leave the next collective
-waiting for a peer that chose otherwise.  ``run_pipeline`` refuses
-there (not ported across processes yet).
+waiting for a peer that chose otherwise.
 """
 from __future__ import annotations
 
@@ -461,9 +460,12 @@ def run_pipeline(fn, max_attempts: int = 3):
     ``max_attempts`` bumps ``pipeline.fallback_plain`` and WARNS before
     the plain (per-op validated) run — a pipeline that replays on every
     call would otherwise be invisible.
+
+    Across processes every process runs ``fn`` (SPMD).  Every count the
+    flush reads is replicated and every hint was updated from replicated
+    counts, so every process finds the same undersized dispatch and
+    replays the same attempts: none is left waiting in a collective.
     """
-    from ..context import refuse_multiprocess
-    refuse_multiprocess("run_pipeline")
     from .. import trace
     for _ in range(max_attempts):
         try:

@@ -52,7 +52,6 @@ from ..analysis._abstract import is_abstract
 from ..compute import _agg_output_type
 from ..config import (JoinAlgorithm, JoinConfig, JoinType,
                       broadcast_join_threshold)
-from ..context import refuse_multiprocess
 from ..dtypes import (DataType, Type, device_dtype, extreme_value,
                       is_dictionary_encoded)
 from ..observe.metrics import row_bytes
@@ -802,8 +801,8 @@ def dist_multiway_join(fact: DTable, dims: Sequence[DTable],
     running intermediate does not move.  Edges: see ``_multiway_edges``.
     Each probe's label ("broadcast", "broadcast-fact", "shuffle", or
     "local" at world 1) is counted in ``decisions`` as
-    ``multiway.<label>``."""
-    refuse_multiprocess("dist_multiway_join", fact.ctx)
+    ``multiway.<label>``.  The labels and thresholds read global counts,
+    so every process of a multi-process world probes alike."""
     edges = _multiway_edges(edges)
     if not edges or len(edges) != len(dims):
         raise CylonError(Status(Code.Invalid,
@@ -2143,11 +2142,12 @@ def _psum_combine(dt: DTable, key_ids, partial, lanes, domains, pmask,
     scatter-adds its partial lanes into ``[R+1]`` slots (R real + 1
     dropped), ONE ``all_reduce`` combines the shards, and the present
     slots decode into an output block every shard holds identically
-    (shard 0 owns the rows).  ``domains``: ``(size, nullable)`` per key,
-    ``size`` counting the null code ``size − 1``.  ``lanes``: "count",
-    "isum" or "fsum" per partial, after the implicit lane 0 of rows per
-    group.  Returns (key leaves, value lanes, counts [P])."""
-    P, cap = dt.nparts, dt.cap
+    (global rank 0 owns the rows).  ``domains``: ``(size, nullable)`` per
+    key, ``size`` counting the null code ``size − 1``.  ``lanes``:
+    "count", "isum" or "fsum" per partial, after the implicit lane 0 of
+    rows per group.  Returns (key leaves, value lanes, counts [L]), over
+    this process's L shards."""
+    P, cap = dt.nlocal, dt.cap
     dev = dt.counts.device
     R = 1
     for size, _ in domains:
@@ -2163,8 +2163,10 @@ def _psum_combine(dt: DTable, key_ids, partial, lanes, domains, pmask,
     slot = torch.where(row_valid, slot, R)
     # every row of a slot would add into the same few addresses, and the
     # card serializes atomics on one address: each slot gets B copies
-    # (row mod B), summed back after the scatter
-    B = max(1, min(1024, (1 << 22) // (P * (R + 1))))
+    # (row mod B), summed back after the scatter.  B follows the WORLD's
+    # shard count, so a world that spans processes sums in the same
+    # groups as the single-process world
+    B = max(1, min(1024, (1 << 22) // (dt.nparts * (R + 1))))
     flat = ((_shard_ids(P, cap, dev) * (R + 1) + slot) * B
             + torch.arange(P * cap, device=dev) % B)
     ilanes = [row_valid.to(torch.int64)]
@@ -2211,7 +2213,8 @@ def _psum_combine(dt: DTable, key_ids, partial, lanes, domains, pmask,
     vals_out = [(ftot if is_f else itot)[:, j][safe].repeat(P)
                 for is_f, j in where_lane]
     counts = torch.zeros(P, dtype=torch.int32, device=dev)
-    counts[0] = ngroups
+    if dt.ctx.get_rank() == 0:
+        counts[0] = ngroups
     return keys_out, vals_out, counts
 
 
@@ -2310,7 +2313,6 @@ def dist_groupby_fused(dt: DTable, key_columns: Sequence[Union[int, str]],
     resident dense hint) streams through the morsel scan
     (``spill.morsel.morsel_groupby``), row-identical to the resident
     path."""
-    refuse_multiprocess("dist_groupby_fused", dt.ctx)
     if mode not in ("psum", "pre-aggregate", "shuffle"):
         raise CylonError(Status(Code.Invalid,
             f"dist_groupby_fused: unknown mode {mode!r}"))
@@ -2443,7 +2445,7 @@ def _sketch_state_groups(part: DTable, K: int, kinds) -> List[List[int]]:
 
 
 class _ShardBlocks:
-    """Per-shard output leaves written into ``[P·cap, …]`` blocks as each
+    """Per-shard output leaves written into ``[L·cap, …]`` blocks as each
     shard finishes, so a shard's outputs are freed before the next shard
     runs (``[groups, 256]`` sketch lanes are too large to hold twice).
     ``put(s, groups)`` takes one tuple of leaves (or None) per output;
@@ -2475,8 +2477,11 @@ def _sketch_partial_table(dt: DTable, key_ids, val_ids, kinds, where,
     ``shard·total_cap + off + row``.  The partial blocks are sized by the
     largest per-shard GROUP count (one host read), not by the input
     capacity: ``[groups, 256]`` lanes, where the input capacity would need
-    ``[rows, 256]``."""
-    P, cap = dt.nparts, dt.cap
+    ``[rows, 256]``.  ``shard`` is the GLOBAL rank (this process's L
+    shards are ranks ``get_rank() … + L − 1``), so ids do not collide
+    between processes."""
+    P, cap = dt.nlocal, dt.cap
+    r0 = dt.ctx.get_rank()
     dev = dt.counts.device
     pmask = _effective_mask(dt, where)
     nv = len(val_ids)
@@ -2485,7 +2490,7 @@ def _sketch_partial_table(dt: DTable, key_ids, val_ids, kinds, where,
     for s in range(P):
         kl = _leaf_pairs(dt, key_ids, s)
         vl = _leaf_pairs(dt, val_ids, s)
-        gidx = (s * total_cap + off
+        gidx = ((r0 + s) * total_cap + off
                 + torch.arange(cap, dtype=torch.int64, device=dev)) \
             & 0xFFFFFFFF
         carry = tuple(d for d, _ in vl) + tuple(v for _, v in vl
@@ -2531,8 +2536,9 @@ def _sketch_combine(part: DTable, K: int, kinds, qs, finalize: bool):
     of ``part.cap`` groups.  With ``finalize`` the merged sketches become
     result lanes (HLL estimate int32 with no validity; sample quantile
     float32 with a non-empty mask); without it, the merged state in the
-    partial-table layout.  Returns (key leaves, lane tuples, counts)."""
-    P, cap = part.nparts, part.cap
+    partial-table layout.  Returns (key leaves, lane tuples, counts),
+    over this process's L shards."""
+    P, cap = part.nlocal, part.cap
     dev = part.counts.device
     kl_all = list(range(K))
     groups = _sketch_state_groups(part, K, kinds)
@@ -2637,7 +2643,7 @@ def _fit_groups(part: DTable) -> DTable:
                                       1), minimum=8)
     if cap >= part.cap:
         return part
-    P = part.nparts
+    P = part.nlocal
 
     def cut(x):
         tail = tuple(x.shape[1:])
@@ -2673,7 +2679,6 @@ def dist_groupby_sketch(dt: DTable, key_columns: Sequence[Union[int, str]],
     priorities seed from the morsel's row offset, so they equal the
     resident run's) and merges them into the accumulator morsel by
     morsel: it holds one state row per group seen so far."""
-    refuse_multiprocess("dist_groupby_sketch", dt.ctx)
     node = plan_check.note("dist_groupby_sketch", dt,
                            keys=tuple(key_columns),
                            aggs=tuple(op for _, op in aggregations))

@@ -46,9 +46,9 @@ from .dtable import DColumn, DTable
 
 
 def _slice_rows(dt: DTable, lo: int, hi: int) -> DTable:
-    """Rows ``[lo, hi)`` of every shard's padded block, as a narrower
-    DTable (trailing dimensions of a leaf pass through)."""
-    P, cap, w = dt.nparts, dt.cap, hi - lo
+    """Rows ``[lo, hi)`` of every local shard's padded block, as a
+    narrower DTable (trailing dimensions of a leaf pass through)."""
+    P, cap, w = dt.nlocal, dt.cap, hi - lo
 
     def f(a: torch.Tensor) -> torch.Tensor:
         tail = tuple(a.shape[1:])
@@ -66,11 +66,13 @@ def _concat_compact(parts: List[DTable]) -> DTable:
     valid rows to the front of an ``outcap``-wide block (``outcap`` = the
     size class of the summed capacities): the JAX package's repack.  One
     column at a time, so the transient is one column's concatenation, not
-    the whole table's."""
+    the whole table's.  Across processes each process concatenates its
+    own L shards (``cap`` is the same in every process, so is
+    ``outcap``)."""
     if len(parts) == 1:
         return parts[0]
     head = parts[0]
-    P = head.nparts
+    P = head.nlocal
     dev = head.counts.device
     width = sum(p.cap for p in parts)
     outcap = ops_compact.next_bucket(width, minimum=8)
@@ -120,9 +122,11 @@ def dist_join_streaming(left: DTable, right: DTable, config: JoinConfig,
     tried here: the streaming join always co-partitions.  A SPILLED left
     side of an INNER / LEFT join streams from the spill pool through the
     morsel scan instead (``spill.morsel.morsel_join``): the first leaf
-    read here would otherwise fault the whole block back in."""
-    from ..context import refuse_multiprocess
-    refuse_multiprocess("dist_join_streaming", left.ctx)
+    read here would otherwise fault the whole block back in.
+
+    Across processes the slices are cut from ``left.cap``, which every
+    process shares, so every process runs the same slices' exchanges in
+    the same order."""
     if left.is_spilled and config.join_type.value in ("inner", "left") \
             and not right.is_spilled:
         from ..spill import morsel as spill_morsel

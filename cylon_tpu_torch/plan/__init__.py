@@ -43,9 +43,11 @@ def run(ctx, op, tables=None):
     process onto a survivor world, every later plan anchors on it, and
     tables still on the old world are migrated first
     (``parallel.remesh.ensure_current``), before pricing reads their
-    layout."""
-    from ..context import refuse_multiprocess
-    refuse_multiprocess("the planner", ctx)
+    layout.
+
+    Across processes every process runs the same plan (SPMD): the rules
+    read ingest-cached GLOBAL counts, so every process rewrites it alike,
+    and the plan cache keys on the process split."""
     from .. import topology
     if tables is not None:
         from ..parallel.remesh import ensure_current

@@ -401,11 +401,14 @@ def fingerprint(root: Node) -> Tuple:
 
 def _config_fingerprint(ctx) -> Tuple:
     """The configuration the rules read: a plan rewritten under another
-    device, world, broadcast threshold or explicit memory budget must not
-    be replayed."""
+    device, world, process split ``(processes, local ranks)``, broadcast
+    threshold or explicit memory budget must not be replayed (a 2 × 4
+    process world and a single-process world of 8 on one device are
+    different worlds)."""
     from ..config import broadcast_join_threshold, explicit_memory_budget
-    return (str(ctx.device), ctx.get_world_size(),
-            broadcast_join_threshold(), explicit_memory_budget())
+    return (str(ctx.device), ctx.get_world_size(), ctx.get_process_count(),
+            ctx.get_local_world_size(), broadcast_join_threshold(),
+            explicit_memory_budget())
 
 
 # root fingerprint -> _Entry.  A bounded LRU (``config.plan_cache_capacity``)
@@ -781,6 +784,40 @@ def _fail_annotated(ladder, exc: BaseException, klass: str,
                    error=f"{what}: {exc}")
 
 
+def _execute_across_processes(builder, opt_root: Node,
+                              pre_nodes: List[Node], plan_key=None):
+    """The plan over a world that spans processes: no rung of the ladder
+    engages (the elastic re-mesh across processes is not ported, and a
+    retry or replan in one process would re-enter collectives its peers
+    have left).  A failure raises at once, in every process:
+
+      * an injected fault (the same seeded ``FaultPlan`` in every
+        process) and the engine's own checks (``CylonError``) raise at the
+        same point in every process, since every process runs the same
+        plan on the same global counts;
+      * any other error (an out-of-memory error, a CUDA or backend error)
+        may be this process's alone, with its peers already waiting in
+        the next collective: the process group is torn down
+        (``comm.abort``) before the error propagates, so every peer's
+        collective fails at once (C5 classifies that TOPOLOGY) instead
+        of waiting for the group's timeout.  The context cannot run
+        collectives afterwards.  An abstract run (``plan_check``) made
+        no collective, so no peer waits on it: its failure leaves the
+        group up."""
+    from ..analysis._abstract import PlanExportReached
+    from ..ops.compact import ReplayNeeded
+    try:
+        return _execute(builder, opt_root, pre_nodes, plan_key=plan_key)
+    except (PlanExportReached, ReplayNeeded, CylonError,
+            KeyboardInterrupt, SystemExit, GeneratorExit):
+        raise
+    except BaseException:
+        if not any(n.op == "scan" and n.runtime["dtable"]._is_abstract()
+                   for n in pre_nodes):
+            builder.ctx.comm.abort()
+        raise
+
+
 def _execute_recovering(builder, opt_root: Node, pre_nodes: List[Node],
                         plan_key=None):
     """The classified escalation ladder around ``_execute``: transient →
@@ -799,11 +836,17 @@ def _execute_recovering(builder, opt_root: Node, pre_nodes: List[Node],
     (re-meshed) input tables; permanent or exhausted → fail, with the
     attempt log attached to the error (``e.ladder``) and a
     ``recover_failed`` flight-recorder event.  ``CYLON_RECOVERY=0`` /
-    ``config.set_recovery_enabled(False)`` bypasses all of it."""
+    ``config.set_recovery_enabled(False)`` bypasses all of it, and so
+    does a world that spans processes (:func:`_execute_across_processes`:
+    a rung re-runs collectives or re-meshes, which every process would
+    have to do alike)."""
     from .. import resilience, topology
     from ..config import recovery_enabled
     from ..logging import warning as _warn
     from ..observe import flightrec
+    if builder.ctx.get_process_count() > 1:
+        return _execute_across_processes(builder, opt_root, pre_nodes,
+                                         plan_key)
     if not recovery_enabled():
         return _execute(builder, opt_root, pre_nodes, plan_key=plan_key)
     ladder = resilience.Ladder()

@@ -461,16 +461,21 @@ def _sizes_offs(n: int, world: int):
     return sizes, offs
 
 
-def _block_index(n: int, world: int, device):
-    """Padded-block position → (global row id, valid flag, sizes, cap)."""
+def _block_index(n: int, ctx):
+    """This process's padded-block positions → (global row id, valid flag,
+    sizes of all P shards, cap): the blocks of its L local ranks, rank
+    ``get_rank() + l`` holding the block layout's slice of that rank."""
     from ..ops.compact import next_bucket
+    world, r0 = ctx.get_world_size(), ctx.get_rank()
+    L, dev = ctx.get_local_world_size(), ctx.device
     sizes, offs = _sizes_offs(n, world)
     cap = next_bucket(max(int(sizes.max(initial=0)), 1), minimum=8)
-    p = torch.arange(world * cap, dtype=torch.int64, device=device)
+    p = torch.arange(L * cap, dtype=torch.int64, device=dev)
     shard = torch.div(p, cap, rounding_mode="floor")
     local = p - shard * cap
-    g = torch.from_numpy(offs[:-1]).to(device)[shard] + local
-    valid = local < torch.from_numpy(sizes.astype(np.int64)).to(device)[shard]
+    g = torch.from_numpy(offs[r0:r0 + L]).to(dev)[shard] + local
+    valid = local < torch.from_numpy(
+        sizes[r0:r0 + L].astype(np.int64)).to(dev)[shard]
     return g, valid, sizes, cap
 
 
@@ -489,8 +494,11 @@ def _dtable(ctx, name: str, cols: Dict[str, torch.Tensor], valid,
             dcols.append(DColumn(c, DataType(Type.FLOAT), data))
         else:
             dcols.append(DColumn(c, DataType(Type.INT32), data))
-    out = DTable(ctx, dcols, cap, torch.from_numpy(sizes).to(ctx.device))
-    out._counts_host = sizes.copy()  # statically known layout
+    r0 = ctx.get_rank()
+    local = sizes[r0:r0 + ctx.get_local_world_size()]
+    out = DTable(ctx, dcols, cap, torch.from_numpy(local.copy()).to(
+        ctx.device))
+    out._counts_host = sizes.copy()  # statically known layout, all P
     return out
 
 
@@ -498,12 +506,16 @@ def generate_device(ctx, scale: float, seed: int = 42):
     """All eight TPC-H tables as DTables on ``ctx``'s device.  The six
     large ones are computed there (row ids → formulas, in place in their
     padded blocks); nation and region (25 and 5 rows) are ingested from
-    the host."""
-    from ..context import refuse_multiprocess
-    refuse_multiprocess("the TPC-H generator", ctx)
+    the host.
+
+    Across processes each process builds the blocks of its own ranks
+    only, from their global row ids (the same formulas, so the tables
+    equal the single-process world's shard for shard); the order →
+    line structure and the row counts are computed alike in every
+    process, so no collective runs."""
     from ..parallel.dtable import DTable
     from ..table import Table
-    dev, world = ctx.device, ctx.get_world_size()
+    dev = ctx.device
     n_cust, n_ord, n_supp, n_part = _scale_counts(scale)
     xp = _Torch
     out = {}
@@ -514,12 +526,12 @@ def generate_device(ctx, scale: float, seed: int = 42):
     ends = torch.cumsum(lp, 0)
     starts = ends - lp
     n_li = int(ends[-1])
-    g, valid, sizes, cap = _block_index(n_ord, world, dev)
+    g, valid, sizes, cap = _block_index(n_ord, ctx)
     safe = torch.clamp(g, max=n_ord - 1)
     out["orders"] = _dtable(ctx, "orders", _orders_cols(
         xp, seed, g, starts[safe], lp[safe], n_cust), valid, sizes, cap)
     del starts
-    g, valid, sizes, cap = _block_index(n_li, world, dev)
+    g, valid, sizes, cap = _block_index(n_li, ctx)
     safe = torch.clamp(g, max=n_li - 1)
     order_idx = torch.searchsorted(ends, safe, right=True)
     del ends, lp
@@ -529,11 +541,10 @@ def generate_device(ctx, scale: float, seed: int = 42):
 
     for name, n in (("customer", n_cust), ("supplier", n_supp),
                     ("part", n_part)):
-        g, valid, sizes, cap = _block_index(n, world, dev)
+        g, valid, sizes, cap = _block_index(n, ctx)
         out[name] = _dtable(ctx, name, _ELEMENTWISE[name](xp, seed, g),
                             valid, sizes, cap)
-    g, valid, sizes, cap = _block_index(n_part * SUPPLIERS_PER_PART, world,
-                                        dev)
+    g, valid, sizes, cap = _block_index(n_part * SUPPLIERS_PER_PART, ctx)
     out["partsupp"] = _dtable(ctx, "partsupp",
                               _partsupp_cols(xp, seed, g, n_supp), valid,
                               sizes, cap)

@@ -26,7 +26,6 @@ import torch
 
 from ..compute import sort_multi
 from ..config import JoinAlgorithm, JoinConfig, JoinType
-from ..context import refuse_multiprocess
 from ..dtypes import DataType, Type
 from ..parallel import (DTable, dist_aggregate, dist_anti_join, dist_groupby,
                         dist_head, dist_join, dist_join_streaming,
@@ -1078,20 +1077,8 @@ def q22(ctx, t: Tables,
     return sort_multi(out, ["cntrycode"])
 
 
-def _single_process(fn: Callable) -> Callable:
-    """``fn`` refusing a context that spans processes (the queries use
-    operators that do not run across processes yet)."""
-    @functools.wraps(fn)
-    def query(ctx, *args, **kwargs):
-        refuse_multiprocess(f"TPC-H {fn.__name__}", ctx)
-        return fn(ctx, *args, **kwargs)
-    return query
-
-
 QUERIES: Dict[str, Callable] = {
     "q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7,
     "q8": q8, "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q13": q13,
     "q14": q14, "q15": q15, "q16": q16, "q17": q17, "q18": q18, "q19": q19,
     "q20": q20, "q21": q21, "q22": q22}
-QUERIES = {name: _single_process(fn) for name, fn in QUERIES.items()}
-globals().update(QUERIES)

@@ -1318,3 +1318,90 @@ def test_process_communicator_operators_on_card(card, tmp_path):
             assert got.cap == want.cap, name
     finally:
         ctx.finalize()
+
+
+def _nccl_tpch(tmp_path):
+    """The NCCL context (1 process × 4 local ranks), the single-process
+    world 4, and the TPC-H tables at SF 0.01 generated on each."""
+    ctx = _nccl_context(tmp_path, 4)
+    sim = pt.CylonContext(device="cuda", world=4)
+    return (ctx, datagen_device.generate_device(ctx, 0.01, seed=3), sim,
+            datagen_device.generate_device(sim, 0.01, seed=3))
+
+
+@pytest.mark.gpu
+def test_tpch_generator_nccl_equals_local_on_card(card, tmp_path):
+    """``generate_device`` over the NCCL context builds the single-process
+    world 4's tables on the card, shard for shard (counts and every
+    column's bytes), with the same ``cap``."""
+    import torch_multiprocess_worker as W
+    ctx, tables, _, want = _nccl_tpch(tmp_path)
+    try:
+        for name, dt in tables.items():
+            assert W.shard_digests(dt) == W.shard_digests(want[name]), name
+            assert dt.cap == want[name].cap, name
+    finally:
+        ctx.finalize()
+
+
+@pytest.mark.gpu
+def test_tpch_operators_and_planner_nccl_on_card(card, tmp_path):
+    """Over the NCCL context on the card: a streaming join (lineitem ⋈
+    orders in 3 slices), the fused groupby (pre-aggregate by
+    ``l_orderkey``) and Q5 through ``ctx.optimize`` equal the
+    single-process world 4's, rows in order (the joins and groupby shard
+    for shard, with the same ``cap``)."""
+    from cylon_tpu_torch.parallel import dist_ops, dist_project
+    from cylon_tpu_torch.parallel.streaming import dist_join_streaming
+    import torch_multiprocess_worker as W
+    ctx, tables, sim, want = _nccl_tpch(tmp_path)
+    try:
+        cfg = pt.JoinConfig(pt.JoinType.INNER, pt.JoinAlgorithm.HASH,
+                            "l_orderkey", "o_orderkey", broadcast_threshold=0)
+
+        def ops(t):
+            li = dist_project(t["lineitem"], ["l_orderkey", "l_suppkey",
+                                              "l_extendedprice"])
+            orders = dist_project(t["orders"], ["o_orderkey", "o_orderdate"])
+            return [dist_join_streaming(li, orders, cfg, chunks=3),
+                    dist_ops.dist_groupby_fused(t["lineitem"], ["l_orderkey"],
+                                                W.FUSED_AGGS)]
+        for got, ref in zip(ops(tables), ops(want)):
+            assert port_rows(got, ordered=True) == port_rows(ref, ordered=True)
+            assert got.cap == ref.cap
+        tplan.clear_plan_cache()
+        q5 = lambda c: (lambda t: tpch_queries.QUERIES["q5"](c, t))  # noqa
+        got = ctx.optimize(q5(ctx), tables)
+        ref = tpch_queries.QUERIES["q5"](sim, want)
+        assert_rows_close(port_rows(got, ordered=True),
+                          port_rows(ref, ordered=True),
+                          float_rtols(got, f64=1e-9))
+    finally:
+        tplan.clear_plan_cache()
+        ctx.finalize()
+
+
+@pytest.mark.gpu
+def test_plan_check_makes_no_nccl_call_on_card(card, tmp_path):
+    """``plan_check.validate`` of Q5 and Q21 on the NCCL context's tables
+    makes no call into the communicator (the meta view's communicator
+    returns meta tensors), launches nothing and reads nothing."""
+    from cylon_tpu_torch.analysis import plan_check
+    ctx, tables, _, _ = _nccl_tpch(tmp_path)
+    trace.enable_counters()
+    try:
+        for q in ("q5", "q21"):
+            op = lambda t, q=q: tpch_queries.QUERIES[q](ctx, t)  # noqa: E731
+            op(tables)  # the dimension probes' host columns
+            trace.reset()
+            calls, launches = ctx.comm.calls, hash_cuda.launches
+            rep = plan_check.validate(op, tables,
+                                      concrete=("nation", "region"))
+            assert rep.ok and rep.nodes, q
+            assert ctx.comm.calls == calls, q
+            assert hash_cuda.launches == launches, q
+            assert trace.counters().get("host.read", 0) == 0, q
+    finally:
+        trace.disable_counters()
+        trace.reset()
+        ctx.finalize()

@@ -60,9 +60,10 @@ def _env():
             if not k.startswith(("XLA_", "JAX_", "CYLON_"))}
 
 
-def _launch(mode: str, nproc: int, local: int, out_dir: str):
+def _launch(mode: str, nproc: int, local: int, out_dir: str,
+            init: str = None):
     os.makedirs(out_dir, exist_ok=True)
-    init = "file://" + os.path.join(out_dir, "store")
+    init = init or "file://" + os.path.join(out_dir, "store")
     return [subprocess.Popen(
         [sys.executable, WORKER, mode, str(p), str(nproc), str(local), init,
          out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -251,8 +252,13 @@ def test_exports_equal_in_every_process(runs, layout):
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_unported_calls_refuse(runs, layout):
-    """The planner, run_pipeline, the host tier, the fused groupby and a
-    re-mesh raise a typed NotImplemented at once (well within 10 s)."""
+    """The calls not ported across processes — the host tier
+    (``DTable.spill``), the morsel scans, ``remesh_table``,
+    ``with_world``, ``first_slot``, ``ServeSession`` and ``FleetRouter``
+    — raise a typed NotImplemented at once (well within 10 s).  The
+    planner, ``run_pipeline``, the plan check, EXPLAIN ANALYZE, the TPC-H
+    generator and queries and the planner-lowered operators run across
+    processes (``tests/test_torch_multiprocess_tpch.py``)."""
     for r in runs[layout]:
         for name, (code, seconds) in r["refusals"].items():
             assert code == "NotImplemented", name

@@ -4,6 +4,12 @@
     python tests/torch_multiprocess_worker.py scenarios PROC NPROC LOCAL \
         INIT_URL OUT_DIR
     python tests/torch_multiprocess_worker.py peerloss PROC 2 1 INIT_URL OUT_DIR
+    python tests/torch_multiprocess_worker.py tpch PROC NPROC LOCAL \
+        INIT_URL OUT_DIR
+    python tests/torch_multiprocess_worker.py tpch-single 0 1 WORLD \
+        full|small OUT_DIR
+    python tests/torch_multiprocess_worker.py planfault PROC 2 1 INIT_URL \
+        OUT_DIR
 
 ``scenarios``: every process joins the world through
 ``CylonContext.InitMultiHost`` (gloo on the CPU, ``NPROC × LOCAL``
@@ -13,7 +19,12 @@ the rows of its OWN shards to ``OUT_DIR/proc<PROC>.pkl``; the test puts
 the processes' shards side by side and holds them against the
 single-process world of the same P and the JAX package.  ``peerloss``:
 process 1 leaves before a collective that process 0 enters; process 0
-records how ``resilience.classify`` sorts its error.
+records how ``resilience.classify`` sorts its error.  ``tpch``: the
+TPC-H tables generated across processes, the queries eager and through
+the planner, and (with several local ranks) the planner-lowered
+operators, the plan check, ``run_pipeline`` and EXPLAIN ANALYZE
+(:func:`run_tpch`); ``tpch-single`` runs the same on the
+single-process world of the same P, in one process.  ``planfault``: a planned query under faults.
 
 The scenario functions take an :class:`Env`, which names one package's
 modules and ingest paths alike, so the test runs the same functions
@@ -339,6 +350,301 @@ def local_result(out):
 
 
 # ---------------------------------------------------------------------------
+# TPC-H and the planner across processes (tests/test_torch_multiprocess_tpch.py)
+# ---------------------------------------------------------------------------
+
+# the parity harness's setting (tests/tpch_torch_parity.py): SF 0.002 with
+# the broadcast threshold at 256 rows, so nation, region and supplier
+# broadcast while customer, part and orders shuffle, as at SF 10
+TPCH_SCALE, TPCH_SEED, TPCH_THRESHOLD = 0.002, 7, 256
+TPCH_VARIANTS = {"q9_streaming": ("q9", {"streaming_chunks": 3})}
+# what a 2 × 1 world runs (the MPI shape): eager, and Q5 planned
+TPCH_SMALL = ("q1", "q5", "q21")
+FUSED_AGGS = [("l_extendedprice", "sum"), ("l_extendedprice", "mean"),
+              ("l_quantity", "count"), ("l_quantity", "min"),
+              ("l_quantity", "max")]
+PSUM_AGGS = [("l_extendedprice", "sum"), ("l_extendedprice", "mean"),
+             ("l_quantity", "count")]
+SKETCH_AGGS = [("l_partkey", "approx_distinct"),
+               ("l_extendedprice", "approx_quantile:0.5")]
+
+
+def tpch_kwargs(scale=TPCH_SCALE, seed=TPCH_SEED) -> dict:
+    """The queries' parameters at the test scale: the parity harness's
+    Q18 / Q11 settings and, for Q17, the most frequent (brand, container)
+    pair of the generated parts (the spec's pair selects none)."""
+    from cylon_tpu_torch.tpch import datagen_device as dd
+    cols, dicts = dd.generate_mirror(scale, seed=seed, tables=["part"])
+    b, c = cols["part"]["p_brand"], cols["part"]["p_container"]
+    pairs, n = np.unique(b.astype(np.int64) * 4096 + c, return_counts=True)
+    top = int(pairs[int(np.argmax(n))])
+    return {"q18": {"quantity": 120.0}, "q11": {"fraction_per_sf": 0.000002},
+            "q17": {"brand": str(dicts["p_brand"][top // 4096]),
+                    "container": str(dicts["p_container"][top % 4096])}}
+
+
+def tpch_call(queries, ctx, tables, name: str, kwargs: dict):
+    """Query (or variant) ``name`` of ``queries`` (either package's
+    ``tpch.queries`` module) on ``tables``."""
+    base, extra = TPCH_VARIANTS.get(name, (name, {}))
+    return queries.QUERIES[base](ctx, tables, **dict(kwargs.get(base, {}),
+                                                     **extra))
+
+
+def table_rows(t):
+    """A local Table's rows (the :func:`shard_rows` cell format)."""
+    return shard_rows(t, [t.num_rows], t.num_rows)[0]
+
+
+def shard_digests(dt):
+    """Per local shard of ``dt``: (row count, sha1 of every column's
+    valid rows' bytes and validity)."""
+    import hashlib
+    out = []
+    for s, n in enumerate(int(x) for x in dt.counts.cpu().numpy()):
+        lo = s * dt.cap
+        h = hashlib.sha1()
+        for c in dt.columns:
+            h.update(c.data[lo:lo + n].contiguous().cpu().numpy().tobytes())
+            if c.validity is not None:
+                h.update(c.validity[lo:lo + n].cpu().numpy().tobytes())
+        out.append((n, h.hexdigest()))
+    return out
+
+
+def _dt_result(dt):
+    counts = [int(x) for x in dt.counts.cpu().numpy()]
+    return {"shards": shard_rows(dt, counts, dt.cap), "cap": dt.cap,
+            "names": dt.column_names}
+
+
+def _lineitem_ops(pt, tables):
+    """The planner-lowered operators on lineitem: the fused groupby in
+    its three modes, the sketch groupby (its result and its captured
+    sketch state), the Q5-shaped multiway join and a streaming join."""
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch.parallel import dist_ops, dist_project
+    from cylon_tpu_torch.parallel.streaming import dist_join_streaming
+    li = tables["lineitem"]
+    out = {
+        "fused_psum": dist_ops.dist_groupby_fused(
+            li, ["l_returnflag", "l_linestatus"], PSUM_AGGS, mode="psum"),
+        "fused_preagg": dist_ops.dist_groupby_fused(
+            li, ["l_orderkey"], FUSED_AGGS, mode="pre-aggregate"),
+        "fused_shuffle": dist_ops.dist_groupby_fused(
+            li, ["l_suppkey"], FUSED_AGGS, mode="shuffle"),
+    }
+    with dist_ops.collect_agg_state() as sink:
+        out["sketch"] = dist_ops.dist_groupby_sketch(li, ["l_suppkey"],
+                                                     SKETCH_AGGS)
+    state = shard_digests(sink[-1].state)
+    fact = dist_project(li, ["l_orderkey", "l_partkey", "l_suppkey",
+                             "l_extendedprice"])
+    dims = [dist_project(tables["orders"], ["o_orderkey", "o_orderdate"]),
+            dist_project(tables["supplier"], ["s_suppkey", "s_nationkey"]),
+            dist_project(tables["part"], ["p_partkey", "p_size"])]
+    specs = [("l_orderkey", "o_orderkey", (1, tables["orders"].num_rows)),
+             ("l_suppkey", "s_suppkey", None),
+             ("l_partkey", "p_partkey", (1, tables["part"].num_rows))]
+    names, edges = list(fact.column_names), []
+    for dim, (fk, pk, dkr) in zip(dims, specs):
+        joined = (["lt-" + n for n in names]
+                  + ["rt-" + n for n in dim.column_names])
+        names = [n[3:] for n in joined]
+        edges.append(("inner", "sort", (fk,), (pk,), dkr, None,
+                      tuple(zip(joined, names))))
+    out["multiway"] = dist_ops.dist_multiway_join(fact, dims, edges)
+    cfg = JoinConfig(JoinType.INNER, JoinAlgorithm.HASH, "l_orderkey",
+                     "o_orderkey", broadcast_threshold=0)
+    out["streaming"] = dist_join_streaming(fact, dims[0], cfg, chunks=3)
+    res = {k: _dt_result(v) for k, v in out.items()}
+    res["sketch_state"] = state
+    return res
+
+
+def _counted(ctx, fn):
+    """``fn()``'s result and what it cost this process: host reads,
+    partition-kernel launches and calls into torch.distributed."""
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch.ops import hash_cuda
+    r0 = trace.counters().get("host.read", 0)
+    l0 = hash_cuda.launches
+    c0 = getattr(ctx.comm, "calls", 0)
+    out = fn()
+    return out, {"reads": trace.counters().get("host.read", 0) - r0,
+                 "launches": hash_cuda.launches - l0,
+                 "calls": getattr(ctx.comm, "calls", 0) - c0}
+
+
+def run_tpch(ctx, names, planned, full: bool) -> dict:
+    """TPC-H on ``ctx`` (a process world or the single-process world it
+    is compared with): the generated tables' shard digests, the queries
+    ``names`` eager, the queries ``planned`` through ``ctx.optimize``
+    twice (a plan-cache miss, then a hit); with ``full`` also the
+    lineitem operators, ``plan_check.validate`` and ``run_pipeline`` of
+    every query and EXPLAIN ANALYZE of Q5.  Plain picklable values."""
+    import cylon_tpu_torch as pt
+    from cylon_tpu_torch import config, plan, trace
+    from cylon_tpu_torch.analysis import plan_check
+    from cylon_tpu_torch.ops import compact
+    from cylon_tpu_torch.parallel import broadcast, dist_ops
+    from cylon_tpu_torch.tpch import generate_device, queries
+    prev = config.set_broadcast_join_threshold(TPCH_THRESHOLD)
+    clear_hints(pt)
+    broadcast.clear_replica_cache()
+    plan.clear_plan_cache()
+    trace.enable_counters()
+    kwargs = tpch_kwargs()
+    res = {"eager": {}, "decisions": {}, "planned": {}, "plan_cache": {}}
+    try:
+        tables = generate_device(ctx, TPCH_SCALE, seed=TPCH_SEED)
+        res["tables"] = {n: {"cap": dt.cap, "counts": [
+            int(c) for c in dt.counts_host()], "shards": shard_digests(dt)}
+            for n, dt in tables.items()}
+        res["columns"] = {}
+        for q in names:
+            dist_ops.decisions.clear()
+            out = tpch_call(queries, ctx, tables, q, kwargs)
+            res["eager"][q] = table_rows(out)
+            res["columns"][q] = [(c.name, str(c.data.dtype))
+                                 for c in out.columns]
+            res["decisions"][q] = dict(dist_ops.decisions)
+        for q in planned:
+            op = lambda t, q=q: tpch_call(queries, ctx, t, q, kwargs)  # noqa
+            c0 = trace.counters()
+            got = [table_rows(ctx.optimize(op, tables)) for _ in range(2)]
+            c1 = trace.counters()
+            res["planned"][q] = got
+            res["plan_cache"][q] = tuple(
+                c1.get(k, 0) - c0.get(k, 0)
+                for k in ("plan.cache_miss", "plan.cache_hit"))
+        if not full:
+            return res
+        res["ops"] = _lineitem_ops(pt, tables)
+        res["plan_check"], res["pipeline"] = {}, {}
+        for q in names:
+            op = lambda t, q=q: tpch_call(queries, ctx, t, q, kwargs)  # noqa
+            rep, cost = _counted(ctx, lambda: plan_check.validate(
+                op, tables, concrete=("nation", "region")))
+            res["plan_check"][q] = dict(
+                cost, ok=rep.ok, ops=[n.op for n in rep.nodes],
+                result=rep.result, boundary=rep.boundary)
+        for q in names:
+            run = lambda q=q: tpch_call(queries, ctx, tables, q, kwargs)  # noqa
+            c0 = trace.counters()
+            rows = [table_rows(compact.run_pipeline(run)) for _ in range(2)]
+            c1 = trace.counters()
+            res["pipeline"][q] = {
+                "rows": rows, **{k: c1.get(k, 0) - c0.get(k, 0) for k in
+                                 ("pipeline.replays", "host.read")}}
+        rep = ctx.analyze(lambda t: tpch_call(queries, ctx, t, "q5", kwargs),
+                          tables)
+        if rep.error is not None:
+            raise rep.error
+        res["analyze"] = {
+            "ok": rep.ok, "processes": rep.totals.get("processes"),
+            "nodes": [(n.op, n.runtime["rows_in"], n.runtime["rows_out"])
+                      for n in rep.nodes],
+            "rows": table_rows(rep.output)}
+        trace.enable_counters()   # analyze resets the trace state
+        return res
+    finally:
+        config.set_broadcast_join_threshold(prev)
+        clear_hints(pt)
+        broadcast.clear_replica_cache()
+        plan.clear_plan_cache()
+        trace.disable_counters()
+        trace.reset()
+
+
+def tpch_names(full: bool):
+    from cylon_tpu_torch.tpch.queries import QUERIES
+    return (list(QUERIES) + list(TPCH_VARIANTS)) if full else list(TPCH_SMALL)
+
+
+def tpch_planned(full: bool):
+    from cylon_tpu_torch.tpch.queries import QUERIES
+    return list(QUERIES) if full else ["q5"]
+
+
+def run_tpch_mode(proc, nproc, local, init, out_dir,
+                  single: bool = False) -> None:
+    """:func:`run_tpch` in process ``proc`` of the ``nproc × local``
+    world (the whole run with several local ranks, the 2 × 1 subset with
+    one); with ``single`` (``nproc`` 1), on the single-process world of
+    ``local`` ranks a process world is compared with (``single.pkl``),
+    ``init`` naming the run ("full" or "small")."""
+    import torch
+    torch.set_num_threads(2)
+    import cylon_tpu_torch as pt
+    if single:
+        ctx = pt.CylonContext(device="cpu", world=nproc * local)
+    else:
+        ctx = pt.CylonContext.InitMultiHost(init, nproc, proc, world=local,
+                                            device="cpu", timeout=60)
+    full = init == "full" if single else local > 1
+    t0 = time.monotonic()
+    res = run_tpch(ctx, tpch_names(full), tpch_planned(full), full)
+    res["seconds"] = time.monotonic() - t0
+    ctx.barrier()
+    ctx.finalize()
+    name = "single.pkl" if single else f"proc{proc}.pkl"
+    with open(os.path.join(out_dir, name), "wb") as f:
+        pickle.dump(res, f)
+
+
+def run_planfault(proc, nproc, local, init, out_dir) -> None:
+    """A planned query under faults across processes: the same injected
+    transient fault in both processes (both raise it, the ladder does not
+    engage, the next run succeeds), then an error only process 1 sees
+    (a RuntimeError at its first stage): process 1 tears the group down,
+    and process 0's pending collective fails at once."""
+    import torch
+    torch.set_num_threads(2)
+    import cylon_tpu_torch as pt
+    from cylon_tpu_torch import config, faults, resilience
+    from cylon_tpu_torch.tpch import generate_device, queries
+    ctx = pt.CylonContext.InitMultiHost(init, nproc, proc, world=local,
+                                        device="cpu", timeout=30)
+    config.set_broadcast_join_threshold(TPCH_THRESHOLD)
+    tables = generate_device(ctx, TPCH_SCALE, seed=TPCH_SEED)
+    kwargs = tpch_kwargs()
+    op = lambda t: tpch_call(queries, ctx, t, "q5", kwargs)  # noqa: E731
+    got = {}
+    plan = faults.FaultPlan(0, [faults.FaultRule("exec.stage",
+                                                 kind="transient", nth=1)])
+    try:
+        with faults.active(plan):
+            ctx.optimize(op, tables)
+        got["injected"] = None
+    except Exception as exc:  # the error under test
+        got["injected"] = type(exc).__name__
+    got["after"] = table_rows(ctx.optimize(op, tables))
+    ctx.barrier()
+    if proc == 1:
+        real = faults.check
+
+        def local_failure(point):
+            if point == "exec.stage":
+                raise RuntimeError("a failure only process 1 sees")
+            return real(point)
+        faults.check = local_failure
+    t0 = time.monotonic()
+    try:
+        from cylon_tpu_torch import plan as pplan
+        pplan.clear_plan_cache()
+        ctx.optimize(op, tables)
+        got["local"] = None
+    except Exception as exc:  # the error under test
+        got["local"] = type(exc).__name__
+        got["local_class"] = resilience.classify(exc)
+    got["seconds"] = time.monotonic() - t0
+    with open(os.path.join(out_dir, f"proc{proc}.pkl"), "wb") as f:
+        pickle.dump(got, f)
+    os._exit(0)
+
+
+# ---------------------------------------------------------------------------
 # the process
 # ---------------------------------------------------------------------------
 
@@ -406,19 +712,23 @@ def _collectives(ctx):
 
 
 def _refusals(ctx, dt):
-    """Calls not ported across processes: each must raise a typed
-    NotImplemented at once (no collective is entered, so nothing can
-    hang)."""
+    """Calls not ported across processes (the host tier, the morsel
+    scans, the elastic re-mesh, slot placement, serving): each must raise
+    a typed NotImplemented at once (no collective is entered, so nothing
+    can hang)."""
     from cylon_tpu_torch import CylonError
-    from cylon_tpu_torch.ops import compact
-    from cylon_tpu_torch.parallel import dist_ops
+    from cylon_tpu_torch.parallel import remesh
+    from cylon_tpu_torch.serve import FleetRouter, ServeSession
+    from cylon_tpu_torch.spill import morsel
     calls = {
-        "optimize": lambda: ctx.optimize(lambda t: t, dt),
-        "run_pipeline": lambda: compact.run_pipeline(lambda: dt),
         "spill": lambda: dt.spill(),
-        "dist_groupby_fused": lambda: dist_ops.dist_groupby_fused(
+        "morsel_groupby": lambda: morsel.morsel_groupby(
             dt, ["k"], [("v", "sum")]),
+        "remesh_table": lambda: remesh.remesh_table(dt, ctx),
         "with_world": lambda: ctx.with_world(2),
+        "first_slot": lambda: ctx.first_slot,
+        "ServeSession": lambda: ServeSession(ctx),
+        "FleetRouter": lambda: FleetRouter([]),
     }
     out = {}
     for name, call in calls.items():
@@ -514,6 +824,11 @@ def main(argv) -> int:
             run_scenarios(int(proc), int(nproc), int(local), init, out_dir)
         elif mode == "peerloss":
             run_peerloss(int(proc), int(nproc), int(local), init, out_dir)
+        elif mode in ("tpch", "tpch-single"):
+            run_tpch_mode(int(proc), int(nproc), int(local), init, out_dir,
+                          single=mode == "tpch-single")
+        elif mode == "planfault":
+            run_planfault(int(proc), int(nproc), int(local), init, out_dir)
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     except BaseException:
