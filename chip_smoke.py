@@ -153,11 +153,26 @@ communicator), each under ``run_pipeline``, and ``ctx.analyze`` of Q5
 (node rows = the single-process report's); then Q1, Q5, Q9 streaming,
 Q21 and Q5 planned at SF 0.05 in two processes of 2 local ranks on the
 card over gloo (``--mp-tpch-child``), each = the single-process world
-4's.  Every check that fails raises, so the script exits non-zero; without a
+4's.  The measured cost model, after the redistribution phase: the mesh
+probe (``parallel.meshprobe.probe``) of ``CylonContext(world=4)`` and of
+one NCCL process of 4 local ranks, at the default sizes and at 1-64 MiB
+per shard (α in µs and β in GB/s per collective and host leg; the two
+fingerprints differ), then the join cell's HASH join under the measured
+ranking (``config.set_cost_measured(True)``; each exchange's candidates
+with their ``cost.predicted_ms`` and the pick; = the oracle), flat and
+under a (2, 2) mesh shape after a per-axis probe; after the trace
+export, EXPLAIN ANALYZE of that join and of Q5 at ``--tpch-sf`` twice
+(every exchange carries ``exchange_ms`` and ``peak``; the stats stores
+saved under ``build/``), ``analysis.calibrate`` of the first store (exit
+0 or 1; each strategy's median error) and ``analysis.queryprof`` of the
+pair.  The out-of-core TPC-H phase also holds each spilled query's row
+set to the ample run's through ``analysis.parity``.  Every check that
+fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
-strkey, wide-key, serving, pipeline and multi-process paths), its time, its plain version's time and its
+strkey, wide-key, serving, pipeline, multi-process and measured-ranking
+paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -2894,11 +2909,14 @@ def phase_ooc_tpch(ctx, tables, sf: float):
     48)`` (``priced``: lineitem's morsel price), each from a cleared plan
     cache and pool, against the ample-budget planned run of the same
     query (columns, types, rows and order; floats within the oracle
-    phase's tolerances).  (6) The switch: under
+    phase's tolerances; and the row set through
+    ``analysis.parity.frames_rowset_equal``, the bench's gate).  (6) The
+    switch: under
     ``set_spill_enabled(False)`` the Q1 plan fires no morsel scan and
     gives the same rows.  Returns the partition-kernel launches per
     query."""
     from cylon_tpu_torch import config, plan, trace
+    from cylon_tpu_torch.analysis import parity
     from cylon_tpu_torch.ops import hash_cuda
     from cylon_tpu_torch.parallel import broadcast
     from cylon_tpu_torch.spill import morsel as tmorsel
@@ -2945,6 +2963,8 @@ def phase_ooc_tpch(ctx, tables, sf: float):
         for dt in tables.values():   # a spilled scan comes back for the
             dt.ensure_device()        # later phases
         same_ordered(f"tpch ooc {q} == ample", out, ample)
+        check(parity.frames_rowset_equal(out.to_pandas(), ample.to_pandas()),
+              f"tpch ooc {q}: the row set == ample (analysis.parity)")
         check(not morsels[q] or any("morsel-scan" in f for f in fires),
               f"tpch ooc {q}: morsels stream only where the plan has a "
               "morsel scan")
@@ -2987,6 +3007,9 @@ def phase_ooc_tpch(ctx, tables, sf: float):
           and c.get("spill.spills", 0) == 0 and c.get("spill.morsels", 0) == 0,
           "tpch ooc q1 spill off: no morsel scan, nothing spilled")
     same_ordered("tpch ooc q1 spill off == ample", out, ample_rows["q1"])
+    check(parity.frames_rowset_equal(out.to_pandas(),
+                                     ample_rows["q1"].to_pandas()),
+          "tpch ooc q1 spill off: the row set == ample (analysis.parity)")
     say(f"tpch ooc q1 spill=off sf={sf} world={WORLD}", budget=budget,
         seconds=f"{secs:.6f}", rows=out.num_rows, morsel_fires=0,
         spills=0, strategies=",".join(
@@ -5319,6 +5342,272 @@ def phase_explain_report(ctx, tables):
     print(str(rep), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase: the measured cost model — the mesh probe, the measured ranking,
+# the exchange_ms audit and the calibrate / queryprof loop
+# ---------------------------------------------------------------------------
+
+MESHPROBE_SIZES = (1 << 20, 1 << 23, 1 << 26)  # bytes per shard: 1-64 MiB
+
+
+def show_profile(label: str, prof) -> dict:
+    """One line per fitted key of ``prof`` (α in µs, β in GB/s of wire
+    bytes per shard, and each point's wire bytes and best seconds);
+    every α >= 0 and every β > 0.  Returns ``{key: (α µs, β GB/s)}``."""
+    out = {}
+    for key in prof.latency_s:
+        a, b = prof.latency_s[key], prof.bytes_per_s[key]
+        check(a >= 0 and b > 0, f"meshprobe {label} {key}: alpha {a} >= 0 "
+                                f"and beta {b} > 0")
+        pts = sorted((w, t) for k, w, t in prof.samples if k == key)
+        say(f"meshprobe {label}", key=key, alpha_us=f"{a * 1e6:.3f}",
+            beta_gbps=f"{b / 1e9:.3f}",
+            wire_bytes_seconds=",".join(f"{w}:{t:.6f}" for w, t in pts))
+        out[key] = (a * 1e6, b / 1e9)
+    return out
+
+
+def probe_twice(label: str, ctx) -> tuple:
+    """The probe at its default sizes, then forced at ``MESHPROBE_SIZES``
+    (the defaults of 4-256 KiB per shard sit in the latency term on the
+    card); both printed.  Returns (the large-size profile, its table)."""
+    from cylon_tpu_torch.parallel import meshprobe
+
+    small, secs = wall(lambda: meshprobe.probe(ctx))
+    say(f"meshprobe {label} default sizes", seconds=f"{secs:.3f}",
+        fingerprint=repr(small.fingerprint))
+    show_profile(f"{label} default sizes", small)
+    prof, secs = wall(lambda: meshprobe.probe(ctx, sizes=MESHPROBE_SIZES,
+                                              force=True))
+    check(prof is not small and meshprobe.get_profile(ctx) is prof,
+          f"meshprobe {label}: force re-probes and caches")
+    say(f"meshprobe {label}", seconds=f"{secs:.3f}",
+        sizes=",".join(map(str, MESHPROBE_SIZES)))
+    return prof, show_profile(label, prof)
+
+
+def measured_join(label: str, lt, rt, want, proxy_s: float) -> int:
+    """The world-4 HASH join under the measured ranking: every exchange
+    ranked by ``cost.predicted_ms`` (each candidate's prediction and the
+    pick printed), the result = the oracle.  Returns the partition
+    kernel's launches."""
+    from cylon_tpu_torch import config, trace
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import cost, dist_join
+
+    seen = []
+    real = cost.choose
+
+    def spy(cands, budget, *args, **kw):
+        out = real(cands, budget, *args, **kw)
+        seen.append((cands, out, kw.get("profile"), kw.get("measured")))
+        return out
+
+    cost.choose = spy
+    prev = config.set_cost_measured(True)
+    trace.reset()
+    hash_cuda.launches = 0
+    try:
+        joined, secs = wall(lambda: dist_join(lt, rt, hash_cfg()))
+    finally:
+        cost.choose = real
+        config.set_cost_measured(prev)
+    launches = hash_cuda.launches
+    c = trace.counters()
+    check_join(label, joined.to_table(), want)
+    check(launches == 2, f"{label}: 2 partition launches ({launches})")
+    check(seen and all(m and p is not None for *_, p, m in seen),
+          f"{label}: every exchange ranked by the measurement")
+    for i, (cands, (pick, reason, _), prof, _) in enumerate(seen):
+        say(f"{label} exchange {i}", pick=pick.strategy,
+            **{f"{x.strategy}_predicted_ms":
+               (f"{cost.predicted_ms(x, prof):.4f}"
+                if cost.predicted_ms(x, prof) is not None else "unmeasured")
+               for x in cands},
+            reason=repr(reason[:120]))
+    say(label, world=WORLD, rows=joined.num_rows, seconds=f"{secs:.6f}",
+        proxy_seconds=f"{proxy_s:.6f}", launches=launches,
+        strategies=",".join(f"{k.split('.')[-1]}:{v}"
+                            for k, v in sorted(c.items())
+                            if k.startswith("shuffle.strategy.")))
+    del joined
+    return launches
+
+
+def phase_meshprobe(ldata, rdata, want) -> tuple:
+    """(a) The probe of ``CylonContext(world=4)`` (``LocalCommunicator``)
+    at the default sizes and then at 1-64 MiB per shard: α / β per
+    collective and host leg.  (b) The same through ``InitMultiHost`` (one
+    process of 4 local ranks over NCCL), whose fingerprint must differ.
+    (c) The join cell's world-4 HASH join under the measured ranking with
+    (a)'s profile (= the oracle, seconds beside the proxy's run), then
+    under a (2, 2) mesh shape after a per-axis probe.  A failing probe
+    raises.  Returns (launches flat, launches (2, 2), (a)'s profile,
+    the α / β tables)."""
+    from cylon_tpu_torch import CylonContext, config, trace
+    from cylon_tpu_torch.parallel import dist_join, meshprobe
+
+    meshprobe.clear_profiles()
+    was_on = trace.counters_enabled()
+    trace.enable_counters()
+    tables = {}
+    try:
+        # (a)
+        ctx = CylonContext(device=DEVICE, world=WORLD)
+        prof, tables["local"] = probe_twice("local", ctx)
+        # (b)
+        nctx = CylonContext.InitMultiHost(
+            f"tcp://127.0.0.1:{free_port()}", 1, 0, world=WORLD,
+            device=DEVICE, backend=MP_BACKEND, timeout=600)
+        try:
+            nprof, tables[MP_BACKEND] = probe_twice(MP_BACKEND, nctx)
+        finally:
+            nctx.finalize()
+        check(nprof.fingerprint != prof.fingerprint
+              and nprof.fingerprint[0] == MP_BACKEND,
+              "meshprobe: the NCCL context's fingerprint differs from the "
+              "local world's")
+        for key in prof.bytes_per_s:
+            say("meshprobe local vs " + MP_BACKEND, key=key,
+                local_beta_gbps=f"{tables['local'][key][1]:.3f}",
+                beta_gbps=f"{tables[MP_BACKEND][key][1]:.3f}",
+                local_alpha_us=f"{tables['local'][key][0]:.3f}",
+                alpha_us=f"{tables[MP_BACKEND][key][0]:.3f}")
+        # (c)
+        lt, rt = join_sides(ldata, rdata)
+        check(meshprobe.get_profile(lt.ctx) is prof,
+              "meshprobe: a rebuilt world-4 context reuses (a)'s profile")
+        dist_join(lt, rt, hash_cfg())   # first use of the join's kernels
+        _, proxy_s = wall(lambda: dist_join(lt, rt, hash_cfg()))
+        flat = measured_join("measured join", lt, rt, want, proxy_s)
+        prev = config.set_mesh_shape((2, 2))
+        try:
+            hprof, secs = wall(lambda: meshprobe.probe(
+                lt.ctx, sizes=MESHPROBE_SIZES))
+            check(hprof.axis_split == (2, 2) and all(
+                f"{c}@{e}" in hprof.bytes_per_s
+                for c in meshprobe.COLLECTIVES for e in ("fast", "slow")),
+                "meshprobe: the (2, 2) probe fitted every per-axis key")
+            say("meshprobe local (2, 2)", seconds=f"{secs:.3f}")
+            tables["local_2x2"] = show_profile("local (2, 2)", hprof)
+            hier = measured_join("measured join (2, 2)", lt, rt, want,
+                                 proxy_s)
+        finally:
+            config.set_mesh_shape(prev)
+        del lt, rt
+    finally:
+        if not was_on:
+            trace.disable_counters()
+    return flat, hier, prof, tables
+
+
+def audit_pairs(label: str, rep) -> list:
+    """Every exchange of an analyzed report carries both audit columns:
+    one ``exchange_ms`` and one ``peak`` pair per ``exchange`` entry.
+    Prints each predicted / observed pair; returns the ms pairs."""
+    from cylon_tpu_torch.analysis import calibrate
+
+    pairs = []
+    for i, n in enumerate(rep.nodes):
+        ex = n.info.get("exchange")
+        if not ex:
+            continue
+        ms = calibrate.parse_annotation(n.info.get("exchange_ms"))
+        peak = calibrate.parse_annotation(n.info.get("peak"))
+        count = len(ex.split(" | "))
+        check(len(ms) == len(peak) == count,
+              f"{label} node {i} {n.op}: {count} exchange(s), {len(ms)} "
+              f"exchange_ms and {len(peak)} peak pairs")
+        for (strat, pred, obs, _), (_, ppred, pobs, _) in zip(ms, peak):
+            say(f"{label} exchange", node=f"{i}:{n.op}", strategy=strat,
+                predicted_ms=f"{pred:.2f}", observed_ms=f"{obs:.2f}",
+                predicted_peak_bytes=int(ppred),
+                observed_peak_bytes=int(pobs))
+        pairs += ms
+    return pairs
+
+
+def phase_meshprobe_audit(tctx, tables, sf: float, ldata, rdata, want,
+                          profile) -> None:
+    """(d) EXPLAIN ANALYZE (planned) of the world-4 HASH join and of Q5 at
+    ``sf`` with (a)'s profile: every exchange carries ``exchange_ms`` and
+    ``peak``; the stats store saved under ``build/``; ``calibrate`` must
+    read it (exit 0 or 1: drift is a finding, 2 fails), with each
+    strategy's median error printed; a second analyzed pass, and
+    ``queryprof`` of the two stores (exit 0 or 1)."""
+    import contextlib
+    import io
+    import os
+
+    from cylon_tpu_torch import observe, plan
+    from cylon_tpu_torch.analysis import calibrate, queryprof
+    from cylon_tpu_torch.observe.stats import StatsStore
+    from cylon_tpu_torch.parallel import broadcast, dist_join, meshprobe
+    from cylon_tpu_torch.tpch import QUERIES
+
+    meshprobe.put_profile(profile)
+    check(meshprobe.get_profile(tctx) is profile,
+          "meshprobe audit: the TPC-H context has (a)'s fingerprint")
+    lt, rt = join_sides(ldata, rdata)
+    plans = {
+        "join": (lt, lambda t: dist_join(t["l"], t["r"], hash_cfg()),
+                 {"l": lt, "r": rt}),
+        "q5": (tables["lineitem"], lambda t: QUERIES["q5"](tctx, t),
+               tables)}
+    os.makedirs("build", exist_ok=True)
+    paths, pairs = [], 0
+    try:
+        for rnd in (1, 2):
+            observe.STATS_STORE.clear()
+            plan.clear_plan_cache()
+            for name, (anchor, op, tbls) in plans.items():
+                broadcast.clear_replica_cache()
+                rep, secs = wall(lambda: anchor.explain(
+                    op, tables=tbls, analyze=True, optimize=True))
+                label = f"meshprobe audit {name} pass {rnd}"
+                check(rep.ok and rep.stats_digests,
+                      f"{label}: the run succeeded and was recorded "
+                      f"({rep.error})")
+                if name == "join":
+                    check_join(label, rep.output.to_table(), want)
+                got = audit_pairs(label, rep)
+                pairs += len(got)
+                say(label, sf=sf if name == "q5" else "-",
+                    seconds=f"{secs:.6f}", exchanges=len(got),
+                    nodes=len(rep.nodes))
+                del rep
+            paths.append(os.path.join("build",
+                                      f"chip_smoke_stats_{rnd}.json"))
+            observe.STATS_STORE.save(paths[-1])
+    finally:
+        observe.STATS_STORE.clear()
+        plan.clear_plan_cache()
+        del lt, rt
+    check(pairs > 0, "meshprobe audit: some exchange was annotated")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = calibrate.main(["--stats", paths[0]])
+    check(rc in (0, 1), f"calibrate reads the store (exit {rc})")
+    report = calibrate.calibration_report(
+        calibrate.collect_samples(StatsStore(path=paths[0])))
+    for (strat, unit), row in sorted(report.items()):
+        say("meshprobe calibrate", strategy=strat, unit=unit, n=row["n"],
+            median_error=f"{row['p50']:.3f}", p90_error=f"{row['p90']:.3f}",
+            max_error=f"{row['max']:.3f}",
+            worst=f"{row['worst']['label']}:{row['worst']['op']}")
+    say("meshprobe calibrate", stats=paths[0], exit_code=rc,
+        groups=len(report))
+    findings = queryprof.diff_snapshots(paths[0], paths[1])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        qrc = queryprof.main(paths)
+    check(qrc in (0, 1) and (qrc == 1) == bool(findings),
+          f"queryprof reads both stores (exit {qrc})")
+    say("meshprobe queryprof", old=paths[0], new=paths[1], exit_code=qrc,
+        findings=len(findings),
+        kinds=",".join(sorted({f["kind"] for f in findings})) or "none")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -5371,6 +5660,10 @@ def main() -> int:
                    None, None, int(KEY_FRAC * 4096))
     phase_redistribution(wl, wr, wwant, warm=True)
     launches_redist = phase_redistribution(ldata, rdata, want)
+    # the measured cost model: the probe of the local and NCCL worlds and
+    # the join cell under the measured ranking
+    launches_measured, launches_measured_hier, probed, _ = \
+        phase_meshprobe(ldata, rdata, want)
     # the out-of-core tier on the join cell (small warm-ups first)
     phase_morsel_join(wl, wr, wwant, tag="warm-up ")
     phase_staged_spill(wl, wr, wwant, tag="warm-up ")
@@ -5493,6 +5786,9 @@ def main() -> int:
     launches_analyze_tpch = phase_tpch_analyze(tctx, tables, args.tpch_sf,
                                                results, times)
     phase_trace_export()
+    # the exchange_ms audit and the calibrate / queryprof loop
+    phase_meshprobe_audit(tctx, tables, args.tpch_sf, ldata, rdata, want,
+                          probed)
     launches_redist.update(phase_redistribution_tpch(tables, args.tpch_sf,
                                                      results, exports))
     launches_spill["ooc_tpch"] = phase_ooc_tpch(tctx, tables, args.tpch_sf)
@@ -5595,6 +5891,8 @@ def main() -> int:
         "launches_recovery_nparts3": launches_nparts3,
         "launches_multiprocess": launches_mp,
         "launches_multiprocess_tpch": launches_mp_tpch,
+        "launches_measured": launches_measured,
+        "launches_measured_hier": launches_measured_hier,
         "multiprocess_two_processes_one_card": mp_two,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,

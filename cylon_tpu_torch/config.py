@@ -4,8 +4,8 @@ The PyTorch port's copy of the join part of ``cylon_tpu/config.py``
 (reference: join/join_config.hpp:29-89), the broadcast row threshold,
 the device memory budget, the host-tier (spill) budget and switch, the
 exchange knobs the costed shuffle reads
-(the forced strategy, the (slow, fast) mesh shape, the watchdog
-timeout), the optimizer switch, the plan-cache capacity, the
+(the forced strategy, the (slow, fast) mesh shape, the measured-cost
+ranking, the watchdog timeout), the optimizer switch, the plan-cache capacity, the
 lock-order checks of ``observe.locks``, and the recovery driver's two
 knobs (the recovery switch and the re-mesh flap-damping window).
 """
@@ -285,6 +285,35 @@ def mesh_shape() -> Optional[Tuple[int, int]]:
         return _validate_mesh_shape((int(m.group(1)), int(m.group(2))),
                                     "CYLON_MESH_SHAPE")
     return None
+
+
+# The measured-cost ranking: the costed chooser normally ranks feasible
+# exchange lowerings on the (rounds, wire bytes) proxy; this switch ranks
+# them by cost.predicted_ms from the coefficients parallel/meshprobe.py
+# fitted for the live context, when one was probed (without a profile
+# the chooser keeps the proxy).  Explicit set_cost_measured() >
+# CYLON_COST_MEASURED env (any value but "0" / empty enables) > off.
+_cost_measured: Optional[bool] = None
+
+
+def cost_measured_enabled() -> bool:
+    """Whether the chooser ranks exchanges by measured collective time."""
+    if _cost_measured is not None:
+        return _cost_measured
+    return os.environ.get("CYLON_COST_MEASURED", "0") not in ("", "0")
+
+
+def set_cost_measured(on: Optional[bool]) -> Optional[bool]:
+    """Set the measured-cost ranking switch (None restores env
+    resolution); returns the previous explicit setting."""
+    global _cost_measured
+    if on is not None and not isinstance(on, bool):
+        raise CylonError(Status(Code.Invalid,
+            "cost-measured switch must be True, False or None "
+            f"(env-resolved), got {type(on).__name__} {on!r}"))
+    prev = _cost_measured
+    _cost_measured = on
+    return prev
 
 
 # The exchange watchdog: a bounded timeout around each collective

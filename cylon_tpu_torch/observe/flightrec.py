@@ -134,12 +134,14 @@ def _config_fingerprint() -> Dict[str, Any]:
         out["broadcast_threshold"] = config.broadcast_join_threshold()
         out["memory_budget"] = config.explicit_memory_budget()
         out["optimizer"] = config.optimizer_enabled()
+        out["exchange_strategy"] = config.exchange_strategy()
+        out["cost_measured"] = config.cost_measured_enabled()
         out["plan_cache_capacity"] = config.plan_cache_capacity()
     except Exception:  # a malformed env knob must not block the bundle
         pass
     for env in ("CYLON_TRACE", "CYLON_LOCKCHECK", "CYLON_LOCK_HOLD_MS",
                 "CYLON_MEMORY_BUDGET", "CYLON_STATS_PATH",
-                "CYLON_OPTIMIZER"):
+                "CYLON_OPTIMIZER", "CYLON_MESHPROBE_PATH"):
         v = os.environ.get(env)
         if v:
             out[env] = v

@@ -263,6 +263,10 @@ class StatsStore:
                 "bytes_moved": rt.get("bytes_moved", 0),
                 "decision": rt.get("decision"),
                 "exchange": n.info.get("exchange"),
+                # the predicted-vs-observed audit columns that
+                # analysis/calibrate.py and analysis/queryprof.py read:
+                # the measured ms and the device-truth peak per exchange
+                "exchange_ms": n.info.get("exchange_ms"),
                 "peak": n.info.get("peak"),
             })
         totals = getattr(report, "totals", {}) or {}

@@ -64,8 +64,11 @@ re-partition P → P′ through the host tier, never chooser-selectable)
 and :func:`amortized_remesh_win` (the scale-up deferral bound); and the
 replan arm's ``choose(..., exclude=...)``.
 
-Left out until their readers are ported (ROADMAP A12.2): the measured
-ranking (``predicted_ms`` from a probed mesh profile).
+The measured model: :func:`predicted_ms` prices one lowering in
+milliseconds from a probed profile (``parallel/meshprobe.py``), per edge
+when the profile carries per-axis coefficients; ``choose(...,
+profile=, measured=True)`` (``CYLON_COST_MEASURED=1``) ranks the
+feasible candidates by it instead of the (rounds, wire) proxy.
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ __all__ = [
     "price_retained", "price_staged_spill", "price_remesh",
     "amortized_remesh_win", "chunk_plan", "hier_plan",
     "price_hierarchical", "price_hier_combine", "slow_share",
-    "enumerate_strategies", "choose",
+    "enumerate_strategies", "choose", "COLLECTIVE_OF", "predicted_ms",
 ]
 
 SINGLE_SHOT = "single-shot"
@@ -512,8 +515,73 @@ def enumerate_strategies(nparts: int, cap: int, counts: np.ndarray,
     return out
 
 
+# which measured collective primitive (parallel/meshprobe.py) each
+# strategy's rounds dispatch: the bridge between the priced catalogue and
+# the fitted (latency, bytes/s) coefficients
+COLLECTIVE_OF = {
+    SINGLE_SHOT: "all_to_all",
+    CHUNKED: "all_to_all",
+    RING: "ppermute",
+    ALLGATHER: "all_gather",
+    REPLICATE: "all_gather",
+    STAGED_SPILL: "all_to_all",   # the collective rounds; the host legs
+    #                               add the measured h2d / d2h terms
+}
+
+
+def predicted_ms(price: StrategyPrice, profile) -> Optional[float]:
+    """Predicted wall-clock of one exchange lowering from a measured
+    profile (``meshprobe.MeshProfile``): α·rounds + wire/β of the
+    strategy's collective, plus — for the host-staged lowering — the
+    D2H / H2D legs from the measured ``d2h`` / ``h2d`` coefficients
+    (``host_bytes`` split evenly between the two directions).  None
+    without a profile or for an unmeasured collective.
+
+    Per-edge model: when the profile holds per-axis coefficients
+    (``all_to_all@fast``, ``ppermute@slow``, …), the hierarchical
+    lowerings price each stage against its own axis, and a flat lowering
+    with a known ``slow_wire_bytes`` share splits its wire between the
+    two axes' bandwidths — the slow β is what makes a flat all_to_all
+    lose to the two-level sequence on a real cross-host boundary."""
+    if profile is None:
+        return None
+    if price.strategy in (HIERARCHICAL, HIER_COMBINE):
+        fast_wire = max(price.wire_bytes - price.slow_wire_bytes, 0)
+        t_fast = profile.predicted_s("all_to_all@fast", fast_wire, 1)
+        t_slow = profile.predicted_s("ppermute@slow", price.slow_wire_bytes,
+                                     max(price.rounds - 1, 1))
+        if t_fast is None or t_slow is None:
+            return None
+        return (t_fast + t_slow) * 1e3
+    coll = COLLECTIVE_OF.get(price.strategy, "")
+    s = None
+    if price.slow_wire_bytes:
+        # a flat collective over a two-level split: rounds synchronize on
+        # the slow edge; the fast / slow wire shares ride their own β
+        alpha = profile.latency_s.get(coll + "@slow")
+        bw_slow = profile.bytes_per_s.get(coll + "@slow")
+        bw_fast = profile.bytes_per_s.get(coll + "@fast")
+        if alpha is not None and bw_slow and bw_fast:
+            s = (max(price.rounds, 1) * alpha
+                 + price.slow_wire_bytes / max(bw_slow, 1.0)
+                 + (price.wire_bytes - price.slow_wire_bytes)
+                 / max(bw_fast, 1.0))
+    if s is None:
+        s = profile.predicted_s(coll, price.wire_bytes, price.rounds)
+    if s is None:
+        return None
+    if price.host_bytes:
+        half = price.host_bytes // 2
+        for leg in ("d2h", "h2d"):
+            t = profile.predicted_s(leg, half, 1)
+            if t is not None:
+                s += t
+    return s * 1e3
+
+
 def choose(candidates: Sequence[StrategyPrice], budget: int,
-           forced: Optional[str] = None, exclude: Sequence[str] = ()
+           forced: Optional[str] = None, profile=None,
+           measured: bool = False, exclude: Sequence[str] = ()
            ) -> Tuple[StrategyPrice, str, bool]:
     """Pick one strategy under ``budget``.  Returns ``(price, reason,
     feasible)`` — ``feasible`` False only on the best-effort floor
@@ -536,7 +604,13 @@ def choose(candidates: Sequence[StrategyPrice], budget: int,
     a resource-classed failure demotes the chooser off the lowerings
     that just failed.  An exclusion that would empty the candidate list
     is ignored (the chooser must always answer), and ``forced`` beats
-    it."""
+    it.
+
+    With ``measured=True`` and a probed ``profile``
+    (``CYLON_COST_MEASURED=1``), feasible candidates are ranked by
+    :func:`predicted_ms` instead of the (rounds, wire) proxy; candidates
+    whose collective was not measured fall to the back, and the
+    catalogue order breaks ties."""
     by_name = {c.strategy: c for c in candidates}
     if forced is not None and forced in by_name:
         c = by_name[forced]
@@ -566,6 +640,18 @@ def choose(candidates: Sequence[StrategyPrice], budget: int,
                                      key=lambda s: s.peak_bytes))
         return c, (demoted + f"budget {budget} B below every strategy's "
                    f"floor — best-effort {c.describe()}"), False
+    if measured and profile is not None:
+        def meas_key(c):
+            p = predicted_ms(c, profile)
+            return (p is None, p if p is not None else 0.0,
+                    STRATEGIES.index(c.strategy))
+        best = min(feasible, key=meas_key)
+        p = predicted_ms(best, profile)
+        reason = (f"measured ranking: {best.describe()}, predicted "
+                  f"{p:.3f} ms" if p is not None else
+                  f"measured ranking (unmeasured collective): "
+                  f"{best.describe()}")
+        return best, demoted + reason, True
     best = min(feasible, key=lambda c: (c.rounds, c.wire_bytes,
                                         STRATEGIES.index(c.strategy)))
     if best.strategy == SINGLE_SHOT:

@@ -53,6 +53,7 @@ nothing here catches it and reroutes.
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,7 +68,7 @@ from ..observe.metrics import row_bytes
 from ..ops import compact as ops_compact
 from ..ops import gather as ops_gather
 from ..ops.compact import bincount, next_bucket, read_counts
-from . import cost
+from . import cost, meshprobe
 
 # warn-once keys this module has used (skew, budget floor), so
 # clear_chunk_state can forget them
@@ -640,17 +641,26 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
     feasible)``.  Inside a replanned recovery attempt
     (``resilience.demoted_exchanges``) the demoted strategies are
     excluded and the fast path is skipped: the lowering that just failed
-    must not be re-picked."""
+    must not be re-picked.  With ``CYLON_COST_MEASURED=1`` and a probed
+    profile for ``ctx`` (``meshprobe.get_profile``) the candidates are
+    ranked by measured collective time, and the fast path is skipped
+    too: the measurement may disagree with the proxy."""
     from .. import resilience
-    from ..config import exchange_strategy, spill_enabled
+    from ..config import (cost_measured_enabled, exchange_strategy,
+                          spill_enabled)
     forced = exchange_strategy()
+    # the profile is looked up only under the switch: without it the
+    # chooser never reads it
+    profile = (meshprobe.get_profile(ctx)
+               if ctx is not None and cost_measured_enabled() else None)
+    measured = profile is not None
     split = _axis_split_of(ctx) if ctx is not None else None
     exclude = resilience.exchange_demotions()
     # the host tier stages one process's blocks: across processes the
     # chooser leaves it out, and says so in the decision's reason
     procs = ctx.get_process_count() if ctx is not None else 1
     spill_ok = spill_enabled() and procs == 1
-    if forced is None and not exclude:
+    if forced is None and not measured and not exclude:
         # fast path: a feasible single-shot wins the (rounds, wire,
         # catalogue) order outright
         block, outcap, _ = cost.exchange_sizes(counts)
@@ -662,6 +672,8 @@ def _choose(Pn: int, cap: int, counts: np.ndarray, rbytes: int,
                                       staged_ok=combine is None,
                                       spill_ok=spill_ok, split=split)
     choice, reason, feasible = cost.choose(cands, budget, forced,
+                                           profile=profile,
+                                           measured=measured,
                                            exclude=exclude)
     if procs > 1 and spill_enabled():
         reason = (f"{cost.STAGED_SPILL} excluded: the process "
@@ -747,14 +759,33 @@ def _devmem_before(ctx):
     return devmem.snapshot(ctx.device)
 
 
-def _note_exchange_ms(ctx, choice, dm0) -> None:
-    """Under a plan capture, annotate the exchange just run with its
-    priced peak against the device memory it was observed to take
-    (``peak=<strategy>: predicted N / observed M bytes``) and watermark
-    the observation as ``devmem.peak_bytes``.  The predicted-time half
-    needs a probed mesh profile (``parallel/meshprobe.py``), which the
-    port does not have: it stays silent, as in the JAX package without
-    a probe."""
+def _note_exchange_ms(ctx, choice, t0: float, dm0) -> None:
+    """Under a plan capture, annotate the exchange just run with both
+    audit columns of the cost model:
+
+      * ``exchange_ms=<strategy>: predicted X / observed Y ms`` — the
+        time ``cost.predicted_ms`` gives from the probed profile of
+        ``ctx`` (``parallel/meshprobe.py``) against the wall clock since
+        ``t0`` (taken before the exchange; under ANALYZE the span's sync
+        makes it a completion time).  Silent without a profile: the
+        annotation reports measurements, it never invents them.
+      * ``peak=<strategy>: predicted N / observed M bytes`` — the priced
+        peak against the device memory the exchange was observed to take
+        (``dm0``, observe.devmem), also watermarked as
+        ``devmem.peak_bytes``.
+
+    Outside a capture this is one thread-local read."""
+    if not plan_check.capturing():
+        return
+    profile = meshprobe.get_profile(ctx)
+    if profile is not None:
+        pred = cost.predicted_ms(choice, profile)
+        if pred is not None:
+            observed = (time.perf_counter() - t0) * 1e3
+            plan_check.annotate_append(
+                "exchange_ms",
+                f"{choice.strategy}: predicted {pred:.2f} / observed "
+                f"{observed:.2f} ms")
     if dm0 is None:
         return
     after = devmem.snapshot(ctx.device)
@@ -776,6 +807,7 @@ def _staged_exchange(ctx, pid, leaves, choice, outcap_total: int):
     comm = ctx.comm
     trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
     dm0 = _devmem_before(ctx)
+    t0 = time.perf_counter()
     with trace.span_sync("shuffle.exchange") as sp:
         if choice.strategy == cost.RING:
             block = choice.sizes[0]
@@ -787,7 +819,7 @@ def _staged_exchange(ctx, pid, leaves, choice, outcap_total: int):
                 "shuffle.exchange", lambda: _allgather_exchange(
                     comm, pid, leaves, outcap_total), ctx.device)
         sp.sync(outs)
-    _note_exchange_ms(ctx, choice, dm0)
+    _note_exchange_ms(ctx, choice, t0, dm0)
     return list(outs), newcounts, outcap_total
 
 
@@ -823,6 +855,7 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
         degraded=f"chunked shuffle: {rounds} rounds of <= {C} rows/cell "
                  f"({priced_k} B/round vs {budget} B budget)")
     dm0 = _devmem_before(ctx)
+    t0 = time.perf_counter()
     fold = _RoundFold(comm, counts, rounds, C, outcap_k, outcap_total, rbytes,
                       priced_k, combine)
     with trace.span_sync("shuffle.exchange") as sp:
@@ -856,7 +889,7 @@ def _chunked_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
         acc, acc_cnt, acc_cap = fold.done()
         sp.sync(acc)
     if choice is not None:
-        _note_exchange_ms(ctx, choice, dm0)
+        _note_exchange_ms(ctx, choice, t0, dm0)
     return list(acc), acc_cnt, acc_cap
 
 
@@ -956,6 +989,7 @@ def _staged_spill_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
             return staged
 
         dm0 = _devmem_before(ctx)
+        t0 = time.perf_counter()
         fold = _RoundFold(comm, counts, rounds, C, outcap_k, outcap_total,
                           rbytes, choice.peak_bytes, combine)
         pipe = HostPipeline(name="spill-exchange")
@@ -978,7 +1012,7 @@ def _staged_spill_exchange(ctx, pid, leaves, counts: np.ndarray, rbytes: int,
         if pipe is not None:
             pipe.close()
         the_pool.release_transient(reserve)
-    _note_exchange_ms(ctx, choice, dm0)
+    _note_exchange_ms(ctx, choice, t0, dm0)
     return list(acc), acc_cnt, acc_cap
 
 
@@ -999,6 +1033,7 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
     dev = pid.device
     trace.count_max("shuffle.exchange_bytes_peak", choice.peak_bytes)
     dm0 = _devmem_before(ctx)
+    t0 = time.perf_counter()
     try:
         with trace.span_sync("shuffle.exchange") as sp:
             tf = torch.where(pid < Pn, pid % F, F).to(torch.int32)
@@ -1067,7 +1102,7 @@ def _hierarchical_exchange(ctx, pid, leaves, counts: np.ndarray,
             sp.sync(acc)
             return list(acc[:pid_idx]), acc_cnt, acc_cap
     finally:
-        _note_exchange_ms(ctx, choice, dm0)
+        _note_exchange_ms(ctx, choice, t0, dm0)
 
 
 def _slow_cell(comm, ts, leaves, me, S: int, r: int, block: int, split):
@@ -1224,16 +1259,18 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
             trace.count_max("shuffle.exchange_bytes_peak",
                             choice.peak_bytes)
             dm0 = _devmem_before(ctx)
+            t0 = time.perf_counter()
             with trace.span_sync("shuffle.exchange") as sp:
                 newcounts, outs = dispatch(need)
                 sp.sync(outs)
-            _note_exchange_ms(ctx, choice, dm0)
+            _note_exchange_ms(ctx, choice, t0, dm0)
             return outs, newcounts, outcap
         return _degraded(ctx, pid, leaves, counts, rbytes, budget, outcap,
                          choice, combine)
 
     try:
         dm0 = _devmem_before(ctx)
+        t0 = time.perf_counter()
         with trace.span_sync("shuffle.exchange") as sp:
             (newcounts, outs), used, _ = ops_compact.optimistic_dispatch(
                 _block_hints, sig, dispatch, cnt_dev, post)
@@ -1248,7 +1285,7 @@ def shuffle_leaves(ctx, pid: torch.Tensor, leaves: Sequence[torch.Tensor],
     if budget is not None:
         price = cost.price_single_shot(Pn, used[0], used[1], rbytes)
         trace.count_max("shuffle.exchange_bytes_peak", price.peak_bytes)
-        _note_exchange_ms(ctx, price, dm0)
+        _note_exchange_ms(ctx, price, t0, dm0)
     return outs, newcounts, used[1]
 
 

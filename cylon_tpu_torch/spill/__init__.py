@@ -13,7 +13,11 @@ The port of ``cylon_tpu/spill/``.  Three pieces:
     per-morsel partials folded through the combine-spec machinery.
   * the ``staged-spill`` lowering of the exchange (``parallel/cost.py``,
     ``parallel/shuffle.py``): the payload staged out to the pool and
-    streamed back one rank-sliced morsel per round.
+    streamed back one rank-sliced morsel per round.  Its price carries
+    the host bytes of both legs; ``cost.predicted_ms`` times them with
+    the ``d2h`` / ``h2d`` coefficients that ``parallel/meshprobe.py``
+    measured on this pool's path (a pinned block, the copy stream, one
+    wait).
 """
 from . import morsel, pool  # noqa: F401
 from .pool import (SpillPool, clear_pool, ensure_device, get_pool,  # noqa: F401

@@ -4,9 +4,11 @@ dense FK), semi / anti joins, sort, set ops, groupby (every path), select,
 scalar aggregate and the TPC-H generator on CUDA tensors against the same
 calls on the CPU, every TPC-H query through the planner against its eager
 run on the card, the kernel wrapper's meta arm, and the abstract plan
-check and ``run_pipeline`` on two TPC-H queries.  Every test here needs a
-CUDA device (``gpu`` marker) and skips itself without one.  This file imports no JAX, so it also runs where
-JAX is not installed:
+check and ``run_pipeline`` on two TPC-H queries, the mesh probe through
+``LocalCommunicator`` and NCCL, and the join under the measured ranking.
+Every test here needs a CUDA device (``gpu`` marker) and skips itself
+without one.  This file imports no JAX, so it also runs where JAX is not
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -1405,3 +1407,69 @@ def test_plan_check_makes_no_nccl_call_on_card(card, tmp_path):
         trace.disable_counters()
         trace.reset()
         ctx.finalize()
+
+
+@pytest.mark.gpu
+def test_meshprobe_on_card(card, tmp_path):
+    """The probe on ``cuda:0`` through ``LocalCommunicator`` and through
+    NCCL (one process of 4 local ranks): every collective and host leg
+    fitted with α >= 0 and β > 0, and two fingerprints for the two
+    communicators of one card."""
+    from cylon_tpu_torch.parallel import meshprobe
+    meshprobe.clear_profiles()
+    local = pt.CylonContext(device="cuda", world=4)
+    nccl = _nccl_context(tmp_path, 4)
+    try:
+        profs = [meshprobe.probe(c, sizes=(1 << 16, 1 << 20, 1 << 22))
+                 for c in (local, nccl)]
+        assert profs[0].fingerprint != profs[1].fingerprint
+        assert profs[1].fingerprint[0] == "nccl"
+        for prof in profs:
+            assert set(prof.bytes_per_s) == set(meshprobe.COLLECTIVES
+                                                + meshprobe.TRANSFERS)
+            for k in prof.bytes_per_s:
+                assert prof.bytes_per_s[k] > 0 and prof.latency_s[k] >= 0
+            assert torch.cuda.get_device_name(0) in prof.fingerprint[1]
+    finally:
+        nccl.finalize()
+        meshprobe.clear_profiles()
+
+
+@pytest.mark.gpu
+def test_measured_join_equals_proxy_join_on_card(card):
+    """The world-4 HASH join under the measured ranking (a probed
+    profile, flat and then under a (2, 2) mesh shape with its per-axis
+    fits) equals the proxy-ranked join on the card."""
+    from cylon_tpu_torch.parallel import meshprobe
+    rng = np.random.default_rng(61)
+    n = 1 << 18
+    ctx = pt.CylonContext(device="cuda", world=4)
+    lt = DTable.from_table(ctx, pt.Table.from_columns(ctx, {
+        "k": rng.integers(0, n, n).astype(np.int32),
+        "v": rng.random(n).astype(np.float32)}))
+    rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, {
+        "k": rng.integers(0, n, n).astype(np.int32),
+        "w": rng.random(n).astype(np.float32)}))
+    cfg = pt.JoinConfig(pt.JoinType.INNER, pt.JoinAlgorithm.HASH, 0, 0,
+                        broadcast_threshold=0)
+    meshprobe.clear_profiles()
+    want = port_rows(dist_join(lt, rt, cfg))
+    try:
+        for shape in (None, (2, 2)):
+            tconfig.set_mesh_shape(shape)
+            prof = meshprobe.probe(ctx)
+            assert (prof.axis_split is not None) == (shape is not None)
+            tconfig.set_cost_measured(True)
+            trace.enable_counters()
+            trace.reset()
+            got = port_rows(dist_join(lt, rt, cfg))
+            assert any(k.startswith("shuffle.strategy.")
+                       for k in trace.counters())
+            tconfig.set_cost_measured(None)
+            assert got == want
+    finally:
+        tconfig.set_cost_measured(None)
+        tconfig.set_mesh_shape(None)
+        trace.disable_counters()
+        trace.reset()
+        meshprobe.clear_profiles()

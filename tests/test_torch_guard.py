@@ -50,7 +50,11 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.serve, cylon_tpu_torch.serve.session, "
         "cylon_tpu_torch.serve.admission, cylon_tpu_torch.serve.matview, "
         "cylon_tpu_torch.serve.router, cylon_tpu_torch.observe.exporter, "
-        "cylon_tpu_torch.observe.timeseries\n"
+        "cylon_tpu_torch.observe.timeseries, "
+        "cylon_tpu_torch.parallel.meshprobe, "
+        "cylon_tpu_torch.analysis.calibrate, "
+        "cylon_tpu_torch.analysis.queryprof, "
+        "cylon_tpu_torch.analysis.parity\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -250,16 +250,23 @@ def test_exports_equal_in_every_process(runs, layout):
         assert r["export"]["value"] == want
 
 
+REFUSED = ("spill", "morsel_groupby", "remesh_table", "with_world",
+           "first_slot", "ServeSession", "FleetRouter", "meshprobe.probe")
+
+
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_unported_calls_refuse(runs, layout):
     """The calls not ported across processes — the host tier
     (``DTable.spill``), the morsel scans, ``remesh_table``,
-    ``with_world``, ``first_slot``, ``ServeSession`` and ``FleetRouter``
-    — raise a typed NotImplemented at once (well within 10 s).  The
-    planner, ``run_pipeline``, the plan check, EXPLAIN ANALYZE, the TPC-H
+    ``with_world``, ``first_slot``, ``ServeSession``, ``FleetRouter``
+    and the mesh probe (``meshprobe.probe``: the reference's host legs
+    fetch a global array, which JAX refuses across processes) — raise a
+    typed NotImplemented at once (well within 10 s).  The planner,
+    ``run_pipeline``, the plan check, EXPLAIN ANALYZE, the TPC-H
     generator and queries and the planner-lowered operators run across
     processes (``tests/test_torch_multiprocess_tpch.py``)."""
     for r in runs[layout]:
+        assert sorted(r["refusals"]) == sorted(REFUSED)
         for name, (code, seconds) in r["refusals"].items():
             assert code == "NotImplemented", name
             assert seconds < 10.0, name

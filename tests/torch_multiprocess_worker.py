@@ -713,11 +713,11 @@ def _collectives(ctx):
 
 def _refusals(ctx, dt):
     """Calls not ported across processes (the host tier, the morsel
-    scans, the elastic re-mesh, slot placement, serving): each must raise
-    a typed NotImplemented at once (no collective is entered, so nothing
-    can hang)."""
+    scans, the elastic re-mesh, slot placement, serving, the mesh probe):
+    each must raise a typed NotImplemented at once (no collective is
+    entered, so nothing can hang)."""
     from cylon_tpu_torch import CylonError
-    from cylon_tpu_torch.parallel import remesh
+    from cylon_tpu_torch.parallel import meshprobe, remesh
     from cylon_tpu_torch.serve import FleetRouter, ServeSession
     from cylon_tpu_torch.spill import morsel
     calls = {
@@ -729,6 +729,7 @@ def _refusals(ctx, dt):
         "first_slot": lambda: ctx.first_slot,
         "ServeSession": lambda: ServeSession(ctx),
         "FleetRouter": lambda: FleetRouter([]),
+        "meshprobe.probe": lambda: meshprobe.probe(ctx),
     }
     out = {}
     for name, call in calls.items():
