@@ -166,7 +166,19 @@ export, EXPLAIN ANALYZE of that join and of Q5 at ``--tpch-sf`` twice
 saved under ``build/``), ``analysis.calibrate`` of the first store (exit
 0 or 1; each strategy's median error) and ``analysis.queryprof`` of the
 pair.  The out-of-core TPC-H phase also holds each spilled query's row
-set to the ample run's through ``analysis.parity``.  Every check that
+set to the ample run's through ``analysis.parity``.  Sanitizer mode
+(``config.sanitize()``: the sync guard and NaN trap of every span body,
+the host-cache content check at export): after the recovery phases the
+22 queries at ``--tpch-sf`` run plain and sanitized (equal, in order;
+seconds both ways); at the end ``analysis.graftlint`` and
+``analysis.lockcheck`` lint the package and this script (both exit 0),
+the guard is held on ``cuda:0`` (``.item()`` in a span raises, the debug
+mode is restored, ``log(-1)`` trips the NaN trap and a masked quotient
+does not, and one line says which of a list of calls the guard stops),
+and the join cell's HASH and SORT joins, the HASH join under every
+forced lowering and the fused groupby's chunked fold-combine run plain
+and sanitized (equal shard for shard, the oracle held, 2 launches per
+HASH join).  Every check that
 fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
@@ -388,8 +400,8 @@ def checksums(out):
     res = {}
     for side in ("lt", "rt"):
         c = out.column(f"{side}-v0")
-        res[f"sum_{side}_v0"] = float(c.data.double().sum())
-        res[f"bits_{side}_v0"] = int(c.data.view(torch.int32).long().sum())
+        res[f"sum_{side}_v0"] = float(c.data.double().sum())  # graftlint: ok[implicit-host-sync]
+        res[f"bits_{side}_v0"] = int(c.data.view(torch.int32).long().sum())  # graftlint: ok[implicit-host-sync]
     return res
 
 
@@ -636,7 +648,7 @@ def phase_dist_sort(ldata, seed: int, profile: bool):
         launches = hash_cuda.launches
         local = out.to_table()
         kc = local.column("k")
-        nv = int(kc.validity.sum())
+        nv = int(kc.validity.sum())  # graftlint: ok[implicit-host-sync]
         label = f"dist_sort {'asc' if ascending else 'desc'} world={WORLD}"
         times[label] = secs
         say(label, rows=local.num_rows, seconds=f"{secs:.6f}",
@@ -646,10 +658,10 @@ def phase_dist_sort(ldata, seed: int, profile: bool):
         check(launches == 0, f"{label}: no partition-kernel launch")
         check(bits_sum(local.column("v0").data) == want_bits,
               f"{label}: v0 bit checksum exact")
-        check(bool(kc.validity[:nv].all()) and nv == len(k_valid),
+        check(bool(kc.validity[:nv].all()) and nv == len(k_valid),  # graftlint: ok[implicit-host-sync]
               f"{label}: nulls last")
         want_k = k_valid if ascending else k_valid[::-1].copy()
-        check(np.array_equal(kc.data[:nv].cpu().numpy(), want_k),
+        check(np.array_equal(kc.data[:nv].cpu().numpy(), want_k),  # graftlint: ok[implicit-host-sync]
               f"{label}: keys == host sort")
     if profile:
         profile_call(f"dist_sort asc world={WORLD}",
@@ -665,18 +677,18 @@ def phase_dist_sort(ldata, seed: int, profile: bool):
         seconds=f"{secs:.6f}", kernel_launches=launches)
     check(launches == 0, "dist_sort_multi: no partition-kernel launch")
     kc = local.column("k")
-    got_valid = kc.validity.cpu().numpy()
+    got_valid = kc.validity.cpu().numpy()  # graftlint: ok[implicit-host-sync]
     check(np.array_equal(got_valid, ~null[order]), "dist_sort_multi: nulls")
-    check(np.array_equal(np.where(got_valid, kc.data.cpu().numpy(), 0),
+    check(np.array_equal(np.where(got_valid, kc.data.cpu().numpy(), 0),  # graftlint: ok[implicit-host-sync]
                          np.where(null, 0, ldata["k"])[order]),
           "dist_sort_multi: k == host lexsort")
-    check(np.array_equal(local.column("v0").data.cpu().numpy(),
+    check(np.array_equal(local.column("v0").data.cpu().numpy(),  # graftlint: ok[implicit-host-sync]
                          ldata["v0"][order]),
           "dist_sort_multi: v0 == host lexsort")
     head, secs = wall(lambda: dist_head(out, 10))
     times["dist_head"] = secs
     check(head.num_rows == 10 and np.array_equal(
-        head.column("v0").data.cpu().numpy(), ldata["v0"][order[:10]]),
+        head.column("v0").data.cpu().numpy(), ldata["v0"][order[:10]]),  # graftlint: ok[implicit-host-sync]
         "dist_head(10) == host lexsort's first 10 rows")
     say("dist_head n=10", seconds=f"{secs:.6f}")
 
@@ -700,7 +712,7 @@ def phase_dist_sort(ldata, seed: int, profile: bool):
         counts = out.counts_host()
         ids = out.column("id").data.view(WORLD, out.cap)
         for s in range(WORLD):
-            got = np.sort(ids[s, :int(counts[s])].cpu().numpy())
+            got = np.sort(ids[s, :int(counts[s])].cpu().numpy())  # graftlint: ok[implicit-host-sync]
             check(np.array_equal(got, np.flatnonzero(want_pid == s)),
                   f"{label}: shard {s} holds the rows of the JAX rule")
         check_shards_ordered(label, out, "k", descending=not ascending)
@@ -839,8 +851,8 @@ def engine_result(out, keys):
     for k in reversed(keys):
         col = local.column(k).data[order]
         order = order[torch.sort(col, stable=True).indices]
-    data = {c.name: c.data[order].cpu().numpy() for c in local.columns}
-    valid = {c.name: c.validity[order].cpu().numpy() for c in local.columns
+    data = {c.name: c.data[order].cpu().numpy() for c in local.columns}  # graftlint: ok[implicit-host-sync]
+    valid = {c.name: c.validity[order].cpu().numpy() for c in local.columns  # graftlint: ok[implicit-host-sync]
              if c.validity is not None}
     return data, valid
 
@@ -995,8 +1007,8 @@ def phase_q1(dt, data, null, profile: bool):
     check(list(out.counts_host()) == [6] + [0] * (WORLD - 1),
           f"{label}: the 6 groups on shard 0")
     on0 = out.partition(0)
-    keys = list(zip(on0.column("returnflag").data.tolist(),
-                    on0.column("linestatus").data.tolist()))
+    keys = list(zip(on0.column("returnflag").data.tolist(),  # graftlint: ok[implicit-host-sync]
+                    on0.column("linestatus").data.tolist()))  # graftlint: ok[implicit-host-sync]
     check(keys == [(f, s) for f in range(3) for s in range(2)],
           f"{label}: shard 0 in key order")
     m = data["shipdate"] <= Q1_CUTOFF
@@ -1053,8 +1065,8 @@ def phase_q6(dt, data, null):
                            Type.DOUBLE, validity_from=["price"])
     agg, secs = wall(lambda: dist_aggregate(
         dtr, [("rev", "sum"), ("quantity", "count")], where=q6))
-    got_rev = float(agg.column("sum_rev").data[0])
-    got_cnt = int(agg.column("count_quantity").data[0])
+    got_rev = float(agg.column("sum_rev").data[0])  # graftlint: ok[implicit-host-sync]
+    got_cnt = int(agg.column("count_quantity").data[0])  # graftlint: ok[implicit-host-sync]
     label = f"dist_aggregate Q6 shape world={WORLD}"
     say(label, rows=n, seconds=f"{secs:.6f}", rows_per_s=f"{n / secs:.0f}",
         survivors=got_cnt, oracle_survivors=int(m.sum()), revenue=got_rev,
@@ -1108,7 +1120,7 @@ def host_columns(dt, names):
     from cylon_tpu_torch.parallel import dist_project
 
     t = dist_project(dt, names).to_table()
-    return {c.name: c.data.cpu().numpy() for c in t.columns}
+    return {c.name: c.data.cpu().numpy() for c in t.columns}  # graftlint: ok[implicit-host-sync]
 
 
 def phase_tpch_generate(sf: float, seed: int):
@@ -1133,7 +1145,7 @@ def phase_tpch_generate(sf: float, seed: int):
             want, _ = generate_mirror(sf, seed=seed, tables=[name],
                                       rows=(lo, hi))
             for c in local.columns:
-                got = c.data[lo:hi].cpu().numpy()
+                got = c.data[lo:hi].cpu().numpy()  # graftlint: ok[implicit-host-sync]
                 w = want[name][c.name]
                 check(got.dtype == w.dtype and np.array_equal(
                     got.view(np.int32) if got.dtype == np.float32 else got,
@@ -1277,7 +1289,7 @@ def _cols(t):
     """A result Table's columns on the host, strings decoded."""
     out = {}
     for c in t.columns:
-        v = c.data.cpu().numpy()
+        v = c.data.cpu().numpy()  # graftlint: ok[implicit-host-sync]
         out[c.name] = (np.asarray(c.dictionary, dtype=object)[v]
                        if c.dictionary is not None else v)
     return out
@@ -1823,14 +1835,14 @@ def phase_sketch_lanes(sf: float, seed: int):
     cnt = st.counts_host()
     rows = torch.cat([torch.arange(int(c), device=DEVICE) + s * st.cap
                       for s, c in enumerate(cnt)])
-    eng = {c.name: signed_view(c.data)[rows].cpu().numpy()
+    eng = {c.name: signed_view(c.data)[rows].cpu().numpy()  # graftlint: ok[implicit-host-sync]
            for c in st.columns}
     order = np.argsort(eng["l_suppkey"], kind="stable")
     eng = {k: v[order] for k, v in eng.items()}
     t0 = time.perf_counter()
     P, cap = li.nparts, li.cap
     counts = li.counts_host()
-    blk = {c: li.column(c).data.view(P, cap).cpu().numpy()
+    blk = {c: li.column(c).data.view(P, cap).cpu().numpy()  # graftlint: ok[implicit-host-sync]
            for c in ("l_suppkey", "l_partkey", "l_extendedprice")}
     sel = np.concatenate([np.arange(int(c)) + s * cap
                           for s, c in enumerate(counts)])
@@ -2389,7 +2401,7 @@ def phase_redistribution(ldata, rdata, want, warm: bool = False):
             kernel_launches=launches[strategy])
     # (b) the natural choice under a budget in each strategy's band
     pid = dist_ops._hash_pids(lt, [0])
-    counts = shuffle._counts(lt.ctx.comm, pid).cpu().numpy().astype(np.int64)
+    counts = shuffle._counts(lt.ctx.comm, pid).cpu().numpy().astype(np.int64)  # graftlint: ok[implicit-host-sync]
     del pid
     leaves = [lf for c in lt.columns for lf in (c.data, c.validity)
               if lf is not None]
@@ -2710,7 +2722,7 @@ def phase_spill_roundtrip(ldata):
     dt = DTable.from_table(ctx, to_table(ctx, ldata, None))
     n = dt.num_rows
     label = f"spill round trip rows={n} world={WORLD}"
-    orig = [c.data.cpu() for c in dt.columns]
+    orig = [c.data.cpu() for c in dt.columns]  # graftlint: ok[implicit-host-sync]
     leaf_bytes = sum(c.data.numel() * c.data.element_size()
                      for c in dt.columns)
     d2h, h2d = host_link_gbps([c.data for c in dt.columns])
@@ -2728,7 +2740,7 @@ def phase_spill_roundtrip(ldata):
           f"{label}: the host blocks are pinned")
     pinned = tpool.get_pool().pinned_bytes()
     _, fault_s = wall(dt.ensure_device)
-    check(all(torch.equal(c.data.view(torch.int32).cpu(),
+    check(all(torch.equal(c.data.view(torch.int32).cpu(),  # graftlint: ok[implicit-host-sync]
                           o.view(torch.int32))
               for c, o in zip(dt.columns, orig)),
           f"{label}: the faulted-in leaves equal the originals bit for bit")
@@ -3603,7 +3615,7 @@ def mp_row_hashes(dt):
             for j in range(words.shape[1]):
                 h = (h ^ (words[:, j] & 0xFFFFFFFF)) * MIX
                 h = h ^ ((h >> 29) & 0x7FFFFFFFF)
-    counts = [int(v) for v in dt.counts.cpu()]
+    counts = [int(v) for v in dt.counts.cpu()]  # graftlint: ok[implicit-host-sync]
     return [h[s * dt.cap:s * dt.cap + k] for s, k in enumerate(counts)]
 
 
@@ -4189,7 +4201,7 @@ def check_layout(label: str, dt, data, null=None) -> None:
     cap = next_bucket(max(int(sizes.max()), 1), minimum=8)
     check(dt.cap == cap, f"{label}: cap {dt.cap} == {cap}")
     check(list(dt._counts_host) == list(sizes)
-          and dt.counts.cpu().tolist() == list(sizes),
+          and dt.counts.cpu().tolist() == list(sizes),  # graftlint: ok[implicit-host-sync]
           f"{label}: counts == the block sizes {list(sizes)}")
     for c in dt.columns:
         blocks = c.data.view(WORLD, cap)
@@ -4676,9 +4688,9 @@ def phase_wide_set_ops(seed: int):
                                            WORLD)
             check(bool((pid == s).all()),
                   f"wide dist_{name}: shard {s} holds only its rows")
-            sid = cols[2].cpu().numpy()
+            sid = cols[2].cpu().numpy()  # graftlint: ok[implicit-host-sync]
             for j in range(0, WIDE_SETOP_WIDTH, 3):
-                check(np.array_equal(vs[j].cpu().numpy(),
+                check(np.array_equal(vs[j].cpu().numpy(),  # graftlint: ok[implicit-host-sync]
                                      (sid * (j + 1)) % 11 != 0),
                       f"wide dist_{name}: nulls of c{j} on shard {s}")
             ids.append(sid)
@@ -4923,7 +4935,7 @@ def phase_serve_mixed(seed: int):
                     h = srv.submit(mixed_read, label=f"mixed-r{i}",
                                    export=export)
                     h.result(timeout=600)
-                except Exception as e:  # reported and checked below
+                except Exception as e:  # graftlint: ok[broad-except] — reported and checked below
                     with mlock:
                         errors.append(f"reader {i}: {type(e).__name__}: {e}")
                     return
@@ -4936,7 +4948,7 @@ def phase_serve_mixed(seed: int):
                 try:
                     h = srv.ingest("fact", delta())
                     h.result(timeout=600)
-                except Exception as e:  # reported and checked below
+                except Exception as e:  # graftlint: ok[broad-except] — reported and checked below
                     with mlock:
                         errors.append(f"writer: {type(e).__name__}: {e}")
                     return
@@ -5299,7 +5311,7 @@ def phase_join_pipeline(ldata, rdata, want):
     del local
     # over budget inside the flush: the hints are warm and single-shot
     pid = dist_ops._hash_pids(lt, [0])
-    counts = shuffle._counts(lt.ctx.comm, pid).cpu().numpy().astype(np.int64)
+    counts = shuffle._counts(lt.ctx.comm, pid).cpu().numpy().astype(np.int64)  # graftlint: ok[implicit-host-sync]
     del pid
     leaves = [lf for c in lt.columns for lf in (c.data, c.validity)
               if lf is not None]
@@ -5608,6 +5620,346 @@ def phase_meshprobe_audit(tctx, tables, sf: float, ldata, rdata, want,
         kinds=",".join(sorted({f["kind"] for f in findings})) or "none")
 
 
+# ---------------------------------------------------------------------------
+# the static gates and sanitizer mode
+# ---------------------------------------------------------------------------
+
+LINT_TARGETS = ("cylon_tpu_torch", "chip_smoke.py")
+
+
+def phase_lint():
+    """graftlint and lockcheck over the port and this script, each as its
+    CLI in a subprocess from the checkout's root: both exit 0 with no
+    finding."""
+    from pathlib import Path
+
+    from cylon_tpu_torch.analysis import graftlint
+
+    root = Path(__file__).resolve().parent
+    files = graftlint.count_files([str(root / t) for t in LINT_TARGETS])
+    for tool in ("graftlint", "lockcheck"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"cylon_tpu_torch.analysis.{tool}",
+             *LINT_TARGETS], cwd=root, capture_output=True, text=True,
+            timeout=300)
+        secs = time.perf_counter() - t0
+        findings = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        say(f"lint {tool}", files=files, findings=len(findings),
+            exit_code=proc.returncode, seconds=f"{secs:.3f}")
+        check(proc.returncode == 0 and not findings,
+              f"lint {tool}: exit 0 with no finding "
+              f"({proc.stdout[-2000:]}{proc.stderr[-2000:]})")
+
+
+def guard_probes(dev):
+    """Calls to try inside a sanitized span on the card, by name: which of
+    them the sync guard stops is measured, not assumed."""
+    from cylon_tpu_torch import trace
+    from cylon_tpu_torch.ops.compact import read_host, to_device
+    from cylon_tpu_torch.table import host_batch
+
+    x = torch.arange(1 << 20, device=dev, dtype=torch.int32)
+    m = x % 3 == 0
+    host = np.arange(16, dtype=np.int64)
+    pinned = torch.empty(x.shape[0], dtype=x.dtype, pin_memory=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return {
+        "item": lambda: x[5].item(),  # graftlint: ok[implicit-host-sync]
+        "tolist": lambda: x[:4].tolist(),  # graftlint: ok[implicit-host-sync]
+        "int_of_tensor": lambda: int(x[3]),  # graftlint: ok[implicit-host-sync]
+        "bool_of_any": lambda: bool(m.any()),  # graftlint: ok[implicit-host-sync]
+        "cpu_pageable": lambda: x.cpu(),  # graftlint: ok[implicit-host-sync]
+        "to_cpu_non_blocking": lambda: x.to("cpu", non_blocking=True),  # graftlint: ok[implicit-host-sync]
+        "copy_to_pinned_non_blocking": lambda: pinned.copy_(
+            x, non_blocking=True),
+        "nonzero": lambda: torch.nonzero(m),
+        "nonzero_static": lambda: torch.nonzero_static(m, size=64),
+        "bool_mask_index": lambda: x[m],
+        "masked_select": lambda: torch.masked_select(x, m),
+        "unique": lambda: torch.unique(x[:64]),
+        "bincount": lambda: torch.bincount(x[:64]),
+        "repeat_interleave_tensor": lambda: torch.repeat_interleave(
+            x[:8].long()),
+        "setitem_int_scalar": lambda: x.__setitem__(0, 0),
+        "setitem_index_scalar": lambda: x.__setitem__(x[:8].long(), 0),
+        "slice_fill": lambda: x[:1].fill_(0),
+        "full_scalar": lambda: torch.full((), 7, device=dev),
+        "tensor_from_list": lambda: torch.tensor([1, 2, 3], device=dev),
+        "as_tensor_numpy": lambda: torch.as_tensor(host, device=dev),
+        "from_numpy_non_blocking": lambda: torch.from_numpy(host).to(
+            dev, non_blocking=True),
+        "index_add": lambda: torch.zeros(8, dtype=torch.int32,
+                                         device=dev).index_add_(
+            0, x[:64] % 8, torch.ones(64, dtype=torch.int32, device=dev)),
+        "equal": lambda: torch.equal(x, x),
+        "torch_cuda_synchronize": lambda: torch.cuda.synchronize(),
+        "stream_synchronize": lambda: torch.cuda.current_stream().synchronize(),
+        "event_synchronize": lambda: ev.synchronize(),
+        "read_host": lambda: read_host(x[:4]),
+        "host_batch": lambda: host_batch([x[:4], m[:4]]),
+        "hard_sync": lambda: trace.hard_sync(x),
+        "to_device": lambda: to_device(host, dev),
+    }
+
+
+def phase_sanitize_guard():
+    """Sanitizer mode on ``cuda:0``: a ``.item()`` inside a span raises
+    under ``config.sanitize()`` and not without it, and the sync debug
+    mode is back to its prior value after the scope; ``torch.log`` of −1
+    inside a span raises ``FloatingPointError`` naming the op while a
+    masked ``torch.where(valid, a / b, 0)`` does not; ``read_host`` runs
+    inside a guarded span.  Then every call of ``guard_probes`` once
+    inside a sanitized span: one line of which the guard stops."""
+    from cylon_tpu_torch import config, trace
+    from cylon_tpu_torch.ops.compact import read_host
+
+    dev = torch.device(DEVICE)
+    prior = torch.cuda.get_sync_debug_mode()
+    x = torch.arange(1 << 20, device=dev, dtype=torch.int32)
+    with trace.span("sanitize_guard.plain"):
+        plain = x[5].item()  # graftlint: ok[implicit-host-sync]
+    check(plain == 5, "sanitize guard: an unsanitized span reads .item()")
+    raised = nan = None
+    with config.sanitize():
+        check(config.lockcheck_enabled(),
+              "sanitize guard: sanitizing turns on lock-order enforcement")
+        try:
+            with trace.span("sanitize_guard.item"):
+                x[5].item()  # graftlint: ok[implicit-host-sync]
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised is not None and "synchroniz" in raised,
+              f"sanitize guard: .item() in a span raises ({raised!r})")
+        check(torch.cuda.get_sync_debug_mode() == prior,
+              "sanitize guard: the raising body restored the debug mode")
+        with trace.span("sanitize_guard.read_host"):
+            got = read_host(x[:4])
+        check(list(got) == [0, 1, 2, 3],
+              "sanitize guard: read_host runs inside a guarded span")
+        try:
+            with trace.span("sanitize_guard.nan"):
+                y = torch.log(torch.full((8,), -1.0, device=dev))
+        except FloatingPointError as e:
+            nan = str(e)
+        check(nan is not None and "aten.log" in nan,
+              f"sanitize guard: log(-1) raises naming the op ({nan!r})")
+        a = torch.rand(1 << 20, device=dev)
+        b = torch.where(torch.arange(1 << 20, device=dev) % 3 == 0, 0.0, a)
+        with trace.span("sanitize_guard.masked"):
+            out = torch.where(b != 0, a / b, 0.0)
+        rows = []
+        for name, fn in guard_probes(dev).items():
+            try:
+                with trace.span(f"sanitize_guard.{name}"):
+                    fn()
+                rows.append((name, "ok"))
+            except RuntimeError as e:
+                check("synchroniz" in str(e),
+                      f"sanitize guard: {name} failed otherwise ({e})")
+                rows.append((name, "raises"))
+            check(torch.cuda.get_sync_debug_mode() == prior,
+                  f"sanitize guard: the mode is restored after {name}")
+        torch.cuda.synchronize()
+    check(not torch.isnan(out).any().item(),  # graftlint: ok[implicit-host-sync]
+          "sanitize guard: the masked quotient holds no NaN")
+    check(torch.cuda.get_sync_debug_mode() == prior and not
+          config.sanitizing(), "sanitize guard: the scope restored the mode")
+    trips = dict(rows)
+    check(trips["item"] == "raises" and trips["read_host"] == "ok"
+          and trips["host_batch"] == "ok" and trips["hard_sync"] == "ok"
+          and trips["to_device"] == "ok",
+          f"sanitize guard: the sanctioned transfers pass, .item() does "
+          f"not ({trips})")
+    say("sanitize_guard", item_in_span="raises", unsanitized="ok",
+        mode_restored=True, nan_trap="raises", masked_nan="ok",
+        read_host_in_span="ok", prior_mode=prior)
+    say("sanitize_guard trips",
+        raises=",".join(n for n, r in rows if r == "raises"),
+        passes=",".join(n for n, r in rows if r == "ok"))
+
+
+def same_shards(label: str, a, b) -> None:
+    """The same rows on the same shards in the same order, bit for bit."""
+    check(list(a.counts_host()) == list(b.counts_host()) and all(
+        torch.equal(x, y) for x, y in zip(shard_row_hashes(a, ordered=True),
+                                          shard_row_hashes(b, ordered=True))),
+          f"{label}: sanitized = unsanitized, shard for shard")
+
+
+def same_groups(label: str, a, b) -> None:
+    """A groupby's shards: the same keys in the same order, float sums
+    within 1e-6 relative (their summation order may differ on the
+    card)."""
+    check(list(a.counts_host()) == list(b.counts_host()),
+          f"{label}: the same group counts per shard")
+    (da, va), (db, vb) = (engine_result(t, []) for t in (a, b))
+    check(va.keys() == vb.keys() and all(np.array_equal(va[c], vb[c])
+                                         for c in va),
+          f"{label}: the same validity, in order")
+    for c in da:
+        x, y = da[c], db[c]
+        ok = (np.allclose(x, y, rtol=1e-6, atol=0) if x.dtype.kind == "f"
+              else np.array_equal(x, y))
+        check(ok, f"{label}: column {c} equal, in order")
+
+
+def phase_sanitize_join(ldata, rdata, want):
+    """The join cell (full width, world 4) under ``config.sanitize()``:
+    the HASH join, the SORT join and the HASH join under every forced
+    exchange lowering, and the fused groupby's chunked fold-combine (the
+    rank-sliced morsels) — each equal to the oracle and to the same run
+    without sanitize, shard for shard.  The partition kernel launches 2
+    times in each sanitized HASH join and, inside a sanitized span,
+    equals its plain version bit for bit.  Prints sanitized ÷ plain
+    seconds.  Returns the sanitized launches by run."""
+    from cylon_tpu_torch import JoinAlgorithm, JoinConfig, JoinType
+    from cylon_tpu_torch import config, trace
+    from cylon_tpu_torch.ops import hash as plain_hash
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.parallel import dist_groupby_fused, dist_join
+
+    n = len(ldata["k"])
+    lt, rt = join_sides(ldata, rdata)
+    hash_cfg = JoinConfig(JoinType.INNER, JoinAlgorithm.HASH, 0, 0,
+                          broadcast_threshold=0)
+    sort_cfg = JoinConfig.InnerJoin(0, 0)
+    check(sort_cfg.algorithm == JoinAlgorithm.SORT, "SORT is the default")
+    launches, chained = {}, [0]
+
+    def run_pair(label, fn, join: bool):
+        # one warm-up, then plain, sanitized, sanitized, plain: both sides
+        # meet the same order effects, and each side's time is the mean
+        # of its two runs; the launches are the first sanitized run's
+        fn()
+        p1 = wall(fn)[1]
+        reset_launches()
+        trace.reset()
+        with config.sanitize():
+            san, s1 = wall(fn)
+        n_launch, n_chained = read_launches()
+        chained[0] += n_chained
+        counters = trace.counters()
+        with config.sanitize():
+            s2 = wall(fn)[1]
+        plain, p2 = wall(fn)
+        p_secs, s_secs = (p1 + p2) / 2, (s1 + s2) / 2
+        if join:
+            same_shards(label, san, plain)
+            check_join(label, san.to_table(), want)
+        else:
+            same_groups(label, san, plain)
+        del san, plain
+        say(label, rows=n, world=WORLD, plain_seconds=f"{p_secs:.6f}",
+            sanitized_seconds=f"{s_secs:.6f}",
+            sanitized_over_plain=f"{s_secs / p_secs:.3f}",
+            kernel_launches=n_launch)
+        return n_launch, counters
+
+    trace.enable_counters()
+    launches["hash_join"], _ = run_pair(
+        "sanitize_join hash", lambda: dist_join(lt, rt, hash_cfg), True)
+    check(launches["hash_join"] == 2, "sanitize_join hash: the partition "
+          f"kernel launched 2 times (got {launches['hash_join']})")
+    launches["sort_join"], _ = run_pair(
+        "sanitize_join sort", lambda: dist_join(lt, rt, sort_cfg), True)
+    for strategy, shape in LOWERINGS:
+        config.set_exchange_strategy(strategy)
+        config.set_mesh_shape(shape)
+        try:
+            label = f"sanitize_join hash {strategy}"
+            launches[strategy], c = run_pair(
+                label, lambda: dist_join(lt, rt, hash_cfg), True)
+            check(c.get(f"shuffle.strategy.{strategy.replace('-', '_')}",
+                        0) >= 1, f"{label}: ran the {strategy} lowering")
+            check(launches[strategy] == 2, f"{label}: the partition kernel "
+                  f"launched 2 times (got {launches[strategy]})")
+        finally:
+            config.set_exchange_strategy(None)
+            config.set_mesh_shape(None)
+    # the chunked fold-combine: each round's rows cut by rank, on the card
+    config.set_exchange_strategy("chunked")
+    try:
+        label = "sanitize_join fused chunked fold-combine"
+        launches["fused_chunked"], c = run_pair(
+            label, lambda: dist_groupby_fused(
+                lt, ["k"], [("v0", "sum")], mode="pre-aggregate"), False)
+        check(c.get("shuffle.fold_combined", 0) >= 1
+              and c.get("shuffle.chunked", 0) >= 1,
+              f"{label}: the rounds folded by key ({c})")
+    finally:
+        config.set_exchange_strategy(None)
+    # the kernel under the guard, against its plain version
+    k = lt.column("k").data
+    with config.sanitize():
+        with trace.span("sanitize_join.kernel"):
+            got = hash_cuda.partition_ids_fused((k,), (None,), WORLD)
+    check(torch.equal(got, plain_hash.partition_ids(
+        plain_hash.row_hash((k,), (None,)), WORLD)),
+        "sanitize_join: the kernel under the guard = its plain version")
+    del got
+    # the shuffle's count pass at the join cell's shape, with no host
+    # read (ops/compact.bincount), against torch.bincount, which reads
+    # the lane's min and max on the host first
+    from cylon_tpu_torch.ops.compact import bincount
+    from cylon_tpu_torch.parallel import dist_ops, shuffle
+    pid = dist_ops._hash_pids(lt, [0])
+    flat = pid.to(torch.int64) + shuffle._shard_offsets(
+        WORLD, lt.cap, pid.device, WORLD + 1)
+    nb = WORLD * (WORLD + 1)
+    want_cnt = torch.bincount(flat, minlength=nb)
+    check(torch.equal(bincount(pid.view(WORLD, -1), WORLD),
+                      want_cnt.view(WORLD, WORLD + 1)[:, :WORLD]),
+          "sanitize_join: the sync-free counts = torch.bincount")
+    say("sanitize_join count pass", rows=flat.shape[0], bins=nb,
+        compact_bincount_ms=f"{cuda_ms(lambda: bincount(pid.view(WORLD, -1), WORLD), 20):.4f}",
+        torch_bincount_ms=f"{cuda_ms(lambda: torch.bincount(flat, minlength=nb), 20):.4f}")
+    del pid, flat, want_cnt
+    trace.disable_counters()
+    return launches, chained[0]
+
+
+def phase_sanitize_tpch(ctx, tables, sf: float):
+    """The 22 queries at ``--tpch-sf``, world 4, eager, each run plain and
+    under ``config.sanitize()`` in turns, the first sanitized run with its
+    export (``to_arrow``, whose host-cache content compare runs under
+    sanitize): the sanitized result equals the plain one in order (the
+    oracle phase's tolerances).  One line each: seconds both ways and
+    their ratio.  Returns the sanitized
+    partition-kernel launches per query."""
+    from cylon_tpu_torch import config
+    from cylon_tpu_torch.tpch import QUERIES
+
+    launches, plain_t, san_t = {}, {}, {}
+    for q in QUERIES:
+        # plain, sanitized, sanitized, plain (the queries ran warm in the
+        # phases before): each side's time is the mean of its two runs
+        p1 = run_query(q, ctx, tables)[1]
+        with config.sanitize():
+            san, s1, peak, launches[q], _, _ = run_query(q, ctx, tables)
+            _, export_s = wall(san.to_arrow)
+            s2 = run_query(q, ctx, tables)[1]
+        plain, p2, _, _, _, _ = run_query(q, ctx, tables)
+        plain_t[q], san_t[q] = (p1 + p2) / 2, (s1 + s2) / 2
+        same_ordered(f"sanitize_tpch {q}", san, plain)
+        say(f"sanitize_tpch {q} sf={sf} world={WORLD}",
+            plain_seconds=f"{plain_t[q]:.6f}",
+            sanitized_seconds=f"{san_t[q]:.6f}",
+            sanitized_over_plain=f"{san_t[q] / plain_t[q]:.3f}",
+            sanitized_export_seconds=f"{export_s:.6f}", rows=san.num_rows,
+            peak_gib=f"{peak:.2f}", kernel_launches=launches[q])
+        del plain, san
+    total_p, total_s = sum(plain_t.values()), sum(san_t.values())
+    say(f"sanitize_tpch sf={sf} world={WORLD}", queries=len(san_t),
+        plain_seconds=f"{total_p:.6f}", sanitized_seconds=f"{total_s:.6f}",
+        sanitized_over_plain=f"{total_s / total_p:.3f}",
+        kernel_launches=sum(launches.values()))
+    check(sum(launches.values()) > 0,
+          "sanitize_tpch: the partition kernel ran under sanitize")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=16_777_216)
@@ -5806,6 +6158,8 @@ def main() -> int:
     rec_tpch, rec_tpch3 = phase_recovery_tpch(tctx, tables, args.tpch_sf)
     launches_recovery.update({f"tpch_{q}_lost": v for q, v in rec_tpch.items()})
     launches_nparts3.update({f"tpch_{q}_lost": v for q, v in rec_tpch3.items()})
+    # sanitizer mode on the 22 queries (before the tables go)
+    launches_sanitized_tpch = phase_sanitize_tpch(tctx, tables, args.tpch_sf)
     del tables
     broadcast.clear_replica_cache()
     phase_tpch_worlds(args.tpch_check_sf, args.seed)
@@ -5826,6 +6180,12 @@ def main() -> int:
           and launches_nparts3["tpch_q21_lost"] > 0,
           "the partition kernel ran on every recovery path that hashes, at "
           "nparts 3 after the join cell's and Q21's losses")
+    # the static gates and sanitizer mode: the two linters, the guard and
+    # the NaN trap on cuda:0, then the join cell under sanitize
+    phase_lint()
+    phase_sanitize_guard()
+    launches_sanitized, chained_sanitized = phase_sanitize_join(
+        ldata, rdata, want)
 
     # the kernel at the main path's shape: the world-4 partition of one side
     # ([P*cap] rows of one int32 key, no validity, 4 parts)
@@ -5893,6 +6253,8 @@ def main() -> int:
         "launches_multiprocess_tpch": launches_mp_tpch,
         "launches_measured": launches_measured,
         "launches_measured_hier": launches_measured_hier,
+        "launches_sanitized": dict(launches_sanitized,
+                                   tpch=launches_sanitized_tpch),
         "multiprocess_two_processes_one_card": mp_two,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
@@ -5917,6 +6279,7 @@ def main() -> int:
         "replaces": "cylon_tpu/ops/hash_pallas.py:64",
         "launches": sum(launches_wide.values()),
         "launches_wide_setop": launches_wide,
+        "launches_sanitized": chained_sanitized,
         "widths": {str(w): v for w, v in wide.items()},
         "max_abs_err": max(v["max_abs_err"] for v in wide.values()),
         "ms": wide[WIDE_SETOP_WIDTH]["ms"],

@@ -38,7 +38,8 @@ Layer map:
                       capture (ir), rewrite rules, lowering + plan cache
                       and the recovery driver (executor)
     analysis/         plan_check: the capture hook on every dist op and
-                      the plan nodes EXPLAIN ANALYZE annotates
+                      the plan nodes EXPLAIN ANALYZE annotates; the
+                      static gates graftlint and lockcheck
     trace.py          phase spans (off by default; on, they synchronize
                       the card), named counters, tail sampling, export
     logging.py        glog-style lines, ``vlog``, ``warn_once``
@@ -53,7 +54,8 @@ Layer map:
                       set-op and groupby kernels
     config.py         JoinConfig, the broadcast threshold, memory budget,
                       the optimizer switch, the plan-cache capacity, the
-                      recovery switch
+                      recovery switch, sanitizer mode (``sanitize``: the
+                      sync guard and NaN trap of every span body)
     faults.py         named fault points + seeded fault plans
     resilience.py     budget reads, bounded retry, failure classes, the
                       recovery ladder's decisions and exchange demotions
@@ -66,7 +68,7 @@ Layer map:
 """
 
 from . import faults
-from .config import JoinAlgorithm, JoinConfig, JoinType
+from .config import JoinAlgorithm, JoinConfig, JoinType, sanitize
 from .context import CylonContext
 from .dtypes import DataType, Layout, Type
 from .row import Row
@@ -81,5 +83,5 @@ faults.install_chaos_from_env()
 __all__ = [
     "CylonContext", "Table", "Column", "Row", "Status", "Code", "CylonError",
     "DataType", "Type", "Layout", "JoinConfig", "JoinType", "JoinAlgorithm",
-    "__version__",
+    "sanitize", "__version__",
 ]

@@ -10,19 +10,36 @@
     two run-stats snapshots.  CLI:
     ``python -m cylon_tpu_torch.analysis.queryprof OLD.json NEW.json``.
   * ``parity`` — the row-set comparison of the out-of-core gates.
+  * ``graftlint`` — AST linter for the hazard classes torch cannot
+    type-check: hidden host syncs, unkeyed kernel builds, builds in
+    loops, names missing from the metric / fault-point / LOWERING
+    catalogues, reads that bypass the spill pool, unguarded shared state.
+    CLI: ``python -m cylon_tpu_torch.analysis.graftlint cylon_tpu_torch
+    chip_smoke.py`` (0 clean, 1 findings, 2 usage or parse error).
+  * ``lockcheck`` — the static half of the concurrency discipline: the
+    ``GUARDED_STATE`` catalogues and graftlint's two concurrency rules
+    alone.  CLI: ``python -m cylon_tpu_torch.analysis.lockcheck
+    cylon_tpu_torch chip_smoke.py``.
+  * sanitizer mode — ``cylon_tpu_torch.config.sanitize()``, the runtime
+    backstop for what graftlint proves statically: every span body runs
+    under the sync guard (``torch.cuda.set_sync_debug_mode("error")`` on
+    the card; the sanctioned reads lift it) and the NaN trap, and
+    ``Table.to_arrow`` byte-compares its host caches.
 
-``plan_check``, ``calibrate``, ``queryprof`` and ``parity`` load lazily.
+Every module here loads lazily, so importing the package never drags the
+linters (ast / symtable machinery) into a runtime process.
 """
 from __future__ import annotations
 
 from ._abstract import PlanExportReached, any_abstract, is_abstract
 
-__all__ = ["plan_check", "calibrate", "queryprof", "parity",
-           "is_abstract", "any_abstract", "PlanExportReached"]
+__all__ = ["plan_check", "calibrate", "queryprof", "parity", "graftlint",
+           "lockcheck", "is_abstract", "any_abstract", "PlanExportReached"]
 
 
 def __getattr__(name):
-    if name in ("plan_check", "calibrate", "queryprof", "parity"):
+    if name in ("plan_check", "calibrate", "queryprof", "parity",
+                "graftlint", "lockcheck"):
         import importlib
 
         return importlib.import_module(f".{name}", __name__)

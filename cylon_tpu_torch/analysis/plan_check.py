@@ -335,7 +335,8 @@ def _summarize(dt) -> str:
         if ch is not None:
             rows = f"{int(np.asarray(ch).sum())} rows, "
         return f"[{rows}{len(cols)} cols, {nparts}x{cap}]"
-    except Exception:  # a summary must never fail the capture
+    except Exception:  # graftlint: ok[broad-except]
+        # a summary must never fail the capture
         return "[?]"
 
 

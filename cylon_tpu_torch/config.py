@@ -6,18 +6,24 @@ the device memory budget, the host-tier (spill) budget and switch, the
 exchange knobs the costed shuffle reads
 (the forced strategy, the (slow, fast) mesh shape, the measured-cost
 ranking, the watchdog timeout), the optimizer switch, the plan-cache capacity, the
-lock-order checks of ``observe.locks``, and the recovery driver's two
-knobs (the recovery switch and the re-mesh flap-damping window).
+lock-order checks of ``observe.locks``, the two recovery knobs (the
+recovery switch and the re-mesh flap-damping window), and
+sanitizer mode (``sanitize``: the sync guard and NaN trap of every span
+body, the host-cache content check at export).
 """
 from __future__ import annotations
 
+import contextlib
 import enum
 import os
 import re
+import threading
+import weakref
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .status import Code, CylonError, Status
 
@@ -632,6 +638,263 @@ def set_event_log_path(path: Optional[str]) -> Optional[str]:
     _event_log_path = path
     _event_log_path_set = path is not None
     return prev
+
+
+# ---------------------------------------------------------------------------
+# sanitizer mode: the RUNTIME backstop for the invariants
+# analysis/graftlint.py proves statically.  When on:
+#
+#   * the sync guard: every trace span body runs under
+#     ``torch.cuda.set_sync_debug_mode("error")`` once this process has
+#     initialised CUDA, so a hidden synchronizing call inside a hot span
+#     (``.item()``, ``.cpu()`` into pageable memory, ``nonzero``, boolean
+#     mask indexing, a blocking host→device copy) raises instead of
+#     silently stalling the pipeline.  The sanctioned transfers
+#     (``ops/compact.read_host`` / ``read_counts`` / ``to_device``,
+#     ``table.host_batch``, ``trace.hard_sync``, the spill pool's staging)
+#     lift the guard for their own duration (:func:`sync_allowed`): they
+#     are the counterpart of the JAX package's explicit ``jax.device_get``
+#     / ``device_put``, which its transfer guard permits.  The debug mode
+#     is process-wide where JAX's guard is per thread: guarded bodies and
+#     lifts are counted across threads, the mode is "error" while a body
+#     is guarded and no lift runs, and the last body to end restores the
+#     mode the first one found (so while one thread is inside a guarded
+#     body, a synchronizing call on another thread raises too).  A process
+#     that never initialised CUDA (the CPU tests) makes no
+#     ``torch.cuda`` debug-mode call: like the JAX guard on its CPU
+#     backend, this one bites only on the card.
+#   * the NaN trap, the counterpart of ``jax_debug_nans``: each thread's
+#     outermost guarded span body runs under a ``TorchDispatchMode`` that
+#     notes which op last wrote every floating tensor.  When the body
+#     ends, the tensors it wrote that are still alive — its results, as a
+#     jitted kernel's outputs are JAX's — are checked for NaN (one flag
+#     per tensor on its device, read once through a sanctioned read), and
+#     the first that holds one raises ``FloatingPointError`` naming the
+#     op.  A tensor freed inside the body is an intermediate: a NaN that
+#     a later op masks away (``torch.where(valid, a / b, 0)``) does not
+#     trip, as it does not inside a jit kernel.  Meta tensors (an
+#     abstract plan run) are never checked and cost no read.
+#   * ``Table.to_arrow`` byte-compares every host cache against its
+#     device tensor before export (the structural length check is always
+#     on).
+#
+# Scoped:  ``with config.sanitize(): ...``.
+# ---------------------------------------------------------------------------
+
+_sanitizing = False
+
+# The sync guard's process-wide state (a plain leaf lock: taken on every
+# guarded span entry and exit and around the worker registry, never
+# around other work).
+_guard_lock = threading.Lock()
+_guard_depth = 0      # guarded span bodies running, all threads
+_lift_depth = 0       # sanctioned transfers running, all threads
+_guard_prev = 0       # the debug mode the first guarded body found
+_trap_tls = threading.local()
+# the engine objects whose worker threads run now (a ServeSession's
+# dispatcher, a HostPipeline's lanes): the guard they share with every
+# other thread is what sanitize() warns of
+_workers: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def sanitizing() -> bool:
+    """Whether sanitizer mode is active (read by trace.py / table.py)."""
+    return _sanitizing
+
+
+def _warn_shared_guard() -> None:
+    from .logging import warn_once
+    warn_once(("config.sanitize", "worker threads"),
+              "sanitize() with engine worker threads running (a serving "
+              "session or a host pipeline): the sync guard is "
+              "process-wide, so while any thread is inside a sanitized "
+              "span a synchronizing call on every other thread raises, "
+              "client threads included, and a sanctioned read on one "
+              "thread lifts the guard for all")
+
+
+def note_worker_threads(owner, live: bool) -> None:
+    """Record that ``owner`` started (``live``) or stopped its worker
+    threads; under sanitize, a start warns once (:func:`sanitize`)."""
+    with _guard_lock:
+        if live:
+            _workers.add(owner)
+        else:
+            _workers.discard(owner)
+    if live and _sanitizing:
+        _warn_shared_guard()
+
+
+def _apply_sync_mode_locked() -> None:
+    on = _guard_depth > 0 and _lift_depth == 0
+    torch.cuda.set_sync_debug_mode("error" if on else _guard_prev)
+
+
+def _guard_enter() -> bool:
+    """Count one guarded body in; False (nothing engaged) when this
+    process has not initialised CUDA."""
+    global _guard_depth, _guard_prev
+    if not torch.cuda.is_initialized():
+        return False
+    with _guard_lock:
+        if _guard_depth == 0:
+            _guard_prev = torch.cuda.get_sync_debug_mode()
+        _guard_depth += 1
+        _apply_sync_mode_locked()
+    return True
+
+
+def _guard_exit() -> None:
+    global _guard_depth
+    with _guard_lock:
+        _guard_depth -= 1
+        _apply_sync_mode_locked()
+
+
+@contextlib.contextmanager
+def sync_allowed() -> Iterator[None]:
+    """Lift the sync guard for a sanctioned transfer (a no-op when no
+    guard is engaged or could be)."""
+    global _lift_depth
+    if not (_sanitizing or _guard_depth):
+        yield
+        return
+    with _guard_lock:
+        _lift_depth += 1
+        if _guard_depth:
+            _apply_sync_mode_locked()
+    try:
+        yield
+    finally:
+        with _guard_lock:
+            _lift_depth -= 1
+            if _guard_depth:
+                _apply_sync_mode_locked()
+
+
+class _NanTrap(TorchDispatchMode):
+    """Notes the op that last wrote each floating tensor of a span body
+    (a weak reference: the trap keeps nothing alive); :meth:`check` reads
+    the survivors' NaN flags."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.written: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.is_view:
+            return out   # a view's values belong to its base's writer
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and t.device.type != "meta"):
+                # an in-place write through a view writes its base
+                base = t._base if t._base is not None else t
+                self.written[id(base)] = (weakref.ref(base), func)
+        return out
+
+    def check(self) -> None:
+        by_dev: dict = {}
+        for ref, op in self.written.values():
+            t = ref()
+            if t is not None and t.numel():
+                by_dev.setdefault(t.device, []).append((t, op))
+        self.written = {}
+        for items in by_dev.values():
+            flags = torch.stack([torch.isnan(t).any() for t, _ in items])
+            with sync_allowed():
+                hot = flags.cpu().numpy()  # graftlint: ok[implicit-host-sync] — the trap's one flag read
+            for (t, op), bad in zip(items, hot):
+                if bad:
+                    raise FloatingPointError(
+                        f"invalid value (nan) encountered in {op} (a "
+                        f"{tuple(t.shape)} {t.dtype} tensor written inside "
+                        "a sanitized span)")
+
+
+class _SanitizeScope:
+    """One span body under sanitize: the sync guard, and the NaN trap
+    when no outer span of this thread holds one."""
+
+    __slots__ = ("_sync", "_trap")
+
+    def __enter__(self) -> "_SanitizeScope":
+        self._sync = _guard_enter()
+        self._trap = None
+        if not getattr(_trap_tls, "on", False):
+            self._trap = _NanTrap()
+            self._trap.__enter__()
+            _trap_tls.on = True
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        try:
+            if self._trap is not None:
+                _trap_tls.on = False
+                self._trap.__exit__(None, None, None)
+                if et is None:
+                    self._trap.check()
+        finally:
+            if self._sync:
+                _guard_exit()
+        return False
+
+
+def sanitize_guard() -> Optional[_SanitizeScope]:
+    """A fresh sanitizer scope for one span body, or None when sanitizer
+    mode is off (scopes are single-use, so every span asks for its
+    own)."""
+    if not _sanitizing:
+        return None
+    return _SanitizeScope()
+
+
+class _SanitizeHandle:
+    """Returned by ``sanitize()``: already active; usable as a context
+    manager for scoped enabling, or kept for the process lifetime."""
+
+    def __init__(self, prev_on: bool, prev_lockcheck):
+        self._prev_on = prev_on
+        self._prev_lockcheck = prev_lockcheck
+
+    def __enter__(self) -> "_SanitizeHandle":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        global _sanitizing
+        _sanitizing = self._prev_on
+        set_lockcheck(self._prev_lockcheck)
+
+
+def sanitize(enable: bool = True) -> _SanitizeHandle:
+    """Turn sanitizer mode on (default) or off; see the section comment
+    above for what it checks.  Returns a handle whose ``close()`` (or
+    ``with``-exit) restores the previous state.  Sanitizing also turns
+    on lock-order enforcement (``lockcheck_enabled``) — an AB/BA
+    inversion under sanitize raises instead of warning.
+
+    Across threads the sync guard is one setting of the process, where
+    the JAX package's transfer guard is per thread: while any thread is
+    inside a sanitized span body, a synchronizing call on every thread
+    raises, a client thread's own host read included; and while a
+    sanctioned transfer runs on one thread (``sync_allowed``), the guard
+    is lifted for all of them.  So sanitizing while a serving session
+    or a host pipeline runs its worker threads warns once: a client that
+    reads the card beside a served window may fail, and a hidden sync on
+    one thread can pass while another reads.  The NaN trap is per
+    thread."""
+    global _sanitizing
+    prev_on = _sanitizing
+    _sanitizing = bool(enable)
+    prev_lockcheck = set_lockcheck(True if enable else None)
+    with _guard_lock:
+        threaded = len(_workers) > 0
+    if enable and threaded:
+        _warn_shared_guard()
+    return _SanitizeHandle(prev_on, prev_lockcheck)
 
 
 class JoinType(enum.Enum):

@@ -74,6 +74,8 @@ def warning(msg: Any, *args) -> None:
 # must be atomic for the "at most once" promise (and the return value)
 # to hold across threads.  Every write to _warned_keys holds _warn_lock.
 
+GUARDED_STATE = {"_warned_keys": "_warn_lock"}
+
 _warned_keys: set = set()
 _warn_lock = OrderedLock("log.warn_once")
 

@@ -230,7 +230,8 @@ def analyze(op, *args, **kwargs):
         report.output = out
         if report.result is None:
             report.result = plan_check._schema_of(out)
-    except Exception as e:  # ANALYZE returns the partial report instead
+    except Exception as e:  # graftlint: ok[broad-except]
+        # ANALYZE returns the partial report instead
         report.error = e
         report.ok = False
     finally:

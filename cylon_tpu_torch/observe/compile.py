@@ -95,6 +95,8 @@ def _observing() -> bool:
 # recompile-storm detection (factory-level, on cache misses)
 # ---------------------------------------------------------------------------
 
+GUARDED_STATE = {"_recent_keys": "_storm_lock"}
+
 _storm_lock = OrderedLock("compile.storm")
 _recent_keys: Dict[str, deque] = {}   # factory -> deque[(t, key)]
 

@@ -50,6 +50,14 @@ __all__ = [
 
 EVENT_LOG_MAX_BYTES = 8 << 20    # one rotation keeps disk use bounded
 
+GUARDED_STATE = {
+    "_server": "_exporter_lock",    # module global
+    "_thread": "_exporter_lock",    # module global
+    "_writer": "_exporter_lock",    # module global
+    "_fh": "_lock",                 # EventLogWriter
+    "_size": "_lock",               # EventLogWriter
+}
+
 _exporter_lock = OrderedLock("observe.exporter")
 _server: Optional[ThreadingHTTPServer] = None
 _thread: Optional[threading.Thread] = None
@@ -159,7 +167,8 @@ class _MetricsHandler(BaseHTTPRequestHandler):
             return
         try:
             body = render_openmetrics().encode("utf-8")
-        except Exception as e:  # a torn registry read answers 500; it
+        except Exception as e:  # graftlint: ok[broad-except]
+            # a torn registry read answers 500; it
             # must not kill the server thread
             self.send_error(500, explain=str(e)[:200])
             return
@@ -262,7 +271,8 @@ class EventLogWriter:
                 self._fh.flush()
                 self._size += len(line)
             REGISTRY.bump("observe.events_logged")
-        except Exception:  # a full disk must not take down the engine
+        except Exception:  # graftlint: ok[broad-except]
+            # a full disk must not take down the engine
             pass            # it records
         finally:
             _evtls.writing = False
@@ -326,7 +336,8 @@ def ensure_started() -> None:
         p = config.metrics_port()
         if p is not None and not running():
             start(p)
-    except Exception as e:  # a bad knob or an occupied port must not
+    except Exception as e:  # graftlint: ok[broad-except]
+        # a bad knob or an occupied port must not
         # block session construction
         warn_once(("exporter", "metrics"),
                   "metrics exporter failed to start: %s", e)
@@ -334,6 +345,6 @@ def ensure_started() -> None:
         path = config.event_log_path()
         if path and event_log_writer() is None:
             start_event_log(path)
-    except Exception as e:  # ditto
+    except Exception as e:  # graftlint: ok[broad-except] — ditto
         warn_once(("exporter", "eventlog"),
                   "event log failed to open: %s", e)

@@ -66,7 +66,8 @@ def note(kind: str, **payload) -> None:
     if tap is not None:
         try:
             tap(ev)
-        except Exception:  # a broken tap must not take down the recorder
+        except Exception:  # graftlint: ok[broad-except]
+            # a broken tap must not take down the recorder
             pass
 
 
@@ -114,7 +115,7 @@ def _config_fingerprint() -> Dict[str, Any]:
     try:
         import sys
         out["python"] = sys.version.split()[0]
-    except Exception:  # best-effort
+    except Exception:  # graftlint: ok[broad-except] — best-effort
         pass
     try:
         import numpy
@@ -127,7 +128,7 @@ def _config_fingerprint() -> Dict[str, Any]:
         out["local_devices"] = n
         if n:
             out["device_name"] = torch.cuda.get_device_name(0)
-    except Exception:  # best-effort
+    except Exception:  # graftlint: ok[broad-except] — best-effort
         pass
     try:
         from .. import config
@@ -137,7 +138,8 @@ def _config_fingerprint() -> Dict[str, Any]:
         out["exchange_strategy"] = config.exchange_strategy()
         out["cost_measured"] = config.cost_measured_enabled()
         out["plan_cache_capacity"] = config.plan_cache_capacity()
-    except Exception:  # a malformed env knob must not block the bundle
+    except Exception:  # graftlint: ok[broad-except]
+        # a malformed env knob must not block the bundle
         pass
     for env in ("CYLON_TRACE", "CYLON_LOCKCHECK", "CYLON_LOCK_HOLD_MS",
                 "CYLON_MEMORY_BUDGET", "CYLON_STATS_PATH",
@@ -161,11 +163,11 @@ def bundle(reason: str = "on-demand",
     evs = events()
     try:
         trace_doc = trace.export_chrome_trace(None)
-    except Exception:  # best-effort
+    except Exception:  # graftlint: ok[broad-except] — best-effort
         trace_doc = {"traceEvents": []}  # must not block the bundle
     try:
         counters = trace.snapshot()
-    except Exception:  # best-effort
+    except Exception:  # graftlint: ok[broad-except] — best-effort
         counters = {"counters": {}, "watermarks": {}, "gauges": {}}
     return {
         "schema": 1,
@@ -234,5 +236,5 @@ def maybe_dump_on_error(reason: str,
         return None
     try:
         return dump(None, reason, error)
-    except Exception:  # best-effort
+    except Exception:  # graftlint: ok[broad-except] — best-effort
         return None     # the bundle is best-effort, the error is not

@@ -34,6 +34,12 @@ import torch
 
 from .locks import OrderedLock
 
+# The lock contract (graftlint shared-state-unguarded): every store field
+# mutates under the store's OrderedLock.
+GUARDED_STATE = {"_records": "_lock", "_path": "_lock",
+                 "_loaded": "_lock", "_dirty": "_lock",
+                 "_last_save": "_lock", "_atexit_registered": "_lock"}
+
 __all__ = ["StatsStore", "STORE", "plan_digest", "note_plan",
            "collect_digests"]
 

@@ -39,6 +39,10 @@ from .histogram import Histogram
 from .locks import OrderedLock
 from .metrics import REGISTRY
 
+GUARDED_STATE = {"_buf": "_lock", "_n": "_lock",
+                 "_live_samplers": "_registry_lock",
+                 "_atexit_registered": "_registry_lock"}
+
 __all__ = ["TimeSeriesSampler"]
 
 # live samplers, stopped at interpreter exit so no daemon thread is
@@ -52,7 +56,8 @@ def _stop_live_samplers() -> None:
     for s in list(_live_samplers):
         try:
             s.stop()
-        except Exception:  # shutdown must never raise out of atexit
+        except Exception:  # graftlint: ok[broad-except]
+            # shutdown must never raise out of atexit
             pass
 
 
@@ -258,7 +263,8 @@ class TimeSeriesSampler:
             # against the retained history, not against itself
             try:
                 self._check_anomalies(sample)
-            except Exception:  # a rule bug must never take the
+            except Exception:  # graftlint: ok[broad-except]
+                # a rule bug must never take the
                 pass            # sampler down
         self._append(sample)
         return sample
@@ -326,7 +332,8 @@ class TimeSeriesSampler:
         if self._session is not None:
             try:
                 self._session._tally("slo_violations")
-            except Exception:  # a session mid-close must not kill
+            except Exception:  # graftlint: ok[broad-except]
+                # a session mid-close must not kill
                 pass            # alerts
         flightrec.note("alert", rule=rule, detail=detail,
                        sample_t=sample.get("t"))
@@ -343,7 +350,8 @@ class TimeSeriesSampler:
             # cache problem; more devices do not help it)
             try:
                 self._session.request_capacity(rule, detail)
-            except Exception:  # a session mid-close must not kill
+            except Exception:  # graftlint: ok[broad-except]
+                # a session mid-close must not kill
                 pass            # alerts
         msg = f"SLO alert [{rule}]: {detail} (logged once per rule " \
               f"per process — sampler.alerts and the serve tally " \

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..analysis._abstract import is_abstract
+from ..config import sync_allowed
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -95,7 +96,8 @@ class _HostCopy:
         if self.event is None:
             self.src = None
             return self.host.numpy()
-        self.event.synchronize()
+        with sync_allowed():  # a sanctioned read (config.sanitize)
+            self.event.synchronize()
         self.src = None
         out = self.host.numpy()
         return out.copy() if self.own else out
@@ -153,14 +155,60 @@ def _flush_then_read(t: torch.Tensor) -> np.ndarray:
     return vals[0]
 
 
-def bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
-    """``torch.bincount(x, minlength=minlength)`` for values below
-    ``minlength`` (the length is then static); a meta ``x`` (an abstract
-    plan run) gives a meta result of that length, since bincount has no
-    meta kernel."""
+# The form that counts integer bins on the card follows the bin count,
+# from the times of every form in PERF §6
+# (``experiments/torch_count_forms.py``).
+_MASKED_BINS = 3         # up to this many bins: one masked sum per bin
+_HISTC_BINS = 4096       # up to this many in all: histc in float32; past
+                         # it (float32 no longer exact): a scatter-add
+
+
+def bincount(x: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Counts (int64) of the values ``0 .. nbins-1`` of ``x``, whose values
+    lie in ``[0, nbins]``: the value ``nbins`` (padding, dropped rows) is
+    not counted.  A 1-D ``x`` gives ``[nbins]``; a 2-D ``[rows, n]`` gives
+    ``[rows, nbins]``, each row counted on its own (the shuffle's
+    per-shard target counts).
+
+    The one sync-free count of the port: ``torch.bincount`` on the card
+    reads its input's min and max on the host first.  There the form
+    follows the bin count: one masked sum per bin for two or three bins;
+    ``histc`` over the values in float32 with the bounds given, exact
+    while ``value * bins`` is below 2**24; a scatter-add past that, where
+    the bins are many enough that its atomics rarely collide.  A meta
+    ``x`` (an abstract plan run) gives a meta result, since bincount has
+    no meta kernel."""
+    shape = tuple(x.shape[:-1]) + (nbins,)
     if is_abstract(x):
-        return torch.empty((minlength,), dtype=torch.int64, device="meta")
-    return torch.bincount(x, minlength=minlength)
+        return torch.empty(shape, dtype=torch.int64, device="meta")
+    on_card = x.device.type == "cuda"
+    if on_card and nbins <= _MASKED_BINS:
+        return torch.stack([(x == b).sum(-1) for b in range(nbins)], -1)
+    flat, total = x, nbins + 1
+    if x.dim() == 2:
+        total = x.shape[0] * (nbins + 1)
+        off = torch.arange(x.shape[0], dtype=x.dtype, device=x.device)
+        flat = (x + off[:, None] * (nbins + 1)).reshape(-1)
+    if not on_card:
+        c = torch.bincount(flat, minlength=total)
+    elif total <= _HISTC_BINS:
+        c = torch.histc(flat.to(torch.float32), bins=total, min=0,
+                        max=total).to(torch.int64)
+    else:
+        ones = torch.ones((), dtype=torch.int32, device=x.device).expand(
+            flat.shape)
+        c = torch.zeros((total,), dtype=torch.int32, device=x.device)
+        c = c.index_add_(0, flat, ones).to(torch.int64)
+    return c[:nbins] if x.dim() == 1 else c.view(x.shape[0], -1)[:, :nbins]
+
+
+def to_device(values, device, dtype=None) -> torch.Tensor:
+    """Host values (a numpy array, a sequence or a scalar) as a tensor on
+    ``device``: the sanctioned upload, the counterpart of the JAX
+    package's ``jax.device_put``, which its transfer guard permits.  The
+    copy blocks the host, so it lifts the sanitizer's sync guard."""
+    with sync_allowed():
+        return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 def scatter_drop(size: int, tgt: torch.Tensor, values: torch.Tensor,

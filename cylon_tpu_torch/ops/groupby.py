@@ -131,7 +131,9 @@ def _seg_scan_flat(vals: torch.Tensor, is_first: torch.Tensor, op):
     if n == 0:
         return vals
     flags = is_first.clone()
-    flags[0] = True  # the zero-filled lanes below are never read
+    # the zero-filled lanes below are never read (a fill, not a copy of
+    # a host scalar: no host sync)
+    flags[:1].fill_(True)
     d = 1
     while d < n:
         sv = _shifted(vals, d, 0, 0)
@@ -193,8 +195,8 @@ def _masked_extreme(col: torch.Tensor, vmask: torch.Tensor, agg: str):
     """``(masked, sentinel)``: ``col`` in its order-preserving view with
     masked rows set to the extreme that cannot win ``agg`` (the dtype's
     own extreme), and that extreme as a 0-d tensor of the same view."""
-    sentinel = _ordered(torch.tensor(
-        extreme_value(col.dtype, largest=(agg == MIN)), dtype=col.dtype,
+    sentinel = _ordered(torch.full(
+        (), extreme_value(col.dtype, largest=(agg == MIN)), dtype=col.dtype,
         device=col.device))
     return torch.where(vmask, _ordered(col), sentinel), sentinel
 
@@ -369,7 +371,7 @@ def dense_group_structure(key: torch.Tensor, key_validity, row_valid,
                        base // stride if stride > 1 else base, R + 1)
     if null_rows is not None:
         slot = torch.where(null_rows, R, slot)
-    counts = bincount(slot, R + 2)[:R + 1].to(torch.int32)
+    counts = bincount(slot, R + 1).to(torch.int32)
     ngroups = torch.sum(counts > 0).to(torch.int32)
     return slot, counts, ngroups, overflow
 

@@ -92,7 +92,7 @@ def build() -> Path:
     return LIBRARY
 
 
-def load():
+def load():  # graftlint: ok[kernel-factory-unkeyed] — cached in _lib
     """Build (once per process) and load the kernel library.  The build
     and load is one ``observe.compile`` build event (``compile.builds``,
     a ``compile.build`` span, charged to an open EXPLAIN ANALYZE); a

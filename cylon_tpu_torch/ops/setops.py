@@ -53,7 +53,7 @@ def _row_order_and_groups(cols: Sequence[torch.Tensor],
     order = lexsort(keys)
     is_first = torch.zeros(origin.shape[0], dtype=torch.bool,
                            device=origin.device)
-    is_first[0] = True
+    is_first[:1].fill_(True)
     for c, v in zip(cols, validities):
         is_first |= _starts(c[order])
         if v is not None:

@@ -162,8 +162,8 @@ def hll_estimate(regs: torch.Tensor) -> torch.Tensor:
     # 2^-r for r <= 25: the float64 sum is exact, so one rounding to
     # float32 gives the same z on every device
     z = torch.sum(torch.exp2(-regs.to(torch.float64)), 1).to(torch.float32)
-    raw = torch.tensor(alpha * m * m, dtype=torch.float32,
-                       device=regs.device) / z
+    raw = torch.full((), alpha * m * m, dtype=torch.float32,
+                     device=regs.device) / z
     v = torch.sum(regs == 0, 1).to(torch.float32)
     ratio = m / torch.clamp(v, min=1.0)
     small = m * torch.log(ratio.to(torch.float64)).to(torch.float32)

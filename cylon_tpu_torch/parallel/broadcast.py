@@ -96,6 +96,8 @@ def small_side_reason(dt: DTable, rows: int) -> str:
     return f"capacity bound {dt.nparts}x{dt.cap} = {rows} <= threshold"
 
 
+GUARDED_STATE = {"_replica_cache": "_replica_lock"}
+
 _replica_cache: dict = {}
 _replica_lock = OrderedLock("broadcast.replica_cache")
 _REPLICA_CACHE_MAX = 64

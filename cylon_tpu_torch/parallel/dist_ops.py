@@ -973,8 +973,8 @@ def _pool_splitters(vals, oks, nparts: int, ascending: bool) -> torch.Tensor:
     m = po.sum()
     ar = torch.arange(1, nparts, device=pv.device)
     pos = torch.clamp((ar * m) // nparts, 0, pv.shape[0] - 1)
-    extreme = torch.tensor(extreme_value(pv.dtype, largest=ascending),
-                           dtype=pv.dtype, device=pv.device)
+    extreme = torch.full((), extreme_value(pv.dtype, largest=ascending),
+                         dtype=pv.dtype, device=pv.device)
     return torch.where(m > 0, sv[pos], ops_gather.signed_view(extreme)
                        ).view(pv.dtype)
 
@@ -1341,7 +1341,8 @@ def _semi_mask_dense(left: DTable, right: DTable, lkc: DColumn,
     slot = torch.where(r_nonnull & r_in,
                        _shard_ids(L, cap_r, dev) * R + r_base.long(), L * R)
     present = torch.zeros(L * R + 1, dtype=torch.bool, device=dev)
-    present[slot] = True  # duplicates all write True: no race to lose
+    # duplicates all write True: no race to lose
+    present.index_fill_(0, slot, True)
     l_shard = _shard_ids(L, cap_l, dev)
     hit = l_nonnull & l_in & present[
         l_shard * R + torch.clamp(l_base, 0, R - 1).long()]
@@ -1573,8 +1574,9 @@ def _aggregate_columns(dt: DTable, aggregations, where) -> List[Column]:
             fdt = d.dtype if d.dtype.is_floating_point else torch.float64
             val = s.to(fdt) / torch.clamp(cnt, min=1).to(fdt)
         elif op in ("min", "max"):
-            fill = torch.tensor(extreme_value(d.dtype, largest=(op == "min")),
-                                dtype=d.dtype, device=d.device)
+            fill = torch.full((), extreme_value(d.dtype,
+                                                largest=(op == "min")),
+                              dtype=d.dtype, device=d.device)
             folded = torch.where(m, ops_join._ordered(d),
                                  ops_join._ordered(fill)).reshape(L, cap)
             local = folded.amin(1) if op == "min" else folded.amax(1)

@@ -44,6 +44,7 @@ from ..analysis._abstract import is_abstract
 from ..context import CylonContext
 from ..dtypes import DataType, is_dictionary_encoded
 from ..ops import compact as ops_compact
+from ..ops.compact import to_device
 from ..ops.gather import signed_view
 from ..status import Code, CylonError, Status
 from ..table import Column, Table, host_batch
@@ -297,8 +298,7 @@ class DTable:
         """The ingested table; ``sizes`` are all P shards' row counts."""
         r0 = ctx.get_rank()
         local = sizes[r0:r0 + ctx.get_local_world_size()]
-        out = DTable(ctx, cols, cap, torch.from_numpy(local.copy()).to(
-            ctx.device))
+        out = DTable(ctx, cols, cap, to_device(local.copy(), ctx.device))
         # ingest knows the per-shard sizes statically: cached, so planners
         # (the broadcast threshold) never pay a host read here
         out._counts_host = sizes.copy()
@@ -424,7 +424,7 @@ class DTable:
                 [i * self.cap + np.arange(t, dtype=np.int64)
                  for i, t in enumerate(takes)]) if sum(takes) else \
                 np.empty((0,), np.int64)
-            idx = torch.from_numpy(idx_host).to(dev)
+            idx = to_device(idx_host, dev)
         pulls = []
         for c in self.columns:
             pulls.append(signed_view(leaf(c.data))[idx].view(c.data.dtype))

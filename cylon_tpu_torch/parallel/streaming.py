@@ -36,7 +36,8 @@ import torch
 
 from .. import trace
 from ..analysis import plan_check
-from ..config import JoinConfig
+from ..config import JoinConfig, note_worker_threads
+from ..observe.locks import OrderedLock
 from ..ops import compact as ops_compact
 from ..ops import gather as ops_gather
 from ..status import Code, CylonError, Status
@@ -164,6 +165,13 @@ def dist_join_streaming(left: DTable, right: DTable, config: JoinConfig,
 # the host export / ingest lane
 # ---------------------------------------------------------------------------
 
+# The lint contract (graftlint shared-state-unguarded): submit's
+# check-then-put and close's set-closed serialize on the pipeline lock;
+# _closed is the only cross-thread flag (HostTask fields are
+# single-writer: the owning worker, then the Event hand-off).
+GUARDED_STATE = {"_closed": "_lock"}
+
+
 class HostTask:
     """Handle on one submitted host task: ``wait()`` blocks until a worker
     ran it, then returns its result or re-raises its error (the error
@@ -213,12 +221,13 @@ class HostPipeline:
                         else None)
         # orders submit's check-then-put against close's set-closed: a
         # task enqueued behind close()'s stop sentinels would never run
-        self._lock = threading.Lock()
+        self._lock = OrderedLock("streaming.pipeline")
         self._threads = [threading.Thread(target=self._run,
                                           name=f"{name}-{i}", daemon=True)
                          for i in range(workers)]
         for t in self._threads:
             t.start()
+        note_worker_threads(self, True)
 
     def _run(self) -> None:
         if self._device is not None and self._device.type == "cuda":
@@ -235,7 +244,8 @@ class HostPipeline:
                 with trace.trace_context(trace_id):
                     with trace.span("serve.export"):
                         task._value = fn()
-            except BaseException as e:  # delivered to the wait()ing caller
+            except BaseException as e:  # graftlint: ok[broad-except]
+                # delivered to the wait()ing caller
                 task._error = e
             finally:
                 task._event.set()
@@ -274,3 +284,4 @@ class HostPipeline:
             self._q.put(None)
         for t in self._threads:
             t.join(timeout)
+        note_worker_threads(self, False)

@@ -604,7 +604,7 @@ class _CheckpointStore:
                 price = cost.price_retained(
                     int(out.cap),
                     max(observe.row_bytes(_table_leaves(out)), 1))
-            except Exception:
+            except Exception:  # graftlint: ok[broad-except]
                 # a checkpoint that fails to evacuate degrades to replay
                 # of its stage, never to a failed recovery
                 self._entries.pop(esig, None)
@@ -929,14 +929,14 @@ def _execute_recovering(builder, opt_root: Node, pre_nodes: List[Node],
                     # with: annotate, but do not book recover.failures
                     try:
                         e.ladder = ladder.as_dicts()
-                    except Exception:
+                    except Exception:  # graftlint: ok[broad-except]
                         pass   # an unannotatable error still raises
                     raise
                 trace.count("recover.failures")
                 attempts = ladder.as_dicts()
                 try:
                     e.ladder = attempts
-                except Exception:
+                except Exception:  # graftlint: ok[broad-except]
                     pass       # an unannotatable error still raises
                 flightrec.note("recover_failed", attempts=attempts,
                                error=f"{type(e).__name__}: "

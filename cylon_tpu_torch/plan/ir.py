@@ -310,7 +310,8 @@ def referenced_columns(fn: Callable, schema: Schema,
         fn(env, *pvals)
         accessed = env.accessed | env.null_handled
         out = tuple(n for n in _names(schema) if n in accessed)
-    except Exception:  # discovery is advisory: None reads all columns
+    except Exception:  # graftlint: ok[broad-except]
+        # discovery is advisory: None reads all columns
         out = None
     while len(_reads_cache) >= _READS_CACHE_MAX:
         _reads_cache.pop(next(iter(_reads_cache)))

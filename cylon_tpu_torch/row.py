@@ -47,7 +47,7 @@ class Row:
         # the blocking transfer is the requested behaviour
         if c.validity is not None:
             ok = (c.host_validity[self._i] if c.host_validity is not None
-                  else c.validity[self._i].item())
+                  else c.validity[self._i].item())  # graftlint: ok[implicit-host-sync]
             if not bool(ok):
                 return None
         v = (c.host_data[self._i] if c.host_data is not None
@@ -55,7 +55,7 @@ class Row:
         if is_dictionary_encoded(c.dtype.type):
             s = c.dictionary[int(v)]
             return s.decode() if isinstance(s, bytes) else str(s)
-        return np.asarray(v)[()].item()
+        return np.asarray(v)[()].item()  # graftlint: ok[implicit-host-sync]
 
     def __getitem__(self, col: Union[int, str]) -> Any:
         return self.get(col)

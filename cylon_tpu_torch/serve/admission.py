@@ -44,9 +44,13 @@ and bumps ``serve.deferred``.
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+# No shared mutable state: pricing is a pure function of its inputs (the
+# empty catalogue is the lint contract saying so).
+GUARDED_STATE: Dict[str, str] = {}
 
 __all__ = ["price_table", "price_query", "admit", "scaled_budget",
            "PROBE_PRICE"]

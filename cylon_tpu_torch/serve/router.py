@@ -52,6 +52,8 @@ from .session import CircuitBreaker, QueryHandle, ServeSession
 # The draining set mutates under the router's own OrderedLock.  The
 # session dict is frozen at construction (placement reads it lock-free).
 
+GUARDED_STATE = {"_draining": "_lock"}
+
 __all__ = ["FleetRouter"]
 
 _UNSET = object()

@@ -32,9 +32,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .config import sanitizing, sync_allowed
 from .context import CylonContext
 from .dtypes import (DataType, Type, from_arrow_type, is_dictionary_encoded,
                      numpy_dtype, to_arrow_type)
+from .ops.compact import to_device
 from .status import Code, CylonError, Status
 
 
@@ -92,8 +94,9 @@ def host_batch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     dev = tensors[0].device
     if dev.type != "cuda":
         return [t.numpy() for t in tensors]
-    hosts = [t.to("cpu", non_blocking=True) for t in tensors]
-    torch.cuda.current_stream(dev).synchronize()
+    with sync_allowed():  # a sanctioned read (config.sanitize)
+        hosts = [t.to("cpu", non_blocking=True) for t in tensors]
+        torch.cuda.current_stream(dev).synchronize()
     return [h.numpy() for h in hosts]
 
 
@@ -101,7 +104,7 @@ def _to_device(npv: np.ndarray, device: torch.device) -> torch.Tensor:
     npv = np.ascontiguousarray(npv)
     if not npv.flags.writeable:  # zero-copy Arrow buffers are read-only
         npv = npv.copy()
-    return torch.from_numpy(npv).to(device)
+    return to_device(npv, device)
 
 
 def _encode_values(values: np.ndarray, null: np.ndarray
@@ -347,6 +350,11 @@ class Table:
                 raise CylonError(Status(Code.ExecutionError,
                     f"stale host_validity cache on column {c.name!r} — "
                     "derive columns via Column.with_data"))
+        if sanitizing():
+            # sanitizer backstop: byte-compare every host cache against
+            # the device truth before trusting it for export.  Costs a
+            # full pull — exactly what sanitize mode is for.
+            self._verify_host_caches()
         pulls, slots = [], []
         for i, c in enumerate(self.columns):
             if c.host_data is None:

@@ -31,7 +31,8 @@ from ..parallel import (DTable, dist_aggregate, dist_anti_join, dist_groupby,
                         dist_head, dist_join, dist_join_streaming,
                         dist_project, dist_select, dist_semi_join, dist_sort,
                         dist_sort_multi, dist_with_column)
-from ..table import Column, Table
+from ..ops.compact import to_device
+from ..table import Column, Table, host_batch
 from .datagen import YEAR_BOUNDS, date_to_days
 
 Tables = Dict[str, DTable]
@@ -53,8 +54,7 @@ def _strip_prefixes(dt: DTable) -> DTable:
 
 
 def _isin(x: torch.Tensor, codes) -> torch.Tensor:
-    return torch.isin(x, torch.tensor(codes, dtype=torch.int32,
-                                      device=x.device))
+    return torch.isin(x, to_device(codes, x.device, torch.int32))
 
 
 def _promoted(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -257,8 +257,7 @@ def _year_of(col: str):
 
     def fn(env):
         x = env[col]
-        bounds = torch.from_numpy(YEAR_BOUNDS).to(device=x.device,
-                                                  dtype=x.dtype)
+        bounds = to_device(YEAR_BOUNDS, x.device, x.dtype)
         return (1992 + torch.searchsorted(bounds, x, right=True)
                 - 1).to(torch.int32)
 
@@ -308,8 +307,7 @@ def _host_cols(t: Tables, name: str) -> Dict[str, np.ndarray]:
         tb = dt.to_table()
         tb.require_host("Table.to_arrow")
         cols = {}
-        for c in tb.columns:
-            v = c.data.cpu().numpy()
+        for c, v in zip(tb.columns, host_batch([c.data for c in tb.columns])):
             cols[c.name] = (np.asarray(c.dictionary, dtype=object)[v]
                             if c.dictionary is not None else v)
         dt._host_cols_cache = cols
@@ -573,14 +571,15 @@ def q7(ctx, t: Tables, nation1: str = "FRANCE",
     g = dist_groupby(full, ["s_nationkey", "c_nationkey", "l_year"],
                      [("volume", "sum")]).to_table()
     g.require_host("Table.to_arrow")  # the host tail starts here
-    supp_n = _nation_names(t, g.column("s_nationkey").data.cpu().numpy())
-    cust_n = _nation_names(t, g.column("c_nationkey").data.cpu().numpy())
-    year = g.column("l_year").data.cpu().numpy().astype(np.int32)
+    sk, ck, year, rev = host_batch([g.column(n).data for n in (
+        "s_nationkey", "c_nationkey", "l_year", "sum_volume")])
+    supp_n = _nation_names(t, sk)
+    cust_n = _nation_names(t, ck)
+    year = year.astype(np.int32)
     order = np.lexsort((year, cust_n.astype(str), supp_n.astype(str)))
     return Table.from_columns(ctx, {
         "supp_nation": supp_n[order], "cust_nation": cust_n[order],
-        "l_year": year[order],
-        "revenue": g.column("sum_volume").data.cpu().numpy()[order]})
+        "l_year": year[order], "revenue": rev[order]})
 
 
 # -- Q8: national market share ----------------------------------------------------
@@ -625,9 +624,10 @@ def q8(ctx, t: Tables, nation: str = "BRAZIL", region: str = "AMERICA",
     g = dist_groupby(full, ["o_year"], [("nation_vol", "sum"),
                                         ("volume", "sum")]).to_table()
     g.require_host("Table.to_arrow")  # the host tail starts here
-    year = g.column("o_year").data.cpu().numpy().astype(np.int32)
-    share = (g.column("sum_nation_vol").data.cpu().numpy().astype(np.float64)
-             / g.column("sum_volume").data.cpu().numpy().astype(np.float64))
+    year, nvol, vol = host_batch([g.column(n).data for n in (
+        "o_year", "sum_nation_vol", "sum_volume")])
+    year = year.astype(np.int32)
+    share = nvol.astype(np.float64) / vol.astype(np.float64)
     order = np.argsort(year, kind="stable")
     return Table.from_columns(ctx, {"o_year": year[order],
                               "mkt_share": share[order].astype(np.float32)})

@@ -47,6 +47,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from . import config as _config
 from . import observe
 
 __all__ = [
@@ -83,7 +84,8 @@ def _device_sync(leaves: List[torch.Tensor]) -> None:
         dev = x.device
         if dev.type == "cuda" and dev not in seen:
             seen.add(dev)
-            torch.cuda.synchronize(dev)
+            with _config.sync_allowed():
+                torch.cuda.synchronize(dev)
 
 
 def hard_sync(tree) -> None:
@@ -279,8 +281,14 @@ class _SyncSpan:
 @contextlib.contextmanager
 def span_sync(name: str) -> Iterator[_SyncSpan]:
     sp = _SyncSpan()
+    # sanitizer mode (config.sanitize): span bodies are the engine's hot
+    # device regions, so each runs under the sync guard and the NaN trap
+    # (the sanctioned reads lift the guard).  The guard wraps only the
+    # body: the sync at span exit runs outside it.
+    guard = _config.sanitize_guard() or contextlib.nullcontext()
     if not _enabled:
-        yield sp
+        with guard:
+            yield sp
         return
     st = _span_state()
     depth = st.depth
@@ -289,7 +297,7 @@ def span_sync(name: str) -> Iterator[_SyncSpan]:
     try:
         # the span's range in a torch.profiler trace, so the device time
         # of the kernels it launched reads under the span's name
-        with torch.profiler.record_function(name):
+        with guard, torch.profiler.record_function(name):
             yield sp
     finally:
         if sp._target is not None:

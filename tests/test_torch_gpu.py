@@ -5,7 +5,8 @@ scalar aggregate and the TPC-H generator on CUDA tensors against the same
 calls on the CPU, every TPC-H query through the planner against its eager
 run on the card, the kernel wrapper's meta arm, and the abstract plan
 check and ``run_pipeline`` on two TPC-H queries, the mesh probe through
-``LocalCommunicator`` and NCCL, and the join under the measured ranking.
+``LocalCommunicator`` and NCCL, the join under the measured ranking, and
+sanitizer mode (the sync guard, the NaN trap, the join under sanitize).
 Every test here needs a CUDA device (``gpu`` marker) and skips itself
 without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
@@ -1473,3 +1474,132 @@ def test_measured_join_equals_proxy_join_on_card(card):
         trace.disable_counters()
         trace.reset()
         meshprobe.clear_profiles()
+
+
+@pytest.mark.gpu
+def test_sanitize_guard_bites_on_card(card):
+    """Under ``config.sanitize()`` a ``.item()`` inside a span raises on
+    the card (not without sanitize), the sanctioned reads pass, and the
+    sync debug mode is back to its prior value after the scope."""
+    from cylon_tpu_torch.ops.compact import read_host
+    x = torch.arange(1024, device=card)
+    prior = torch.cuda.get_sync_debug_mode()
+    with trace.span("gpu.sanitize.plain"):
+        assert x[3].item() == 3
+    with tconfig.sanitize():
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            with trace.span("gpu.sanitize.item"):
+                x[3].item()
+        assert torch.cuda.get_sync_debug_mode() == prior
+        with trace.span_sync("gpu.sanitize.read") as sp:
+            y = x * 2
+            sp.sync(y)
+            assert list(read_host(y[:3])) == [0, 2, 4]
+    assert torch.cuda.get_sync_debug_mode() == prior
+
+
+@pytest.mark.gpu
+def test_sanitize_nan_trap_on_card(card):
+    """The NaN trap names the producing op on the card; a NaN that a
+    later op masks away inside the span does not trip it."""
+    with tconfig.sanitize():
+        with pytest.raises(FloatingPointError, match=r"aten\.log"):
+            with trace.span("gpu.sanitize.nan"):
+                y = torch.log(torch.full((16,), -1.0, device=card))
+        a = torch.rand(1 << 16, device=card)
+        b = torch.where(torch.arange(1 << 16, device=card) % 2 == 0, 0.0, a)
+        with trace.span("gpu.sanitize.masked"):
+            out = torch.where(b != 0, a / b, 0.0)
+    assert not torch.isnan(out).any()
+    del y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["hash", "sort"])
+def test_join_under_sanitize_equals_join_on_card(card, alg):
+    """The world-4 join on the card under ``config.sanitize()`` (the
+    guard and the NaN trap over every span body) equals the join without
+    it, shard for shard."""
+    rng = np.random.default_rng(71)
+    n = 1 << 18
+    ctx = pt.CylonContext(device="cuda", world=4)
+    lt = DTable.from_table(ctx, pt.Table.from_columns(ctx, {
+        "k": rng.integers(0, n, n).astype(np.int32),
+        "v": rng.random(n).astype(np.float32)}))
+    rt = DTable.from_table(ctx, pt.Table.from_columns(ctx, {
+        "k": rng.integers(0, n, n).astype(np.int32),
+        "w": rng.random(n).astype(np.float32)}))
+    cfg = pt.JoinConfig(pt.JoinType.INNER, pt.JoinAlgorithm(alg), 0, 0,
+                        broadcast_threshold=0)
+    want = port_rows(dist_join(lt, rt, cfg), ordered=True)
+    with tconfig.sanitize():
+        got = dist_join(lt, rt, cfg)
+    assert port_rows(got, ordered=True) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbins", [2, 20, 5000])
+def test_bincount_forms_on_card(card, nbins):
+    """``ops/compact.bincount`` on the card, one case per form it picks by
+    the bin count (masked sums, float32 histc, scatter-add): equal to
+    ``torch.bincount`` for int32 and int64 lanes, flat and per shard,
+    and no host read (it runs inside a sanitized span)."""
+    from cylon_tpu_torch.ops.compact import bincount
+    gen = torch.Generator(device=card)
+    gen.manual_seed(nbins)
+    for dtype in (torch.int32, torch.int64):
+        x = torch.randint(0, nbins + 1, (1 << 20,), generator=gen,
+                          device=card, dtype=dtype)
+        for lane in (x, x.view(8, -1)):
+            with tconfig.sanitize():
+                with trace.span("gpu.bincount"):
+                    got = bincount(lane, nbins)
+            want = torch.stack([torch.bincount(r.long(),
+                                               minlength=nbins + 1)[:nbins]
+                                for r in lane.reshape(-1, lane.shape[-1])])
+            assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.gpu
+def test_served_window_under_sanitize_on_card(card):
+    """A served window under ``config.sanitize()``.  The guard is one
+    setting of the process: while a span body on another thread is
+    guarded, a ``.item()`` on the client's own thread raises too, and it
+    passes once no body is guarded.  ``sanitize()`` warned once that
+    worker threads run; the served rows equal the direct run's."""
+    import threading
+
+    from cylon_tpu_torch import logging as glog
+    from cylon_tpu_torch.serve import ServeSession
+    ctx, dt = _serve_fact(card)
+    want = _sorted_rows(_serve_q({"fact": dt}).to_table())
+    x = torch.arange(8, device=card)
+    prior = torch.cuda.get_sync_debug_mode()
+    key = ("config.sanitize", "worker threads")
+    glog.reset_warn_once(key)
+    inside, release = threading.Event(), threading.Event()
+
+    def hold():
+        with trace.span("gpu.sanitize.hold"):
+            inside.set()
+            release.wait(60)
+
+    with ServeSession(ctx, tables={"fact": dt}, batch_window_ms=2.0,
+                      views=False) as s:
+        with tconfig.sanitize():
+            assert not glog.warn_once(key, "already warned by sanitize()")
+            got = s.submit(_serve_q, export=lambda r: r.to_table(),
+                           label="client").result(timeout=300)
+            th = threading.Thread(target=hold)
+            th.start()
+            assert inside.wait(60)
+            try:
+                with pytest.raises(RuntimeError, match="synchroniz"):
+                    x[3].item()
+            finally:
+                release.set()
+                th.join()
+    glog.reset_warn_once(key)
+    assert torch.cuda.get_sync_debug_mode() == prior
+    assert x[3].item() == 3
+    assert_rows_close(_sorted_rows(got), want, [0, 1e-12, 0])

@@ -54,7 +54,9 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.parallel.meshprobe, "
         "cylon_tpu_torch.analysis.calibrate, "
         "cylon_tpu_torch.analysis.queryprof, "
-        "cylon_tpu_torch.analysis.parity\n"
+        "cylon_tpu_torch.analysis.parity, "
+        "cylon_tpu_torch.analysis.graftlint, "
+        "cylon_tpu_torch.analysis.lockcheck\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
