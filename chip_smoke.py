@@ -170,7 +170,15 @@ set to the ample run's through ``analysis.parity``.  Sanitizer mode
 (``config.sanitize()``: the sync guard and NaN trap of every span body,
 the host-cache content check at export): after the recovery phases the
 22 queries at ``--tpch-sf`` run plain and sanitized (equal, in order;
-seconds both ways); at the end ``analysis.graftlint`` and
+seconds both ways); near the end the one-command gate,
+``analysis.ci.main(["--device", "cuda", "--world", "8"])`` in this
+process at its default SF 0.002 (one ``[ci stage N ...]`` line each:
+exit code, seconds, partition-kernel launches; every stage exits 0 and
+none of stages 1-13 skips), then its stage 14, ``benchdiff``, on two
+artifacts in ``bench.py``'s line format under ``build/`` filled with
+this run's TPC-H seconds, wire bytes and host reads (self against self
+exits 0; with the slowest query's ``tpch_<q>_ms`` doubled it exits 1
+and names that key); then ``analysis.graftlint`` and
 ``analysis.lockcheck`` lint the package and this script (both exit 0),
 the guard is held on ``cuda:0`` (``.item()`` in a span raises, the debug
 mode is restored, ``log(-1)`` trips the NaN trap and a masked quotient
@@ -183,8 +191,8 @@ fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
 on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
-strkey, wide-key, serving, pipeline, multi-process and measured-ranking
-paths), its time, its plain version's time and its
+strkey, wide-key, serving, pipeline, multi-process, measured-ranking
+and CI-gate paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -1191,14 +1199,16 @@ def phase_tpch_queries(ctx, tables, sf: float, profile: bool):
     mean; ``--profile`` adds device-time tables of the two slowest."""
     from cylon_tpu_torch.tpch import QUERIES
 
-    results, times, launches, wire = {}, {}, {}, {}
+    results, times, launches, wire, reads = {}, {}, {}, {}, {}
     for q in QUERIES:
         out, secs, peak, n_launch, taken, cnt = run_query(q, ctx, tables)
         results[q], times[q], launches[q] = out, secs, n_launch
         wire[q] = wire_bytes(cnt)
+        reads[q] = cnt.get("host.read", 0)
         say(f"tpch {q} sf={sf} world={WORLD}", seconds=f"{secs:.6f}",
             rows=out.num_rows, peak_gib=f"{peak:.2f}",
             kernel_launches=n_launch, wire_bytes=wire[q],
+            host_reads=reads[q],
             decisions=",".join(f"{k}:{v}" for k, v in sorted(taken.items()))
             or "none")
         if sf >= 1:  # below SF 1 Q11's HAVING fraction can select none
@@ -1212,7 +1222,7 @@ def phase_tpch_queries(ctx, tables, sf: float, profile: bool):
         for q in sorted(times, key=times.get)[-2:]:
             profile_call(f"tpch {q} sf={sf} world={WORLD}",
                          lambda: QUERIES[q](ctx, tables))
-    return results, times, launches, wire
+    return results, times, launches, wire, reads
 
 
 def same_ordered(label: str, a, b) -> None:
@@ -5621,6 +5631,114 @@ def phase_meshprobe_audit(tctx, tables, sf: float, ldata, rdata, want,
 
 
 # ---------------------------------------------------------------------------
+# the one-command gate: analysis/ci.py and analysis/benchdiff.py
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """A text stream that writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def bench_line(times, wire, reads, join_rows_per_s: float) -> dict:
+    """``bench.py``'s artifact line, filled with this run's numbers: the
+    HASH join cell's rows per second as the headline, and per TPC-H query
+    its eager seconds (as ms), wire bytes and host reads."""
+    detail = {}
+    for q in times:
+        detail[f"tpch_{q}_ms"] = times[q] * 1e3
+        detail[f"tpch_{q}_bytes_moved"] = wire[q]
+        detail[f"tpch_{q}_host_reads"] = reads[q]
+    return {"metric": "dist_join_rows_per_sec", "value": join_rows_per_s,
+            "unit": "rows/s", "detail": detail}
+
+
+def phase_ci(times, wire, reads, join_rows_per_s: float, smi_line: str):
+    """``analysis.ci.main`` in this process at the tool's own defaults
+    (world 8, SF 0.002) on the card: one line per stage (exit code,
+    seconds, partition-kernel launches); every stage exits 0 and none of
+    stages 1-13 skips.  Then stage 14 on two artifacts in ``bench.py``'s
+    line format under ``build/``, filled with this run's TPC-H seconds,
+    wire bytes and host reads: self against self gives 0, and with one
+    query's ``tpch_<q>_ms`` doubled gives 1, naming that key."""
+    import contextlib
+    from pathlib import Path
+
+    from cylon_tpu_torch.analysis import ci
+
+    stages, per_stage = [], {}
+    tee = _Tee(sys.stdout)
+    mark = [0, (0, 0)]   # text offset and launches at the last stage end
+
+    def on_stage(number, name, rc, secs):
+        text = tee.text()
+        launched = read_launches()
+        stages.append((number, name, rc, secs, text[mark[0]:],
+                       launched[0] - mark[1][0], launched[1] - mark[1][1]))
+        mark[0], mark[1] = len(text), launched
+
+    t0 = time.perf_counter()
+    reset_launches()
+    with contextlib.redirect_stdout(tee):
+        rc = ci.main(["--device", "cuda", "--world", "8"], on_stage=on_stage)
+    secs = time.perf_counter() - t0
+    for number, name, src, ssecs, text, n, n_chained in stages:
+        say(f"ci stage {number}", name=repr(name), exit_code=src,
+            seconds=f"{ssecs:.3f}", kernel_launches=n,
+            chained_launches=n_chained,
+            skipped="skipped" in text)
+        per_stage[str(number)] = {"launches": n, "chained": n_chained}
+    check([s[0] for s in stages] == list(range(1, 14)),
+          f"ci: stages 1-13 ran ({[s[0] for s in stages]})")
+    check(all(s[2] == 0 for s in stages),
+          f"ci: every stage exits 0 ({[(s[0], s[2]) for s in stages]})")
+    check(not any("skipped" in s[4] for s in stages),
+          "ci: no stage of 1-13 skipped")
+    check(rc == 0, f"ci: main exits 0 (got {rc})")
+    check(sum(v["launches"] for v in per_stage.values()) > 0,
+          "ci: the partition kernel ran in the gate's stages")
+    say("ci", stages=len(stages), exit_code=rc, wall_seconds=f"{secs:.3f}",
+        kernel_launches=sum(v["launches"] for v in per_stage.values()),
+        card=repr(smi_line))
+
+    # stage 14: the regression gate on this run's own numbers
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    line = bench_line(times, wire, reads, join_rows_per_s)
+    slow_q = max(times, key=times.get)
+    worse = json.loads(json.dumps(line))
+    worse["detail"][f"tpch_{slow_q}_ms"] *= 2
+    base_path, worse_path = (out / "chip_smoke_bench_base.json",
+                             out / "chip_smoke_bench_worse.json")
+    base_path.write_text(json.dumps(line) + "\n")
+    worse_path.write_text(json.dumps(worse) + "\n")
+    for label, cand, want in (("self", base_path, 0),
+                              ("doubled", worse_path, 1)):
+        gate = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(gate):
+            got = ci._stage_benchdiff(str(base_path), str(cand), 0.15)
+        flagged = [ln.split()[0] for ln in gate.text().splitlines()
+                   if ln.rstrip().endswith("REGRESSED")]
+        say(f"ci benchdiff {label}", exit_code=got, keys=len(line["detail"]),
+            regressed=",".join(flagged) or "none")
+        check(got == want, f"ci benchdiff {label}: exit {want} (got {got})")
+        check(flagged == ([] if want == 0 else [f"tpch_{slow_q}_ms"]),
+              f"ci benchdiff {label}: the regressed keys ({flagged})")
+    return per_stage
+
+
+# ---------------------------------------------------------------------------
 # the static gates and sanitizer mode
 # ---------------------------------------------------------------------------
 
@@ -6099,7 +6217,7 @@ def main() -> int:
     del wtables
     broadcast.clear_replica_cache()
     tctx, tables, _ = phase_tpch_generate(args.tpch_sf, args.seed)
-    results, times, launches_tpch, wire = phase_tpch_queries(
+    results, times, launches_tpch, wire, reads = phase_tpch_queries(
         tctx, tables, args.tpch_sf, args.profile)
     launches_planner = phase_tpch_planner(tctx, tables, args.tpch_sf,
                                           results, times, wire)
@@ -6180,6 +6298,9 @@ def main() -> int:
           and launches_nparts3["tpch_q21_lost"] > 0,
           "the partition kernel ran on every recovery path that hashes, at "
           "nparts 3 after the join cell's and Q21's losses")
+    # the one-command gate: all 14 stages of analysis/ci.py on the card
+    launches_ci = phase_ci(times, wire, reads,
+                           2 * args.rows / inner_times["join_s"], smi_line)
     # the static gates and sanitizer mode: the two linters, the guard and
     # the NaN trap on cuda:0, then the join cell under sanitize
     phase_lint()
@@ -6255,6 +6376,7 @@ def main() -> int:
         "launches_measured_hier": launches_measured_hier,
         "launches_sanitized": dict(launches_sanitized,
                                    tpch=launches_sanitized_tpch),
+        "launches_ci": {k: v["launches"] for k, v in launches_ci.items()},
         "multiprocess_two_processes_one_card": mp_two,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,
@@ -6280,6 +6402,7 @@ def main() -> int:
         "launches": sum(launches_wide.values()),
         "launches_wide_setop": launches_wide,
         "launches_sanitized": chained_sanitized,
+        "launches_ci": {k: v["chained"] for k, v in launches_ci.items()},
         "widths": {str(w): v for w, v in wide.items()},
         "max_abs_err": max(v["max_abs_err"] for v in wide.values()),
         "ms": wide[WIDE_SETOP_WIDTH]["ms"],

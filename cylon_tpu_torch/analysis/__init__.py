@@ -10,6 +10,13 @@
     two run-stats snapshots.  CLI:
     ``python -m cylon_tpu_torch.analysis.queryprof OLD.json NEW.json``.
   * ``parity`` — the row-set comparison of the out-of-core gates.
+  * ``benchdiff`` — the BENCH-artifact regression gate (the JAX bench's
+    key names and thresholds).  CLI:
+    ``python -m cylon_tpu_torch.analysis.benchdiff OLD.json NEW.json``.
+  * ``ci`` — the one-command gate: graftlint, the plan-check pre-flight
+    of the 22 TPC-H queries, eleven end-to-end smoke stages and
+    benchdiff, one 0/1/2 exit.  CLI: ``python -m
+    cylon_tpu_torch.analysis.ci`` (on the card; ``--device cpu`` here).
   * ``graftlint`` — AST linter for the hazard classes torch cannot
     type-check: hidden host syncs, unkeyed kernel builds, builds in
     loops, names missing from the metric / fault-point / LOWERING
@@ -34,12 +41,13 @@ from __future__ import annotations
 from ._abstract import PlanExportReached, any_abstract, is_abstract
 
 __all__ = ["plan_check", "calibrate", "queryprof", "parity", "graftlint",
-           "lockcheck", "is_abstract", "any_abstract", "PlanExportReached"]
+           "lockcheck", "benchdiff", "is_abstract", "any_abstract",
+           "PlanExportReached"]
 
 
 def __getattr__(name):
     if name in ("plan_check", "calibrate", "queryprof", "parity",
-                "graftlint", "lockcheck"):
+                "graftlint", "lockcheck", "benchdiff"):
         import importlib
 
         return importlib.import_module(f".{name}", __name__)

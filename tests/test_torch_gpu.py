@@ -6,7 +6,9 @@ calls on the CPU, every TPC-H query through the planner against its eager
 run on the card, the kernel wrapper's meta arm, and the abstract plan
 check and ``run_pipeline`` on two TPC-H queries, the mesh probe through
 ``LocalCommunicator`` and NCCL, the join under the measured ranking, and
-sanitizer mode (the sync guard, the NaN trap, the join under sanitize).
+sanitizer mode (the sync guard, the NaN trap, the join under sanitize),
+and the one-command gate (``analysis/ci.py`` at its defaults, the
+``benchdiff`` CLI).
 Every test here needs a CUDA device (``gpu`` marker) and skips itself
 without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
@@ -1603,3 +1605,56 @@ def test_served_window_under_sanitize_on_card(card):
     assert torch.cuda.get_sync_debug_mode() == prior
     assert x[3].item() == 3
     assert_rows_close(_sorted_rows(got), want, [0, 1e-12, 0])
+
+
+# ---------------------------------------------------------------------------
+# the one-command gate (analysis/ci.py, analysis/benchdiff.py) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_ci_every_stage_on_card(card, capsys):
+    """``ci.main`` on the card at its defaults (world 8, SF 0.002): it
+    exits 0, stages 1-13 run and none of them skips; stage 14 skips for
+    want of ``--baseline``."""
+    from cylon_tpu_torch.analysis import ci
+    seen = []
+    assert ci.main(["--device", "cuda"],
+                   on_stage=lambda *r: seen.append(r)) == 0
+    assert [(n, rc) for n, _, rc, _ in seen] == \
+        [(n, 0) for n in range(1, 14)]
+    out = capsys.readouterr()
+    skips = [ln for ln in out.out.splitlines() if "skipped" in ln]
+    assert skips == ["== ci stage 14/14: benchdiff == "
+                     "(no --baseline; skipped)"], out.out
+    assert "ci: CLEAN" in out.out
+
+
+@pytest.mark.gpu
+def test_benchdiff_cli_on_card(card, tmp_path):
+    """``python -m cylon_tpu_torch.analysis.benchdiff`` in a subprocess:
+    0 on self against self, 1 naming the regressed key, 2 on usage."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    def art(name, ms):
+        p = tmp_path / name
+        p.write_text(json.dumps({"metric": "dist_join_rows_per_sec",
+                                 "value": 5e7,
+                                 "detail": {"tpch_q5_ms": ms}}) + "\n")
+        return str(p)
+
+    old, new = art("old.json", 100.0), art("new.json", 250.0)
+    root = Path(__file__).resolve().parent.parent
+
+    def run(*argv):
+        return subprocess.run(
+            [sys.executable, "-m", "cylon_tpu_torch.analysis.benchdiff",
+             *argv], cwd=root, capture_output=True, text=True, timeout=120)
+
+    assert run(old, old).returncode == 0
+    bad = run("--baseline", old, new)
+    assert bad.returncode == 1
+    assert "tpch_q5_ms" in bad.stdout and "REGRESSED" in bad.stdout
+    assert run(old).returncode == 2

@@ -56,7 +56,8 @@ def test_import_loads_no_jax_or_reference_package():
         "cylon_tpu_torch.analysis.queryprof, "
         "cylon_tpu_torch.analysis.parity, "
         "cylon_tpu_torch.analysis.graftlint, "
-        "cylon_tpu_torch.analysis.lockcheck\n"
+        "cylon_tpu_torch.analysis.lockcheck, "
+        "cylon_tpu_torch.analysis.benchdiff, cylon_tpu_torch.analysis.ci\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
