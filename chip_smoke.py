@@ -12,10 +12,22 @@ DTable → dist_join → to_table) at world 1 and world 4 on the card, with
 it then runs the SORT join (the default ``JoinConfig``) at world 4,
 ``dist_sort`` / ``dist_sort_multi`` / ``dist_head``, and the distributed
 union / intersect / subtract, each against an oracle that does not use
-the engine.  Then, on a table in the shape of TPC-H ``lineitem`` (as many
-rows, ``orderkey`` uniform in [0, n/4), 10% null prices), it runs
-``dist_groupby`` by ``orderkey`` three ways (pre-aggregated with the
-shuffle combine, the raw-row shuffle, the dense-key path), the Q1 shape
+the engine.  The compat route follows on the same data: the port's
+pycylon (``cylon_tpu_torch.pycylon``, ``CylonContext("mpi", world=4)``,
+both sides through ``Table.from_arrow``) runs ``distributed_join(ctx,
+right, "inner", "hash", 0, 0)`` against the HASH join's oracle (2
+partition-kernel launches) and ``distributed_union`` / ``_intersect`` /
+``_subtract`` against the set-op phase (rows and v0 bit checksums, 2
+launches each), a ``Communication`` round trip at world 4 checks every
+received buffer, the launcher the Java binding spawns
+(``cylon_tpu_torch/pycylon/java_launcher.py -m pycylon.java_gateway
+mpi``) answers every gateway op on a seeded CSV pair exactly as the same
+gateway in this process does, and the example programs of
+``cylon_tpu_torch/examples`` run on the card, each exiting 0.  Then, on a
+table in the shape of TPC-H ``lineitem`` (as many rows, ``orderkey``
+uniform in [0, n/4), 10% null prices), it runs ``dist_groupby`` by
+``orderkey`` three ways (pre-aggregated with the shuffle combine, the
+raw-row shuffle, the dense-key path), the Q1 shape
 (``dist_with_column`` + a six-group ``dist_groupby`` with ``where``, the
 broadcast combine) and the Q6 shape (``dist_aggregate`` with ``where``,
 ``dist_select`` compacting and deferred, then ``dist_groupby``), each
@@ -190,9 +202,9 @@ HASH join).  Every check that
 fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches on the main path (and
-on the groupby, TPC-H, redistribution, spill, recovery, ingest, append,
-strkey, wide-key, serving, pipeline, multi-process, measured-ranking
-and CI-gate paths), its time, its plain version's time and its
+on the compat, groupby, TPC-H, redistribution, spill, recovery, ingest,
+append, strkey, wide-key, serving, pipeline, multi-process,
+measured-ranking and CI-gate paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -206,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -746,6 +759,24 @@ def distinct_rows(words: torch.Tensor) -> int:
     return int(1 + (w[1:] != w[:-1]).any(1).sum())
 
 
+def set_op_inputs(ldata, seed: int):
+    """B = A's first n/2 rows then n/2 fresh rows, and each set op's
+    (rows, v0 bit checksum) for A op B, with every row distinct (checked
+    on the card, independently of the engine)."""
+    n = len(ldata["k"])
+    half = n // 2
+    fresh, _ = make_side(np.random.default_rng(seed + 3), n - half)
+    bdata = {c: np.concatenate([ldata[c][:half], fresh[c]]) for c in ldata}
+    check(distinct_rows(torch.cat([row_words(ldata), row_words(fresh)]))
+          == n + len(fresh["k"]), "set-op inputs: every row distinct")
+    v0 = torch.from_numpy(ldata["v0"])
+    want = {"union": (n + len(fresh["k"]),
+                      bits_sum(v0) + bits_sum(torch.from_numpy(fresh["v0"]))),
+            "intersect": (half, bits_sum(v0[:half])),
+            "subtract": (n - half, bits_sum(v0[half:]))}
+    return bdata, want
+
+
 def phase_set_ops(ldata, seed: int, profile: bool):
     """A = one main-path side; B = A's first n/2 rows then n/2 fresh rows.
     With every row distinct (checked on the card, independently of the
@@ -759,20 +790,11 @@ def phase_set_ops(ldata, seed: int, profile: bool):
                                           dist_subtract, dist_union)
 
     n = len(ldata["k"])
-    half = n // 2
-    fresh, _ = make_side(np.random.default_rng(seed + 3), n - half)
-    bdata = {c: np.concatenate([ldata[c][:half], fresh[c]]) for c in ldata}
-    check(distinct_rows(torch.cat([row_words(ldata), row_words(fresh)]))
-          == n + len(fresh["k"]), "set-op inputs: every row distinct")
-    v0 = torch.from_numpy(ldata["v0"])
-    want = {"union": (n + len(fresh["k"]),
-                      bits_sum(v0) + bits_sum(torch.from_numpy(fresh["v0"]))),
-            "intersect": (half, bits_sum(v0[:half])),
-            "subtract": (n - half, bits_sum(v0[half:]))}
+    bdata, want = set_op_inputs(ldata, seed)
     ctx = CylonContext(device=DEVICE, world=WORLD)
     a = DTable.from_table(ctx, to_table(ctx, ldata, None))
     b = DTable.from_table(ctx, to_table(ctx, bdata, None))
-    launches, times = {}, {}
+    launches, times, rows_out = {}, {}, {}
     for name, op in (("union", dist_union), ("intersect", dist_intersect),
                      ("subtract", dist_subtract)):
         hash_cuda.launches = 0
@@ -781,6 +803,7 @@ def phase_set_ops(ldata, seed: int, profile: bool):
         times[name] = secs
         rows, bits = want[name]
         local = out.to_table()
+        rows_out[name] = local.num_rows
         say(f"dist_{name} world={WORLD}", rows_a=n, rows_b=len(bdata["k"]),
             rows_out=local.num_rows, oracle_rows=rows, seconds=f"{secs:.6f}",
             kernel_launches=launches[name],
@@ -800,7 +823,435 @@ def phase_set_ops(ldata, seed: int, profile: bool):
                   f"dist_{name}: shard {s} holds only its rows")
     if profile:
         profile_call(f"dist_union world={WORLD}", lambda: dist_union(a, b))
-    return launches, times
+    return launches, times, rows_out
+
+
+# ---------------------------------------------------------------------------
+# phase: the compat route (pycylon, its raw AllToAll, the Java gateway
+# through its launcher, the example programs)
+# ---------------------------------------------------------------------------
+
+# the example programs and their inputs: A and B are two generated CSVs
+# of the examples' own shape, H is A's first half (so every set op has
+# rows to keep and to drop)
+COMPAT_EXAMPLES = (("join_example.py", "A", "B"),
+                   ("set_op_examples.py", "union", "A", "H"),
+                   ("set_op_examples.py", "intersect", "A", "H"),
+                   ("set_op_examples.py", "subtract", "A", "H"),
+                   ("select_project_example.py", "A", "B"),
+                   ("groupby_sort_example.py", "A", "B"),
+                   ("tpch_example.py",),
+                   ("cylon_simple_dataloader.py",),
+                   ("cylon_mnist_example.py",),
+                   ("strings_hash64_example.py",))
+
+
+def example_inputs(out_dir, seed: int):
+    """The examples' CSVs A, B, H (5,000 rows: an int key with ~1%
+    duplicates and three value columns, as ``example_utils.generate_csv``
+    writes them) and the row counts the examples must log, from pandas."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed + 8)
+    frames = {}
+    for name in ("A", "B"):
+        frames[name] = pd.DataFrame(
+            {"0": rng.integers(0, 4950, 5000),
+             **{str(c): np.round(rng.random(5000), 6) for c in (1, 2, 3)}})
+    frames["H"] = frames["A"].iloc[:2500]
+    paths = {}
+    for name, df in frames.items():
+        paths[name] = str(out_dir / f"example_{name}.csv")
+        df.to_csv(paths[name], index=False)
+    a, b, h = (pd.read_csv(paths[n], float_precision="round_trip")
+               for n in ("A", "B", "H"))
+    da, dh = (set(df.itertuples(index=False, name=None)) for df in (a, h))
+    want = {("join_example.py",): (r"Joined has: (\d+) rows",
+                                   [len(a.merge(b, on="0"))]),
+            ("select_project_example.py",): (
+                r"Select kept (\d+) of (\d+) rows",
+                [int((a["0"] % 2 == 0).sum()), len(a)]),
+            ("groupby_sort_example.py",): (
+                r"groupby: (\d+) rows -> (\d+) groups",
+                [len(a), a["0"].nunique()])}
+    for op, rows in (("union", da | dh), ("intersect", da & dh),
+                     ("subtract", da - dh)):
+        want[("set_op_examples.py", op)] = (
+            rf"{op} of (\d+) and (\d+) rows -> (\d+) rows",
+            [len(a), len(h), len(rows)])
+    return paths, want
+
+
+def compat_tables(ctx, ldata, rdata):
+    """Both sides through the port's pycylon: numpy → pyarrow →
+    ``Table.from_arrow(…, ctx)``."""
+    import pyarrow as pa
+
+    from cylon_tpu_torch.pycylon import Table
+    return tuple(Table.from_arrow(pa.table(d), ctx) for d in (ldata, rdata))
+
+
+def comm_round_trip(ctx, seed: int):
+    """One ``Communication`` per worker of ``ctx``'s world, each inserting
+    seeded buffers (five dtypes, 0-64 KiB, headers of 0-6 ints) for every
+    target; every rank's ``received`` list must be what was sent to it,
+    in order.  Returns (exchanges, bytes sent, seconds)."""
+    from cylon_tpu_torch.pycylon.net import Communication
+
+    P = ctx.get_world_size()
+    rng = np.random.default_rng(seed + 6)
+    dtypes = (np.float64, np.float32, np.int64, np.int32, np.uint8)
+    nbytes, t0 = 0, time.perf_counter()
+    for worker in range(P):
+        comm = Communication(worker, range(P), range(P), worker, ctx=ctx)
+        sent = {t: [] for t in range(P)}
+        for i in range(3 * P):
+            dt, target = dtypes[i % len(dtypes)], i % P
+            buf = (rng.random(int(rng.integers(0, 65536 // 8)))
+                   * 1e6).astype(dt)
+            hdr = rng.integers(-99, 99, int(rng.integers(0, 7))).astype(
+                np.int32)
+            check(comm.insert(buf, len(buf), target, hdr, len(hdr)),
+                  f"compat comm: insert {i} of worker {worker}")
+            sent[target].append((buf, hdr))
+            nbytes += buf.nbytes + hdr.nbytes
+        comm.wait()
+        comm.finish()
+        for target in range(P):
+            got = comm.received(target)
+            check(len(got) == len(sent[target]),
+                  f"compat comm: worker {worker} → {target} buffer count")
+            for (src, buf, hdr), (want_buf, want_hdr) in zip(
+                    got, sent[target]):
+                check(src == worker and buf.dtype == want_buf.dtype
+                      and np.array_equal(buf, want_buf)
+                      and np.array_equal(hdr if hdr is not None else
+                                         np.empty(0, np.int32), want_hdr),
+                      f"compat comm: worker {worker} → {target} bytes")
+    return P, nbytes, time.perf_counter() - t0
+
+
+class LineGateway:
+    """The launcher as Java runs it: ``<launcher> -m pycylon.java_gateway
+    mpi``, one JSON request a line on its stdin, one reply a line back."""
+
+    def __init__(self, launcher, cwd):
+        self.proc = subprocess.Popen(
+            [str(launcher), "-m", "pycylon.java_gateway", "mpi"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=cwd)
+
+    def __call__(self, req):
+        self.proc.stdin.write(json.dumps(req) + "\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        check(bool(line), f"compat gateway: a reply to {req.get('op')}")
+        return json.loads(line)
+
+    def close(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        return self.proc.wait(timeout=60)
+
+
+def in_process_gateway():
+    """The same gateway in this process (``serve``'s error wrapping)."""
+    from cylon_tpu_torch.pycylon.java_gateway import Gateway
+
+    gw = Gateway("mpi")
+
+    def call(req):
+        try:
+            return json.loads(json.dumps(gw.handle(req)))
+        except Exception as e:  # graftlint: ok[broad-except]
+            return {"ok": False, "error": f"{type(e).__name__}: {e}"}
+    return call
+
+
+def gateway_transcript(call, paths, out_csv: str):
+    """Every op of the gateway protocol on the CSV pair: the replies with
+    table ids masked, and each table a reply names read back through
+    ``column_json`` (rows sorted)."""
+    steps, ids = [], {}
+
+    def rows(tid):
+        n = call({"op": "columns", "id": tid})["value"]
+        cols = [call({"op": "column_json", "id": tid, "column": c})["value"]
+                for c in range(n)]
+        return sorted(zip(*cols), key=repr)
+
+    def run(name, req):
+        req = {k: ids.get(v, v) if k in ("id", "left", "right") else
+               [ids.get(i, i) for i in v] if k == "ids" else v
+               for k, v in req.items()}
+        reply = call(req)
+        masked = dict(reply)
+        if "id" in reply:
+            ids[name] = reply["id"]
+            masked["id"] = "<id>"
+            masked["rows"] = rows(reply["id"])
+        if "ids" in reply:
+            for i, tid in enumerate(reply["ids"]):
+                ids[f"{name}.{i}"] = tid
+            masked["ids"] = [rows(t) for t in reply["ids"]]
+        if "error" in reply:
+            for tid in ids.values():
+                masked["error"] = masked["error"].replace(tid, "<id>")
+        steps.append((name, req["op"], masked))
+        return reply
+
+    run("ping", {"op": "ping"})
+    run("l", {"op": "from_csv", "path": paths[0]})
+    run("r", {"op": "from_csv", "path": paths[1]})
+    for op in ("rows", "columns", "column_names", "show"):
+        run(op, {"op": op, "id": "l"})
+    for dist in (False, True):
+        tag = "dist " if dist else ""
+        run(f"{tag}join", {"op": "join", "left": "l", "right": "r",
+                           "join_type": "inner", "algorithm": "hash",
+                           "distributed": dist})
+        for op in ("union", "intersect", "subtract"):
+            run(f"{tag}{op}", {"op": op, "left": "l", "right": "r",
+                               "distributed": dist})
+    run("sort", {"op": "sort", "id": "l", "column": 0})
+    run("to_csv", {"op": "to_csv", "id": "sort", "path": out_csv})
+    vals = run("k", {"op": "column_json", "id": "l", "column": 0})["value"]
+    run("mask", {"op": "select_mask", "id": "l",
+                 "mask": [v % 3 == 0 for v in vals]})
+    run("expr", {"op": "select_expr", "id": "l", "expr": "k > 500"})
+    run("jnp", {"op": "select_expr", "id": "l", "expr": "jnp.abs(k) > 5"})
+    run("replaced", {"op": "replace_column", "id": "l", "column": 0,
+                     "values": [v * 2 for v in vals], "name": "k2"})
+    run("cols", {"op": "table_from_columns",
+                 "columns": [{"name": "a", "values": [1, 2, 3]},
+                             {"name": "b", "values": [0.5, 1.5, 2.5]}]})
+    run("hp", {"op": "hash_partition", "id": "l", "columns": [0], "n": 4})
+    run("rr", {"op": "round_robin_partition", "id": "l", "n": 3})
+    run("merged", {"op": "merge", "ids": ["hp.0", "hp.1", "hp.2", "hp.3"]})
+    run("free", {"op": "free", "id": "cols"})
+    run("freed", {"op": "rows", "id": "cols"})
+    run("bogus", {"op": "bogus"})
+    return steps
+
+
+def gateway_csvs(out_dir, seed: int):
+    """The gateway's seeded CSV pair: l (4,000 rows of an int key ``k``
+    and a float ``v``) and r (l's first 1,500 rows and 1,500 new ones),
+    and both read back by pandas."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed + 7)
+
+    def frame(n):
+        return pd.DataFrame({"k": rng.integers(0, 1000, n),
+                             "v": np.round(rng.random(n), 6)})
+    left = frame(4000)
+    right = pd.concat([left.iloc[:1500], frame(1500)], ignore_index=True)
+    paths = [str(out_dir / f"gateway_{i}.csv") for i in (0, 1)]
+    for df, path in zip((left, right), paths):
+        df.to_csv(path, index=False)
+    return paths, [pd.read_csv(p, float_precision="round_trip")
+                   for p in paths]
+
+
+def _tuples(df):
+    """A frame's rows as host tuples, in ``gateway_transcript``'s order."""
+    return sorted(zip(*(df[c].tolist() for c in df.columns)), key=repr)
+
+
+def check_gateway(steps, ldf, rdf, out_csv: str) -> None:
+    """Each reply of ``gateway_transcript`` against pandas on the same
+    CSVs: every step answers ok but the three that must not (an
+    expression naming ``jnp``, a freed id, an unknown op), and every
+    table a step returns holds the rows pandas computes."""
+    import pandas as pd
+
+    must_fail = ("jnp", "freed", "bogus")
+    for name, op, r in steps:
+        check(r.get("ok") is (name not in must_fail),
+              f"compat gateway {name} ({op}): ok={r.get('ok')} "
+              f"{r.get('error', '')}")
+    got = {name: r for name, _, r in steps}
+    lrows = _tuples(ldf)
+    m = ldf.merge(rdf, on="k")
+    want = {"l": lrows, "r": _tuples(rdf), "sort": lrows, "merged": lrows,
+            "join": _tuples(pd.DataFrame({"a": m.k, "b": m.v_x,
+                                          "c": m.k, "d": m.v_y})),
+            "mask": _tuples(ldf[ldf.k % 3 == 0]),
+            "expr": _tuples(ldf[ldf.k > 500]),
+            "replaced": _tuples(ldf.assign(k=ldf.k * 2)),
+            "cols": [(1, 0.5), (2, 1.5), (3, 2.5)]}
+    want["dist join"] = want["join"]
+    dl, dr = set(lrows), set(_tuples(rdf))
+    for op, rows in (("union", dl | dr), ("intersect", dl & dr),
+                     ("subtract", dl - dr)):
+        want[op] = want[f"dist {op}"] = sorted(rows, key=repr)
+    check(all(want[n] for n in ("intersect", "subtract", "mask", "expr")),
+          "compat gateway: every selection and set op has rows to keep")
+    for name, rows in want.items():
+        check(got[name]["rows"] == rows,
+              f"compat gateway {name}: {len(got[name]['rows'])} rows == "
+              f"pandas' {len(rows)}, the same values")
+    check(got["rows"]["value"] == len(ldf) and got["columns"]["value"] == 2
+          and got["column_names"]["value"] == ["k", "v"]
+          and got["k"]["value"] == ldf.k.tolist()
+          and isinstance(got["show"]["value"], str),
+          "compat gateway: rows, columns, column_names, column_json, show")
+    hp, rr = got["hp"]["ids"], got["rr"]["ids"]
+    keys = [{row[0] for row in part} for part in hp]
+    check(len(hp) == 4 and sorted(sum(hp, []), key=repr) == lrows
+          and sum(map(len, keys)) == len(set().union(*keys)),
+          "compat gateway: hash_partition = l in 4 parts, each key in one")
+    check(len(rr) == 3 and sorted(sum(rr, []), key=repr) == lrows
+          and max(map(len, rr)) - min(map(len, rr)) <= 1,
+          "compat gateway: round_robin_partition = l in 3 even parts")
+    written = pd.read_csv(out_csv, float_precision="round_trip")
+    check(written["k"].is_monotonic_increasing
+          and _tuples(written) == lrows,
+          "compat gateway: to_csv wrote l sorted on k")
+
+
+def phase_compat(ldata, rdata, want, setop_rows, seed: int, smi_line: str):
+    """The compat route on the card.  The join cell through the port's
+    pycylon (``Table.from_arrow`` with ``CylonContext("mpi", world=4)``):
+    ``distributed_join(ctx, right, "inner", "hash", 0, 0)`` against the
+    oracle of the HASH join phase (2 partition-kernel launches), then
+    ``distributed_union`` / ``_intersect`` / ``_subtract`` of the set-op
+    phase's inputs (rows and v0 bit checksums = that phase's oracle and
+    its rows, 2 launches each); a ``Communication`` round trip at world 4
+    (every received buffer checked); the launcher spawned with the Java
+    binding's exact argv driving every gateway op on a small seeded CSV
+    pair, each reply ok (but the three that must fail) and its tables
+    equal to pandas on the same CSVs, then equal to the same request's
+    in-process reply; the example programs on the card in parallel, each
+    exiting 0 and the join, set-op, select and groupby ones logging the
+    row counts pandas computes."""
+    from pathlib import Path
+
+    import pandas as pd
+
+    from cylon_tpu_torch.ops import hash_cuda
+    from cylon_tpu_torch.pycylon import CylonContext
+
+    root = Path(__file__).resolve().parent
+    launches = {}
+    ctx = CylonContext("mpi", world=WORLD)
+    check(ctx.get_world_size() == WORLD
+          and ctx.device.type == torch.device(DEVICE).type,
+          "compat: CylonContext('mpi', world=4) on the card")
+    (left, right), secs = wall(lambda: compat_tables(ctx, ldata, rdata))
+    say(f"compat ingest world={WORLD}", rows=left.rows + right.rows,
+        seconds=f"{secs:.6f}")
+    reset_launches()
+    joined, secs = wall(lambda: left.distributed_join(ctx, right, "inner",
+                                                      "hash", 0, 0))
+    launches["distributed_join"] = hash_cuda.launches
+    say(f"compat distributed_join inner hash world={WORLD}",
+        rows_out=joined.rows, oracle_rows=want["inner"],
+        seconds=f"{secs:.6f}",
+        rows_per_s=f"{(left.rows + right.rows) / secs:.0f}",
+        kernel_launches=launches["distributed_join"])
+    check_join("compat distributed_join", joined.backing, want)
+    check(launches["distributed_join"] == 2,
+          f"compat distributed_join: 2 kernel launches (got "
+          f"{launches['distributed_join']})")
+    del joined, left, right
+
+    bdata, setop_want = set_op_inputs(ldata, seed)
+    a, b = compat_tables(ctx, ldata, bdata)
+    for name in ("union", "intersect", "subtract"):
+        reset_launches()
+        out, secs = wall(lambda: getattr(a, f"distributed_{name}")(ctx, b))
+        launches[f"distributed_{name}"] = hash_cuda.launches
+        rows, bits = setop_want[name]
+        say(f"compat distributed_{name} world={WORLD}", rows_out=out.rows,
+            oracle_rows=rows, set_op_phase_rows=setop_rows[name],
+            seconds=f"{secs:.6f}",
+            kernel_launches=launches[f"distributed_{name}"])
+        check(out.rows == rows == setop_rows[name],
+              f"compat distributed_{name}: rows == the set-op phase's")
+        check(bits_sum(out.backing.column("v0").data) == bits,
+              f"compat distributed_{name}: v0 bit checksum exact")
+        check(launches[f"distributed_{name}"] == 2,
+              f"compat distributed_{name}: 2 kernel launches")
+        del out
+    del a, b
+
+    P, nbytes, secs = comm_round_trip(ctx, seed)
+    say(f"compat Communication world={P}", exchanges=P, bytes=nbytes,
+        seconds=f"{secs:.6f}", checked="every received buffer")
+
+    torch.cuda.empty_cache()
+    out_dir = root / "build" / "compat"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # the example programs, all at once, each in its own process
+    ex_paths, ex_want = example_inputs(out_dir, seed)
+    env = dict(os.environ, CYLON_MINLOGLEVEL="0")
+    t_ex = time.perf_counter()
+    examples = [(args, subprocess.Popen(
+        [sys.executable, str(root / "cylon_tpu_torch" / "examples" / args[0]),
+         *(ex_paths.get(a, a) for a in args[1:])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=out_dir, env=env))
+        for args in COMPAT_EXAMPLES]
+
+    # the gateway: a seeded CSV pair, the launcher with Java's argv, each
+    # reply held against pandas, then against the same gateway in this
+    # process
+    paths, (ldf, rdf) = gateway_csvs(out_dir, seed)
+    launcher = root / "cylon_tpu_torch" / "pycylon" / "java_launcher.py"
+    t0 = time.perf_counter()
+    remote = LineGateway(launcher, out_dir)
+    try:
+        got = gateway_transcript(remote, paths, str(out_dir / "sub.csv"))
+        bye = remote({"op": "shutdown"})
+        rc = remote.proc.wait(timeout=120)
+    finally:
+        remote.close()
+    gw_secs = time.perf_counter() - t0
+    check(bye == {"ok": True, "shutdown": True} and rc == 0,
+          f"compat gateway: shutdown exits 0 (got {bye}, {rc})")
+    check_gateway(got, ldf, rdf, str(out_dir / "sub.csv"))
+    reset_launches()
+    local = in_process_gateway()
+    t0 = time.perf_counter()
+    mine = gateway_transcript(local, paths, str(out_dir / "in.csv"))
+    in_secs = time.perf_counter() - t0
+    launches["gateway_in_process"] = hash_cuda.launches
+    check([s[:2] for s in got] == [s[:2] for s in mine],
+          "compat gateway: the same ops")
+    for (name, op, g), (_, _, m) in zip(got, mine):
+        check(g == m, f"compat gateway {name} ({op}): the launcher's reply "
+              f"== the in-process reply")
+    check(pd.read_csv(out_dir / "sub.csv").equals(
+          pd.read_csv(out_dir / "in.csv")),
+          "compat gateway: to_csv wrote the same rows in both")
+    say("compat gateway", launcher=launcher.name, argv="-m "
+        "pycylon.java_gateway mpi", ops=len(got), replies_ok_and_oracle=
+        len(got), replies_equal=len(got), seconds=f"{gw_secs:.6f}",
+        in_process_seconds=f"{in_secs:.6f}",
+        in_process_kernel_launches=launches["gateway_in_process"])
+    check(launches["gateway_in_process"] > 0,
+          "compat gateway: the partition kernel ran (world 8)")
+
+    failed = []
+    for args, proc in examples:
+        out, _ = proc.communicate(timeout=600)
+        pattern, want_counts = ex_want.get(
+            tuple(a for a in args if a not in ex_paths), (None, None))
+        found = re.search(pattern, out) if pattern else None
+        logged = [int(g) for g in found.groups()] if found else None
+        say(f"compat example {' '.join(args)}", exit_code=proc.returncode,
+            logged=logged, pandas=want_counts)
+        if proc.returncode != 0 or logged != want_counts:
+            failed.append((args, out[-3000:]))
+    ex_secs = time.perf_counter() - t_ex
+    for args, out in failed:
+        print(out, flush=True)
+    check(not failed, f"compat examples: every one exits 0 and logs the "
+          f"counts pandas computes (failed: {[a for a, _ in failed]})")
+    say("compat examples", runs=len(COMPAT_EXAMPLES), seconds=f"{ex_secs:.3f}",
+        card=repr(smi_line))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6166,7 +6617,12 @@ def main() -> int:
     phase_outer(args.seed)
     phase_hash_partition(ldata)
     phase_dist_sort(ldata, args.seed, args.profile)
-    launches_setop, _ = phase_set_ops(ldata, args.seed, args.profile)
+    launches_setop, _, setop_rows = phase_set_ops(ldata, args.seed,
+                                                  args.profile)
+    # the compat route: pycylon's API, its raw AllToAll, the Java gateway
+    # through the launcher Java spawns, and the example programs
+    launches_compat = phase_compat(ldata, rdata, want, setop_rows, args.seed,
+                                   smi_line)
     exports = Exports()
     launches_stream = phase_streaming_join(ldata, rdata, want, exports)
 
@@ -6355,6 +6811,7 @@ def main() -> int:
         "launches": launches, "launches_analyze": launches_analyze,
         "launches_analyze_tpch": launches_analyze_tpch,
         "launches_setop": launches_setop["union"],
+        "launches_compat": launches_compat,
         "launches_groupby": {
             "orderkey_default": launches_gb["default"],
             "orderkey_raw_shuffle": launches_gb["pre_aggregate=False"],

@@ -65,6 +65,12 @@ Layer map:
                       communicator (one process, or a torch.distributed
                       group through ``InitMultiHost``), the controller
                       API, optimize, analyze
+    pycylon/          pycylon's API over the port (contexts from backend
+                      strings, Table / csv_reader with the id registry,
+                      JoinConfig strings, the raw AllToAll, the data
+                      loaders), the Java gateway and the launcher Java
+                      spawns (``java_launcher.py``)
+    examples/         the example programs (scripts, not a package)
 """
 
 from . import faults

@@ -7,8 +7,9 @@ run on the card, the kernel wrapper's meta arm, and the abstract plan
 check and ``run_pipeline`` on two TPC-H queries, the mesh probe through
 ``LocalCommunicator`` and NCCL, the join under the measured ranking, and
 sanitizer mode (the sync guard, the NaN trap, the join under sanitize),
-and the one-command gate (``analysis/ci.py`` at its defaults, the
-``benchdiff`` CLI).
+the one-command gate (``analysis/ci.py`` at its defaults, the
+``benchdiff`` CLI), and the Java launcher spawned with the Java binding's
+argv.
 Every test here needs a CUDA device (``gpu`` marker) and skips itself
 without one.  This file imports no JAX, so it also runs where JAX is not
 installed:
@@ -1658,3 +1659,63 @@ def test_benchdiff_cli_on_card(card, tmp_path):
     assert bad.returncode == 1
     assert "tpch_q5_ms" in bad.stdout and "REGRESSED" in bad.stdout
     assert run(old).returncode == 2
+
+
+@pytest.mark.gpu
+def test_java_launcher_on_card(card, tmp_path):
+    """The launcher spawned with the Java binding's exact argv
+    (``-m pycylon.java_gateway mpi``) runs the port's gateway on the card
+    at world 8: a distributed HASH join and union of two seeded CSVs equal
+    pandas, and shutdown exits 0."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import pandas as pd
+
+    launcher = (Path(__file__).resolve().parent.parent / "cylon_tpu_torch"
+                / "pycylon" / "java_launcher.py")
+    rng = np.random.default_rng(5)
+    dfs = [pd.DataFrame({"k": rng.integers(0, 500, 4000),
+                         "v": np.round(rng.random(4000), 6)})
+           for _ in range(2)]
+    paths = []
+    for i, df in enumerate(dfs):
+        paths.append(str(tmp_path / f"t{i}.csv"))
+        df.to_csv(paths[-1], index=False)
+    # stderr to a file: an unread pipe fills with log lines and blocks
+    # the gateway mid-reply
+    err = (tmp_path / "gateway.err").open("w+")
+    p = subprocess.Popen([str(launcher), "-m", "pycylon.java_gateway", "mpi"],
+                         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                         stderr=err, text=True, cwd=tmp_path)
+
+    def rpc(**req):
+        p.stdin.write(json.dumps(req) + "\n")
+        p.stdin.flush()
+        line = p.stdout.readline()
+        if not line:
+            err.seek(0)
+        assert line, err.read()[-2000:]
+        return json.loads(line)
+
+    try:
+        a, b = (rpc(op="from_csv", path=x)["id"] for x in paths)
+        j = rpc(op="join", left=a, right=b, join_type="inner",
+                algorithm="hash", distributed=True)
+        assert rpc(op="rows", id=j["id"])["value"] == \
+            len(dfs[0].merge(dfs[1], on="k"))
+        u = rpc(op="union", left=a, right=b, distributed=True)
+        assert rpc(op="rows", id=u["id"])["value"] == \
+            len(pd.concat(dfs).drop_duplicates())
+        s = rpc(op="select_expr", id=a, expr="k > 250")
+        assert rpc(op="rows", id=s["id"])["value"] == \
+            int((dfs[0]["k"] > 250).sum())
+        assert rpc(op="shutdown") == {"ok": True, "shutdown": True}
+        assert p.wait(timeout=120) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+        p.wait(timeout=30)
+        err.close()

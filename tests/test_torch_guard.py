@@ -67,6 +67,31 @@ def test_import_loads_no_jax_or_reference_package():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def test_pycylon_and_a_gateway_request_load_no_jax_or_reference():
+    """The port's pycylon and one Java gateway request load neither JAX,
+    ``cylon_tpu`` nor the JAX package's ``pycylon``."""
+    code = (
+        "import json, sys\n"
+        "import cylon_tpu_torch.pycylon\n"
+        "from cylon_tpu_torch.pycylon.java_gateway import Gateway\n"
+        "from cylon_tpu_torch.pycylon import net, util\n"
+        "from cylon_tpu_torch.pycylon.util import data\n"
+        "gw = Gateway('mpi', device='cpu')\n"
+        "r = gw.handle({'op': 'table_from_columns', 'columns': "
+        "[{'name': 'k', 'values': [2, 1, 2]}]})\n"
+        "u = gw.handle({'op': 'union', 'left': r['id'], 'right': r['id'], "
+        "'distributed': True})\n"
+        "print(json.dumps([gw.handle({'op': 'rows', 'id': u['id']}), "
+        "sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'cylon_tpu', 'pycylon'))]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    reply, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert reply == {"ok": True, "value": 2}
+    assert loaded == []
+
+
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         list(PKG.rglob("*.py")) + [SMOKE]))
 def test_no_jax_or_reference_import_in_source(path):
