@@ -182,7 +182,21 @@ set to the ample run's through ``analysis.parity``.  Sanitizer mode
 (``config.sanitize()``: the sync guard and NaN trap of every span body,
 the host-cache content check at export): after the recovery phases the
 22 queries at ``--tpch-sf`` run plain and sanitized (equal, in order;
-seconds both ways); near the end the one-command gate,
+seconds both ways); then the reference's last public names:
+``tpch.generate(1.0, seed=42)`` on the host (pandas), each frame through
+``DTable.from_pandas`` at world 4, the 22 queries (one ``[tpch-host qN
+...]`` line each; Q1, Q3, Q4, Q6, Q14, Q18 and Q22 against the numpy
+oracles, every other query's row count against world 1 on the same
+frames); ``bench_join_cols(torch, ...)`` at ``bench.py``'s
+one-accelerator shape (4,000,000 rows a side, seeds 3 and 7922), bit
+for bit its numpy form, and the world-4 HASH join of the two sides
+against pandas' merge row count (2 launches); the carried sort-join
+plan on 4,194,304-row single-column sides, at the ops level bit for bit
+the plain plan for every join type (both timed), and at world 4 the
+SORT and HASH ``dist_join`` of the same sides (the shape the JAX
+package carries; the port joins it by the plain plan) against a host
+oracle of the row count and key multiset (SORT globally key-ordered);
+near the end the one-command gate,
 ``analysis.ci.main(["--device", "cuda", "--world", "8"])`` in this
 process at its default SF 0.002 (one ``[ci stage N ...]`` line each:
 exit code, seconds, partition-kernel launches; every stage exits 0 and
@@ -204,7 +218,8 @@ CUDA device it exits non-zero before doing anything.  The last line is ``{"ok": 
 line before it lists each kernel with its launches on the main path (and
 on the compat, groupby, TPC-H, redistribution, spill, recovery, ingest,
 append, strkey, wide-key, serving, pipeline, multi-process,
-measured-ranking and CI-gate paths), its time, its plain version's time and its
+measured-ranking, CI-gate, host TPC-H, bench-side and carried-join
+paths), its time, its plain version's time and its
 bound, and the kernel at nparts 3 on the survivor layout; a second
 entry holds the chained launches past 16 key columns with their times
 and bounds at 17, 24 and 40 columns.
@@ -6082,6 +6097,259 @@ def phase_meshprobe_audit(tctx, tables, sf: float, ldata, rdata, want,
 
 
 # ---------------------------------------------------------------------------
+# the reference's last names: the host generator's TPC-H tables, the join
+# microbench's sides and the carried sort-join plan
+# ---------------------------------------------------------------------------
+
+TPCH_HOST_SF = 1.0           # the spec's smallest full scale (~6M lineitems)
+TPCH_HOST_SEED = 42          # the TPC-H example's seed
+# the queries phase_tpch_oracles recomputes; the rest are held to world 1
+ORACLE_QUERIES = ("q1", "q3", "q4", "q6", "q14", "q18", "q22")
+
+
+def phase_tpch_host(sf: float, seed: int):
+    """``tpch.generate(sf)`` on the host (pandas), each frame ingested with
+    ``DTable.from_pandas`` at world 4 on the card, then the 22 queries:
+    Q1, Q3, Q4, Q6, Q14, Q18 and Q22 against the numpy oracles, every
+    other query's row count against the same query at world 1 on the
+    same frames.  Returns the partition launches per query."""
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.parallel import DTable, broadcast
+    from cylon_tpu_torch.tpch import QUERIES, generate
+    from cylon_tpu_torch.tpch.datagen_device import TYPE_POOL
+
+    data, gen_s = wall(lambda: generate(sf, seed=seed))
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    torch.cuda.reset_peak_memory_stats()
+    tables, ingest_s = wall(lambda: {
+        n: DTable.from_pandas(ctx, df) for n, df in data.items()})
+    rows = {n: len(df) for n, df in data.items()}
+    check({n: dt.num_rows for n, dt in tables.items()} == rows,
+          "tpch-host: every table ingested whole")
+    # the oracles read dictionary codes: each Categorical lands on the
+    # sorted values it holds
+    for n, df in data.items():
+        for c in df.columns:
+            if df[c].dtype.name == "category":
+                check(list(tables[n].column(c).dictionary) ==
+                      sorted(df[c].unique().astype(str)),
+                      f"tpch-host {n}.{c}: the sorted values")
+    check(list(tables["part"].column("p_type").dictionary) == TYPE_POOL,
+          "tpch-host: p_type's dictionary is the sorted type pool")
+    say(f"tpch-host generate sf={sf}", seed=seed, rows=rows,
+        generate_seconds=f"{gen_s:.6f}", ingest_seconds=f"{ingest_s:.6f}",
+        world=WORLD,
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    results, times, launches = {}, {}, {}
+    for q in QUERIES:
+        out, secs, peak, n_launch, taken, _ = run_query(q, ctx, tables)
+        results[q], times[q], launches[q] = out, secs, n_launch
+        say(f"tpch-host {q} sf={sf} world={WORLD}", seconds=f"{secs:.6f}",
+            rows=out.num_rows, peak_gib=f"{peak:.2f}",
+            kernel_launches=n_launch,
+            decisions=",".join(f"{k}:{v}" for k, v in sorted(taken.items()))
+            or "none")
+        check(out.num_rows > 0, f"tpch-host {q}: a non-empty result")
+    phase_tpch_oracles(tables, results, sf)
+    del tables
+    broadcast.clear_replica_cache()
+    ctx1 = CylonContext(device=DEVICE, world=1)
+    t1 = {n: DTable.from_pandas(ctx1, df) for n, df in data.items()}
+    for q in QUERIES:
+        if q not in ORACLE_QUERIES:
+            check(QUERIES[q](ctx1, t1).num_rows == results[q].num_rows,
+                  f"tpch-host {q}: world 1 and world {WORLD} row counts")
+    del t1
+    broadcast.clear_replica_cache()
+    check(sum(launches.values()) > 0,
+          "tpch-host: the partition kernel ran in at least one query")
+    geo = float(np.exp(np.mean(np.log(list(times.values())))))
+    say(f"tpch-host sf={sf}", queries=len(times),
+        total_seconds=f"{sum(times.values()):.6f}",
+        geomean_seconds=f"{geo:.6f}",
+        kernel_launches=sum(launches.values()),
+        hashing=",".join(q for q, v in launches.items() if v) or "none",
+        world1_row_counts="equal")
+    return launches
+
+
+BENCH_ROWS = 4_000_000       # bench.py's rows on one accelerator
+BENCH_SEEDS = (3, 3 + 7919)  # its two sides' seeds
+BENCH_KRANGE = int(BENCH_ROWS * 0.99)
+
+
+def bench_side(ctx, seed: int):
+    """One side of the join microbench as a DTable at ``ctx``'s world: the
+    columns computed on the card from each row's global index in the
+    block layout (``bench.py``'s on-device side)."""
+    from cylon_tpu_torch.dtypes import DataType, Type
+    from cylon_tpu_torch.parallel import DColumn, DTable
+    from cylon_tpu_torch.tpch.datagen_device import (_block_index,
+                                                     bench_join_cols)
+
+    g, valid, sizes, cap = _block_index(BENCH_ROWS, ctx)
+    cols = bench_join_cols(torch, seed, g, BENCH_KRANGE)
+    dcols = [DColumn(c, DataType(Type.INT32 if c == "k" else Type.FLOAT),
+                     torch.where(valid, x, 0).to(x.dtype))
+             for c, x in cols.items()]
+    return DTable(ctx, dcols, cap, torch.from_numpy(sizes.copy()).to(DEVICE))
+
+
+def phase_bench_cols():
+    """``bench_join_cols`` on the card at the bench's one-accelerator shape
+    equals its numpy form bit for bit; the HASH ``dist_join`` of the two
+    sides at world 4 gives pandas' merge row count with 2 launches."""
+    import pandas as pd
+
+    from cylon_tpu_torch import CylonContext
+    from cylon_tpu_torch.parallel import dist_join
+    from cylon_tpu_torch.tpch.datagen_device import bench_join_cols
+
+    idx = np.arange(BENCH_ROWS, dtype=np.int32)
+    idx_t = torch.from_numpy(idx).to(DEVICE)
+    host, gen_ms = [], []
+    for seed in BENCH_SEEDS:
+        want = bench_join_cols(np, seed, idx, BENCH_KRANGE)
+        got = bench_join_cols(torch, seed, idx_t, BENCH_KRANGE)
+        for c, w in want.items():
+            g = got[c].cpu().numpy()  # graftlint: ok[implicit-host-sync]
+            check(g.dtype == w.dtype and np.array_equal(
+                g.view(np.int32), w.view(np.int32)),
+                f"bench-cols seed={seed} {c}: torch == numpy bit for bit")
+        gen_ms.append(cuda_ms(lambda: bench_join_cols(
+            torch, seed, idx_t, BENCH_KRANGE), 5))
+        host.append(want)
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    (lt, rt), side_s = wall(lambda: tuple(bench_side(ctx, s)
+                                          for s in BENCH_SEEDS))
+    # the sides' valid rows are the contiguous columns, in order
+    for dt, want in zip((lt, rt), host):
+        k = dt.to_table().column("k").data.cpu().numpy()  # graftlint: ok[implicit-host-sync]
+        check(np.array_equal(k, want["k"]),
+              "bench-cols: the world-4 side holds the columns in order")
+    want_rows = len(pd.DataFrame(host[0]).merge(pd.DataFrame(host[1]),
+                                                on="k", how="inner"))
+    dist_join(lt, rt, hash_cfg())  # first use of this shape
+    reset_launches()
+    out, join_s = wall(lambda: dist_join(lt, rt, hash_cfg()))
+    launches, _ = read_launches()
+    check(out.num_rows == want_rows,
+          f"bench-cols: join rows {out.num_rows} == pandas {want_rows}")
+    check(launches == 2, "bench-cols: 2 partition launches")
+    say("bench-cols", rows_per_side=BENCH_ROWS, seeds=BENCH_SEEDS,
+        krange=BENCH_KRANGE, exact="yes",
+        generate_ms=",".join(f"{x:.4f}" for x in gen_ms),
+        sides_seconds=f"{side_s:.6f}", join_seconds=f"{join_s:.6f}",
+        join_rows=out.num_rows, pandas_rows=want_rows,
+        kernel_launches=launches, world=WORLD)
+    return launches
+
+
+CARRIED_ROWS = 4_194_304
+
+
+def carried_outputs(kl, kr, how: str, cap: int, carried: bool):
+    """One shard's join of single-column sides through the carried plan
+    or through ``sort_join_plan`` + ``plan_indices`` + ``take_many``."""
+    from cylon_tpu_torch.ops import join as ops_join
+    from cylon_tpu_torch.ops.gather import take_many
+
+    keys = ((kl,), (None,), (kr,), (None,))
+    if carried:
+        state = ops_join.sort_join_plan_carried(
+            *keys, how, l_leaves=[(kl, None)], r_leaves=[(kr, None)])
+        return ops_join.plan_gather_carried(*state, how, cap)
+    li, ri, cnt = ops_join.plan_indices(
+        ops_join.sort_join_plan(*keys, how), how, cap)
+    return (take_many([(kl, None)], li, fill_null=how in ("right",
+                                                            "full_outer")),
+            take_many([(kr, None)], ri, fill_null=how in ("left",
+                                                          "full_outer")),
+            cnt)
+
+
+def same_outputs(label: str, a, b) -> None:
+    n = int(a[2])
+    check(n == int(b[2]), f"{label}: counts")
+    for side in (0, 1):
+        for (da, va), (db, vb) in zip(a[side], b[side]):
+            check((va is None) == (vb is None), f"{label}: validity kept")
+            check(torch.equal(da[:n].view(torch.int32),
+                              db[:n].view(torch.int32)), f"{label}: data")
+            if va is not None:
+                check(torch.equal(va[:n], vb[:n]), f"{label}: validity")
+
+
+def phase_carried(seed: int):
+    """The carried sort-join plan on 4,194,304-row single-column sides: at
+    the ops level on one shard, the carried plan + ``plan_gather_carried``
+    equals ``sort_join_plan`` + ``plan_indices`` + ``take_many`` bit for
+    bit for every join type (each timed with CUDA events); at world 4,
+    ``dist_join`` SORT and HASH of the same single-column sides (the shape
+    the JAX package carries; the port's plain plan) equal a host oracle of
+    the row count and key multiset, SORT in global key order."""
+    from cylon_tpu_torch import CylonContext, JoinConfig, Table
+    from cylon_tpu_torch.ops import join as ops_join
+    from cylon_tpu_torch.ops.compact import next_bucket
+    from cylon_tpu_torch.parallel import DTable, dist_join
+
+    n = CARRIED_ROWS
+    krange = int(KEY_FRAC * n)
+    rng = np.random.default_rng(seed + 22)
+    kl_np = rng.integers(0, krange, n, dtype=np.int32)
+    kr_np = rng.integers(0, krange, n, dtype=np.int32)
+    kl, kr = (torch.from_numpy(x).to(DEVICE) for x in (kl_np, kr_np))
+    ops = {}
+    for how in ("inner", "left", "right", "full_outer"):
+        keys = ((kl,), (None,), (kr,), (None,))
+        total = int(ops_join.plan_total(ops_join.sort_join_plan(*keys, how),
+                                        how))
+        cap = next_bucket(total, minimum=8)
+        a = carried_outputs(kl, kr, how, cap, True)
+        b = carried_outputs(kl, kr, how, cap, False)
+        same_outputs(f"carried {how}", a, b)
+        del a, b
+        c_ms = cuda_ms(lambda: carried_outputs(kl, kr, how, cap, True), 5,
+                       warmup=1)
+        p_ms = cuda_ms(lambda: carried_outputs(kl, kr, how, cap, False), 5,
+                       warmup=1)
+        ops[how] = {"rows": total, "carried_ms": c_ms, "plain_ms": p_ms}
+        say(f"carried ops {how}", rows_per_side=n, out_rows=total,
+            exact="yes", carried_ms=f"{c_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+            carried_over_plain=f"{c_ms / p_ms:.3f}")
+
+    # the host oracle: per-key counts of both sides
+    cl = np.bincount(kl_np, minlength=krange).astype(np.int64)
+    cr = np.bincount(kr_np, minlength=krange).astype(np.int64)
+    want_keys = torch.from_numpy(cl * cr).to(DEVICE)
+    ctx = CylonContext(device=DEVICE, world=WORLD)
+    lt = DTable.from_table(ctx, Table.from_columns(ctx, {"k": kl_np}))
+    rt = DTable.from_table(ctx, Table.from_columns(ctx, {"k": kr_np}))
+    configs = {"sort": JoinConfig.InnerJoin(0, 0), "hash": hash_cfg()}
+    joins = {}
+    for alg, cfg in configs.items():
+        dist_join(lt, rt, cfg)  # first use of this shape
+        reset_launches()
+        out, secs = wall(lambda: dist_join(lt, rt, cfg))
+        launches, _ = read_launches()
+        k = out.to_table().column("lt-k").data
+        check(k.shape[0] == int(want_keys.sum()) and torch.equal(
+            torch.bincount(k.long(), minlength=krange), want_keys),
+            f"carried {alg}: rows and key multiset == oracle")
+        if alg == "sort":
+            check(bool((k[1:] >= k[:-1]).all()),
+                  "carried sort: global key order")
+        check(launches == (2 if alg == "hash" else 0),
+              f"carried {alg}: launches")
+        joins[alg] = {"seconds": secs, "launches": launches}
+        say(f"carried dist_join {alg} world={WORLD}", rows_per_side=n,
+            out_rows=k.shape[0], seconds=f"{secs:.6f}",
+            kernel_launches=launches)
+        del out, k
+    return joins, ops
+
+
+# ---------------------------------------------------------------------------
 # the one-command gate: analysis/ci.py and analysis/benchdiff.py
 # ---------------------------------------------------------------------------
 
@@ -6754,6 +7022,11 @@ def main() -> int:
           and launches_nparts3["tpch_q21_lost"] > 0,
           "the partition kernel ran on every recovery path that hashes, at "
           "nparts 3 after the join cell's and Q21's losses")
+    # the host generator's TPC-H tables at SF 1, the join microbench's
+    # sides and the carried sort-join plan
+    launches_tpch_host = phase_tpch_host(TPCH_HOST_SF, TPCH_HOST_SEED)
+    launches_bench_cols = phase_bench_cols()
+    carried_joins, carried_ops = phase_carried(args.seed)
     # the one-command gate: all 14 stages of analysis/ci.py on the card
     launches_ci = phase_ci(times, wire, reads,
                            2 * args.rows / inner_times["join_s"], smi_line)
@@ -6834,6 +7107,11 @@ def main() -> int:
         "launches_sanitized": dict(launches_sanitized,
                                    tpch=launches_sanitized_tpch),
         "launches_ci": {k: v["launches"] for k, v in launches_ci.items()},
+        "launches_tpch_host": launches_tpch_host,
+        "launches_bench_cols": launches_bench_cols,
+        "launches_carried": {alg: v["launches"]
+                             for alg, v in carried_joins.items()},
+        "carried_ops_ms": carried_ops,
         "multiprocess_two_processes_one_card": mp_two,
         "nparts3_shape": n3,
         "groupby_shape": {"rows": int(ok.shape[0]), "ms": gb_ms,

@@ -155,6 +155,13 @@ def _restore_profiles(saved: dict) -> None:
         meshprobe.put_profile(prof)
 
 
+def _ingest(ctx, data) -> dict:
+    """Each frame of ``data`` (table name → pandas frame) as a DTable of
+    ``ctx``, through ``DTable.from_pandas``."""
+    from ..parallel.dtable import DTable
+    return {name: DTable.from_pandas(ctx, df) for name, df in data.items()}
+
+
 def _stage_lint() -> int:
     from . import graftlint
     print("== ci stage 1/14: graftlint ==")
@@ -170,12 +177,12 @@ def _stage_plan_check(sf: float, device, world: int) -> int:
         from .. import plan as planner
         from ..config import optimizer_enabled
         from ..context import CylonContext
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
         from . import plan_check
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=7)
+        dts = _ingest(ctx, generate(sf, seed=7))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing (no card, broken install) is a TOOLING
         # error, not a plan finding: report it as exit 2, never crash CI
@@ -228,11 +235,11 @@ def _stage_serve_smoke(sf: float, device, world: int) -> int:
         from .. import plan as planner
         from ..context import CylonContext
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=7)
+        dts = _ingest(ctx, generate(sf, seed=7))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the plan_check stage above
@@ -348,11 +355,11 @@ def _stage_telemetry_smoke(sf: float, device, world: int) -> int:
         from ..context import CylonContext
         from ..parallel import meshprobe
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=7)
+        dts = _ingest(ctx, generate(sf, seed=7))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the stages above
@@ -466,11 +473,11 @@ def _stage_doctor_smoke(sf: float, device, world: int) -> int:
         from ..context import CylonContext
         from ..observe import doctor, flightrec
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=7)
+        dts = _ingest(ctx, generate(sf, seed=7))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the stages above
@@ -577,11 +584,11 @@ def _stage_chaos_smoke(sf: float, device, world: int) -> int:
         from ..context import CylonContext
         from ..observe import doctor, flightrec
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=7)
+        dts = _ingest(ctx, generate(sf, seed=7))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the stages above
@@ -723,11 +730,11 @@ def _stage_ooc_smoke(sf: float, device, world: int) -> int:
         from .. import config as cfg, plan as planner, trace
         from ..context import CylonContext
         from ..spill import pool as spill_pool
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         ctx = CylonContext(device=device, world=world)
-        ooc_sf = max(sf, 0.005)
+        data = generate(max(sf, 0.005), seed=7)
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the stages above
@@ -744,7 +751,7 @@ def _stage_ooc_smoke(sf: float, device, world: int) -> int:
 
         resident = planner.run(
             ctx, lambda t: q1(ctx, t),
-            generate_device(ctx, ooc_sf, seed=7)).to_pandas()
+            _ingest(ctx, data)).to_pandas()
         trace.enable_counters()
         trace.reset()
         planner.clear_plan_cache()
@@ -753,7 +760,7 @@ def _stage_ooc_smoke(sf: float, device, world: int) -> int:
         try:
             spilled = planner.run(
                 ctx, lambda t: q1(ctx, t),
-                generate_device(ctx, ooc_sf, seed=7)).to_pandas()
+                _ingest(ctx, data)).to_pandas()
             c = dict(trace.counters())
         finally:
             cfg.set_device_memory_budget(prev)
@@ -798,7 +805,7 @@ def _stage_ooc_smoke(sf: float, device, world: int) -> int:
             print(f"ooc smoke: q1 spilled run row-identical, "
                   f"{morsels} morsels, peak {peak} B <= {budget} B "
                   f"({time.perf_counter() - t0:.1f}s, "
-                  f"sf={ooc_sf})")
+                  f"sf={max(sf, 0.005)})")
     except Exception as e:  # graftlint: ok[broad-except] — a crash in
         # the workload is a finding: keep the 0/1/2 exit contract and
         # let the remaining stages run instead of dying with a traceback
@@ -831,7 +838,7 @@ def _stage_mesh_smoke(sf: float, device, world: int) -> int:
         from ..context import CylonContext
         from ..observe import doctor, flightrec
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         if world < 2:
@@ -839,7 +846,7 @@ def _stage_mesh_smoke(sf: float, device, world: int) -> int:
                   f"{world})")
             return 0
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=7)
+        dts = _ingest(ctx, generate(sf, seed=7))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the stages above
@@ -1000,14 +1007,14 @@ def _stage_scaleup_smoke(sf: float, device, world: int) -> int:
         from ..context import CylonContext
         from ..observe import doctor, flightrec
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
 
         if world < 2:
             print(f"mesh-grow smoke: skipped — needs --world >= 2 (got "
                   f"{world})")
             return 0
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=11)
+        dts = _ingest(ctx, generate(sf, seed=11))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding —
         # the same contract as the stages above
@@ -1369,12 +1376,12 @@ def _stage_lockcheck_smoke(device, world: int) -> int:
         from ..context import CylonContext
         from ..observe.locks import LockOrderViolation, OrderedLock
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
         from . import lockcheck
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, 0.002, seed=11)
+        dts = _ingest(ctx, generate(0.002, seed=11))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding
         print(f"concurrency smoke: setup failed: "
@@ -1493,11 +1500,11 @@ def _stage_export_smoke(sf: float, device, world: int) -> int:
         from ..observe import exporter
         from ..observe.metrics import COUNTER, HISTOGRAM, METRICS
         from ..serve import ServeSession
-        from ..tpch import generate_device
+        from ..tpch import generate
         from ..tpch.queries import QUERIES
 
         ctx = CylonContext(device=device, world=world)
-        dts = generate_device(ctx, sf, seed=17)
+        dts = _ingest(ctx, generate(sf, seed=17))
     except Exception as e:  # graftlint: ok[broad-except] — environment
         # setup failing is a TOOLING error (exit 2), not a finding
         print(f"export smoke: setup failed: "

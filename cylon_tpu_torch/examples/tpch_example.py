@@ -1,10 +1,10 @@
 #!/usr/bin/env python
-"""TPC-H end to end on the port: generate SF-0.01 data on the device, run
-every query.
+"""TPC-H end to end on the port: generate SF-0.01 data on the host, ingest
+it at world 8, run every query.
 
-The JAX package's example generates the tables on the host with pandas;
-the port's generator (``tpch.generate_device``) computes them on the
-context's device, at world 8.  Usage:
+As the JAX package's example does, the tables are the host generator's
+pandas frames (``tpch.generate``), ingested with ``DTable.from_pandas``
+on the context's device.  Usage:
 
     python tpch_example.py [scale_factor] [--device D]
 """
@@ -15,7 +15,8 @@ from example_utils import device_arg
 
 from cylon_tpu_torch import CylonContext
 from cylon_tpu_torch import logging as glog
-from cylon_tpu_torch.tpch import QUERIES, generate_device
+from cylon_tpu_torch.parallel import DTable
+from cylon_tpu_torch.tpch import QUERIES, generate
 
 WORLD = 8  # the reference tests' ranks
 
@@ -26,9 +27,10 @@ def main() -> int:
     ctx = CylonContext(device=device, world=WORLD)
 
     t0 = time.perf_counter()
-    dts = generate_device(ctx, sf, seed=42)
+    data = generate(sf, seed=42)
+    dts = {name: DTable.from_pandas(ctx, df) for name, df in data.items()}
     glog.info("generated + ingested SF=%g (%d lineitems) in %.1f [ms]", sf,
-              dts["lineitem"].num_rows, (time.perf_counter() - t0) * 1e3)
+              len(data["lineitem"]), (time.perf_counter() - t0) * 1e3)
 
     for name, q in QUERIES.items():
         t0 = time.perf_counter()

@@ -30,13 +30,13 @@ torch implements few operators on uint16/32/64.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..dtypes import extreme_value
 from .compact import compact_indices, scatter_drop
-from .gather import signed_view
+from .gather import signed_view, take_many
 
 INNER, LEFT, RIGHT, FULL_OUTER = "inner", "left", "right", "full_outer"
 
@@ -172,30 +172,17 @@ def semi_mask(l_cols, l_valids, r_cols, r_valids, l_count=None,
 
     The semi/anti-join primitive (EXISTS / NOT EXISTS without
     multiplicity): one merged sort of both sides' keys, a per-segment
-    right-row count by the ``seg_span`` scans of ``sort_join_plan``, and
+    right-row count by the ``_seg_span`` scans of ``sort_join_plan``, and
     one scatter back to left row space.  Key semantics are the join
     kernels' (null == null, composite keys, padded blocks)."""
     n_l, n_r = l_cols[0].shape[0], r_cols[0].shape[0]
     dev = l_cols[0].device
     if n_l == 0 or n_r == 0:
         return torch.zeros(n_l, dtype=torch.bool, device=dev)
-    n = n_l + n_r
     l_count, r_count = _count(l_count, dev), _count(r_count, dev)
-    _, _, key_ops = _concat_key_parts(
-        l_cols, l_valids, r_cols, r_valids, l_count, r_count)
-    sortedK, idxS, is_first, _ = sorted_key_structure(key_ops, n)
-    valid = ~sortedK[0]  # the pad flag is the most significant operand
-    left_s = (idxS < n_l) & valid
-    right_s = (idxS >= n_l) & valid
-    last = torch.cat([is_first[1:], torch.ones(1, dtype=torch.bool,
-                                               device=dev)])
-    m32 = right_s.to(torch.int32)
-    cm = torch.cumsum(m32, 0, dtype=torch.int32)
-    end = _rev_cummin(torch.where(last, cm, _I32_MAX))
-    excl = _cummax(torch.where(is_first, cm - m32, 0))
-    has_r = (end - excl) > 0
-    return scatter_drop(n_l, torch.where(left_s, idxS, n_l), has_r,
-                        fill=False)
+    m = _merged_plan(l_cols, l_valids, r_cols, r_valids, l_count, r_count)
+    return scatter_drop(n_l, torch.where(m.left_s, m.idxS, n_l),
+                        m.cnt_p > 0, fill=False)
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +361,66 @@ def join_indices(l_key: torch.Tensor, r_key: torch.Tensor, how: str,
 # fused single-sort plan (the distributed path's local kernel)
 # ---------------------------------------------------------------------------
 
+def _seg_span(member, is_first, last):
+    """Per sorted position: the members of its key segment (total), the
+    exclusive member count before its segment, and the inclusive member
+    count, via two scans."""
+    m32 = member.to(torch.int32)
+    cm = torch.cumsum(m32, 0, dtype=torch.int32)  # inclusive
+    end = _rev_cummin(torch.where(last, cm, _I32_MAX))
+    excl = _cummax(torch.where(is_first, cm - m32, 0))
+    return end - excl, excl, cm
+
+
+class _Merged(NamedTuple):
+    """The merged sort both fused plans (and ``semi_mask``) share."""
+    key_ops: list          # the sort operands, pad flag first
+    idxS: torch.Tensor     # original row per sorted position (int32)
+    lo_p: torch.Tensor     # first match in build order
+    cnt_p: torch.Tensor    # build rows in the position's key segment
+    cr: torch.Tensor       # inclusive count of build rows so far
+    left_s: torch.Tensor   # valid probe row at this position
+    right_s: torch.Tensor  # valid build row at this position
+    is_first: torch.Tensor
+    last: torch.Tensor
+    carried: tuple         # ``carry`` in sorted order
+
+
+def _merged_plan(l_cols, l_valids, r_cols, r_valids, l_count, r_count,
+                 carry=()) -> _Merged:
+    """One merged sort of both sides' keys and the per-position match
+    counts, with ``carry`` permuted along."""
+    n = l_cols[0].shape[0] + r_cols[0].shape[0]
+    n_l = l_cols[0].shape[0]
+    dev = l_cols[0].device
+    _, _, key_ops = _concat_key_parts(
+        l_cols, l_valids, r_cols, r_valids, l_count, r_count)
+    sortedK, idxS, is_first, carried = sorted_key_structure(key_ops, n,
+                                                            carry)
+    valid = ~sortedK[0]  # the pad flag is the most significant operand
+    left_s = (idxS < n_l) & valid
+    right_s = (idxS >= n_l) & valid
+    last = torch.cat([is_first[1:], torch.ones(1, dtype=torch.bool,
+                                               device=dev)])
+    cnt_p, lo_p, cr = _seg_span(right_s, is_first, last)
+    return _Merged(key_ops, idxS, lo_p, cnt_p, cr, left_s, right_s,
+                   is_first, last, carried)
+
+
+def _unmatched_build(m: _Merged, n_r: int):
+    """FULL_OUTER: each valid build row's slot in build order (``cr − 1``,
+    its rank there) and the unmatched-build mask in that order."""
+    rslot = torch.where(m.right_s, m.cr - 1, n_r)
+    l_in_seg, _, _ = _seg_span(m.left_s, m.is_first, m.last)
+    return rslot, scatter_drop(n_r, rslot, m.right_s & (l_in_seg == 0))
+
+
+def _empty_plan(n: int, n_r: int, how: str, dev):
+    z = lambda m, dt=torch.int32: torch.zeros(m, dtype=dt, device=dev)  # noqa: E731
+    plan = (z(n), z(n), z(n), z(n, torch.bool), z(n_r))
+    return plan + ((z(n_r, torch.bool),) if how == FULL_OUTER else ())
+
+
 def sort_join_plan(l_cols, l_valids, r_cols, r_valids, how: str = INNER,
                    l_count=None, r_count=None):
     """Phase 1 of the fused sort join: one sort + scans -> match plan.
@@ -395,42 +442,19 @@ def sort_join_plan(l_cols, l_valids, r_cols, r_valids, how: str = INNER,
         return sort_join_plan(r_cols, r_valids, l_cols, l_valids, LEFT,
                               r_count, l_count)
     n_l, n_r = l_cols[0].shape[0], r_cols[0].shape[0]
-    n = n_l + n_r
     dev = l_cols[0].device
     if n_l == 0 or n_r == 0:
-        z = lambda m, dt=torch.int32: torch.zeros(m, dtype=dt, device=dev)  # noqa: E731
-        plan = (z(n), z(n), z(n), z(n, torch.bool), z(n_r))
-        return plan + ((z(n_r, torch.bool),) if how == FULL_OUTER else ())
+        return _empty_plan(n_l + n_r, n_r, how, dev)
     l_count, r_count = _count(l_count, dev), _count(r_count, dev)
-    _, _, key_ops = _concat_key_parts(
-        l_cols, l_valids, r_cols, r_valids, l_count, r_count)
-    sortedK, idxS, is_first, _ = sorted_key_structure(key_ops, n)
-    valid = ~sortedK[0]
-    left_s = (idxS < n_l) & valid
-    right_s = (idxS >= n_l) & valid
-    one = torch.ones(1, dtype=torch.bool, device=dev)
-    last = torch.cat([is_first[1:], one])
-
-    def seg_span(member):
-        """Per sorted position: members of my key segment (total) and the
-        exclusive member count before my segment, via two scans."""
-        m32 = member.to(torch.int32)
-        cm = torch.cumsum(m32, 0, dtype=torch.int32)  # inclusive
-        end = _rev_cummin(torch.where(last, cm, _I32_MAX))
-        excl = _cummax(torch.where(is_first, cm - m32, 0))
-        return end - excl, excl, cm
-
-    cnt_p, lo_p, cr = seg_span(right_s)
+    m = _merged_plan(l_cols, l_valids, r_cols, r_valids, l_count, r_count)
     if how == FULL_OUTER:
-        rslot = torch.where(right_s, cr - 1, n_r)
-        rs = scatter_drop(n_r, rslot, idxS - n_l)
-        l_in_seg, _, _ = seg_span(left_s)
-        um = scatter_drop(n_r, rslot, right_s & (l_in_seg == 0))
-        return (idxS, lo_p, cnt_p, left_s, rs, um)
+        rslot, um = _unmatched_build(m, n_r)
+        rs = scatter_drop(n_r, rslot, m.idxS - n_l)
+        return (m.idxS, m.lo_p, m.cnt_p, m.left_s, rs, um)
     # build order by a right-side-only stable sort: same keys + same
     # tiebreak as the merged sort, so identical to its right subsequence
-    rs = lexsort([op[n_l:] for op in key_ops]).to(torch.int32)
-    return (idxS, lo_p, cnt_p, left_s, rs)
+    rs = lexsort([op[n_l:] for op in m.key_ops]).to(torch.int32)
+    return (m.idxS, m.lo_p, m.cnt_p, m.left_s, rs)
 
 
 def _plan_sizes(plan):
@@ -486,8 +510,18 @@ def plan_indices(plan, how: str, capacity: int, l_count=None, r_count=None
                            torch.zeros(n_r, dtype=torch.int32, device=dev),
                            how, capacity, _count(l_count, dev),
                            _count(r_count, dev))
-    idxS, lo_p, cnt_p, left_s, rs = plan[:5]
-    n = idxS.shape[0]
+    return _expand(plan, how, capacity, decode=True)
+
+
+def _expand(plan, how: str, capacity: int, decode: bool):
+    """Run-length expansion of a plan whose sides are both non-empty
+    (``how`` ≠ right): per output slot its probe and build row, −1 ⇒
+    null, and the count.  ``decode``: as original row numbers (through
+    ``idxS`` and ``rs``); else as the positions the carried leaves are
+    laid out in (merged-sort order, build order)."""
+    idxS, lo_p, cnt_p, _, rs = plan[:5]
+    n, n_r = idxS.shape[0], rs.shape[0]
+    dev = idxS.device
     emit = _plan_emit(plan, how)
     offs_incl = torch.cumsum(emit, 0)
     total_lpart = offs_incl[-1]
@@ -501,22 +535,119 @@ def plan_indices(plan, how: str, capacity: int, l_count=None, r_count=None
                      pos_c[1:] != pos_c[:-1]])
     run_start = _cummax(torch.where(chg, j, 0))
     within = j - run_start
-    cols = [idxS, lo_p] if how == INNER else [idxS, lo_p, cnt_p]
+    cols = ([idxS] if decode else []) + [lo_p] + \
+        ([] if how == INNER else [cnt_p])
     g = torch.stack(cols, dim=1)[pos_c.long()]  # ONE wide gather
-    left_idx = g[:, 0]
-    r_pos = torch.clamp(g[:, 1] + within, 0, n_r - 1)
-    if how == INNER:
-        right_idx = rs[r_pos]
+    if decode:
+        left_idx, g = g[:, 0], g[:, 1:]
+        right_at = lambda pos: rs[pos.long()]  # noqa: E731
     else:
-        matched = within < g[:, 2]
-        right_idx = torch.where(matched, rs[r_pos], -1)
+        left_idx, right_at = pos_c, lambda pos: pos  # noqa: E731
+    r_pos = right_at(torch.clamp(g[:, 0] + within, 0, n_r - 1))
+    if how == INNER:
+        right_idx = r_pos
+    else:
+        right_idx = torch.where(within < g[:, 1], r_pos, -1)
     if how == FULL_OUTER:
         left_idx, right_idx, total = append_right_tail(
             j, total_lpart, plan[5], n_r, left_idx, right_idx,
-            right_orig=lambda pos: rs[pos.long()])
+            right_orig=right_at)
     else:
         total = total_lpart if how == LEFT else torch.sum(emit)
     return mask_past_total(j, total, left_idx, right_idx)
+
+
+# ---------------------------------------------------------------------------
+# carried plan: the output leaves ride the plan's sorts
+# ---------------------------------------------------------------------------
+#
+# The JAX package rides the output leaves as extra ``lax.sort`` operands,
+# so its phase 2 reads them where the expansion lands.  Here a carried
+# leaf is one more gather by the sort's permutation, paid in phase 1,
+# and phase 2 is ``plan_indices``' expansion with the leaves gathered at
+# the sorted positions.  Measured on the H100 it is no faster than the
+# plain plan (``chip_smoke.py``'s carried phase), so
+# ``_join_copartitioned`` does not choose it; the functions keep the JAX
+# package's contract.
+
+def sort_join_plan_carried(l_cols, l_valids, r_cols, r_valids,
+                           how: str = INNER, l_count=None, r_count=None,
+                           l_leaves=(), r_leaves=()):
+    """``sort_join_plan`` with output leaves riding its sorts.
+
+    ``l_leaves`` / ``r_leaves``: sequences of ``(data, validity)`` output
+    columns.  Returns ``(plan, probe_sorted, build_sorted)``: the plan in
+    probe orientation (``how='right'`` swaps inside, as
+    ``sort_join_plan`` does), the probe leaves in merged-sort order
+    (``[n]``) and the build leaves in build order (``[n_build]``).  Pair
+    with ``plan_gather_carried`` under the same ``how``.  A statically
+    empty side keeps both sides' leaves in row order: phase 2 then takes
+    the index path (``_degenerate``).
+    """
+    if how == RIGHT:
+        return sort_join_plan_carried(r_cols, r_valids, l_cols, l_valids,
+                                      LEFT, r_count, l_count,
+                                      r_leaves, l_leaves)
+    n_l, n_r = l_cols[0].shape[0], r_cols[0].shape[0]
+    dev = l_cols[0].device
+    if n_l == 0 or n_r == 0:
+        return (_empty_plan(n_l + n_r, n_r, how, dev), tuple(l_leaves),
+                tuple(r_leaves))
+    l_count, r_count = _count(l_count, dev), _count(r_count, dev)
+    carry = []
+    for d, v in l_leaves:
+        carry.append(torch.cat([d, d.new_zeros((n_r,) + d.shape[1:])]))
+        if v is not None:
+            carry.append(torch.cat([v, v.new_zeros(n_r)]))
+    m = _merged_plan(l_cols, l_valids, r_cols, r_valids, l_count, r_count,
+                     tuple(carry))
+    it = iter(m.carried)
+    probe_sorted = tuple((next(it), None if v is None else next(it))
+                         for _, v in l_leaves)
+    # build order by the right-side-only stable sort (identical to the
+    # merged sort's right subsequence); the build leaves follow it
+    rperm = lexsort([op[n_l:] for op in m.key_ops])
+    build_sorted = tuple(
+        (signed_view(d)[rperm].view(d.dtype),
+         None if v is None else v[rperm]) for d, v in r_leaves)
+    plan = (m.idxS, m.lo_p, m.cnt_p, m.left_s, rperm.to(torch.int32))
+    if how == FULL_OUTER:
+        plan += (_unmatched_build(m, n_r)[1],)
+    return plan, probe_sorted, build_sorted
+
+
+def plan_gather_carried(plan, probe_sorted, build_sorted, how: str,
+                        capacity: int, l_count=None, r_count=None):
+    """Phase 2 over a carried plan: ``plan_indices``' expansion, then one
+    ``take_many`` per side over the sorted leaves.
+
+    Returns ``(left_outs, right_outs, count)`` in the original table
+    orientation (the ``how='right'`` swap is undone here), each out a
+    ``(data, validity)`` pair of ``capacity`` rows.  The outer side's
+    unmatched rows are null; rows past ``count`` are unspecified.
+    """
+    if how == RIGHT:
+        p_outs, b_outs, cnt = _gather_carried(
+            plan, probe_sorted, build_sorted, LEFT, capacity, r_count,
+            l_count)
+        return b_outs, p_outs, cnt
+    return _gather_carried(plan, probe_sorted, build_sorted, how, capacity,
+                           l_count, r_count)
+
+
+def _gather_carried(plan, probe_sorted, build_sorted, how: str,
+                    capacity: int, l_count, r_count):
+    n_l, n_r = _plan_sizes(plan)
+    dev = plan[0].device
+    if n_l == 0 or n_r == 0:  # the index path, leaves in row order
+        pi, bi, cnt = _degenerate(
+            torch.zeros(n_l, dtype=torch.int32, device=dev),
+            torch.zeros(n_r, dtype=torch.int32, device=dev), how, capacity,
+            _count(l_count, dev), _count(r_count, dev))
+    else:
+        pi, bi, cnt = _expand(plan, how, capacity, decode=False)
+    return (take_many(probe_sorted, pi, fill_null=how == FULL_OUTER),
+            take_many(build_sorted, bi, fill_null=how != INNER), cnt)
 
 
 def _degenerate(l_key, r_key, how, capacity, l_count=None, r_count=None):

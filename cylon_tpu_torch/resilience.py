@@ -20,8 +20,9 @@ The budget keeps the JAX package's meaning: bytes PER SHARD.  On one
 card the P simulated shards share one memory, so the card holds about P
 times the priced bytes.
 
-**Bounded retry.**  :func:`retry_call` wraps the transient-classed
-failure boundary (the shuffle's host count read) with an attempt cap and
+**Bounded retry.**  :func:`retry_call` (and its decorator form
+:func:`retrying`) wraps the transient-classed failure boundary (the
+shuffle's host count read) with an attempt cap and
 exponential backoff under decorrelated jitter: each sleep is drawn
 uniformly from ``[base, min(max, prev·3)]`` (``jitter=False`` restores
 the deterministic schedule).  Classification is type-based:
@@ -56,6 +57,7 @@ per-query slices.
 from __future__ import annotations
 
 import contextlib
+import functools
 import random
 import re
 import threading
@@ -70,7 +72,7 @@ from .status import Code, CylonError, Status
 
 __all__ = [
     "RetryPolicy", "retry_policy", "set_retry_policy", "retry_call",
-    "exchange_budget", "counter_scope", "classify", "TRANSIENT",
+    "retrying", "exchange_budget", "counter_scope", "classify", "TRANSIENT",
     "RESOURCE", "PERMANENT", "TOPOLOGY", "RecoveryPolicy",
     "recovery_policy", "set_recovery_policy", "LadderAttempt", "Ladder",
     "collect_recoveries", "note_recovery", "note_strategy_choice",
@@ -245,6 +247,25 @@ def retry_call(fn: Callable, *, point: str = "",
                       sleep_s * 1e3, e)
             if sleep_s > 0:
                 time.sleep(sleep_s)
+
+
+def retrying(policy: Optional[RetryPolicy] = None) -> Callable:
+    """Decorator form of :func:`retry_call`, its point the wrapped
+    function's ``__qualname__``::
+
+        @resilience.retrying()
+        def read_counts(...): ...
+    """
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            return retry_call(lambda: fn(*args, **kwargs),
+                              point=getattr(fn, "__qualname__", ""),
+                              policy=policy)
+        return wrapper
+
+    return deco
 
 
 def exchange_budget(device=None) -> int:

@@ -133,6 +133,28 @@ def _encode_dictionary(arr):
     return _encode_values(values, null)
 
 
+def _encode_dictionary_indices(arr):
+    """``_encode_dictionary`` of an Arrow dictionary array (a pandas
+    ``Categorical``) from its own indices: only the dictionary's used
+    values are sorted, and each row's index is remapped, so no row is
+    decoded to a string.  Same codes, dictionary and validity."""
+    import pyarrow.compute as pc
+
+    valid = np.asarray(arr.is_valid().to_numpy(zero_copy_only=False),
+                       dtype=bool)
+    idx = np.asarray(pc.fill_null(arr.indices, 0).to_numpy(
+        zero_copy_only=False), dtype=np.int64)
+    used = np.unique(idx[valid])
+    sub, dictionary, _ = _encode_values(
+        arr.dictionary.to_numpy(zero_copy_only=False)[used],
+        np.zeros(len(used), dtype=bool))
+    remap = np.zeros(len(arr.dictionary), dtype=np.int32)
+    remap[used] = sub
+    codes = np.zeros(len(idx), dtype=np.int32)  # null rows get code 0
+    codes[valid] = remap[idx[valid]]
+    return codes, dictionary, None if valid.all() else valid
+
+
 def _typed_numpy(arr, npd: np.dtype) -> np.ndarray:
     """Arrow array -> numpy of exactly ``npd`` without lossy intermediates.
 
@@ -167,6 +189,12 @@ def host_columns_from_arrow(atable):
             # one chunk is used as it is: combine_chunks would copy it
             arr = col.chunk(0) if col.num_chunks == 1 else col.combine_chunks()
         ftype = fld.type
+        if (pa.types.is_dictionary(ftype) and is_dictionary_encoded(t)
+                and arr.dictionary.null_count == 0):
+            codes, dictionary, validity = _encode_dictionary_indices(arr)
+            out.append((fld.name, t, codes, validity, dictionary,
+                        ftype.value_type))
+            continue
         if pa.types.is_dictionary(ftype):
             arr = arr.cast(ftype.value_type)
             ftype = ftype.value_type

@@ -40,6 +40,10 @@ from .datagen import (COMMENT_WORDS, DAYS_TOTAL, LINE_STATUS, NATIONS,
 _M32 = 0xFFFFFFFF
 _M1, _M2, _GOLD = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
 
+# bumped when any formula or pool changes: it keys persisted timings and
+# oracles to the data they were measured on (the JAX package's value)
+DATA_VERSION = 1
+
 
 # ---------------------------------------------------------------------------
 # array backends: the few operations the formulas need beyond operators
@@ -165,6 +169,8 @@ class _T:
     PPRICE = 35
     PSCOST = 36
     PSQTY = 37
+    BENCH_K = 60  # the join microbench's columns (bench_join_cols)
+    BENCH_V = 61
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +346,28 @@ def _partsupp_cols(xp, seed: int, ps_idx, n_supp: int):
         "ps_availqty": 1 + _randint(xp, _salt(seed, _T.PSQTY), ps_idx,
                                     9999),
     }
+
+
+def _backend(xp):
+    """The array backend for ``xp``: the ``numpy`` or ``torch`` module, or
+    a backend (``_NP`` / ``_Torch``) itself."""
+    if xp is np:
+        return _NP
+    if xp is torch:
+        return _Torch
+    return xp
+
+
+def bench_join_cols(xp, seed: int, idx, krange: int):
+    """The join microbench's side (``bench.py``): per global row index
+    ``idx``, an int32 key uniform in ``[0, krange)`` (about 1% duplicates
+    at ``krange`` = 0.99·rows) and three float32 payloads in [0, 1).
+    ``xp`` is ``numpy`` or ``torch``; the two give the same bits."""
+    xp = _backend(xp)
+    out = {"k": _randint(xp, _salt(seed, _T.BENCH_K), idx, krange)}
+    for j in range(3):
+        out[f"v{j}"] = _rand01(xp, _salt(seed, _T.BENCH_V + j), idx)
+    return out
 
 
 _ELEMENTWISE = {"customer": _customer_cols, "supplier": _supplier_cols,

@@ -141,3 +141,80 @@ def test_main_runs_every_stage_in_order(monkeypatch, tmp_path, capsys):
                                              range(1, 15)]
     assert sum(h.endswith("(skipped)") for h in heads) == 12
     assert "ci: CLEAN (stage exits [0, 0] -> 0)" in out
+
+
+# the stages that generate TPC-H tables (the rest build their own data)
+GENERATING = (2, 3, 4, 5, 6, 7, 8, 9, 11, 12)
+
+
+class _Stop(Exception):
+    """Ends a stage once its ingest has been seen."""
+
+
+def _jax_generate_args(number, monkeypatch):
+    """The ``(scale, seed)`` the JAX gate's stage hands ``generate``; its
+    setup stops there (the stage reports the setup failure, exit 2)."""
+    import cylon_tpu.tpch as jtpch
+    seen = []
+
+    def spy(scale, seed=42):
+        seen.append((scale, seed))
+        raise _Stop
+
+    monkeypatch.setattr(jtpch, "generate", spy)
+    fn = getattr(jci, STAGE_FUNCS[number - 1])
+    assert (fn() if number == 11 else fn(SF)) == 2
+    return seen
+
+
+def _port_ingest(number, monkeypatch):
+    """What the port's stage generates (``(scale, seed)`` and the frames)
+    and what it hands ``DTable.from_pandas`` (frame, device, world),
+    stopped after the eighth table."""
+    import cylon_tpu_torch.tpch as ttpch
+    from cylon_tpu_torch.parallel.dtable import DTable as TDTable
+    real_generate, real_from_pandas = ttpch.generate, TDTable.from_pandas
+    generated, ingested = [], []
+
+    def generate(scale, seed=42):
+        generated.append(((scale, seed), real_generate(scale, seed=seed)))
+        return generated[-1][1]
+
+    def from_pandas(ctx, df, cap=None):
+        ingested.append((df, str(ctx.device), ctx.get_world_size()))
+        if len(ingested) == 8:
+            raise _Stop
+        return real_from_pandas(ctx, df, cap)
+
+    monkeypatch.setattr(ttpch, "generate", generate)
+    monkeypatch.setattr(TDTable, "from_pandas", staticmethod(from_pandas))
+    fn = getattr(tci, STAGE_FUNCS[number - 1])
+    rc = fn(DEVICE, WORLD) if number == 11 else fn(SF, DEVICE, WORLD)
+    assert rc != 0  # stopped mid-stage
+    return generated, ingested
+
+
+@pytest.mark.parametrize("number", GENERATING)
+def test_stage_ingests_the_jax_gate_frames(number, monkeypatch, capsys):
+    """Each TPC-H stage generates with the host generator at the JAX
+    stage's scale and seed, and ingests exactly those frames (each with
+    ``DTable.from_pandas`` at ``--device`` and ``--world``), which equal
+    the JAX package's ``generate`` frames for that seed."""
+    import pandas as pd
+
+    from cylon_tpu.tpch import generate as jgenerate
+
+    jargs = _jax_generate_args(number, monkeypatch)
+    generated, ingested = _port_ingest(number, monkeypatch)
+    capsys.readouterr()
+    assert len(jargs) == 1 and [a for a, _ in generated] == jargs
+    (scale, seed), frames = generated[0]
+    assert seed in (7, 11, 17)
+    assert len(ingested) == len(frames) == 8
+    assert all(df is frames[n] for (df, _, _), n in zip(ingested, frames))
+    assert {(dev, w) for _, dev, w in ingested} == {(DEVICE, WORLD)}
+    want = jgenerate(scale, seed=seed)
+    assert list(frames) == list(want)
+    for name in want:
+        pd.testing.assert_frame_equal(frames[name], want[name],
+                                      check_exact=True)

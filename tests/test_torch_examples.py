@@ -15,6 +15,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
+from test_torch_common import jax_trace_shim  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 EXAMPLES = REPO / "cylon_tpu_torch" / "examples"
 
@@ -109,24 +111,29 @@ def test_groupby_sort_example(csvs):
         assert re.search(rf"^\s*{k}\s", out, re.M), (k, out[-2000:])
 
 
-def test_tpch_example():
-    """The example's world-8 run: each query's logged row count equals a
-    world-1 run of the same query in this process on the same data (the
-    local path; both are held against the JAX package in
-    ``test_torch_tpch_queries_*``)."""
-    from cylon_tpu_torch import CylonContext
-    from cylon_tpu_torch.tpch import QUERIES, generate_device, generate_mirror
+def test_tpch_example(jax_trace_shim):
+    """The example's world-8 run on ``generate(sf, seed=42)`` (its
+    tables, as the JAX package's example builds them): its lineitem count
+    and each query's logged row count equal the JAX package's same query
+    at world 8 on the same frames."""
+    import jax
+
+    import cylon_tpu as ct
+    from cylon_tpu.parallel import DTable as JDTable
+    from cylon_tpu.tpch import QUERIES as JQUERIES
+    from cylon_tpu.tpch import generate as jgenerate
 
     sf = 0.002
     out = _run("tpch_example.py", str(sf))
-    data, _ = generate_mirror(sf, tables=["lineitem"])
-    n = len(next(iter(data["lineitem"].values())))
-    assert _logged(out, r"SF=0.002 \((\d+) lineitems\)") == [n]
-    ctx = CylonContext(device="cpu")
-    dts = generate_device(ctx, sf, seed=42)  # the example's seed
-    for q, fn in QUERIES.items():
+    data = jgenerate(sf, seed=42)
+    assert _logged(out, r"SF=0.002 \((\d+) lineitems\)") == \
+        [len(data["lineitem"])]
+    jctx = ct.CylonContext({"backend": "tpu", "devices": jax.devices("cpu")})
+    assert jctx.get_world_size() == 8
+    jt = {n: JDTable.from_pandas(jctx, df) for n, df in data.items()}
+    for q, fn in JQUERIES.items():
         assert _logged(out, rf"\] {q}: (\d+) rows in") == \
-            [fn(ctx, dts).num_rows], q
+            [fn(jctx, jt).num_rows], q
 
 
 def test_simple_dataloader(csvs):

@@ -1,0 +1,19 @@
+"""TPC-H on the host generator's tables, part c: each query on the
+port's ``DTable.from_pandas(generate(0.002, seed=7))`` at world 8 equals
+the JAX package's on its own ``generate(0.002, seed=7)`` frames
+(``tpch_torch_parity.run_host``; the rules of ``check_query``)."""
+import pytest
+
+from tpch_torch_parity import check_query, run_host
+
+NAMES = ("q16", "q17", "q18", "q19", "q20", "q21", "q22")
+
+
+@pytest.fixture(scope="module")
+def results():
+    return run_host(NAMES)
+
+
+@pytest.mark.parametrize("q", NAMES)
+def test_query_on_host_tables_matches_jax(results, q):
+    check_query(results, q, 8)

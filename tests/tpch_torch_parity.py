@@ -73,11 +73,29 @@ def _clear_jax_state():
     clear_port_hints()
 
 
-def _sweep(names, run_one, scale=SCALE, seed=SEED, worlds=WORLDS):
+def _port_tables(tctx, data, scale, seed):
+    """The port's tables: the JAX package's frames ``data`` through the
+    port's local ``Table.from_pandas``, then distributed."""
+    return {n: TDTable.from_table(tctx, pt.Table.from_pandas(tctx, df))
+            for n, df in data.items()}
+
+
+def _port_host_tables(tctx, data, scale, seed):
+    """The port's tables from its own host generator, each frame through
+    ``DTable.from_pandas`` (the CI gate's and the TPC-H example's
+    ingest)."""
+    from cylon_tpu_torch.tpch import generate
+    return {n: TDTable.from_pandas(tctx, df)
+            for n, df in generate(scale, seed=seed).items()}
+
+
+def _sweep(names, run_one, scale=SCALE, seed=SEED, worlds=WORLDS,
+           port_tables=_port_tables):
     """``{(query, world): run_one(base query, kwargs, JAX context, JAX
     tables, port context, port tables)}`` for the queries ``names`` (a
     query or a ``VARIANTS`` name) at every world of ``worlds`` on
-    ``tpch_data(scale, seed)``; JAX runs under the trace shim of
+    ``tpch_data(scale, seed)`` (the port's tables built by
+    ``port_tables``); JAX runs under the trace shim of
     ``test_torch_common.jax_trace_shim`` for the length of the call."""
     import jax
     from jax._src import core as jcore
@@ -105,9 +123,7 @@ def _sweep(names, run_one, scale=SCALE, seed=SEED, worlds=WORLDS):
                 jt = {n: JDTable.from_pandas(jctx, df)
                       for n, df in data.items()}
                 tctx = pt.CylonContext(device="cpu", world=world)
-                tt = {n: TDTable.from_table(tctx,
-                                            pt.Table.from_pandas(tctx, df))
-                      for n, df in data.items()}
+                tt = port_tables(tctx, data, scale, seed)
                 for q in names:
                     base, extra = VARIANTS.get(q, (q, {}))
                     kw = dict(kwargs.get(base, {}), **extra)
@@ -131,6 +147,14 @@ def _eager(base, kw, jctx, jt, tctx, tt):
 def run_both(names, scale=SCALE, seed=SEED, worlds=WORLDS):
     """``{(query, world): (port Table, JAX Table, port decisions)}``."""
     return _sweep(names, _eager, scale, seed, worlds)
+
+
+def run_host(names):
+    """``{(query, 8): (port Table, JAX Table, port decisions)}`` with the
+    port's tables from its own ``generate`` through ``DTable.from_pandas``
+    and the JAX package's from its ``generate`` through its
+    ``DTable.from_pandas``, at world 8."""
+    return _sweep(names, _eager, worlds=(8,), port_tables=_port_host_tables)
 
 
 def planned(plan_mod, ctx, op, tables):
